@@ -1,0 +1,128 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
+shared library with a plain C interface, loaded with `ctypes`. The
+build happens at first use (or all at once through `build()`, which
+starts one `nvcc` per source in parallel), into `_build/` beside
+`csrc/`, keyed by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one loads at once.
+
+Every kernel wrapper calls `count_launch(name)` right where it launches
+its kernel, and nowhere else, so a run can show that its main path went
+through the kernels (`launch_counts()` / `reset_launch_counts()`).
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+KERNELS = ("flash_fwd", "paged_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels "
+            "are built from csrc/ on the machine with the card"
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
+    """Compile every named kernel whose library is missing, one `nvcc`
+    per source, all started together. Returns {name: {"seconds",
+    "log"}} (log = nvcc's stderr, which holds the -Xptxas=-v register
+    and shared-memory report). Raises on any failed compile."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        # unique temp name, renamed into place: two processes building
+        # at once never load a half-written library
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            ),
+            tmp,
+            out,
+        )
+    report = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        stdout, stderr = proc.communicate()
+        report[name] = {
+            "seconds": time.perf_counter() - t0,
+            "log": stdout + stderr,
+        }
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{stdout}{stderr}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+def check(err: int, name: str, what: Optional[str] = None) -> None:
+    """Raise on a non-zero `cudaGetLastError()` code from a launch."""
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed with CUDA error {err}"
+            + (f" ({what})" if what else "")
+        )
