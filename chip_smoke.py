@@ -4,24 +4,37 @@
 
 Phases, one line each (any failure exits non-zero before the last line):
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: both CUDA kernels compiled from dlrover_tpu_torch/csrc with
-     nvcc for sm_90a (one nvcc per source, in parallel);
+  2. build: the four CUDA kernels compiled from dlrover_tpu_torch/csrc
+     with nvcc for sm_90a (one nvcc per source, in parallel), with
+     ptxas's register and spill lines;
   3. kernels: each kernel against its plain PyTorch version at the
-     serving path's Llama-3-8B head shapes, with error, tolerance,
-     kernel / plain / library times and the bound;
+     serving path's Llama-3-8B shapes, with error, tolerance, kernel /
+     plain / library times and the bound: flash_fwd, paged_attention,
+     quantize_int8 (one w_gate layer slab, bytes equal to the plain
+     version) and dqmm (the five weight shapes at T = 8, 77 and 1024,
+     with the dense bf16 matmul's time beside it);
   4. serve: ContinuousBatcher on Llama-3-8B at full width and depth
      (random weights from a seed), kv_layout="paged", greedy-serving 12
-     requests; every request must finish, both kernels must have run
-     on that path, the first-decode-step logits must match the plain
-     attention path, and a reference-attention engine gives the greedy
-     agreement.
+     requests; every request must finish, both attention kernels must
+     have run on that path, the first-decode-step logits must match the
+     plain attention path, and a reference-attention engine gives the
+     greedy agreement;
+  5. serve.int8: the same traffic through weight_quant="int8" on the
+     same weights; the quantize kernel must have run once per layer
+     slice and the dequant-matmul kernel on every product of every
+     forward, one installed layer slice of every quantized weight (and
+     the lm_head) must equal the plain quantizer's bytes, the weight
+     bytes must be <= 0.55x the bf16 engine's, and
+     the first-decode-step logits must match the same decode functions
+     on a dense bf16 tree of exactly the dequantized weights.
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where CUDA is not available.
-`python3 chip_smoke.py --profile` instead profiles one admission wave
-and one decode chunk of the same engine (kernel times, device busy
-share) and prints no result line.
+`python3 chip_smoke.py --profile [--int8]` instead profiles one
+admission wave and one decode chunk of the same engine (kernel times,
+device busy share; --int8 with weight_quant="int8") and prints no
+result line.
 """
 
 import dataclasses
@@ -35,13 +48,28 @@ import torch
 
 SEED = 0
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+L2_BYTES = 50 * 2**20
 FLASH_TOL = 2e-2
 PAGED_TOL = 2e-2
 TOL_REASON = (
     "bf16 output (2^-8 relative) and P rounded to bf16 at other points "
     "than in the plain version"
 )
+DQMM_REL_TOL = 2 ** -7
+DQMM_TOL_REASON = (
+    "2^-7 of the largest |output|: the same bf16-rounded weights on both "
+    "sides, f32 sums in another order, and a bf16 output (2^-8 relative)"
+)
+LOGITS_REL_TOL = 0.05
+# the Llama-3-8B matmul weights as (K, O), with their names
+DQMM_SHAPES = (
+    ((4096, 4096), "wq, wo"), ((4096, 1024), "wk, wv"),
+    ((4096, 14336), "w_gate, w_up"), ((14336, 4096), "w_down"),
+    ((4096, 128256), "lm_head"),
+)
+DQMM_TOKENS = (8, 77, 1024)
 
 
 def log(phase, **kw):
@@ -90,11 +118,30 @@ def device_ms(fn, calls=10, replays=10):
     return start.elapsed_time(end) / (calls * replays)
 
 
-def bound_ms(flops, nbytes):
-    return 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES), (
-        "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES
-        else "bytes"
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    return 1e3 * max(flops / peak, nbytes / PEAK_BYTES), (
+        "operations" if flops / peak > nbytes / PEAK_BYTES else "bytes"
     )
+
+
+def cold_copies(make, nbytes):
+    """Enough copies of an operand (`make()` builds one) that cycling
+    through them reads 128 MB, over twice the 50 MB L2: each call then
+    finds its operand in device memory, as a decode step does."""
+    return [make() for _ in range(max(1, -(-(128 * 2**20) // nbytes)))]
+
+
+def cycling(fn, operands):
+    """`fn(next operand)` per call, round-robin; with device_ms's
+    `calls=len(operands)` a graph replays each operand once."""
+    state = {"i": 0}
+
+    def call():
+        op = operands[state["i"] % len(operands)]
+        state["i"] += 1
+        return fn(op)
+
+    return call
 
 
 def phase_card():
@@ -241,6 +288,106 @@ def phase_paged(gen):
     return rows
 
 
+def phase_quant(gen):
+    """Kernel 5 on one w_gate layer slab in the engine's output-major
+    layout ([O, K] = [14336, 4096], block 256), from f32 and from bf16:
+    q8 and s8 must equal the plain version's byte for byte."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    o, k, block = 14336, 4096, 256
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((o, k), generator=gen, device="cuda")
+             * (4096 ** -0.5)).to(dtype)
+        q, sc = tq.quantize_int8(x, block)
+        q_ref, s_ref = tq._quantize_plain(x, block)
+        torch.cuda.synchronize()
+        q_diff = int((q != q_ref).sum())
+        s_diff = int((sc != s_ref).sum())
+        if q_diff or s_diff:
+            raise AssertionError(
+                f"quant kernel bytes differ ({dtype}): {q_diff} q8 and "
+                f"{s_diff} s8 values"
+            )
+        elem = x.element_size()
+        n = o * k
+        nbytes = n * elem + n + 4 * (n // block)
+        bms, by = bound_ms(3.0 * n, nbytes, PEAK_F32_FLOPS)
+        row = dict(
+            input=str(dtype).replace("torch.", ""), shape=[o, k],
+            block=block, q8_diff=q_diff, s8_diff=s_diff, max_abs_err=0.0,
+            tol=0.0, tol_reason="bytes equal to the plain version",
+            ms=device_ms(lambda: tq.quantize_int8(x, block)),
+            eager_ms=time_ms(lambda: tq.quantize_int8(x, block), 20),
+            plain_ms=time_ms(lambda: tq._quantize_plain(x, block), 5),
+            library_ms=None, bound_ms=bms, bound_by=by,
+        )
+        log("kernel.quantize_int8", **row)
+        rows.append(row)
+        del x, q, sc, q_ref, s_ref
+    return rows
+
+
+def phase_dqmm(gen):
+    """Kernel 7 at every Llama-3-8B weight shape (block 256) and T = 8
+    (decode), 77 (ragged) and 1024 (a prefill bucket), against its
+    plain version on the same inputs. `ms` and `dense_ms` cycle through
+    enough weight copies to overflow L2, as a decode step streams every
+    layer's weights."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    block = 256
+    rows = []
+    for (k, o), names in DQMM_SHAPES:
+        def make_q():
+            w = torch.randn((o, k), generator=gen, device="cuda") * k ** -0.5
+            return tq.QuantizedWeight(*tq.quantize_int8(w, block), block)
+
+        qws = cold_copies(make_q, o * k)
+        qw = qws[0]
+        dense = tq._dq_weight(qw.q8, qw.s8, block, torch.bfloat16)
+        denses = [dense] + [
+            tq._dq_weight(c.q8, c.s8, block, torch.bfloat16)
+            for c in qws[1:max(1, -(-(128 * 2**20) // (2 * o * k)))]
+        ]
+        for t in DQMM_TOKENS:
+            x = torch.randn((t, k), generator=gen, device="cuda").bfloat16()
+            y = tq.quantized_matmul(x, qw)
+            ref = tq.quantized_matmul_reference(x, qw)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            tol = DQMM_REL_TOL * ref_max
+            if not (torch.isfinite(y).all() and err <= tol):
+                raise AssertionError(
+                    f"dqmm kernel disagrees at T={t} K={k} O={o}: "
+                    f"max_abs_err {err} (tol {tol})"
+                )
+            nbytes = o * k + 4 * o * (k // block) + 2 * t * k + 2 * t * o
+            bms, by = bound_ms(2.0 * t * k * o, nbytes)
+            row = dict(
+                T=t, K=k, O=o, weights=names, block=block,
+                splits=tq._dqmm_plan(t, k, o)[1],
+                max_abs_err=err, ref_max_abs=ref_max, tol=tol,
+                tol_reason=DQMM_TOL_REASON,
+                ms=device_ms(cycling(lambda w: tq.quantized_matmul(x, w),
+                                     qws), calls=max(10, len(qws))),
+                eager_ms=time_ms(lambda: tq.quantized_matmul(x, qw), 20),
+                plain_ms=time_ms(
+                    lambda: tq.quantized_matmul_reference(x, qw), 3),
+                dense_ms=device_ms(cycling(lambda w: x @ w.t(), denses),
+                                   calls=max(10, len(denses))),
+                dense_eager_ms=time_ms(lambda: x @ dense.t(), 20),
+                library_ms=None, bound_ms=bms, bound_by=by,
+            )
+            log("kernel.dqmm", **row)
+            rows.append(row)
+            del x, y, ref
+        del qws, qw, dense, denses
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _prompts(cfg, n=12):
     rng = np.random.default_rng(SEED + 1)
     lengths = rng.integers(50, 1001, size=n)
@@ -268,8 +415,23 @@ def _serve(engine, prompts, max_new):
                       t0=t0)
 
 
+def _timings(tm, lens):
+    """TTFT / TPOT / throughput of one `_serve` run."""
+    ttft = [tm["first"][i] - tm["t0"] for i in sorted(tm["first"])]
+    tpot = [(tm["last"][i] - tm["first"][i]) / (tm["count"][i] - 1)
+            for i in sorted(tm["first"]) if tm["count"][i] > 1]
+    return dict(
+        wall_s=tm["wall"],
+        ttft_ms_mean=1e3 * float(np.mean(ttft)),
+        ttft_ms_p50=1e3 * float(np.median(ttft)),
+        ttft_ms_max=1e3 * float(np.max(ttft)),
+        tpot_ms_mean=1e3 * float(np.mean(tpot)),
+        tokens_per_s=float(sum(lens)) / tm["wall"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+
+
 def phase_serve(params, cfg):
-    from dlrover_tpu_torch.models import decode as dec
     from dlrover_tpu_torch.ops import _build
     from dlrover_tpu_torch.serving.engine import ContinuousBatcher
 
@@ -302,21 +464,13 @@ def phase_serve(params, cfg):
             f"kernels not on the path: launches {launches}, want "
             f">= {want_flash} flash and >= {want_paged} paged"
         )
-    ttft = [tm["first"][i] - tm["t0"] for i in sorted(tm["first"])]
-    tpot = [(tm["last"][i] - tm["first"][i]) / (tm["count"][i] - 1)
-            for i in sorted(tm["first"]) if tm["count"][i] > 1]
     e2e = dict(
         requests=len(prompts), prompt_lens=[len(p) for p in prompts],
         max_new=max_new, n_slots=n_slots, admissions=engine.admissions,
         decode_steps=engine.decode_steps, launches=launches,
-        wall_s=tm["wall"],
-        ttft_ms_mean=1e3 * float(np.mean(ttft)),
-        ttft_ms_p50=1e3 * float(np.median(ttft)),
-        ttft_ms_max=1e3 * float(np.max(ttft)),
-        tpot_ms_mean=1e3 * float(np.mean(tpot)),
-        tokens_per_s=float(sum(lens)) / tm["wall"],
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        **_timings(tm, lens),
     )
+    weight_bytes = engine.weight_bytes_device()
     del engine
     # the same traffic through plain attention (reference prefill and
     # gathered-view decode) on the same weights
@@ -331,44 +485,197 @@ def phase_serve(params, cfg):
     e2e.update(greedy_streams_identical=same,
                greedy_token_agreement=agree,
                greedy_common_prefix_mean=float(np.mean(prefix)))
-    log("serve", **e2e)
+    log("serve", weight_bytes=weight_bytes, **e2e)
 
     # first decode step after a 1000-token prefill: kernel path
     # (flash prefill + paged decode) vs plain attention, same weights
-    p = prompts[0]
+    _check_first_decode(
+        "serve.first_decode_logits",
+        _first_decode_logits(cfg, params, prompts[0], max_len),
+        _first_decode_logits(ref_cfg, params, prompts[0], max_len),
+        "5% of the largest logit: bf16 roundings of the two attention "
+        "paths carried through 32 layers",
+    )
+    e2e.update(outs=outs, weight_bytes=weight_bytes)
+    return e2e
+
+
+def _first_decode_logits(cfg, params, p, max_len):
+    """Logits of the first decode step after prefilling prompt `p`
+    (padded to its 1024 bucket) into a fresh exact row installed into
+    a page pool: the engine's paged admission and decode, one slot."""
+    from dlrover_tpu_torch.models import decode as dec
+
     bucket = 1024
     prompt = torch.zeros(bucket, dtype=torch.long, device="cuda")
     prompt[: len(p)] = torch.tensor(p, device="cuda")
     per_slot = max_len // 16
     table = torch.arange(1, per_slot + 1, dtype=torch.int32,
                          device="cuda")[None]
-    logits = {}
-    for name, c in (("kernel", cfg), ("reference", ref_cfg)):
-        pool = dec.init_page_pool(c, per_slot + 1, 16)
-        row = dec.prefill_exact_row(c, params, prompt, max_len)
-        dec.paged_install_row(pool, row, table[0], 0, bucket)
-        del row
-        logits[name], _ = dec.paged_decode_step(
-            c, params, torch.tensor([p[-1]], device="cuda"), pool, table,
-            torch.tensor([len(p) - 1], device="cuda"),
-        )
-        del pool
-    lk, lr = logits["kernel"], logits["reference"]
+    pool = dec.init_page_pool(cfg, per_slot + 1, 16)
+    row = dec.prefill_exact_row(cfg, params, prompt, max_len)
+    dec.paged_install_row(pool, row, table[0], 0, bucket)
+    del row
+    logits, _ = dec.paged_decode_step(
+        cfg, params, torch.tensor([p[-1]], device="cuda"), pool, table,
+        torch.tensor([len(p) - 1], device="cuda"),
+    )
+    return logits
+
+
+def _check_first_decode(phase, lk, lr, tol_reason):
     if not (torch.isfinite(lk).all() and torch.isfinite(lr).all()):
-        raise AssertionError("non-finite logits")
+        raise AssertionError(f"{phase}: non-finite logits")
     err = (lk - lr).abs().max().item()
     ref_max = lr.abs().max().item()
-    tol = 0.05 * ref_max
-    log("serve.first_decode_logits", max_abs_err=err, ref_max_abs=ref_max,
-        tol=tol, tol_reason="5% of the largest logit: bf16 roundings of "
-        "the two attention paths carried through 32 layers",
-        argmax_equal=bool(lk.argmax() == lr.argmax()))
+    tol = LOGITS_REL_TOL * ref_max
+    log(phase, max_abs_err=err, ref_max_abs=ref_max, tol=tol,
+        tol_reason=tol_reason, argmax_equal=bool(lk.argmax() == lr.argmax()))
     if not err <= tol:
-        raise AssertionError(f"first-decode logits differ by {err} > {tol}")
+        raise AssertionError(f"{phase}: logits differ by {err} > {tol}")
+
+
+def _dequantized_tree(params):
+    """The served int8 tree with every QuantizedWeight replaced by the
+    dense bf16 weight it stands for, `_dq_weight(q8, s8)` transposed to
+    [.., K, O] (a view of the [.., O, K] values), one layer at a time."""
+    from dlrover_tpu_torch.ops.quantization import QuantizedWeight, _dq_weight
+
+    def dense(w):
+        if not isinstance(w, QuantizedWeight):
+            return w
+        out = torch.empty(w.q8.shape, dtype=torch.bfloat16, device="cuda")
+        flat_q = w.q8.reshape((-1,) + tuple(w.q8.shape[-2:]))
+        flat_s = w.s8.reshape((-1,) + tuple(w.s8.shape[-2:]))
+        flat_o = out.reshape(flat_q.shape)
+        for i in range(flat_q.shape[0]):
+            flat_o[i] = _dq_weight(flat_q[i], flat_s[i], w.block,
+                                   torch.bfloat16)
+        return out.transpose(-1, -2)
+
+    return {
+        group: ({k: dense(v) for k, v in node.items()}
+                if isinstance(node, dict) else node)
+        for group, node in params.items()
+    }
+
+
+def _check_install_bytes(params, qparams):
+    """The last layer slice of every quantized leaf and the untied
+    lm_head, as the int8 install stored them, against the plain
+    quantizer on the same bf16 slice, byte for byte: every weight
+    shape the install ran kernel 5 at."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    leaves = [(name, params["layers"][name][-1], w[-1])
+              for name, w in sorted(qparams["layers"].items())
+              if isinstance(w, tq.QuantizedWeight)]
+    head = qparams.get("lm_head", {}).get("weight")
+    if isinstance(head, tq.QuantizedWeight):
+        leaves.append(("lm_head", params["lm_head"]["weight"], head))
+    shapes = {}
+    for name, dense, qw in leaves:
+        q_ref, s_ref = tq._quantize_plain(dense.t().contiguous(), qw.block)
+        q_diff = int((qw.q8 != q_ref).sum())
+        s_diff = int((qw.s8 != s_ref).sum())
+        if q_diff or s_diff:
+            raise AssertionError(
+                f"installed {name} differs from the plain quantizer: "
+                f"{q_diff} q8 and {s_diff} s8 values"
+            )
+        shapes[name] = list(qw.q8.shape)
+        del q_ref, s_ref
+    log("serve.int8.install_bytes", checked=shapes, q8_diff=0, s8_diff=0)
+
+
+def phase_serve_int8(params, cfg, bf16):
+    """The serve phase's traffic through weight_quant="int8": install
+    (kernel 5 per layer slice) and serving (kernel 7 on every product)
+    run with the launch counts set to 0 just before and read after."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    max_new, n_slots, max_len = 32, 8, 2048
+    prompts = _prompts(cfg)
+    kw = dict(n_slots=n_slots, max_len=max_len, max_new_tokens=max_new,
+              chunk=8, kv_layout="paged", weight_quant="int8")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = ContinuousBatcher(cfg, params, **kw)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    quant_launches = _build.launch_counts()["quant_int8"]
+    outs, tm = _serve(engine, prompts, max_new)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    lens = [len(o) for o in outs]
+    if lens != [max_new] * len(prompts):
+        raise AssertionError(f"int8 token counts {lens}, want {max_new} each")
+    toks = np.concatenate(outs)
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError("int8: token id out of the vocabulary")
+    if engine.weight_quant_path != "int8:kernel":
+        raise AssertionError(f"weight_quant_path {engine.weight_quant_path}")
+    per_forward = 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    forwards = engine.admissions + engine.decode_steps
+    want = dict(
+        dqmm=forwards * per_forward, quant_int8=per_forward,
+        flash_fwd=engine.admissions * cfg.n_layers,
+        paged_attention=engine.decode_steps * cfg.n_layers,
+    )
+    short = {k: (launches[k], v) for k, v in want.items() if launches[k] < v}
+    if short or quant_launches < per_forward:
+        raise AssertionError(
+            f"int8 kernels not on the path: (launches, want) {short}, "
+            f"quant launches at install {quant_launches}"
+        )
+    wbytes = engine.weight_bytes_device()
+    if not wbytes <= 0.55 * bf16["weight_bytes"]:
+        raise AssertionError(
+            f"int8 weight bytes {wbytes} > 0.55 x bf16 "
+            f"{bf16['weight_bytes']}"
+        )
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(outs, bf16["outs"]))
+    e2e = dict(
+        requests=len(prompts), admissions=engine.admissions,
+        decode_steps=engine.decode_steps, launches=launches,
+        quant_launches_at_install=quant_launches, install_s=install_s,
+        weight_quant_path=engine.weight_quant_path,
+        weight_quant_stats=engine.weight_quant_stats(),
+        weight_bytes=wbytes, bf16_weight_bytes=bf16["weight_bytes"],
+        weight_bytes_ratio=wbytes / bf16["weight_bytes"],
+        **_timings(tm, lens),
+        bf16_greedy_streams_identical=same,
+        bf16_greedy_token_agreement=float(
+            np.mean(np.concatenate(outs) == np.concatenate(bf16["outs"]))),
+    )
+    log("serve.int8", **e2e)
+    qparams = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    _check_install_bytes(params, qparams)
+    torch.cuda.empty_cache()
+    # the int8 engine's first decode step against the same decode
+    # functions on a dense bf16 tree holding exactly the dequantized
+    # weights: the W8A16 kernel held to the dense product end to end
+    lq = _first_decode_logits(cfg, qparams, prompts[0], max_len)
+    dense = _dequantized_tree(qparams)
+    ld = _first_decode_logits(cfg, dense, prompts[0], max_len)
+    del dense
+    torch.cuda.empty_cache()
+    _check_first_decode(
+        "serve.int8.first_decode_logits", lq, ld,
+        "5% of the largest logit: the same bf16 weights and attention "
+        "kernels on both sides; the f32 sums of 225 products a forward "
+        "in another order, each rounded to bf16, carried through 32 "
+        "layers",
+    )
     return e2e
 
 
-def phase_profile(params, cfg):
+def phase_profile(params, cfg, weight_quant="none"):
     """`--profile`: where the time of one admission wave (8 prefills +
     one 8-step chunk) and of one pure decode chunk goes, by CUDA kernel
     (torch.profiler), and the device's busy share of the wall time,
@@ -379,7 +686,7 @@ def phase_profile(params, cfg):
 
     prompts = _prompts(cfg)[:8]
     kw = dict(n_slots=8, max_len=2048, max_new_tokens=32, chunk=8,
-              kv_layout="paged")
+              kv_layout="paged", weight_quant=weight_quant)
     warm = ContinuousBatcher(cfg, params, **kw)
     warm.generate_all(prompts)
     del warm
@@ -401,7 +708,8 @@ def phase_profile(params, cfg):
                 and e.self_device_time_total > 0]
         dev_us = sum(e.self_device_time_total for e in rows)
         rows.sort(key=lambda e: -e.self_device_time_total)
-        log(f"profile.{label}", wall_ms=1e3 * wall,
+        log(f"profile.{label}", weight_quant=weight_quant,
+            wall_ms=1e3 * wall,
             device_ms=dev_us / 1e3,
             device_busy_share=dev_us / 1e6 / wall,
             top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
@@ -423,10 +731,14 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if "--profile" in sys.argv[1:]:
         cfg = llama.LlamaConfig.llama3_8b()
-        phase_profile(llama.init_params(cfg, gen), cfg)
+        phase_profile(llama.init_params(cfg, gen), cfg,
+                      "int8" if "--int8" in sys.argv[1:] else "none")
         return 0
     flash_rows = phase_flash(gen)
     paged_rows = phase_paged(gen)
+    quant_rows = phase_quant(gen)
+    dqmm_rows = phase_dqmm(gen)
+    torch.cuda.empty_cache()
 
     cfg = llama.LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -435,9 +747,13 @@ def main():
     log("model", config="llama3_8b", params=llama.num_params(cfg),
         dtype=str(cfg.dtype), init_s=time.perf_counter() - t0)
     e2e = phase_serve(params, cfg)
+    e2e_int8 = phase_serve_int8(params, cfg, e2e)
 
     main_flash = next(r for r in flash_rows if r["S"] == 512)
     main_paged = paged_rows[0]
+    main_quant = next(r for r in quant_rows if r["input"] == "bfloat16")
+    main_dqmm = next(r for r in dqmm_rows
+                     if (r["T"], r["K"], r["O"]) == (8, 4096, 14336))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [
@@ -455,6 +771,23 @@ def main():
              **{k: main_paged[k] for k in keys},
              shape="B=8 H=32 KV=8 D=128 page 16 bf16 pool",
              per_variant=paged_rows),
+        dict(name="quantize_int8", route="cuda",
+             source="dlrover_tpu_torch/csrc/quant_int8.cu",
+             replaces="dlrover_tpu/ops/quantization.py:44",
+             launches=e2e_int8["launches"]["quant_int8"],
+             **{k: main_quant[k] for k in keys},
+             shape="[14336, 4096] bf16 -> int8, block 256 (one w_gate "
+                   "layer, output-major)",
+             per_input=quant_rows),
+        dict(name="dqmm", route="cuda",
+             source="dlrover_tpu_torch/csrc/dqmm.cu",
+             replaces="dlrover_tpu/ops/quantization.py:306",
+             launches=e2e_int8["launches"]["dqmm"],
+             **{k: main_dqmm[k] for k in keys},
+             dense_ms=main_dqmm["dense_ms"],
+             shape="T=8 K=4096 O=14336 (w_gate decode) bf16 x int8, "
+                   "block 256",
+             per_shape=dqmm_rows),
     ]
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(smi, flush=True)

@@ -9,5 +9,7 @@ kernel on a ported path is a CUDA C++ kernel under `csrc/`, built with
 Ported so far: the paged serving path — `serving/engine.py`
 (`ContinuousBatcher`) over `models/decode.py` and `models/llama.py`,
 with the flash-attention forward (`ops/flash_attention.py`) and the
-paged-attention decode kernel (`ops/paged_attention.py`).
+paged-attention decode kernel (`ops/paged_attention.py`), and its
+int8 weight-quantized form (`weight_quant="int8"`: the quantize and
+dequant-matmul kernels of `ops/quantization.py`).
 """

@@ -33,6 +33,7 @@ from dlrover_tpu_torch.models.llama import (
 )
 from dlrover_tpu_torch.ops import paged_attention as pa
 from dlrover_tpu_torch.ops.attention import dot_product_attention
+from dlrover_tpu_torch.ops.quantization import matmul_any
 
 Cache = Dict[str, torch.Tensor]
 
@@ -171,7 +172,7 @@ def _block(cfg: LlamaConfig, x, layer_params, layer_cache, positions,
 
 def _logits(cfg, params, x):
     x = _rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return (x @ _head_matrix(cfg, params)).float()
+    return matmul_any(x, _head_matrix(cfg, params)).float()
 
 
 def _forward_cached(cfg, params, tokens, cache, positions, start,

@@ -3,22 +3,25 @@ dlrover_tpu/models/llama.py (the parts the serving path runs).
 
 Layers are STACKED as in the JAX package (leading axis = n_layers); the
 decoder in models/decode.py loops over that axis where JAX scans it.
-Weights are stored in the compute dtype: the JAX path casts every
-matmul weight, embedding and norm scale to `cfg.dtype` before use
+Weights are stored in the compute dtype by default: the JAX path casts
+every matmul weight, embedding and norm scale to `cfg.dtype` before use
 (`_compute_weights`, `_rms_norm`, `_head_matrix`, the embedding
-gather), so storing them cast is numerically identical and saves the
-per-step casts.
+gather), and so does this one, so storing them cast is numerically
+identical and saves the per-step casts. Every matmul goes through
+`matmul_any`, so a weight the serving engine quantized
+(`QuantizedWeight`, weight_quant="int8") runs the fused dequant kernel.
 """
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from dlrover_tpu_torch._device import DeviceLike, resolve_device
+from dlrover_tpu_torch.ops.quantization import QuantizedWeight, matmul_any
 
 Params = Dict[str, Any]
 
@@ -130,19 +133,23 @@ def init_params(
 
 
 def params_from_numpy(
-    cfg: LlamaConfig, tree: Dict, device: DeviceLike = None
+    cfg: LlamaConfig, tree: Dict, device: DeviceLike = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> Params:
     """The JAX param pytree (`dlrover_tpu.models.llama.init_params`
     layout) as nested dicts of numpy arrays -> the port's params, every
-    leaf cast to `cfg.dtype` on `device` (the cast the JAX path applies
-    before each use; numpy float32 -> bfloat16 rounds to nearest even,
-    as jnp's astype does)."""
+    leaf cast to `dtype` (default `cfg.dtype`, the cast the JAX path
+    applies before each use; numpy float32 -> bfloat16 rounds to nearest
+    even, as jnp's astype does) on `device`. A wider storage dtype
+    computes the same thing (every use casts to `cfg.dtype`) and keeps
+    the values the JAX engine's int8 install quantizes."""
     _check_dense(cfg)
     dev = resolve_device(device)
+    dtype = cfg.dtype if dtype is None else dtype
 
     def conv(a):
         return torch.from_numpy(np.array(a, copy=True)).to(
-            device=dev, dtype=cfg.dtype
+            device=dev, dtype=dtype
         )
 
     layers = tree["layers"]
@@ -159,8 +166,9 @@ def params_from_numpy(
     return params
 
 
-def layer_params(params: Params, layer: int) -> Dict[str, torch.Tensor]:
-    """One layer's slice of the stacked weights (views, no copy)."""
+def layer_params(params: Params, layer: int) -> Dict[str, Any]:
+    """One layer's slice of the stacked weights (views, no copy; a
+    QuantizedWeight slices its q8 and s8)."""
     return {k: v[layer] for k, v in params["layers"].items()}
 
 
@@ -201,9 +209,10 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def _compute_weights(cfg: LlamaConfig, layer_params) -> Dict:
     """Matmul weights in the compute dtype (norms skipped: _rms_norm
-    casts its own). Dense weights only — no LoRA merge, no int8."""
+    casts its own). A QuantizedWeight passes through untouched: its
+    dequant fuses into the matmul (`matmul_any`). No LoRA merge yet."""
     return {
-        k: v.to(cfg.dtype)
+        k: v if isinstance(v, QuantizedWeight) else v.to(cfg.dtype)
         for k, v in layer_params.items()
         if not k.endswith("_norm")
     }
@@ -214,9 +223,9 @@ def _attn_qkv(cfg: LlamaConfig, h, lp, positions, rope=None):
     `rope`: the forward's precomputed `_rope_tables`."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = h.shape
-    q = (h @ lp["wq"]).reshape(b, s, H, hd)
-    k = (h @ lp["wk"]).reshape(b, s, KV, hd)
-    v = (h @ lp["wv"]).reshape(b, s, KV, hd)
+    q = matmul_any(h, lp["wq"]).reshape(b, s, H, hd)
+    k = matmul_any(h, lp["wk"]).reshape(b, s, KV, hd)
+    v = matmul_any(h, lp["wv"]).reshape(b, s, KV, hd)
     q = _rope(q, positions, cfg.rope_theta, rope)
     k = _rope(k, positions, cfg.rope_theta, rope)
     return q, k, v
@@ -226,23 +235,28 @@ def _attn_residual(cfg: LlamaConfig, x, attn, lp):
     """Output projection + residual."""
     b, s, _ = x.shape
     attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + attn @ lp["wo"]
+    return x + matmul_any(attn, lp["wo"])
 
 
 def _mlp_residual(cfg: LlamaConfig, x, layer_params, lp):
     """Dense SwiGLU feed-forward + residual."""
     _check_dense(cfg)
     h = _rms_norm(x, layer_params["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(h @ lp["w_gate"])
-    up = h @ lp["w_up"]
-    return x + (gate * up) @ lp["w_down"]
+    gate = F.silu(matmul_any(h, lp["w_gate"]))
+    up = matmul_any(h, lp["w_up"])
+    return x + matmul_any(gate * up, lp["w_down"])
 
 
 def _head_matrix(cfg: LlamaConfig, params: Params):
-    """The unembedding operand of `x @ head`."""
+    """The unembedding operand of `matmul_any(x, head)`. A tied head is
+    never quantized (the token gather needs the dense table); an untied
+    one may arrive as a QuantizedWeight and is returned as it is."""
     if cfg.tie_embeddings:
         return params["embed"]["weight"].to(cfg.dtype).T
-    return params["lm_head"]["weight"].to(cfg.dtype)
+    w = params["lm_head"]["weight"]
+    if isinstance(w, QuantizedWeight):
+        return w
+    return w.to(cfg.dtype)
 
 
 def num_params(cfg: LlamaConfig) -> int:

@@ -19,12 +19,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("flash_fwd", "paged_attention")
+KERNELS = ("flash_fwd", "paged_attention", "quant_int8", "dqmm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], Any] = {}
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -117,6 +118,29 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> Any:
+    """The C function `symbol` of kernel library `name` (built and
+    loaded first if needed), returning int, with its argument types set
+    once: a per-call wrapper then pays only the call itself."""
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _FNS[(name, symbol)] = fn
+    return fn
+
+
+def current_stream(device_index: int) -> int:
+    """The raw handle of the current CUDA stream of a device, for a
+    launch: the call torch's own kernel launchers make, a fraction of
+    the host time of `torch.cuda.current_stream(device).cuda_stream`
+    (which matters where a decode step launches hundreds of kernels)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(err: int, name: str, what: Optional[str] = None) -> None:

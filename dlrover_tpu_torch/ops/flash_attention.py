@@ -89,16 +89,12 @@ def _fwd_cuda(q, k, v, causal: bool, scale: float):
         )
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    lib = _build.load(_NAME)
-    fn = lib.flash_fwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
+    fn = _build.function(_NAME, "flash_fwd_bf16", [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, s_q, s_k, h, kvh, d, float(scale),
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), _build.current_stream(q.get_device()),
     )
     _build.count_launch(_NAME)
     _build.check(err, _NAME, f"q{tuple(q.shape)} k{tuple(k.shape)}")

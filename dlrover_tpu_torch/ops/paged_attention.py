@@ -146,11 +146,11 @@ def _kernel(q, pages, table, lengths, scale):
     part_acc = torch.empty((b, h, splits, hd), dtype=torch.float32,
                            device=q.device)
     null = ctypes.c_void_p(0)
-    lib = _build.load(_NAME)
-    fn = lib.paged_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
-        ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn = _build.function(
+        _NAME, "paged_attention_launch",
+        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
+    )
     err = fn(
         0 if q.dtype == torch.float32 else 1, int(quant),
         q.data_ptr(), pages["k"].data_ptr(), pages["v"].data_ptr(),
@@ -160,7 +160,7 @@ def _kernel(q, pages, table, lengths, scale):
         part_ml.data_ptr(), part_acc.data_ptr(),
         b, table.shape[1], page_size, kv, h // kv, hd, splits,
         _CHUNKS_PER_SPLIT, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.current_stream(q.get_device()),
     )
     _build.count_launch(_NAME)
     _build.check(err, _NAME, f"q{tuple(q.shape)} pages{tuple(pages['k'].shape)}")

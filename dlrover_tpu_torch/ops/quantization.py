@@ -1,0 +1,314 @@
+"""int8 weight quantization for serving: CUDA kernels for Hopper
+(csrc/quant_int8.cu, csrc/dqmm.cu) and their plain PyTorch versions.
+
+Counterpart of the serving half of dlrover_tpu/ops/quantization.py:
+`quantize_int8` (the `_quant_kernel`), `QuantizedWeight`,
+`weight_quant_block`, `_dq_weight`, `quantized_matmul_reference`,
+`quantized_matmul` (the `_dqmm_kernel`) and `matmul_any`. The
+dequantize kernel and the compressed collectives come with a later
+slice.
+
+Layout (as in the JAX package): a weight w [K, O] that activations
+contract over K is stored OUTPUT-MAJOR as q8 int8 [O, K] plus s8 f32
+[O, K/block], one symmetric scale per contiguous K-block of one output
+row; stacked layers add leading dims.
+
+Each wrapper runs its kernel for CUDA tensors (and raises on what the
+kernel does not take) and its plain version for CPU tensors.
+"""
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from dlrover_tpu_torch.ops import _build
+
+INT8_MAX = 127.0
+DEFAULT_BLOCK = 256
+# XLA rewrites the JAX kernel's `amax / 127` (a division by a constant)
+# into a product with the f32 reciprocal, so that is the scale's
+# formula here and in the CUDA kernel: it gives the JAX kernel's bytes
+_INV_INT8_MAX = float(torch.tensor(1.0) / INT8_MAX)
+
+_QUANT = "quant_int8"
+_DQMM = "dqmm"
+# the C signatures of csrc/quant_int8.cu `quant_int8` and csrc/dqmm.cu
+# `dqmm_bf16` (pointers and the stream as void*)
+_QUANT_ARGTYPES = (ctypes.c_int,) + (ctypes.c_void_p,) * 3 + (
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+_DQMM_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
+    ctypes.c_void_p,)
+# what csrc/quant_int8.cu instantiates: 8 values a lane, block/8 lanes
+# a row, so any power-of-two block from 8 to 256
+_QUANT_BLOCKS = (8, 16, 32, 64, 128, 256)
+# csrc/dqmm.cu walks K in 64-wide chunks and gives each lane 16
+# consecutive values of a weight row, which must share one scale
+_DQMM_CHUNK = 64
+_DQMM_MIN_BLOCK = 16
+# (tokens, outputs) per block of each dqmm variant: 0 the decode kernel
+# (T <= 16), 1 the one-warpgroup prefill kernel (T < 256), 2 the
+# two-warpgroup one (T >= 256: it halves the dequant work per product,
+# and its 256-token tile is mostly full)
+_DQMM_TILES = ((16, 64), (128, 128), (256, 128))
+_DQMM_TWO_WARPGROUPS_FROM = 256
+# split K over blocks until the grid holds this many blocks (8 or 2 an
+# SM on 132), keeping 4 to 16 (decode) or >= 4 (prefill) chunks a split:
+# the decode kernel stages a split's activations in shared memory
+_DQMM_TARGET_BLOCKS = (1056, 264, 264)
+_DQMM_MIN_CHUNKS_PER_SPLIT = 4
+_DQMM_DECODE_MAX_CHUNKS = 16
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtypes, device: int) -> None:
+    """Raise unless `t` is a contiguous, 16-byte aligned tensor of one of
+    `dtypes` on CUDA device index `device` (int compares only: this runs
+    for every launch)."""
+    if t.get_device() != device:
+        raise ValueError(f"{name} must be on CUDA device {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}.dtype={t.dtype}, want one of {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: symmetric per-block int8 quantization
+# ---------------------------------------------------------------------------
+
+
+def _quantize_plain(
+    x: torch.Tensor, block: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch (the JAX `_quant_kernel`
+    body): per block amax in f32, scale = amax * f32(1/127) (1.0 where
+    amax is 0), q = clip(round_half_even(x / scale), -127, 127), the
+    division an IEEE one."""
+    m, n = x.shape
+    xr = x.float().reshape(m * (n // block), block)
+    amax = xr.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax * _INV_INT8_MAX, 1.0)
+    q = torch.clamp(torch.round(xr / scale[:, None]), -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8).reshape(m, n), scale.reshape(m, n // block)
+
+
+def _quantize_cuda(x: torch.Tensor, block: int):
+    dev = x.get_device()
+    _check_cuda("x", x, (torch.float32, torch.bfloat16), dev)
+    if block not in _QUANT_BLOCKS:
+        raise ValueError(
+            f"quant kernel takes blocks {_QUANT_BLOCKS}, got {block}"
+        )
+    m, n = x.shape
+    rows = m * (n // block)
+    q = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    s = torch.empty((m, n // block), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        # nothing to launch (the kernel returns at once), so no count
+        return q, s
+    fn = _build.function(_QUANT, "quant_int8", _QUANT_ARGTYPES)
+    err = fn(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), q.data_ptr(),
+        s.data_ptr(), rows, block, _build.current_stream(dev),
+    )
+    _build.count_launch(_QUANT)
+    _build.check(err, _QUANT, f"x{tuple(x.shape)} block {block}")
+    return q, s
+
+
+def quantize_int8(
+    x: torch.Tensor, block: int = DEFAULT_BLOCK
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-block int8 quantization along the last dim.
+
+    x: [m, n] f32 or bf16 with n % block == 0 -> (q int8 [m, n],
+    scales f32 [m, n/block]). The kernel for CUDA tensors, its plain
+    version for CPU tensors; both give the JAX kernel's bytes."""
+    if x.ndim != 2 or x.shape[1] % block:
+        raise ValueError(
+            f"quantize_int8 takes [m, n] with n % block == 0, got "
+            f"{tuple(x.shape)} and block {block}"
+        )
+    if x.is_cuda:
+        return _quantize_cuda(x, block)
+    return _quantize_plain(x, block)
+
+
+# ---------------------------------------------------------------------------
+# the quantized weight
+# ---------------------------------------------------------------------------
+
+
+class QuantizedWeight:
+    """Per-block int8 weight in output-major (transposed) layout.
+
+    q8: int8 [..., O, K] (leading dims: stacked layers), blocks of size
+    `block` along the last (contraction) dim; s8: f32 [..., O, K/block].
+    Indexing the leading dim slices both (one layer of a stack). The
+    fields are fixed once built: the dqmm wrapper checks q8, s8 and
+    block once per weight (`_checked_on`), not at every launch."""
+
+    __slots__ = ("q8", "s8", "block", "_slices", "_checked_on")
+
+    def __init__(self, q8: torch.Tensor, s8: torch.Tensor, block: int):
+        self.q8 = q8
+        self.s8 = s8
+        self.block = int(block)
+        self._slices = {}
+        # the CUDA device index this weight passed the kernel's checks on
+        self._checked_on = None
+
+    @property
+    def shape(self):
+        """Shape of the DENSE weight this stands in for ([..., K, O])."""
+        *lead, o, k = self.q8.shape
+        return tuple(lead) + (k, o)
+
+    def __getitem__(self, idx) -> "QuantizedWeight":
+        """A slice of both tensors. An int index (one layer) returns the
+        same object every time, so a decode step, which slices every
+        layer, launches on weights whose checks already passed."""
+        if type(idx) is not int:
+            return QuantizedWeight(self.q8[idx], self.s8[idx], self.block)
+        w = self._slices.get(idx)
+        if w is None:
+            w = QuantizedWeight(self.q8[idx], self.s8[idx], self.block)
+            self._slices[idx] = w
+        return w
+
+    def __repr__(self):
+        return (f"QuantizedWeight(q8={tuple(self.q8.shape)}, "
+                f"s8={tuple(self.s8.shape)}, block={self.block})")
+
+
+def weight_quant_block(k: int, cap: int = DEFAULT_BLOCK) -> int:
+    """Quant block for a contraction dim of size `k`: the largest
+    power-of-two divisor of k, capped at `cap`; 0 when k has no even
+    divisor >= 8 (such a weight stays dense)."""
+    b = 1
+    while b < cap and k % (b * 2) == 0:
+        b *= 2
+    return b if b >= 8 else 0
+
+
+def _dq_weight(q8: torch.Tensor, s8: torch.Tensor, block: int, dtype):
+    """Dequantize output-major q8 [..., O, K] to `dtype`: scales
+    broadcast over their block, multiply in f32, cast (round to
+    nearest even) — the JAX `_dq_weight`, and what the dqmm kernel
+    feeds its tensor cores."""
+    *lead, o, k = q8.shape
+    q = q8.float().reshape(*lead, o, k // block, block)
+    return (q * s8[..., None]).reshape(*lead, o, k).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: fused dequant-matmul
+# ---------------------------------------------------------------------------
+
+
+def quantized_matmul_reference(x: torch.Tensor, w: QuantizedWeight):
+    """The kernel's function in plain PyTorch: x [T, K] . dequant(w)^T
+    -> [T, O], dequantized to x's dtype, products summed in f32 (as
+    the JAX `_dqmm_dot` asks with preferred_element_type=f32; bf16
+    products are exact in f32), the output rounded once to x's dtype."""
+    wt = _dq_weight(w.q8, w.s8, w.block, x.dtype)
+    return (x.float() @ wt.float().t()).to(x.dtype)
+
+
+def dqmm_supports(t: int, k: int, o: int, block: int) -> bool:
+    """Whether the dqmm kernel takes x [t, k] against a weight [o, k]
+    quantized at `block`: K a multiple of the 64-wide chunk and of the
+    block, the block a power of two >= 16 (a lane's 16 values share
+    one scale). Any T and O: the ragged edges are masked."""
+    return (
+        t >= 1 and o >= 1 and k >= _DQMM_CHUNK
+        and k % _DQMM_CHUNK == 0
+        and block >= _DQMM_MIN_BLOCK and block & (block - 1) == 0
+        and k % block == 0
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _dqmm_plan(t: int, k: int, o: int):
+    """(variant, splits, chunks per split) for x [t, k] . w [o, k]."""
+    if t <= _DQMM_TILES[0][0]:
+        variant = 0
+    else:
+        variant = 1 if t < _DQMM_TWO_WARPGROUPS_FROM else 2
+    bt, bo = _DQMM_TILES[variant]
+    blocks = -(-t // bt) * -(-o // bo)
+    chunks = k // _DQMM_CHUNK
+    want = -(-_DQMM_TARGET_BLOCKS[variant] // blocks)
+    splits = max(1, min(want, chunks // _DQMM_MIN_CHUNKS_PER_SPLIT))
+    if variant == 0:
+        splits = max(splits, -(-chunks // _DQMM_DECODE_MAX_CHUNKS))
+    per_split = -(-chunks // splits)
+    return variant, -(-chunks // per_split), per_split
+
+
+def _check_dqmm_weight(w: QuantizedWeight, dev: int) -> None:
+    """The kernel's checks of a weight, made once per weight and device:
+    q8 int8 [O, K] and s8 f32 [O, K/block], contiguous and aligned on
+    device `dev`, at a block and K the kernel takes."""
+    _check_cuda("q8", w.q8, (torch.int8,), dev)
+    _check_cuda("s8", w.s8, (torch.float32,), dev)
+    if w.q8.ndim != 2:
+        raise ValueError(f"dqmm takes one layer's q8 [O, K], got {w!r}")
+    o, k = w.q8.shape
+    if w.s8.shape != (o, k // w.block) or not dqmm_supports(1, k, o, w.block):
+        raise ValueError(f"dqmm kernel does not take {w!r}")
+    w._checked_on = dev
+
+
+def _dqmm_cuda(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
+    dev = x.get_device()
+    _check_cuda("x", x, (torch.bfloat16,), dev)
+    if w._checked_on != dev:
+        _check_dqmm_weight(w, dev)
+    t, k = x.shape
+    o, kw = w.q8.shape
+    if kw != k or t < 1:
+        raise ValueError(
+            f"dqmm: x{tuple(x.shape)} does not match q8{tuple(w.q8.shape)}"
+        )
+    variant, splits, per_split = _dqmm_plan(t, k, o)
+    y = x.new_empty((t, o))
+    part = (
+        x.new_empty((splits, t, o), dtype=torch.float32)
+        if splits > 1 else None
+    )
+    fn = _build.function(_DQMM, "dqmm_bf16", _DQMM_ARGTYPES)
+    err = fn(
+        x.data_ptr(), w.q8.data_ptr(), w.s8.data_ptr(), y.data_ptr(),
+        part.data_ptr() if part is not None else None,
+        t, k, o, w.block, variant, splits, per_split,
+        _build.current_stream(dev),
+    )
+    _build.count_launch(_DQMM)
+    _build.check(err, _DQMM, f"x{tuple(x.shape)} q8{tuple(w.q8.shape)}")
+    return y
+
+
+def quantized_matmul(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
+    """Dequant-fused ``x @ dense(w)`` for an output-major quantized
+    weight; x may carry leading batch dims ([..., K] -> [..., O]). The
+    kernel for CUDA tensors, its plain version for CPU tensors."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda:
+        y = _dqmm_cuda(x2.contiguous(), w)
+    else:
+        y = quantized_matmul_reference(x2, w)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
+    """The models' one matmul dispatch: a dense weight takes ``x @ w``
+    exactly as before (weight_quant="none" computes what it always
+    did); a QuantizedWeight takes the fused dequant path."""
+    if isinstance(w, QuantizedWeight):
+        return quantized_matmul(x, w)
+    return x @ w

@@ -19,14 +19,20 @@ serves colocated dense and paged traffic synchronously.
   seed at admission, so a request's stream depends only on its own
   generator, never on batch composition.
 
+- weight_quant="int8" re-stores the large matmul weights at install
+  as output-major per-block int8 (`_quantize_params`, the quantize
+  kernel on the card), and every projection, MLP and untied lm_head
+  product of prefill and decode then runs the fused W8A16
+  dequant-matmul kernel (the plain version on the CPU).
+
 The host keeps the slot state (tok/pos/done/limit) as numpy mirrors;
 each dispatch uploads it, runs its steps on the device, and fetches
 the emitted tokens and the new state once.
 
 Not ported yet (later slices): prefix cache, speculative decoding,
-prefill_chunk, async_depth=1, adapters, weight_quant, tp / mesh,
-resize / weight refresh, KV tier, handoff, health, chaos, and
-page-pressure preemption (so n_pages must back every slot in full).
+prefill_chunk, async_depth=1, adapters, weight_quant="int8_stochastic",
+tp / mesh, resize / weight refresh, KV tier, handoff, health, chaos,
+and page-pressure preemption (so n_pages must back every slot in full).
 """
 
 import dataclasses
@@ -48,7 +54,21 @@ from dlrover_tpu_torch.models.decode import (
     prefill_exact_row,
     prefill_into_slot,
 )
+from dlrover_tpu_torch.ops.quantization import (
+    QuantizedWeight,
+    quantize_int8,
+    weight_quant_block,
+)
 from dlrover_tpu_torch.serving.paged_kv import TRASH_PAGE, PageAllocator
+
+# The large matmul weights weight_quant="int8" re-stores as per-block
+# int8 (ops/quantization.QuantizedWeight), by name on the stacked layer
+# dict (the JAX engine's set, which also names the GPT family's fused
+# wqkv). Norms and embeddings stay dense; the untied lm_head quantizes
+# separately.
+_WQ_LAYER_WEIGHTS = frozenset(
+    ("wq", "wk", "wv", "wo", "wqkv", "w_gate", "w_up", "w_down")
+)
 
 
 def _pad_bucket(n: int, lo: int = 16) -> int:
@@ -97,6 +117,7 @@ class ContinuousBatcher:
         kv_layout: str = "dense",    # "dense" bank | "paged" pool
         page_size: int = 0,          # cells per page (0 = auto pow2)
         n_pages: int = 0,            # pool size (0 = dense-equivalent)
+        weight_quant: str = "none",  # | "int8": per-block int8 weights
         device: DeviceLike = None,
     ):
         if eos_id is not None and eos_id == pad_id:
@@ -112,9 +133,22 @@ class ContinuousBatcher:
             raise ValueError(
                 f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}"
             )
+        if weight_quant == "int8_stochastic":
+            raise NotImplementedError(
+                "weight_quant='int8_stochastic' is not ported yet "
+                "(ROADMAP queue 1: stochastic rounding needs a Philox "
+                "counterpart of jax.random and a distributional oracle)"
+            )
+        if weight_quant not in ("none", "int8"):
+            raise ValueError(
+                f"weight_quant must be 'none' or 'int8', got "
+                f"{weight_quant!r}"
+            )
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params
+        self.weight_quant = weight_quant
+        self._wq_stats = {"leaves": 0, "skipped": 0}
+        self.params = self._quantize_params(params)
         self.n_slots = n_slots
         self.max_len = max_len
         self.max_new = max_new_tokens
@@ -187,6 +221,102 @@ class ContinuousBatcher:
         # counters chip_smoke.py and the tests read
         self.admissions = 0
         self.decode_steps = 0
+
+    # -- weight quantization -----------------------------------------------
+
+    def _quantize_params(self, params):
+        """Install-time int8 weight quantization (the JAX engine's
+        `_quantize_params`). Each matmul weight [.., K, O] re-stores
+        OUTPUT-MAJOR as q8 int8 [.., O, K] + s8 f32 [.., O, K/block],
+        one layer slice at a time straight from the stored tensor (the
+        kernel reads bf16 or f32; an f32 copy of a whole stacked weight
+        is never made). Weights whose K has no block
+        (`weight_quant_block` 0) stay dense. Idempotent: a leaf that is
+        already a QuantizedWeight passes through. weight_quant="none"
+        returns `params` itself. The caller's dict is not modified."""
+        if self.weight_quant == "none":
+            return params
+        if not isinstance(params, dict) or "layers" not in params:
+            return params
+        leaves = skipped = 0
+        lay = dict(params["layers"])
+        targets = [("layers", name) for name in sorted(lay)
+                   if name in _WQ_LAYER_WEIGHTS]
+        head = params.get("lm_head")
+        if isinstance(head, dict) and "weight" in head:
+            # untied unembed [D, V]: the largest weight read of a step
+            head = dict(head)
+            targets.append(("lm_head", "weight"))
+        for group, name in targets:
+            w = lay[name] if group == "layers" else head[name]
+            if isinstance(w, QuantizedWeight):
+                leaves += 1
+                continue
+            shape = tuple(w.shape)
+            blk = weight_quant_block(shape[-2]) if len(shape) > 1 else 0
+            if blk == 0:
+                skipped += 1
+                continue
+            *lead, k_dim, o_dim = shape
+            slices = w.reshape((-1, k_dim, o_dim))
+            q8 = torch.empty((slices.shape[0], o_dim, k_dim),
+                             dtype=torch.int8, device=w.device)
+            s8 = torch.empty((slices.shape[0], o_dim, k_dim // blk),
+                             dtype=torch.float32, device=w.device)
+            for i in range(slices.shape[0]):
+                q, s = quantize_int8(slices[i].t().contiguous(), blk)
+                q8[i].copy_(q)
+                s8[i].copy_(s)
+            qw = QuantizedWeight(
+                q8.reshape(tuple(lead) + (o_dim, k_dim)),
+                s8.reshape(tuple(lead) + (o_dim, k_dim // blk)), blk,
+            )
+            leaves += 1
+            if group == "layers":
+                lay[name] = qw
+            else:
+                head[name] = qw
+        out = dict(params)
+        out["layers"] = lay
+        if isinstance(head, dict) and "weight" in head:
+            out["lm_head"] = head
+        self._wq_stats = {"leaves": leaves, "skipped": skipped}
+        return out
+
+    def weight_bytes_device(self) -> int:
+        """Served-weight bytes on the device: every tensor leaf of the
+        served tree (a QuantizedWeight counts its q8 and s8) times its
+        element size."""
+        def walk(node):
+            if isinstance(node, dict):
+                return sum(walk(v) for v in node.values())
+            if isinstance(node, QuantizedWeight):
+                return walk(node.q8) + walk(node.s8)
+            return node.numel() * node.element_size()
+        return walk(self.params)
+
+    @property
+    def weight_quant_path(self) -> str:
+        """Which matmul body the quantized weights run: "int8:kernel"
+        (the fused dequant-matmul kernel, on the card) or
+        "int8:reference" (its plain version, on the CPU); "none" when
+        quantization is off."""
+        if self.weight_quant == "none":
+            return "none"
+        kind = "kernel" if self.device.type == "cuda" else "reference"
+        return f"{self.weight_quant}:{kind}"
+
+    def weight_quant_stats(self) -> Dict[str, float]:
+        """Mode flag, device weight bytes and quantized / skipped leaf
+        counts (the JAX engine's exposition keys)."""
+        return {
+            "weight_quant_int8": (
+                0.0 if self.weight_quant == "none" else 1.0
+            ),
+            "weight_bytes_device": float(self.weight_bytes_device()),
+            "weight_quant_leaves": float(self._wq_stats["leaves"]),
+            "weight_quant_skipped": float(self._wq_stats["skipped"]),
+        }
 
     # -- admission ---------------------------------------------------------
 

@@ -45,6 +45,22 @@ def test_launch_counters():
     _build.reset_launch_counts()
     _build.count_launch("paged_attention")
     _build.count_launch("paged_attention")
-    assert _build.launch_counts() == {"flash_fwd": 0, "paged_attention": 2}
+    assert _build.launch_counts() == {
+        "flash_fwd": 0, "paged_attention": 2, "quant_int8": 0, "dqmm": 0,
+    }
     _build.reset_launch_counts()
     assert set(_build.launch_counts().values()) == {0}
+
+
+def test_function_sets_types_once(monkeypatch):
+    """`function` binds a symbol of a kernel library with int return and
+    the given argument types, once: later calls get the same object."""
+    import ctypes
+
+    libc = ctypes.CDLL(None)
+    monkeypatch.setattr(_build, "load", lambda name: libc)
+    monkeypatch.setattr(_build, "_FNS", {})
+    fn = _build.function("libc", "abs", [ctypes.c_int])
+    assert fn(-7) == 7
+    assert fn.restype is ctypes.c_int and fn.argtypes == [ctypes.c_int]
+    assert _build.function("libc", "abs", [ctypes.c_int]) is fn

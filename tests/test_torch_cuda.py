@@ -8,7 +8,11 @@ so it also runs on a machine without it:
 Tolerance 2e-2 abs on bf16 outputs of magnitude ~1: the output is bf16
 (2^-8 relative), and P is rounded to bf16 at other points — the flash
 kernel at each 64-key tile's running max, its plain version at the
-final max; the paged plain version before P V, the paged kernel never."""
+final max; the paged plain version before P V, the paged kernel never.
+The int8 quantize kernel must give its plain version's bytes; the
+dequant-matmul kernel is held to DQMM_TOL of the largest |output|: both
+round the same bf16 weights and a bf16 output, and differ only in the
+order of the f32 sums (and the output's one rounding that follows)."""
 
 import numpy as np
 import pytest
@@ -18,8 +22,10 @@ from dlrover_tpu_torch.models import decode as tdec
 from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as tfa
 from dlrover_tpu_torch.ops import paged_attention as tpa
+from dlrover_tpu_torch.ops import quantization as tq
 
 TOL = 2e-2
+DQMM_TOL = 2 ** -7
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +103,105 @@ def test_paged_kernel_matches_plain(gen, quant, dtype):
     torch.cuda.synchronize()
     tol = TOL if dtype == torch.bfloat16 else 1e-4
     assert (ker.float() - ref.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("block", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_kernel_bytes_equal_plain(gen, block, dtype):
+    x = (torch.randn((300, 4 * block), generator=gen, device="cuda")
+         * 3.0).to(dtype)
+    x[0, :block] = 0.0
+    x[1, :block] = (torch.arange(block, device="cuda") % 200 - 100
+                    + 0.5).to(dtype) * 0.125
+    x[1, 0] = 127 * 0.125
+    before = _build.launch_counts()["quant_int8"]
+    q, s = tq.quantize_int8(x, block)
+    q_ref, s_ref = tq._quantize_plain(x, block)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["quant_int8"] == before + 1
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    assert s[0, 0].item() == 1.0 and s[1, 0].item() == 0.125
+
+
+def test_quant_kernel_empty_input_launches_nothing(gen):
+    before = _build.launch_counts()["quant_int8"]
+    q, s = tq.quantize_int8(torch.zeros((0, 256), device="cuda"), 256)
+    assert q.shape == (0, 256) and s.shape == (0, 1)
+    assert _build.launch_counts()["quant_int8"] == before
+
+
+@pytest.mark.parametrize(
+    "t,k,o,block",
+    [(1, 256, 40, 256), (8, 512, 200, 256), (8, 4096, 1024, 256),
+     (77, 1024, 300, 128), (16, 128, 72, 64), (130, 512, 136, 16),
+     (300, 256, 200, 64)],
+)
+def test_dqmm_kernel_matches_plain(gen, t, k, o, block):
+    w = torch.randn((o, k), generator=gen, device="cuda")
+    q8, s8 = tq.quantize_int8(w, block)
+    qw = tq.QuantizedWeight(q8, s8, block)
+    x = torch.randn((t, k), generator=gen, device="cuda").bfloat16()
+    before = _build.launch_counts()["dqmm"]
+    y = tq.quantized_matmul(x, qw)
+    ref = tq.quantized_matmul_reference(x, qw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["dqmm"] == before + 1
+    assert y.shape == (t, o) and y.dtype == torch.bfloat16
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= DQMM_TOL * ref.float().abs().max().item()
+
+
+def test_dqmm_kernel_refuses_what_it_cannot_take(gen):
+    w = torch.randn((64, 96), generator=gen, device="cuda")
+    q8, s8 = tq.quantize_int8(w, 32)
+    x = torch.randn((4, 96), generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="does not take"):
+        tq.quantized_matmul(x, tq.QuantizedWeight(q8, s8, 32))
+    w = torch.randn((64, 128), generator=gen, device="cuda")
+    q8, s8 = tq.quantize_int8(w, 64)
+    with pytest.raises(ValueError, match="dtype"):
+        tq.quantized_matmul(torch.zeros((4, 128), device="cuda"),
+                            tq.QuantizedWeight(q8, s8, 64))
+
+
+def test_dqmm_checks_a_layer_weight_once(gen):
+    """The wrapper checks a weight on its first launch and marks it; a
+    stacked weight hands out the same layer slice every time, so later
+    launches skip the checks. A weight the kernel refuses still raises."""
+    w = torch.randn((2, 96, 256), generator=gen, device="cuda")
+    q8, s8 = tq.quantize_int8(w.reshape(-1, 256), 64)
+    stack = tq.QuantizedWeight(q8.reshape(2, 96, 256),
+                               s8.reshape(2, 96, 4), 64)
+    x = torch.randn((3, 256), generator=gen, device="cuda").bfloat16()
+    y = tq.quantized_matmul(x, stack[1])
+    assert stack[1]._checked_on == x.get_device()
+    ref = tq.quantized_matmul_reference(x, stack[1])
+    assert (y.float() - ref.float()).abs().max().item() <= (
+        DQMM_TOL * ref.float().abs().max().item())
+    bad = tq.QuantizedWeight(stack.q8[0],
+                             stack.s8[0, :, :2].contiguous(), 64)
+    with pytest.raises(ValueError, match="does not take"):
+        tq.quantized_matmul(x, bad)
+
+
+def test_int8_engine_on_the_card(gen):
+    """The int8 engine on the default device: both int8 kernels ran,
+    every request finished, and the streams are valid tokens."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                  mlp_dim=512, attn_impl="auto")
+    params = tllama.init_params(cfg, gen)
+    _build.reset_launch_counts()
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=64,
+                            max_new_tokens=6, weight_quant="int8",
+                            kv_layout="paged")
+    assert eng.weight_quant_path == "int8:kernel"
+    assert _build.launch_counts()["quant_int8"] == 7 * cfg.n_layers + 1
+    outs = eng.generate_all([[1, 2, 3], [5] * 20, [9, 8, 7, 6]])
+    counts = _build.launch_counts()
+    assert [len(o) for o in outs] == [6, 6, 6]
+    assert all(0 <= int(t) < cfg.vocab_size for o in outs for t in o)
+    per_forward = 7 * cfg.n_layers + 1
+    assert counts["dqmm"] >= (eng.admissions + eng.decode_steps) * per_forward
