@@ -4,15 +4,18 @@
 
 Phases, one line each (any failure exits non-zero before the last line):
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: the four CUDA kernels compiled from dlrover_tpu_torch/csrc
+  2. build: the five CUDA sources compiled from dlrover_tpu_torch/csrc
      with nvcc for sm_90a (one nvcc per source, in parallel), with
      ptxas's register and spill lines;
   3. kernels: each kernel against its plain PyTorch version at the
-     serving path's Llama-3-8B shapes, with error, tolerance, kernel /
-     plain / library times and the bound: flash_fwd, paged_attention,
-     quantize_int8 (one w_gate layer slab, bytes equal to the plain
-     version) and dqmm (the five weight shapes at T = 8, 77 and 1024,
-     with the dense bf16 matmul's time beside it);
+     Llama-3-8B shapes of the serving and training paths, with error,
+     tolerance, kernel / plain / library times and the bound:
+     flash_fwd and flash_bwd (the dq and dk/dv kernels) at B=1 with
+     S = 77, 512 and 2048 and at the train path's B=2, S=2048,
+     paged_attention, quantize_int8 (one w_gate layer slab,
+     bytes equal to the plain version) and dqmm (the five weight shapes
+     at T = 8, 77 and 1024, with the dense bf16 matmul's time beside
+     it);
   4. serve: ContinuousBatcher on Llama-3-8B at full width and depth
      (random weights from a seed), kv_layout="paged", greedy-serving 12
      requests; every request must finish, both attention kernels must
@@ -26,15 +29,23 @@ Phases, one line each (any failure exits non-zero before the last line):
      the lm_head) must equal the plain quantizer's bytes, the weight
      bytes must be <= 0.55x the bf16 engine's, and
      the first-decode-step logits must match the same decode functions
-     on a dense bf16 tree of exactly the dequantized weights.
+     on a dense bf16 tree of exactly the dequantized weights;
+  6. train: Trainer(ElasticTrainer(...)) over accelerate over
+     llama.loss_fn on Llama-3-8B at full width, 4 layers (f32 params,
+     bf16 compute, remat "full", AdamW), 8 steps of a global batch of
+     4 x 2048 tokens in microbatches of 2; the losses must be finite and
+     fall, the flash forward and both backward kernels must have run
+     exactly as often as the path calls them, and the first
+     microbatch's loss and gradients must match the same model with
+     plain attention.
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where CUDA is not available.
 `python3 chip_smoke.py --profile [--int8]` instead profiles one
 admission wave and one decode chunk of the same engine (kernel times,
-device busy share; --int8 with weight_quant="int8") and prints no
-result line.
+device busy share; --int8 with weight_quant="int8"), and `--profile
+--train` one step of the train phase; neither prints a result line.
 """
 
 import dataclasses
@@ -70,6 +81,31 @@ DQMM_SHAPES = (
     ((4096, 128256), "lm_head"),
 )
 DQMM_TOKENS = (8, 77, 1024)
+BWD_REL_TOL = 2 ** -6
+BWD_TOL_REASON = (
+    "2^-6 of the largest |grad| of each of dq, dk, dv: both sides round P "
+    "and dS to bf16 before the products and the gradients once, but the "
+    "kernels' P comes from exp2 on the special-function unit (2 ulp), so "
+    "an element near a rounding boundary may round the other way (2^-8 "
+    "relative), and the f32 sums run in another order"
+)
+# (B, S) of the attention kernel phases: B=1 at three lengths (S=512
+# is a serving prefill bucket) and the train path's microbatch, 2 x 2048
+FLASH_CASES = ((1, 77), (1, 512), (1, 2048), (2, 2048))
+TRAIN_LAYERS = 4
+TRAIN_SEQ = 2048
+TRAIN_GLOBAL_BATCH = 4
+TRAIN_MICROBATCH = 2
+TRAIN_STEPS = 8
+TRAIN_LOSS_REL_TOL = 1e-3
+TRAIN_GRAD_REL_TOL = 5e-2
+TRAIN_TOL_REASON = (
+    "loss within 1e-3 relative, each gradient within 5e-2 of its norm "
+    "(L2 of the difference): bf16 compute on both sides, but the flash "
+    "kernels round P and dS to bf16 where plain attention rounds P after "
+    "the softmax and dP, and those differences carry through the "
+    "backward of 4 layers (the embedding's gradient collects all of them)"
+)
 
 
 def log(phase, **kw):
@@ -179,10 +215,10 @@ def phase_flash(gen):
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     F = torch.nn.functional
-    b, h, kv, d = 1, 32, 8, 128
+    h, kv, d = 32, 8, 128
     scale = d ** -0.5
     rows = []
-    for s in (77, 512, 2048):
+    for b, s in FLASH_CASES:
         q = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
         k = torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16()
         v = torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16()
@@ -193,7 +229,7 @@ def phase_flash(gen):
         lse_err = (lse - lse_ref).abs().max().item()
         if not (err <= FLASH_TOL and lse_err <= 1e-3):
             raise AssertionError(
-                f"flash kernel disagrees at S={s}: max_abs_err {err} "
+                f"flash kernel disagrees at B={b} S={s}: max_abs_err {err} "
                 f"(tol {FLASH_TOL}), lse err {lse_err} (tol 1e-3)"
             )
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -201,7 +237,7 @@ def phase_flash(gen):
         nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d) + 4 * b * h * s
         bms, by = bound_ms(flops, nbytes)
         row = dict(
-            S=s, max_abs_err=err, lse_err=lse_err, tol=FLASH_TOL,
+            B=b, S=s, max_abs_err=err, lse_err=lse_err, tol=FLASH_TOL,
             tol_reason=TOL_REASON,
             ms=device_ms(lambda: fa._fwd(q, k, v, True, scale)),
             eager_ms=time_ms(lambda: fa._fwd(q, k, v, True, scale), 20),
@@ -215,6 +251,105 @@ def phase_flash(gen):
         )
         log("kernel.flash_fwd", **row)
         rows.append(row)
+    return rows
+
+
+def phase_flash_bwd(gen):
+    """Both backward kernels (kernels 2 and 3) against `_bwd_plain` at
+    the training path's attention shapes (32 q heads, 8 KV heads of
+    128, causal, bf16): B=1 at S = 77, 512 and 2048, and B=2, S=2048,
+    the train phase's microbatch. `ms` is the whole backward (delta,
+    dq kernel, dkv kernel), its bound the five products the function
+    needs (2.5x the forward's causal FLOPs; the two-kernel split
+    computes seven) and the bytes of q, k, v, o, dO, dq, dk, dv, lse
+    and delta; `dq_ms` / `dkv_ms` each kernel alone, beside the bound
+    of what that kernel alone must do (three and four products).
+    library_ms: the backward of scaled_dot_product_attention(is_causal,
+    enable_gqa) on the same inputs (a yardstick, not used by the port),
+    CUDA-graph device time as `ms`: its forward and backward captured
+    together, less its forward captured alone (library_fwd_bwd_ms and
+    library_fwd_ms); library_eager_ms times the backward alone, eagerly."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    h, kv, d = 32, 8, 128
+    scale = d ** -0.5
+    rows = []
+    for b, s in FLASH_CASES:
+        def rand(heads):
+            return torch.randn((b, s, heads, d), generator=gen,
+                               device="cuda").bfloat16()
+
+        q, k, v, do = rand(h), rand(kv), rand(kv), rand(h)
+        o, lse = fa._fwd(q, k, v, True, scale)
+        got = fa._bwd(q, k, v, o, lse, do, True, scale)
+        want = fa._bwd_plain(q, k, v, o, lse, do, True, scale)
+        torch.cuda.synchronize()
+        errs, tols = {}, {}
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = (x.float() - y.float()).abs().max().item()
+            tols[name] = BWD_REL_TOL * y.float().abs().max().item()
+            if not (torch.isfinite(x).all() and errs[name] <= tols[name]):
+                raise AssertionError(
+                    f"flash backward disagrees at B={b} S={s}: {name} "
+                    f"max_abs_err {errs[name]} (tol {tols[name]})"
+                )
+        del got, want
+        delta = fa._delta(o, do)
+        fwd_flops = 2.0 * b * h * d * s * (s + 1)   # causal QK^T and PV
+        qo_bytes = 2 * b * s * h * d                # one [B,S,H,D] bf16
+        kv_bytes = 2 * b * s * kv * d
+        row_bytes = 4 * b * h * s                   # lse or delta
+        bms, by = bound_ms(2.5 * fwd_flops,
+                           4 * qo_bytes + 4 * kv_bytes + 2 * row_bytes)
+        dq_bms, dq_by = bound_ms(1.5 * fwd_flops, 3 * qo_bytes
+                                 + 2 * kv_bytes + 2 * row_bytes)
+        dkv_bms, dkv_by = bound_ms(2.0 * fwd_flops, 2 * qo_bytes
+                                   + 4 * kv_bytes + 2 * row_bytes)
+        lib_g = do.transpose(1, 2)
+
+        def leaves():
+            # fresh leaves each call: their grad nodes are made on the
+            # stream that runs the call (a captured graph's own stream)
+            return [x.transpose(1, 2).detach().requires_grad_()
+                    for x in (q, k, v)]
+
+        def lib_fwd(qkv=None):
+            return F.scaled_dot_product_attention(
+                *(qkv or leaves()), is_causal=True, enable_gqa=True)
+
+        def lib_fwd_bwd():
+            qkv = leaves()
+            return torch.autograd.grad(lib_fwd(qkv), qkv, lib_g)
+
+        lib_fwd_ms = device_ms(lib_fwd)
+        lib_fwd_bwd_ms = device_ms(lib_fwd_bwd)
+        qt, kt, vt = leaves()
+        lib_out = lib_fwd((qt, kt, vt))
+        row = dict(
+            B=b, S=s, max_abs_err=max(errs.values()), errs=errs, tols=tols,
+            tol_reason=BWD_TOL_REASON,
+            ms=device_ms(lambda: fa._bwd(q, k, v, o, lse, do, True, scale)),
+            eager_ms=time_ms(
+                lambda: fa._bwd(q, k, v, o, lse, do, True, scale), 20),
+            dq_ms=device_ms(lambda: fa._bwd_dq_cuda(
+                q, k, v, do, lse, delta, True, scale)),
+            dkv_ms=device_ms(lambda: fa._bwd_dkv_cuda(
+                q, k, v, do, lse, delta, True, scale)),
+            delta_ms=device_ms(lambda: fa._delta(o, do)),
+            plain_ms=time_ms(
+                lambda: fa._bwd_plain(q, k, v, o, lse, do, True, scale), 3),
+            library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+            library_fwd_bwd_ms=lib_fwd_bwd_ms, library_fwd_ms=lib_fwd_ms,
+            library_eager_ms=time_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), lib_g, retain_graph=True), 20),
+            bound_ms=bms, bound_by=by, dq_bound_ms=dq_bms, dq_bound_by=dq_by,
+            dkv_bound_ms=dkv_bms, dkv_bound_by=dkv_by,
+        )
+        log("kernel.flash_bwd", **row)
+        rows.append(row)
+        del q, k, v, do, o, lse, delta, qt, kt, vt, lib_out
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -675,6 +810,158 @@ def phase_serve_int8(params, cfg, bf16):
     return e2e
 
 
+def _layer0_grads(cfg, params, batch):
+    """Loss and the gradients of layer 0's wq/wk/wv/wo/w_down and of
+    the embedding, on one microbatch."""
+    from dlrover_tpu_torch.models import llama
+
+    names = ("wq", "wk", "wv", "wo", "w_down")
+    leaves = [params["layers"][n] for n in names] + [params["embed"]["weight"]]
+    loss, _ = llama.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    grads = [g[0] for g in grads[:-1]] + [grads[-1]]
+    return loss.detach(), dict(zip(names + ("embed",), grads))
+
+
+def _train_setup(gen):
+    """The train phase's model, ElasticTrainer and batch (see
+    phase_train); the Trainer's step and card metrics files are pointed
+    into smoke_out/ beside this script."""
+    import os
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "smoke_out")
+    os.environ["DLROVER_TPU_RUNTIME_METRICS_PATH"] = os.path.join(
+        out, "runtime_metrics.json")
+    os.environ["DLROVER_TPU_CHIP_METRICS_PATH"] = os.path.join(
+        out, "chip_metrics.json")
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS)
+    assert cfg.remat and cfg.remat_policy == "full"
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (TRAIN_GLOBAL_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    et = ElasticTrainer(
+        lambda g: llama.init_params(cfg, g, dtype=cfg.param_dtype),
+        lambda p, b: llama.loss_fn(cfg, p, b),
+        lambda ps: torch.optim.AdamW(ps, lr=1e-4, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=1e-4),
+        global_batch_size=TRAIN_GLOBAL_BATCH,
+        max_per_replica_batch=TRAIN_MICROBATCH,
+    )
+    return cfg, et, tokens
+
+
+def phase_train(gen):
+    """The training path on Llama-3-8B at full width, cut to 4 layers
+    (the f32 params, gradients and two AdamW moments of all 32 layers
+    would need 128 GB): Trainer over ElasticTrainer over accelerate over
+    llama.loss_fn, random f32 params from the seed, bf16 compute, remat
+    "full", AdamW(lr 1e-4, weight decay 1e-4), one batch of 4 x 2049
+    tokens repeated for 8 steps (global batch 4, microbatches of 2).
+    First, on one microbatch, the loss and layer-0 / embedding
+    gradients through the kernels are held to plain attention on the
+    same params; then the 8 steps run with the launch counts set to 0
+    just before and read just after."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.trainer.trainer import (
+        Trainer,
+        TrainerCallback,
+        TrainingArguments,
+    )
+
+    cfg, et, tokens = _train_setup(gen)
+    t0 = time.perf_counter()
+    state = et.init_state(gen)
+    torch.cuda.synchronize()
+    log("train.model", config="llama3_8b", n_layers=cfg.n_layers,
+        params=llama.num_params(cfg), param_dtype=str(cfg.param_dtype),
+        compute_dtype=str(cfg.dtype), remat=cfg.remat_policy,
+        grad_accum=et.grad_accum, init_s=time.perf_counter() - t0)
+
+    micro = {"tokens": tokens[:TRAIN_MICROBATCH]}
+    loss_k, grads_k = _layer0_grads(cfg, state["params"], micro)
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    loss_r, grads_r = _layer0_grads(ref_cfg, state["params"], micro)
+    loss_err = abs(loss_k.item() - loss_r.item())
+    grad_errs = {n: ((grads_k[n] - grads_r[n]).norm()
+                     / grads_r[n].norm()).item() for n in grads_r}
+    log("train.vs_reference_attention", loss=loss_k.item(),
+        ref_loss=loss_r.item(), loss_abs_err=loss_err,
+        grad_rel_l2_err=grad_errs,
+        grad_max_abs_err={n: (grads_k[n] - grads_r[n]).abs().max().item()
+                          for n in grads_r},
+        loss_rel_tol=TRAIN_LOSS_REL_TOL, grad_rel_tol=TRAIN_GRAD_REL_TOL,
+        tol_reason=TRAIN_TOL_REASON)
+    if not (loss_err <= TRAIN_LOSS_REL_TOL * abs(loss_r.item())
+            and all(e <= TRAIN_GRAD_REL_TOL for e in grad_errs.values())):
+        raise AssertionError(
+            f"train: kernels vs plain attention: loss err {loss_err}, "
+            f"gradient errors {grad_errs}"
+        )
+    del grads_k, grads_r
+    torch.cuda.empty_cache()
+
+    class Record(TrainerCallback):
+        def __init__(self):
+            self.ends, self.losses = [], []
+
+        def on_step_end(self, trainer, state, metrics):
+            self.ends.append(time.perf_counter())   # the step has synced
+
+        def on_log(self, trainer, state, logs):
+            self.losses.append(logs["loss"])
+
+    rec = Record()
+    trainer = Trainer(
+        et, TrainingArguments(max_steps=TRAIN_STEPS, logging_steps=1,
+                              save_steps=0, resume=False),
+        train_data=[{"tokens": tokens}] * TRAIN_STEPS, callbacks=[rec],
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.train(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    per_pass = cfg.n_layers * et.grad_accum * TRAIN_STEPS
+    want = dict(flash_fwd=2 * per_pass, flash_bwd_dq=per_pass,
+                flash_bwd_dkv=per_pass)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"train launches {launches}, want {want}")
+    losses = rec.losses
+    if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses {losses}: not finite or not "
+                             "falling")
+    steps_s = np.diff([t0] + rec.ends)
+    step_s = float(np.median(steps_s[1:]))
+    tokens_per_step = TRAIN_GLOBAL_BATCH * TRAIN_SEQ
+    flops_tok = llama.flops_per_token(cfg, TRAIN_SEQ, causal=True)
+    e2e = dict(
+        steps=TRAIN_STEPS, global_batch=TRAIN_GLOBAL_BATCH,
+        microbatch=TRAIN_MICROBATCH, seq=TRAIN_SEQ, grad_accum=et.grad_accum,
+        losses=losses, step_s=steps_s.tolist(), median_step_s=step_s,
+        first_step_s=float(steps_s[0]), wall_s=wall,
+        tokens_per_s=tokens_per_step / step_s,
+        flops_per_token=flops_tok,
+        mfu=flops_tok * tokens_per_step / step_s / PEAK_BF16_FLOPS,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches, last_logs=trainer.last_logs,
+    )
+    log("train", **e2e)
+    del state, trainer, et
+    torch.cuda.empty_cache()
+    return e2e
+
+
 def phase_profile(params, cfg, weight_quant="none"):
     """`--profile`: where the time of one admission wave (8 prefills +
     one 8-step chunk) and of one pure decode chunk goes, by CUDA kernel
@@ -702,10 +989,12 @@ def phase_profile(params, cfg, weight_quant="none"):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         # device-side events only (kernels, memcpy/memset): the aten
-        # ops that launched them carry the same device time again
+        # ops that launched them carry the same device time again, and
+        # so do ranges such as "Optimizer.step#AdamW.step"
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
+                and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)]
         dev_us = sum(e.self_device_time_total for e in rows)
         rows.sort(key=lambda e: -e.self_device_time_total)
         log(f"profile.{label}", weight_quant=weight_quant,
@@ -716,6 +1005,38 @@ def phase_profile(params, cfg, weight_quant="none"):
                  for e in rows[:12]])
         print(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=40), flush=True)
+
+
+def phase_profile_train(gen):
+    """`--profile --train`: where the device time of one training step
+    of the train phase goes (after two warm-up steps), by CUDA kernel,
+    and the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, et, tokens = _train_setup(gen)
+    state = et.init_state(gen)
+    batch = {"tokens": tokens}
+    for _ in range(2):
+        state, _m = et.step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _m = et.step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    dev_us = sum(e.self_device_time_total for e in rows)
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    log("profile.train_step", wall_ms=1e3 * wall, device_ms=dev_us / 1e3,
+        device_busy_share=dev_us / 1e6 / wall,
+        top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
+             for e in rows[:20]])
+    print(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=40), flush=True)
 
 
 def main():
@@ -729,12 +1050,16 @@ def main():
     smi = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if "--profile" in sys.argv[1:] and "--train" in sys.argv[1:]:
+        phase_profile_train(gen)
+        return 0
     if "--profile" in sys.argv[1:]:
         cfg = llama.LlamaConfig.llama3_8b()
         phase_profile(llama.init_params(cfg, gen), cfg,
                       "int8" if "--int8" in sys.argv[1:] else "none")
         return 0
     flash_rows = phase_flash(gen)
+    bwd_rows = phase_flash_bwd(gen)
     paged_rows = phase_paged(gen)
     quant_rows = phase_quant(gen)
     dqmm_rows = phase_dqmm(gen)
@@ -748,8 +1073,15 @@ def main():
         dtype=str(cfg.dtype), init_s=time.perf_counter() - t0)
     e2e = phase_serve(params, cfg)
     e2e_int8 = phase_serve_int8(params, cfg, e2e)
+    del params
+    torch.cuda.empty_cache()
+    train = phase_train(gen)
 
-    main_flash = next(r for r in flash_rows if r["S"] == 512)
+    main_flash = next(r for r in flash_rows if (r["B"], r["S"]) == (1, 512))
+    main_bwd = next(r for r in bwd_rows if (r["B"], r["S"]) == (2, 2048))
+    flash_by_path = {"serve": e2e["launches"]["flash_fwd"],
+                     "serve.int8": e2e_int8["launches"]["flash_fwd"],
+                     "train": train["launches"]["flash_fwd"]}
     main_paged = paged_rows[0]
     main_quant = next(r for r in quant_rows if r["input"] == "bfloat16")
     main_dqmm = next(r for r in dqmm_rows
@@ -760,10 +1092,36 @@ def main():
         dict(name="flash_fwd", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_fwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:163",
-             launches=e2e["launches"]["flash_fwd"],
+             launches=sum(flash_by_path.values()),
+             launches_by_path=flash_by_path,
              **{k: main_flash[k] for k in keys},
-             shape="B=1 S=512 H=32 KV=8 D=128 bf16 causal",
+             shape="B=1 S=512 H=32 KV=8 D=128 bf16 causal (the train "
+                   "path's B=2 S=2048 in per_shape)",
              per_shape=flash_rows),
+        dict(name="flash_bwd_dq", route="cuda",
+             source="dlrover_tpu_torch/csrc/flash_bwd.cu",
+             replaces="dlrover_tpu/ops/flash_attention.py:276",
+             launches=train["launches"]["flash_bwd_dq"],
+             max_abs_err=main_bwd["errs"]["dq"], ms=main_bwd["dq_ms"],
+             plain_ms=main_bwd["plain_ms"], bound_ms=main_bwd["dq_bound_ms"],
+             bound_by=main_bwd["dq_bound_by"],
+             library_ms=main_bwd["library_ms"],
+             shape="B=2 S=2048 H=32 KV=8 D=128 bf16 causal, the train "
+                   "path's microbatch (plain_ms and library_ms: the whole "
+                   "backward)",
+             per_shape=bwd_rows),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="dlrover_tpu_torch/csrc/flash_bwd.cu",
+             replaces="dlrover_tpu/ops/flash_attention.py:328",
+             launches=train["launches"]["flash_bwd_dkv"],
+             max_abs_err=max(main_bwd["errs"]["dk"], main_bwd["errs"]["dv"]),
+             ms=main_bwd["dkv_ms"], plain_ms=main_bwd["plain_ms"],
+             bound_ms=main_bwd["dkv_bound_ms"],
+             bound_by=main_bwd["dkv_bound_by"],
+             library_ms=main_bwd["library_ms"],
+             shape="B=2 S=2048 H=32 KV=8 D=128 bf16 causal, the train "
+                   "path's microbatch (plain_ms and library_ms: the whole "
+                   "backward)"),
         dict(name="paged_attention", route="cuda",
              source="dlrover_tpu_torch/csrc/paged_attention.cu",
              replaces="dlrover_tpu/ops/paged_attention.py:160",

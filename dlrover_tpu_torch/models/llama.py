@@ -1,27 +1,34 @@
 """Llama-family decoder in PyTorch — counterpart of
-dlrover_tpu/models/llama.py (the parts the serving path runs).
+dlrover_tpu/models/llama.py: the training forward and loss (`apply`,
+`loss_fn`) and the pieces the serving decoder shares.
 
-Layers are STACKED as in the JAX package (leading axis = n_layers); the
-decoder in models/decode.py loops over that axis where JAX scans it.
-Weights are stored in the compute dtype by default: the JAX path casts
-every matmul weight, embedding and norm scale to `cfg.dtype` before use
-(`_compute_weights`, `_rms_norm`, `_head_matrix`, the embedding
-gather), and so does this one, so storing them cast is numerically
-identical and saves the per-step casts. Every matmul goes through
-`matmul_any`, so a weight the serving engine quantized
-(`QuantizedWeight`, weight_quant="int8") runs the fused dequant kernel.
+Layers are STACKED as in the JAX package (leading axis = n_layers);
+`apply` and the decoder in models/decode.py loop over that axis where
+JAX scans it, and `apply` checkpoints each layer under `cfg.remat`
+(parallel/remat.py). The JAX path casts every matmul weight, embedding
+and norm scale to `cfg.dtype` before use (`_compute_weights`,
+`_rms_norm`, `_head_matrix`, the embedding gather), and so does this
+one; the casts are differentiable, so f32 storage (`cfg.param_dtype`,
+what training stores) gets f32 gradients. Serving stores the compute
+dtype by default, which computes the same and saves the per-step casts.
+Every matmul goes through `matmul_any`, so a weight the serving engine
+quantized (`QuantizedWeight`, weight_quant="int8") runs the fused
+dequant kernel.
 """
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from functools import partial
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from dlrover_tpu_torch._device import DeviceLike, resolve_device
+from dlrover_tpu_torch.ops.attention import dot_product_attention
 from dlrover_tpu_torch.ops.quantization import QuantizedWeight, matmul_any
+from dlrover_tpu_torch.parallel.remat import apply_remat
 
 Params = Dict[str, Any]
 
@@ -42,8 +49,15 @@ class LlamaConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    dtype: torch.dtype = torch.bfloat16   # compute (and storage) dtype
+    dtype: torch.dtype = torch.bfloat16   # compute dtype
+    param_dtype: torch.dtype = torch.float32  # training storage dtype
+    remat: bool = True                    # checkpoint each layer in apply
+    # parallel/remat.py policy name: "full" recomputes everything
+    remat_policy: str = "full"
     attn_impl: str = "auto"               # auto | flash | reference
+    # chunked fused cross-entropy (ops/fused_ce.py): not ported, must
+    # stay False (the JAX default)
+    fused_ce: bool = False
     tie_embeddings: bool = False
     n_experts: int = 0                    # MoE is not ported; must be 0
 
@@ -72,7 +86,8 @@ class LlamaConfig:
         """Test-size model: runs on the CPU in seconds."""
         defaults = dict(
             vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
-            mlp_dim=128, max_seq_len=128, attn_impl="reference",
+            mlp_dim=128, max_seq_len=128, remat=False,
+            attn_impl="reference",
         )
         defaults.update(kw)
         return cls(**defaults)
@@ -91,19 +106,21 @@ def _check_dense(cfg: LlamaConfig) -> None:
 
 
 def init_params(
-    cfg: LlamaConfig, generator: torch.Generator, device: DeviceLike = None
+    cfg: LlamaConfig, generator: torch.Generator, device: DeviceLike = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> Params:
     """Random stacked-layer params, drawn on `device` from `generator`
     (which must live on that device) in the JAX package's layout and
     scales: normal / sqrt(fan_in) matmul weights, 0.02 * normal
-    embedding, unit norm scales. Not the JAX package's numbers — its
-    init draws from jax.random; parity tests carry JAX params across
-    with `params_from_numpy`."""
+    embedding, unit norm scales, stored in `dtype` (default `cfg.dtype`,
+    what serving stores; training passes `cfg.param_dtype`). Not the
+    JAX package's numbers — its init draws from jax.random; parity
+    tests carry JAX params across with `params_from_numpy`."""
     _check_dense(cfg)
     dev = resolve_device(device)
     L, D, M = cfg.n_layers, cfg.dim, cfg.mlp_dim
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    dt = cfg.dtype
+    dt = cfg.dtype if dtype is None else dtype
 
     def normal(shape, std):
         w = torch.randn(shape, generator=generator, device=dev, dtype=dt)
@@ -259,6 +276,79 @@ def _head_matrix(cfg: LlamaConfig, params: Params):
     return w.to(cfg.dtype)
 
 
+# ---------------------------------------------------------------------------
+# training forward and loss
+# ---------------------------------------------------------------------------
+
+
+def _layer(cfg: LlamaConfig, x, layer_params, positions, rope=None):
+    """One decoder block on [B, S, D] activations."""
+    lp = _compute_weights(cfg, layer_params)
+    h = _rms_norm(x, layer_params["attn_norm"], cfg.norm_eps)
+    q, k, v = _attn_qkv(cfg, h, lp, positions, rope)
+    attn = dot_product_attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    x = _attn_residual(cfg, x, attn, lp)
+    return _mlp_residual(cfg, x, layer_params, lp)
+
+
+def apply(
+    cfg: LlamaConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Forward pass: tokens [B, S] int -> logits [B, S, vocab] f32, or
+    with return_hidden the post-final-norm hidden states [B, S, D]. One
+    device, dense layers: no pipeline, no MoE (JAX `apply` :428)."""
+    _check_dense(cfg)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    # gather, then cast: the same values as JAX's cast-then-gather, and
+    # the embedding's gradient is summed in f32 instead of in cfg.dtype
+    x = F.embedding(tokens, params["embed"]["weight"]).to(cfg.dtype)
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    body = partial(_layer, cfg)
+    if cfg.remat:
+        body = apply_remat(body, cfg.remat_policy)
+    for i in range(cfg.n_layers):
+        x = body(x, layer_params(params, i), positions, rope)
+    x = _rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    if return_hidden:
+        return x
+    return matmul_any(x, _head_matrix(cfg, params)).float()
+
+
+def loss_fn(
+    cfg: LlamaConfig, params: Params, batch: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy. batch: tokens [B, S], optional
+    loss_mask [B, S]. Returns (loss, {"loss", "loss_weight"}); the
+    weight (valid target count) lets grad accumulation weight
+    microbatches by tokens."""
+    if cfg.fused_ce:
+        raise NotImplementedError(
+            "fused cross-entropy (ops/fused_ce.py) is not ported yet "
+            "(ROADMAP queue 1, item 5); use fused_ce=False"
+        )
+    tokens = batch["tokens"]
+    targets = tokens[:, 1:]
+    logits = apply(cfg, params, tokens[:, :-1])
+    nll = F.cross_entropy(
+        logits.flatten(0, 1), targets.flatten().long(), reduction="none"
+    ).view(targets.shape)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        m = mask[:, 1:].to(nll.dtype)
+        weight = m.sum().clamp_min(1.0)
+        loss = (nll * m).sum() / weight
+    else:
+        loss = nll.mean()
+        weight = torch.tensor(float(nll.numel()), device=nll.device)
+    return loss, {"loss": loss, "loss_weight": weight}
+
+
 def num_params(cfg: LlamaConfig) -> int:
     L, D, M, V = cfg.n_layers, cfg.dim, cfg.mlp_dim, cfg.vocab_size
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -267,3 +357,16 @@ def num_params(cfg: LlamaConfig) -> int:
     if not cfg.tie_embeddings:
         total += D * V
     return total
+
+
+def flops_per_token(
+    cfg: LlamaConfig, seq_len: int, causal: bool = False
+) -> float:
+    """Approx training FLOPs/token: 6*N + attention term (for MFU).
+    causal=False credits the full S x S score matrix (PaLM); causal=True
+    only the lower triangle the causal kernels compute, (S+1)/2S of it."""
+    n = num_params(cfg)
+    attn = 12.0 * cfg.n_layers * cfg.dim * seq_len
+    if causal:
+        attn *= (seq_len + 1) / (2.0 * seq_len)
+    return 6.0 * n + attn

@@ -9,7 +9,9 @@ source rebuilds and an unchanged one loads at once.
 
 Every kernel wrapper calls `count_launch(name)` right where it launches
 its kernel, and nowhere else, so a run can show that its main path went
-through the kernels (`launch_counts()` / `reset_launch_counts()`).
+through the kernels (`launch_counts()` / `reset_launch_counts()`). A
+source holding several kernels counts each under its own name
+(`LAUNCHES`).
 """
 
 import ctypes
@@ -24,7 +26,10 @@ from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("flash_fwd", "paged_attention", "quant_int8", "dqmm")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "quant_int8", "dqmm")
+# the launch counters of each source (a source not named here holds one
+# kernel, counted under the source's name)
+LAUNCHES = {"flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -33,7 +38,9 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[Tuple[str, str], Any] = {}
-_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_LAUNCHES: Dict[str, int] = {
+    name: 0 for src in KERNELS for name in LAUNCHES.get(src, (src,))
+}
 
 
 def count_launch(name: str) -> None:

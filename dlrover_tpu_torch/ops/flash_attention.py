@@ -1,13 +1,17 @@
-"""Flash attention forward: a CUDA kernel for Hopper (csrc/flash_fwd.cu)
-and its plain PyTorch version.
+"""Flash attention: CUDA kernels for Hopper (csrc/flash_fwd.cu, the
+forward; csrc/flash_bwd.cu, the dQ and dK/dV backward) and their plain
+PyTorch versions, joined by a `torch.autograd.Function`.
 
-Counterpart of the forward half of dlrover_tpu/ops/flash_attention.py
-(`_fwd_kernel` launched by `_fwd`, and `flash_attention`). What the
-TPU version needed and this one drops: the VMEM-sized `auto_blocks`
-(the kernel tiles 64 x 64 and masks the ragged tail, so any sequence
-length runs) and the 8-lane LSE pad (LSE is a plain [B, H, S] f32).
-GQA runs inside the kernel by reading KV head h // n_rep; K/V are never
-repeated. The backward kernels come with the training slice.
+Counterpart of dlrover_tpu/ops/flash_attention.py (`_fwd_kernel`
+launched by `_fwd`, `_bwd_dq_kernel` and `_bwd_dkv_kernel` launched by
+`_bwd`, the `_flash` custom VJP and `flash_attention`). What the TPU
+version needed and this one drops: the VMEM-sized `auto_blocks` (the
+kernels tile 64 x 64 and mask the ragged tail, so any sequence length
+runs) and the 8-lane LSE pad (LSE and delta are plain [B, H, S] f32).
+GQA runs inside the kernels by reading KV head h // n_rep; K/V are
+never repeated, and the dK/dV kernel sums its group's gradients in f32
+before one rounding (the JAX package repeats K/V outside the VJP and
+lets autodiff sum the per-head, already rounded, gradients).
 
 Layout contract: public API takes [batch, seq, heads, head_dim].
 """
@@ -21,6 +25,7 @@ from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops.attention import _kv_repeat
 
 _NAME = "flash_fwd"
+_BWD = "flash_bwd"
 
 
 def heads_ok(h: int, kv: int, d: int) -> bool:
@@ -103,10 +108,146 @@ def _fwd_cuda(q, k, v, causal: bool, scale: float):
 
 def _fwd(q, k, v, causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse): the kernel for CUDA tensors, its plain version for CPU
-    tensors. LSE [B, H, S] f32 is what the backward slice will read."""
+    tensors. LSE [B, H, S] f32 is what the backward reads."""
     if q.is_cuda:
         return _fwd_cuda(q, k, v, causal, scale)
     return _fwd_plain(q, k, v, causal, scale)
+
+
+def _delta(o, do):
+    """rowsum(dO * O) in f32, [B, H, S] (JAX `_bwd` :392)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
+    """The backward kernels' function in plain PyTorch: P recomputed
+    from Q, K and LSE, P rounded to dO's dtype before dV = P^T dO and
+    dS = P (dP - delta) scale rounded to q's dtype before dQ = dS K and
+    dK = dS^T Q, f32 products; a GQA group's dK/dV summed in f32 and
+    rounded once, as the dK/dV kernel does. Returns (dq, dk, dv) in
+    the inputs' layouts and dtypes."""
+    b, s_q, h, d = q.shape
+    kvh = k.shape[2]
+    n_rep = h // kvh
+    k32 = _kv_repeat(k, n_rep).float()
+    v32 = _kv_repeat(v, n_rep).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k32) * scale
+    if causal:
+        rows = torch.arange(s_q, device=s.device)[:, None]
+        cols = torch.arange(k.shape[1], device=s.device)[None, :]
+        s = torch.where(rows >= cols, s, float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v32)
+    ds = p * (dp - _delta(o, do)[..., None]) * scale
+    ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    s_k = k.shape[1]
+    dk = dk.reshape(b, s_k, kvh, n_rep, d).sum(3)
+    dv = dv.reshape(b, s_k, kvh, n_rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be on q's CUDA device")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(
+                f"flash backward takes bfloat16, got {name}.dtype={t.dtype}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    b, s_q, h, d = q.shape
+    s_k, kvh = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or o.shape != q.shape or do.shape != q.shape
+            or k.shape[0] != b or k.shape[3] != d):
+        raise ValueError(
+            f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} "
+            f"o{tuple(o.shape)} do{tuple(do.shape)} do not match"
+        )
+    if lse.shape != (b, h, s_q) or lse.dtype != torch.float32 or (
+            lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous f32 [{b}, {h}, {s_q}] "
+                         "on q's device")
+    if causal and s_q != s_k:
+        raise ValueError("causal flash needs q_len == k_len")
+    if not heads_ok(h, kvh, d) or d > 128:
+        raise ValueError(
+            f"flash backward kernels do not take q{tuple(q.shape)} "
+            f"k{tuple(k.shape)} (head_dim a multiple of 8 in [32, 128], "
+            "whole GQA groups)"
+        )
+    delta = _delta(o, do)
+    return (_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale),
+            *_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale))
+
+
+def _launch_args(q, k, causal, scale):
+    b, s_q, h, d = q.shape
+    return (b, s_q, k.shape[1], h, k.shape[2], d, float(scale), int(causal),
+            _build.current_stream(q.get_device()))
+
+
+_ARG_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p]
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
+    """dQ by the dq kernel, on inputs `_bwd_cuda` has checked."""
+    dq = torch.empty_like(q)
+    fn = _build.function(_BWD, "flash_bwd_dq_bf16",
+                         [ctypes.c_void_p] * 7 + _ARG_TAIL)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             *_launch_args(q, k, causal, scale))
+    _build.count_launch("flash_bwd_dq")
+    _build.check(err, "flash_bwd_dq", f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    return dq
+
+
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
+    """(dK, dV) by the dkv kernel, on inputs `_bwd_cuda` has checked."""
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = _build.function(_BWD, "flash_bwd_dkv_bf16",
+                         [ctypes.c_void_p] * 8 + _ARG_TAIL)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             *_launch_args(q, k, causal, scale))
+    _build.count_launch("flash_bwd_dkv")
+    _build.check(err, "flash_bwd_dkv", f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    return dk, dv
+
+
+def _bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+    """(dq, dk, dv): the two kernels for CUDA tensors, their plain
+    version for CPU tensors."""
+    if q.is_cuda:
+        return _bwd_cuda(q, k, v, o, lse, do, causal, scale)
+    return _bwd_plain(q, k, v, o, lse, do, causal, scale)
+
+
+class _Flash(torch.autograd.Function):
+    """The JAX `_flash` custom VJP: forward `_fwd`, saving q, k, v, o
+    and lse; backward `_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = _fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                          ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -116,7 +257,9 @@ def flash_attention(
     causal: bool = True,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Flash attention on [B, S, H, D] tensors; returns [B, S, H, D]."""
+    """Flash attention on [B, S, H, D] tensors; returns [B, S, H, D],
+    differentiable in q, k and v through the backward kernels (their
+    plain version on CPU tensors)."""
     if causal and q.shape[1] != k.shape[1]:
         if q.shape[1] == 1:
             # single-query decode: the query sits at the bottom-right
@@ -136,4 +279,4 @@ def flash_attention(
         )
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
-    return _fwd(q, k, v, causal, scale)[0]
+    return _Flash.apply(q, k, v, causal, float(scale))

@@ -12,7 +12,15 @@ final max; the paged plain version before P V, the paged kernel never.
 The int8 quantize kernel must give its plain version's bytes; the
 dequant-matmul kernel is held to DQMM_TOL of the largest |output|: both
 round the same bf16 weights and a bf16 output, and differ only in the
-order of the f32 sums (and the output's one rounding that follows)."""
+order of the f32 sums (and the output's one rounding that follows).
+The flash backward kernels are held to BWD_REL of the largest |grad|
+of each of dq, dk, dv: both sides round P and dS to bf16 before the
+products and the gradients once, but P comes from exp2 on the
+special-function unit (2 ulp) in the kernels, so an element near a
+bf16 rounding boundary may round the other way (2^-8 relative), and
+the f32 sums run in another order. A training step with the kernels is
+held to the same step with plain attention (`attn_impl="reference"`)
+with the tolerances stated in that test."""
 
 import numpy as np
 import pytest
@@ -26,6 +34,7 @@ from dlrover_tpu_torch.ops import quantization as tq
 
 TOL = 2e-2
 DQMM_TOL = 2 ** -7
+BWD_REL = 2 ** -6
 
 pytestmark = pytest.mark.cuda
 
@@ -205,3 +214,124 @@ def test_int8_engine_on_the_card(gen):
     assert all(0 <= int(t) < cfg.vocab_size for o in outs for t in o)
     per_forward = 7 * cfg.n_layers + 1
     assert counts["dqmm"] >= (eng.admissions + eng.decode_steps) * per_forward
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize(
+    "b,s_q,s_k,h,kv,d,causal",
+    [(1, 77, 77, 32, 8, 128, True), (2, 200, 200, 8, 4, 64, True),
+     (1, 48, 48, 4, 2, 40, False), (1, 130, 130, 4, 4, 128, False),
+     (1, 256, 256, 8, 2, 64, True), (2, 1, 300, 8, 2, 128, False),
+     (1, 2049, 2049, 4, 1, 128, True)],
+)
+def test_flash_bwd_kernels_match_plain(gen, b, s_q, s_k, h, kv, d, causal):
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v = rand(b, s_q, h, d), rand(b, s_k, kv, d), rand(b, s_k, kv, d)
+    do = rand(b, s_q, h, d)
+    scale = d ** -0.5
+    o, lse = tfa._fwd(q, k, v, causal, scale)
+    before = _build.launch_counts()
+    got = tfa._bwd(q, k, v, o, lse, do, causal, scale)
+    want = tfa._bwd_plain(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.dtype == torch.bfloat16, name
+        assert torch.isfinite(x).all(), name
+        assert _rel_err(x, y) <= BWD_REL, (name, _rel_err(x, y))
+
+
+def test_flash_attention_grads_through_the_kernels(gen):
+    """`flash_attention` on CUDA tensors is differentiable through the
+    forward and both backward kernels, and its gradients agree with
+    autograd through plain attention on the same bf16 inputs."""
+    from dlrover_tpu_torch.ops import attention as tattn
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16(
+        ).requires_grad_()
+
+    q, k, v = leaf(1, 300, 8, 128), leaf(1, 300, 2, 128), leaf(1, 300, 2, 128)
+    g = torch.randn((1, 300, 8, 128), generator=gen, device="cuda").bfloat16()
+    _build.reset_launch_counts()
+    grads = torch.autograd.grad(tfa.flash_attention(q, k, v), (q, k, v), g)
+    counts = _build.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd_dq"],
+            counts["flash_bwd_dkv"]) == (1, 1, 1)
+    ref = torch.autograd.grad(tattn.reference_attention(q, k, v), (q, k, v), g)
+    for name, x, y in zip("qkv", grads, ref):
+        # the reference rounds P to bf16 once, after the softmax, and
+        # its dS not at all; 2^-5 of the largest |grad|
+        assert _rel_err(x, y) <= 2 ** -5, (name, _rel_err(x, y))
+
+
+def test_flash_bwd_refuses_what_it_cannot_take(gen):
+    q = torch.randn((1, 16, 4, 64), generator=gen, device="cuda")
+    lse = torch.zeros((1, 4, 16), device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa._bwd(q, q, q, q, lse, q, True, 0.125)
+    qb = torch.randn((1, 16, 4, 256), generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="do not take"):
+        tfa._bwd(qb, qb, qb, qb, lse, qb, True, 0.0625)
+
+
+def test_train_step_with_kernels_matches_reference_attention(gen):
+    """A small Llama in bf16 compute from f32 params, with the flash
+    kernels (attn_impl="auto" on the card, remat "full") against plain
+    attention (`attn_impl="reference"`) on the same params and tokens:
+    every gradient leaf within 5e-2 of its norm (L2 of the difference;
+    the kernels round P and dS to bf16 where plain attention rounds P
+    after the softmax and dP, carried through two layers' backward),
+    and one AdamW step of `accelerate` launches each kernel as often as
+    the path calls it, with loss within 1e-2 and grad_norm within 2e-2
+    relative of the plain-attention step."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.parallel.accelerate import accelerate
+    from dlrover_tpu_torch.parallel.accelerate import param_leaves
+
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                  mlp_dim=512, vocab_size=512,
+                                  attn_impl="auto", remat=True)
+    init = tllama.init_params(cfg, gen, dtype=torch.float32)
+    for p in param_leaves(init):
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen,
+                           device="cuda")
+    grads, metrics, counts = {}, {}, {}
+    for impl in ("auto", "reference"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        loss, _ = tllama.loss_fn(c, init, {"tokens": tokens})
+        grads[impl] = torch.autograd.grad(loss, param_leaves(init))
+        acc = accelerate(
+            lambda g: {k: ({kk: vv.detach().clone() for kk, vv in v.items()}
+                           if isinstance(v, dict) else v.detach().clone())
+                       for k, v in init.items()},
+            lambda p, b, c=c: tllama.loss_fn(c, p, b),
+            lambda ps: torch.optim.AdamW(ps, lr=1e-4, weight_decay=1e-4),
+        )
+        state = acc.init(gen)
+        _build.reset_launch_counts()
+        state, metrics[impl] = acc.train_step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        counts[impl] = _build.launch_counts()
+    for a, r in zip(grads["auto"], grads["reference"]):
+        assert (a - r).norm().item() <= 5e-2 * r.norm().item()
+    ck, cr = counts["auto"], counts["reference"]
+    assert (ck["flash_fwd"], ck["flash_bwd_dq"], ck["flash_bwd_dkv"]) == (
+        2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    assert cr["flash_fwd"] == cr["flash_bwd_dq"] == 0
+    mk, mr = metrics["auto"], metrics["reference"]
+    assert abs(mk["loss"].item() - mr["loss"].item()) <= (
+        1e-2 * mr["loss"].item())
+    assert abs(mk["grad_norm"].item() - mr["grad_norm"].item()) <= (
+        2e-2 * mr["grad_norm"].item())
