@@ -4,7 +4,7 @@
 
 Phases, one line each (any failure exits non-zero before the last line):
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: the five CUDA sources compiled from dlrover_tpu_torch/csrc
+  2. build: the six CUDA sources compiled from dlrover_tpu_torch/csrc
      with nvcc for sm_90a (one nvcc per source, in parallel), with
      ptxas's register and spill lines;
   3. kernels: each kernel against its plain PyTorch version at the
@@ -12,10 +12,13 @@ Phases, one line each (any failure exits non-zero before the last line):
      tolerance, kernel / plain / library times and the bound:
      flash_fwd and flash_bwd (the dq and dk/dv kernels) at B=1 with
      S = 77, 512 and 2048 and at the train path's B=2, S=2048,
-     paged_attention, quantize_int8 (one w_gate layer slab,
-     bytes equal to the plain version) and dqmm (the five weight shapes
-     at T = 8, 77 and 1024, with the dense bf16 matmul's time beside
-     it);
+     paged_attention, quantize_int8 (one w_gate layer slab, and the
+     embedding flattened as the int8 AdamW quantizes it; bytes equal
+     to the plain version), dequantize_int8 (the training path's
+     flattened leaves, bits equal to the plain version), one Int8AdamW
+     step on the card against the same step on the CPU (opt.int8_adam),
+     and dqmm (the five weight shapes at T = 8, 77 and 1024, with the
+     dense bf16 matmul's time beside it);
   4. serve: ContinuousBatcher on Llama-3-8B at full width and depth
      (random weights from a seed), kv_layout="paged", greedy-serving 12
      requests; every request must finish, both attention kernels must
@@ -37,7 +40,14 @@ Phases, one line each (any failure exits non-zero before the last line):
      fall, the flash forward and both backward kernels must have run
      exactly as often as the path calls them, and the first
      microbatch's loss and gradients must match the same model with
-     plain attention.
+     plain attention;
+  7. train.int8_adam: the same workload from the same params and
+     tokens with int8_adam (int8 block-quantized moments) in place of
+     AdamW; the losses must be finite and fall, step 1's loss must
+     equal train's, the dequantize and quantize kernels must have run
+     exactly twice a param leaf and step, the moments must take at most
+     0.254x of AdamW's bytes and the peak memory must stay below
+     train's.
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -45,7 +55,8 @@ Exits non-zero, printing no result, where CUDA is not available.
 `python3 chip_smoke.py --profile [--int8]` instead profiles one
 admission wave and one decode chunk of the same engine (kernel times,
 device busy share; --int8 with weight_quant="int8"), and `--profile
---train` one step of the train phase; neither prints a result line.
+--train [--int8-adam]` one step of the train phase (with int8_adam);
+neither prints a result line.
 """
 
 import dataclasses
@@ -97,6 +108,29 @@ TRAIN_SEQ = 2048
 TRAIN_GLOBAL_BATCH = 4
 TRAIN_MICROBATCH = 2
 TRAIN_STEPS = 8
+TRAIN_SEED = SEED + 2         # params and tokens of both train phases
+TRAIN_LR = 1e-4
+TRAIN_WD = 1e-4
+# the moment rule of opt.int8_adam (card against CPU): int8 levels
+# equal or one apart in at most 0.1% of the entries, scales within
+# 1e-6 relative, params within 2^-20 relative plus lr x 2^-6
+Q_FLIP_SHARE = 1e-3
+SCALE_REL = 1e-6
+OPT_TOL_REASON = (
+    "torch's CPU f32 sqrt is one ulp off the correctly rounded root "
+    "(CUDA's) for some 0.65% of inputs: a block's largest sqrt(nu), so "
+    "its scale, may move by an ulp, and at a rounding tie an int8 level "
+    "by one; the update divides by that sqrt"
+)
+# the training path's leaves flattened as the int8 AdamW holds them
+# ([1, padded], block 256): (name, values, output dtype)
+DEQUANT_CASES = (
+    ("embed / lm_head", 128256 * 4096, torch.float32),
+    ("w_gate / w_up / w_down stack", 4 * 4096 * 14336, torch.float32),
+    ("w_gate stack, bf16 out", 4 * 4096 * 14336, torch.bfloat16),
+    ("wk / wv stack", 4 * 4096 * 1024, torch.float32),
+    ("norm stack", 4 * 4096, torch.float32),
+)
 TRAIN_LOSS_REL_TOL = 1e-3
 TRAIN_GRAD_REL_TOL = 5e-2
 TRAIN_TOL_REASON = (
@@ -425,13 +459,17 @@ def phase_paged(gen):
 
 def phase_quant(gen):
     """Kernel 5 on one w_gate layer slab in the engine's output-major
-    layout ([O, K] = [14336, 4096], block 256), from f32 and from bf16:
-    q8 and s8 must equal the plain version's byte for byte."""
+    layout ([O, K] = [14336, 4096], block 256), from f32 and from bf16,
+    and on the embedding's first moment as the int8 AdamW quantizes it
+    (f32, flattened to [1, 128256 x 4096]): q8 and s8 must equal the
+    plain version's byte for byte."""
     from dlrover_tpu_torch.ops import quantization as tq
 
-    o, k, block = 14336, 4096, 256
+    block = 256
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for (o, k), dtype in (((14336, 4096), torch.float32),
+                          ((14336, 4096), torch.bfloat16),
+                          ((1, 128256 * 4096), torch.float32)):
         x = (torch.randn((o, k), generator=gen, device="cuda")
              * (4096 ** -0.5)).to(dtype)
         q, sc = tq.quantize_int8(x, block)
@@ -460,7 +498,147 @@ def phase_quant(gen):
         log("kernel.quantize_int8", **row)
         rows.append(row)
         del x, q, sc, q_ref, s_ref
+        torch.cuda.empty_cache()
     return rows
+
+
+def phase_dequant(gen):
+    """Kernel 6 at the training path's leaves, flattened to [1, padded]
+    with block 256 as the int8 AdamW dequantizes its moments (the
+    embedding / lm_head, a stack of 4 MLP layers in f32 and bf16 out,
+    a wk / wv stack and a norm stack): the output's bits must equal the
+    plain version's. `ms` is CUDA-graph device time; the norm stack,
+    which fits in L2, cycles through copies that overflow it. The bound
+    is the bytes: one int8 read and one output written a value, one
+    scale a block."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    block = 256
+    rows = []
+    for name, n, out in DEQUANT_CASES:
+        blocks = n // block
+
+        def make():
+            q = torch.randint(-127, 128, (1, n), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            s = torch.rand((1, blocks), generator=gen, device="cuda") * 1e-3
+            return q, s
+
+        q, s = make()
+        x = tq.dequantize_int8(q, s, out)
+        ref = tq._dequantize_plain(q, s, out)
+        torch.cuda.synchronize()
+        bits = torch.int16 if out == torch.bfloat16 else torch.int32
+        diff = int((x.view(bits) != ref.view(bits)).sum())
+        if diff:
+            raise AssertionError(
+                f"dequant kernel differs from the plain version at {name}: "
+                f"{diff} of {n} values"
+            )
+        del x, ref
+        nbytes = n * (1 + torch.empty((), dtype=out).element_size()) + (
+            4 * blocks)
+        operands = (cold_copies(make, nbytes) if nbytes < L2_BYTES
+                    else [(q, s)])
+        bms, by = bound_ms(float(n), nbytes, PEAK_F32_FLOPS)
+        row = dict(
+            case=name, values=n, rows=blocks, block=block,
+            out=str(out).replace("torch.", ""), max_abs_err=0.0,
+            bits_diff=diff, tol=0.0,
+            tol_reason="bits equal to the plain version",
+            ms=device_ms(cycling(lambda qs: tq.dequantize_int8(*qs, out),
+                                 operands), calls=max(10, len(operands))),
+            eager_ms=time_ms(lambda: tq.dequantize_int8(q, s, out), 20),
+            plain_ms=time_ms(lambda: tq._dequantize_plain(q, s, out), 3),
+            library_ms=None, bound_ms=bms, bound_by=by,
+            cold_copies=len(operands),
+        )
+        log("kernel.dequantize_int8", **row)
+        rows.append(row)
+        del q, s, operands
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _moments_agree(st_a, st_b):
+    """(levels apart at most, share of int8 entries that differ, largest
+    relative scale difference) of two Int8AdamW states of one param."""
+    flips, share, srel = 0, 0.0, 0.0
+    for m in ("mu", "nu"):
+        d = (st_a["q_" + m].cpu().int() - st_b["q_" + m].cpu().int()).abs()
+        flips = max(flips, int(d.max()))
+        share = max(share, float((d > 0).float().mean()))
+        sa, sb = st_a["s_" + m].cpu(), st_b["s_" + m].cpu()
+        srel = max(srel, float(((sa - sb).abs() / sb.abs()).max()))
+    return flips, share, srel
+
+
+def phase_opt_int8():
+    """One Int8AdamW step (lr 1e-4, weight decay 1e-4, block 256) on the
+    card against the same step on CPU copies: layer-0-sized leaves
+    ([4096, 4096], [4096]) and a ragged [7, 13], from the same seeded
+    params, grads and nonzero moments (quantized random moments at
+    count 5, loaded by int8_adam_state_from_numpy into both). Kernels
+    5 and 6 run inside the optimizer, twice a leaf each."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import quantization as tq
+    from dlrover_tpu_torch.optim.low_precision import (
+        int8_adam,
+        int8_adam_state_from_numpy,
+    )
+
+    shapes = [(4096, 4096), (4096,), (7, 13)]
+    rng = np.random.default_rng(SEED + 3)
+    params = [(rng.standard_normal(sh) * 0.02).astype(np.float32)
+              for sh in shapes]
+    grads = [(rng.standard_normal(sh) * 1e-3).astype(np.float32)
+             for sh in shapes]
+    state = {k: [] for k in ("q_mu", "s_mu", "q_nu", "s_nu")}
+    for sh in shapes:
+        for m, x in (("mu", rng.standard_normal(sh) * 1e-4),
+                     ("nu", np.abs(rng.standard_normal(sh)) * 1e-4)):
+            q, s, _, _ = tq.quantize_any(
+                torch.from_numpy(x.astype(np.float32)), 256)
+            state["q_" + m].append(q.numpy())
+            state["s_" + m].append(s.numpy())
+    state["count"] = 5
+    opts, leaves = {}, {}
+    for dev in ("cpu", "cuda"):
+        leaves[dev] = [torch.tensor(p, device=dev) for p in params]
+        opts[dev] = int8_adam(TRAIN_LR, weight_decay=TRAIN_WD)(leaves[dev])
+        int8_adam_state_from_numpy(opts[dev], state)
+        for p, g in zip(leaves[dev], grads):
+            p.grad = torch.tensor(g, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    opts["cuda"].step()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    opts["cpu"].step()
+    want = 2 * len(shapes)
+    if launches["dequant_int8"] != want or launches["quant_int8"] != want:
+        raise AssertionError(f"opt.int8_adam launches {launches}, want "
+                             f"{want} dequant_int8 and quant_int8")
+    flips, share, srel, perr = 0, 0.0, 0.0, 0.0
+    for pc, pg in zip(leaves["cpu"], leaves["cuda"]):
+        f, sh, sr = _moments_agree(opts["cuda"].state[pg],
+                                   opts["cpu"].state[pc])
+        flips, share, srel = max(flips, f), max(share, sh), max(srel, sr)
+        d = (pg.cpu() - pc).abs()
+        tol = 2.0 ** -20 * pc.abs() + TRAIN_LR * 2.0 ** -6
+        perr = max(perr, float((d / tol).max()))
+    log("opt.int8_adam", leaves=[list(sh) for sh in shapes],
+        q_levels_apart=flips, q_differ_share=share, scale_rel_err=srel,
+        param_err_over_tol=perr, launches={k: launches[k] for k in (
+            "dequant_int8", "quant_int8")},
+        rule=dict(q_flip_share=Q_FLIP_SHARE, scale_rel=SCALE_REL,
+                  param="2^-20 |p| + lr x 2^-6"), tol_reason=OPT_TOL_REASON)
+    if not (flips <= 1 and share <= Q_FLIP_SHARE and srel <= SCALE_REL
+            and perr <= 1.0):
+        raise AssertionError(
+            f"opt.int8_adam: card and CPU steps differ (levels {flips}, "
+            f"share {share}, scale rel {srel}, param err / tol {perr})"
+        )
 
 
 def phase_dqmm(gen):
@@ -823,10 +1001,19 @@ def _layer0_grads(cfg, params, batch):
     return loss.detach(), dict(zip(names + ("embed",), grads))
 
 
-def _train_setup(gen):
-    """The train phase's model, ElasticTrainer and batch (see
-    phase_train); the Trainer's step and card metrics files are pointed
-    into smoke_out/ beside this script."""
+def _adamw(params):
+    """`optax.adamw(1e-4)` (torch's default weight decay is 1e-2)."""
+    return torch.optim.AdamW(params, lr=TRAIN_LR, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=TRAIN_WD)
+
+
+def _train_setup(optimizer):
+    """The train phases' model, ElasticTrainer over `optimizer` (a
+    factory), batch and the generator to draw the params from next:
+    both phases draw the tokens and then the params from one fixed
+    seed, so both start from the same point. The Trainer's step and
+    card metrics files are pointed into smoke_out/ beside this
+    script."""
     import os
 
     from dlrover_tpu_torch.models import llama
@@ -840,21 +1027,116 @@ def _train_setup(gen):
         out, "chip_metrics.json")
     cfg = llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS)
     assert cfg.remat and cfg.remat_policy == "full"
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     tokens = torch.randint(0, cfg.vocab_size,
                            (TRAIN_GLOBAL_BATCH, TRAIN_SEQ + 1),
                            generator=gen, device="cuda")
     et = ElasticTrainer(
         lambda g: llama.init_params(cfg, g, dtype=cfg.param_dtype),
         lambda p, b: llama.loss_fn(cfg, p, b),
-        lambda ps: torch.optim.AdamW(ps, lr=1e-4, betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=1e-4),
+        optimizer,
         global_batch_size=TRAIN_GLOBAL_BATCH,
         max_per_replica_batch=TRAIN_MICROBATCH,
     )
-    return cfg, et, tokens
+    return cfg, et, tokens, gen
 
 
-def phase_train(gen):
+def _timed_steps(opt):
+    """Record the wall time of each `opt.step()`, synchronised before
+    and after (the list it returns fills as the Trainer steps). Step
+    hooks, not a wrapper bound to `opt`: a closure over the optimizer
+    stored on it would be a reference cycle, and the optimizer (params
+    and moments) would outlive its phase until a garbage collection."""
+    times, start = [], []
+
+    def pre(optimizer, args, kwargs):
+        torch.cuda.synchronize()
+        start.append(time.perf_counter())
+
+    def post(optimizer, args, kwargs):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start[-1])
+
+    opt.register_step_pre_hook(pre)
+    opt.register_step_post_hook(post)
+    return times
+
+
+def _state_bytes(opt):
+    """Bytes of the tensors an optimizer's state holds."""
+    return sum(t.numel() * t.element_size() for st in opt.state.values()
+               for t in st.values() if torch.is_tensor(t))
+
+
+def _run_trainer(cfg, et, state, tokens, phase):
+    """TRAIN_STEPS Trainer steps on the one batch, with the launch counts
+    set to 0 just before and read just after: the flash kernels must
+    have run exactly as often as the path calls them and the losses
+    must be finite and fall. Returns the phase's numbers (and the
+    Trainer's launch counts) without logging them."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.trainer.trainer import (
+        Trainer,
+        TrainerCallback,
+        TrainingArguments,
+    )
+
+    class Record(TrainerCallback):
+        def __init__(self):
+            self.ends, self.losses = [], []
+
+        def on_step_end(self, trainer, state, metrics):
+            self.ends.append(time.perf_counter())   # the step has synced
+
+        def on_log(self, trainer, state, logs):
+            self.losses.append(logs["loss"])
+
+    rec = Record()
+    opt_s = _timed_steps(state["opt_state"])
+    trainer = Trainer(
+        et, TrainingArguments(max_steps=TRAIN_STEPS, logging_steps=1,
+                              save_steps=0, resume=False),
+        train_data=[{"tokens": tokens}] * TRAIN_STEPS, callbacks=[rec],
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.train(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    per_pass = cfg.n_layers * et.grad_accum * TRAIN_STEPS
+    want = dict(flash_fwd=2 * per_pass, flash_bwd_dq=per_pass,
+                flash_bwd_dkv=per_pass)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{phase} launches {launches}, want {want}")
+    losses = rec.losses
+    if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{phase} losses {losses}: not finite or not "
+                             "falling")
+    steps_s = np.diff([t0] + rec.ends)
+    step_s = float(np.median(steps_s[1:]))
+    tokens_per_step = TRAIN_GLOBAL_BATCH * TRAIN_SEQ
+    flops_tok = llama.flops_per_token(cfg, TRAIN_SEQ, causal=True)
+    return dict(
+        steps=TRAIN_STEPS, global_batch=TRAIN_GLOBAL_BATCH,
+        microbatch=TRAIN_MICROBATCH, seq=TRAIN_SEQ, grad_accum=et.grad_accum,
+        losses=losses, step_s=steps_s.tolist(), median_step_s=step_s,
+        first_step_s=float(steps_s[0]), wall_s=wall,
+        tokens_per_s=tokens_per_step / step_s,
+        flops_per_token=flops_tok,
+        mfu=flops_tok * tokens_per_step / step_s / PEAK_BF16_FLOPS,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+        opt_state_bytes=_state_bytes(state["opt_state"]),
+        opt_step_s=opt_s, median_opt_step_s=float(np.median(opt_s[1:])),
+        launches=launches, last_logs=trainer.last_logs,
+    )
+
+
+def phase_train():
     """The training path on Llama-3-8B at full width, cut to 4 layers
     (the f32 params, gradients and two AdamW moments of all 32 layers
     would need 128 GB): Trainer over ElasticTrainer over accelerate over
@@ -868,14 +1150,8 @@ def phase_train(gen):
     import dataclasses
 
     from dlrover_tpu_torch.models import llama
-    from dlrover_tpu_torch.ops import _build
-    from dlrover_tpu_torch.trainer.trainer import (
-        Trainer,
-        TrainerCallback,
-        TrainingArguments,
-    )
 
-    cfg, et, tokens = _train_setup(gen)
+    cfg, et, tokens, gen = _train_setup(_adamw)
     t0 = time.perf_counter()
     state = et.init_state(gen)
     torch.cuda.synchronize()
@@ -907,57 +1183,60 @@ def phase_train(gen):
     del grads_k, grads_r
     torch.cuda.empty_cache()
 
-    class Record(TrainerCallback):
-        def __init__(self):
-            self.ends, self.losses = [], []
-
-        def on_step_end(self, trainer, state, metrics):
-            self.ends.append(time.perf_counter())   # the step has synced
-
-        def on_log(self, trainer, state, logs):
-            self.losses.append(logs["loss"])
-
-    rec = Record()
-    trainer = Trainer(
-        et, TrainingArguments(max_steps=TRAIN_STEPS, logging_steps=1,
-                              save_steps=0, resume=False),
-        train_data=[{"tokens": tokens}] * TRAIN_STEPS, callbacks=[rec],
-    )
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    state = trainer.train(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _build.launch_counts()
-    per_pass = cfg.n_layers * et.grad_accum * TRAIN_STEPS
-    want = dict(flash_fwd=2 * per_pass, flash_bwd_dq=per_pass,
-                flash_bwd_dkv=per_pass)
-    if any(launches[k] != v for k, v in want.items()):
-        raise AssertionError(f"train launches {launches}, want {want}")
-    losses = rec.losses
-    if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
-            and losses[-1] < losses[0]):
-        raise AssertionError(f"train losses {losses}: not finite or not "
-                             "falling")
-    steps_s = np.diff([t0] + rec.ends)
-    step_s = float(np.median(steps_s[1:]))
-    tokens_per_step = TRAIN_GLOBAL_BATCH * TRAIN_SEQ
-    flops_tok = llama.flops_per_token(cfg, TRAIN_SEQ, causal=True)
-    e2e = dict(
-        steps=TRAIN_STEPS, global_batch=TRAIN_GLOBAL_BATCH,
-        microbatch=TRAIN_MICROBATCH, seq=TRAIN_SEQ, grad_accum=et.grad_accum,
-        losses=losses, step_s=steps_s.tolist(), median_step_s=step_s,
-        first_step_s=float(steps_s[0]), wall_s=wall,
-        tokens_per_s=tokens_per_step / step_s,
-        flops_per_token=flops_tok,
-        mfu=flops_tok * tokens_per_step / step_s / PEAK_BF16_FLOPS,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-        launches=launches, last_logs=trainer.last_logs,
-    )
+    e2e = _run_trainer(cfg, et, state, tokens, "train")
     log("train", **e2e)
-    del state, trainer, et
+    del state, et
+    torch.cuda.empty_cache()
+    return e2e
+
+
+def phase_train_int8(train):
+    """The train phase's workload, shapes, params and tokens with
+    int8_adam(1e-4, weight_decay=1e-4), block 256, in place of AdamW:
+    the dequantize and quantize kernels run on both moments of each of
+    the 12 param leaves at every step. Step 1's loss must equal train's
+    (same params, same batch, before any update), the moments must
+    take 2 x (N + 4N/256) bytes (<= 0.254x of AdamW's 8N) and the peak
+    memory must stay below train's."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.optim import int8_adam
+
+    cfg, et, tokens, gen = _train_setup(
+        int8_adam(TRAIN_LR, weight_decay=TRAIN_WD))
+    state = et.init_state(gen)
+    opt = state["opt_state"]
+    n = llama.num_params(cfg)
+    leaves = len(opt.state)
+    state_bytes = _state_bytes(opt)
+    if leaves != 12 or state_bytes != 2 * (n + 4 * n // 256) or not (
+            state_bytes <= 0.254 * 8 * n):
+        raise AssertionError(
+            f"train.int8_adam: {leaves} leaves, moment bytes {state_bytes}, "
+            f"want 12 and 2 x (N + 4N/256) = {2 * (n + 4 * n // 256)}"
+        )
+    e2e = _run_trainer(cfg, et, state, tokens, "train.int8_adam")
+    launches = e2e["launches"]
+    want = 2 * leaves * TRAIN_STEPS
+    first, first_ref = e2e["losses"][0], train["losses"][0]
+    checks = dict(
+        launches=launches["dequant_int8"] == launches["quant_int8"] == want,
+        step1_loss=abs(first - first_ref) <= 1e-5 * abs(first_ref),
+        peak=e2e["peak_mem_gb"] < train["peak_mem_gb"],
+    )
+    e2e.update(
+        moment_bytes=state_bytes, adamw_moment_bytes=8 * n,
+        moment_bytes_ratio=state_bytes / (8 * n),
+        adamw_opt_state_bytes=train["opt_state_bytes"],
+        adamw_losses=train["losses"],
+        adamw_median_step_s=train["median_step_s"],
+        adamw_peak_mem_gb=train["peak_mem_gb"],
+        adamw_median_opt_step_s=train["median_opt_step_s"],
+        want_dequant_quant_launches=want, checks=checks,
+    )
+    log("train.int8_adam", **e2e)
+    if not all(checks.values()):
+        raise AssertionError(f"train.int8_adam: failed checks {checks}")
+    del state, et, opt
     torch.cuda.empty_cache()
     return e2e
 
@@ -1007,13 +1286,17 @@ def phase_profile(params, cfg, weight_quant="none"):
             sort_by="self_device_time_total", row_limit=40), flush=True)
 
 
-def phase_profile_train(gen):
-    """`--profile --train`: where the device time of one training step
-    of the train phase goes (after two warm-up steps), by CUDA kernel,
-    and the device's busy share of the step's wall time."""
+def phase_profile_train(int8):
+    """`--profile --train [--int8-adam]`: where the device time of one
+    training step of the train phase goes (after two warm-up steps), by
+    CUDA kernel, and the device's busy share of the step's wall time;
+    with AdamW, or with int8_adam as in train.int8_adam."""
     from torch.profiler import ProfilerActivity, profile
 
-    _, et, tokens = _train_setup(gen)
+    from dlrover_tpu_torch.optim import int8_adam
+
+    _, et, tokens, gen = _train_setup(
+        int8_adam(TRAIN_LR, weight_decay=TRAIN_WD) if int8 else _adamw)
     state = et.init_state(gen)
     batch = {"tokens": tokens}
     for _ in range(2):
@@ -1031,7 +1314,8 @@ def phase_profile_train(gen):
             and not getattr(e, "is_user_annotation", False)]
     dev_us = sum(e.self_device_time_total for e in rows)
     rows.sort(key=lambda e: -e.self_device_time_total)
-    log("profile.train_step", wall_ms=1e3 * wall, device_ms=dev_us / 1e3,
+    log("profile.train_step", optimizer="int8_adam" if int8 else "adamw",
+        wall_ms=1e3 * wall, device_ms=dev_us / 1e3,
         device_busy_share=dev_us / 1e6 / wall,
         top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
              for e in rows[:20]])
@@ -1051,7 +1335,7 @@ def main():
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if "--profile" in sys.argv[1:] and "--train" in sys.argv[1:]:
-        phase_profile_train(gen)
+        phase_profile_train("--int8-adam" in sys.argv[1:])
         return 0
     if "--profile" in sys.argv[1:]:
         cfg = llama.LlamaConfig.llama3_8b()
@@ -1062,6 +1346,8 @@ def main():
     bwd_rows = phase_flash_bwd(gen)
     paged_rows = phase_paged(gen)
     quant_rows = phase_quant(gen)
+    dequant_rows = phase_dequant(gen)
+    phase_opt_int8()
     dqmm_rows = phase_dqmm(gen)
     torch.cuda.empty_cache()
 
@@ -1075,15 +1361,23 @@ def main():
     e2e_int8 = phase_serve_int8(params, cfg, e2e)
     del params
     torch.cuda.empty_cache()
-    train = phase_train(gen)
+    train = phase_train()
+    train_int8 = phase_train_int8(train)
 
     main_flash = next(r for r in flash_rows if (r["B"], r["S"]) == (1, 512))
     main_bwd = next(r for r in bwd_rows if (r["B"], r["S"]) == (2, 2048))
     flash_by_path = {"serve": e2e["launches"]["flash_fwd"],
                      "serve.int8": e2e_int8["launches"]["flash_fwd"],
-                     "train": train["launches"]["flash_fwd"]}
+                     "train": train["launches"]["flash_fwd"],
+                     "train.int8_adam": train_int8["launches"]["flash_fwd"]}
+    bwd_by_path = {name: {"train": train["launches"][name],
+                          "train.int8_adam": train_int8["launches"][name]}
+                   for name in ("flash_bwd_dq", "flash_bwd_dkv")}
     main_paged = paged_rows[0]
     main_quant = next(r for r in quant_rows if r["input"] == "bfloat16")
+    quant_by_path = {"serve.int8": e2e_int8["launches"]["quant_int8"],
+                     "train.int8_adam": train_int8["launches"]["quant_int8"]}
+    main_dequant = dequant_rows[0]
     main_dqmm = next(r for r in dqmm_rows
                      if (r["T"], r["K"], r["O"]) == (8, 4096, 14336))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1101,7 +1395,8 @@ def main():
         dict(name="flash_bwd_dq", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:276",
-             launches=train["launches"]["flash_bwd_dq"],
+             launches=sum(bwd_by_path["flash_bwd_dq"].values()),
+             launches_by_path=bwd_by_path["flash_bwd_dq"],
              max_abs_err=main_bwd["errs"]["dq"], ms=main_bwd["dq_ms"],
              plain_ms=main_bwd["plain_ms"], bound_ms=main_bwd["dq_bound_ms"],
              bound_by=main_bwd["dq_bound_by"],
@@ -1113,7 +1408,8 @@ def main():
         dict(name="flash_bwd_dkv", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:328",
-             launches=train["launches"]["flash_bwd_dkv"],
+             launches=sum(bwd_by_path["flash_bwd_dkv"].values()),
+             launches_by_path=bwd_by_path["flash_bwd_dkv"],
              max_abs_err=max(main_bwd["errs"]["dk"], main_bwd["errs"]["dv"]),
              ms=main_bwd["dkv_ms"], plain_ms=main_bwd["plain_ms"],
              bound_ms=main_bwd["dkv_bound_ms"],
@@ -1132,11 +1428,23 @@ def main():
         dict(name="quantize_int8", route="cuda",
              source="dlrover_tpu_torch/csrc/quant_int8.cu",
              replaces="dlrover_tpu/ops/quantization.py:44",
-             launches=e2e_int8["launches"]["quant_int8"],
+             launches=sum(quant_by_path.values()),
+             launches_by_path=quant_by_path,
              **{k: main_quant[k] for k in keys},
              shape="[14336, 4096] bf16 -> int8, block 256 (one w_gate "
-                   "layer, output-major)",
+                   "layer, output-major; the embedding's f32 moment as "
+                   "[1, 525336576] in per_input)",
              per_input=quant_rows),
+        dict(name="dequantize_int8", route="cuda",
+             source="dlrover_tpu_torch/csrc/dequant_int8.cu",
+             replaces="dlrover_tpu/ops/quantization.py:55",
+             launches=train_int8["launches"]["dequant_int8"],
+             launches_by_path={
+                 "train.int8_adam": train_int8["launches"]["dequant_int8"]},
+             **{k: main_dequant[k] for k in keys},
+             shape="[1, 525336576] int8 -> f32, block 256 (the embedding's "
+                   "moment as the int8 AdamW holds it)",
+             per_shape=dequant_rows),
         dict(name="dqmm", route="cuda",
              source="dlrover_tpu_torch/csrc/dqmm.cu",
              replaces="dlrover_tpu/ops/quantization.py:306",

@@ -26,7 +26,8 @@ from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "quant_int8", "dqmm")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "quant_int8",
+           "dequant_int8", "dqmm")
 # the launch counters of each source (a source not named here holds one
 # kernel, counted under the source's name)
 LAUNCHES = {"flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv")}

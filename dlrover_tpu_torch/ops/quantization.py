@@ -1,12 +1,16 @@
-"""int8 weight quantization for serving: CUDA kernels for Hopper
-(csrc/quant_int8.cu, csrc/dqmm.cu) and their plain PyTorch versions.
+"""int8 block quantization: CUDA kernels for Hopper (csrc/quant_int8.cu,
+csrc/dequant_int8.cu, csrc/dqmm.cu) and their plain PyTorch versions.
 
-Counterpart of the serving half of dlrover_tpu/ops/quantization.py:
-`quantize_int8` (the `_quant_kernel`), `QuantizedWeight`,
-`weight_quant_block`, `_dq_weight`, `quantized_matmul_reference`,
-`quantized_matmul` (the `_dqmm_kernel`) and `matmul_any`. The
-dequantize kernel and the compressed collectives come with a later
-slice.
+Counterpart of dlrover_tpu/ops/quantization.py but for its compressed
+collectives: `quantize_int8` (the `_quant_kernel`), `dequantize_int8`
+(the `_dequant_kernel`), `quantize_any` / `dequantize_any` (any shape,
+flattened and zero-padded to a block multiple: the int8 AdamW's
+moments), and for serving `QuantizedWeight`, `weight_quant_block`,
+`_dq_weight`, `quantized_matmul_reference`, `quantized_matmul` (the
+`_dqmm_kernel`) and `matmul_any`. The compressed collectives
+(`quantized_reduce_scatter`, `quantized_all_reduce_tree`) wait for the
+multi-GPU runtime. The JAX `block_m` argument is not taken: JAX ignores
+it too.
 
 Layout (as in the JAX package): a weight w [K, O] that activations
 contract over K is stored OUTPUT-MAJOR as q8 int8 [O, K] plus s8 f32
@@ -21,6 +25,8 @@ import ctypes
 import functools
 from typing import Tuple
 
+import torch.nn.functional as F
+
 import torch
 
 from dlrover_tpu_torch.ops import _build
@@ -33,16 +39,20 @@ DEFAULT_BLOCK = 256
 _INV_INT8_MAX = float(torch.tensor(1.0) / INT8_MAX)
 
 _QUANT = "quant_int8"
+_DEQUANT = "dequant_int8"
 _DQMM = "dqmm"
-# the C signatures of csrc/quant_int8.cu `quant_int8` and csrc/dqmm.cu
-# `dqmm_bf16` (pointers and the stream as void*)
-_QUANT_ARGTYPES = (ctypes.c_int,) + (ctypes.c_void_p,) * 3 + (
+# the C signatures of csrc/quant_int8.cu `quant_int8` and
+# csrc/dequant_int8.cu `dequant_int8` (one and the same) and of
+# csrc/dqmm.cu `dqmm_bf16` (pointers and the stream as void*)
+_ROW_ARGTYPES = (ctypes.c_int,) + (ctypes.c_void_p,) * 3 + (
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
 _DQMM_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
     ctypes.c_void_p,)
 # what csrc/quant_int8.cu instantiates: 8 values a lane, block/8 lanes
-# a row, so any power-of-two block from 8 to 256
+# a row, so any power-of-two block from 8 to 256; csrc/dequant_int8.cu
+# takes the same blocks (16 values a lane sharing one scale, 8 at block 8)
 _QUANT_BLOCKS = (8, 16, 32, 64, 128, 256)
+_DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
 # csrc/dqmm.cu walks K in 64-wide chunks and gives each lane 16
 # consecutive values of a weight row, which must share one scale
 _DQMM_CHUNK = 64
@@ -109,7 +119,7 @@ def _quantize_cuda(x: torch.Tensor, block: int):
     if rows == 0:
         # nothing to launch (the kernel returns at once), so no count
         return q, s
-    fn = _build.function(_QUANT, "quant_int8", _QUANT_ARGTYPES)
+    fn = _build.function(_QUANT, "quant_int8", _ROW_ARGTYPES)
     err = fn(
         int(x.dtype == torch.bfloat16), x.data_ptr(), q.data_ptr(),
         s.data_ptr(), rows, block, _build.current_stream(dev),
@@ -135,6 +145,87 @@ def quantize_int8(
     if x.is_cuda:
         return _quantize_cuda(x, block)
     return _quantize_plain(x, block)
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: per-block int8 dequantization
+# ---------------------------------------------------------------------------
+
+
+def _dequantize_plain(
+    q: torch.Tensor, s: torch.Tensor, out_dtype=torch.float32
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the JAX `_dequant_kernel`
+    body): each scale broadcast over its block, one f32 product per
+    value, cast (round to nearest even) to `out_dtype`."""
+    block = q.shape[1] // s.shape[1]
+    return (q.float() * s.repeat_interleave(block, dim=1)).to(out_dtype)
+
+
+def _dequantize_cuda(q: torch.Tensor, s: torch.Tensor, out_dtype):
+    dev = q.get_device()
+    _check_cuda("q", q, (torch.int8,), dev)
+    _check_cuda("scales", s, (torch.float32,), dev)
+    if out_dtype not in _DEQUANT_DTYPES:
+        raise ValueError(
+            f"dequant kernel writes {_DEQUANT_DTYPES}, got {out_dtype}"
+        )
+    m, n = q.shape
+    block = n // s.shape[1]
+    if block not in _QUANT_BLOCKS:
+        raise ValueError(
+            f"dequant kernel takes blocks {_QUANT_BLOCKS}, got {block}"
+        )
+    x = torch.empty((m, n), dtype=out_dtype, device=q.device)
+    rows = m * s.shape[1]
+    if rows == 0:
+        return x
+    fn = _build.function(_DEQUANT, "dequant_int8", _ROW_ARGTYPES)
+    err = fn(
+        int(out_dtype == torch.bfloat16), q.data_ptr(), s.data_ptr(),
+        x.data_ptr(), rows, block, _build.current_stream(dev),
+    )
+    _build.count_launch(_DEQUANT)
+    _build.check(err, _DEQUANT, f"q{tuple(q.shape)} block {block}")
+    return x
+
+
+def dequantize_int8(
+    q: torch.Tensor, scales: torch.Tensor, out_dtype=torch.float32
+) -> torch.Tensor:
+    """Inverse of `quantize_int8`: q int8 [m, n] and scales f32
+    [m, n/block] -> `out_dtype` [m, n], each value q * its block's
+    scale taken in f32. The kernel for CUDA tensors (f32 or bf16 out,
+    the blocks of `quantize_int8`), its plain version for CPU tensors;
+    both give the JAX kernel's bits."""
+    if (q.ndim != 2 or scales.ndim != 2 or scales.shape[0] != q.shape[0]
+            or scales.shape[1] == 0 or q.shape[1] % scales.shape[1]):
+        raise ValueError(
+            f"dequantize_int8 takes q [m, n] and scales [m, n/block], got "
+            f"{tuple(q.shape)} and {tuple(scales.shape)}"
+        )
+    if q.is_cuda:
+        return _dequantize_cuda(q, scales, out_dtype)
+    return _dequantize_plain(q, scales, out_dtype)
+
+
+def quantize_any(x: torch.Tensor, block: int = DEFAULT_BLOCK):
+    """Quantize a tensor of any shape: flattened, zero-padded to a block
+    multiple, quantized as one [1, padded] row -> (q, s, shape, pad)."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    q, s = quantize_int8(flat.reshape(1, -1), block)
+    return q, s, tuple(x.shape), pad
+
+
+def dequantize_any(q, s, shape, pad, out_dtype=torch.float32):
+    """Inverse of `quantize_any`: the padding dropped, `shape` restored."""
+    flat = dequantize_int8(q, s, out_dtype).reshape(-1)
+    if pad:
+        flat = flat[:-pad]
+    return flat.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,11 @@ Tolerance 2e-2 abs on bf16 outputs of magnitude ~1: the output is bf16
 (2^-8 relative), and P is rounded to bf16 at other points — the flash
 kernel at each 64-key tile's running max, its plain version at the
 final max; the paged plain version before P V, the paged kernel never.
-The int8 quantize kernel must give its plain version's bytes; the
-dequant-matmul kernel is held to DQMM_TOL of the largest |output|: both
-round the same bf16 weights and a bf16 output, and differ only in the
-order of the f32 sums (and the output's one rounding that follows).
+The int8 quantize and dequantize kernels must give their plain
+versions' bytes; the dequant-matmul kernel is held to DQMM_TOL of the
+largest |output|: both round the same bf16 weights and a bf16 output,
+and differ only in the order of the f32 sums (and the output's one
+rounding that follows).
 The flash backward kernels are held to BWD_REL of the largest |grad|
 of each of dq, dk, dv: both sides round P and dS to bf16 before the
 products and the gradients once, but P comes from exp2 on the
@@ -137,6 +138,168 @@ def test_quant_kernel_empty_input_launches_nothing(gen):
     q, s = tq.quantize_int8(torch.zeros((0, 256), device="cuda"), 256)
     assert q.shape == (0, 256) and s.shape == (0, 1)
     assert _build.launch_counts()["quant_int8"] == before
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 5, 1025])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128, 256])
+def test_dequant_kernel_bits_equal_plain(gen, block, rows, out):
+    """One f32 product a value, rounded once to the output type: the
+    kernel's bits equal the plain version's, as one row block of rows
+    quant blocks and as [rows, block]."""
+    q = torch.randint(-127, 128, (rows, block), generator=gen,
+                      device="cuda").to(torch.int8)
+    s = torch.rand((rows, 1), generator=gen, device="cuda") * 10.0 ** (
+        torch.randint(-6, 2, (rows, 1), generator=gen, device="cuda"))
+    q[0] = 0
+    s[0] = 1.0
+    for qq, ss in ((q, s), (q.reshape(1, -1), s.reshape(1, -1))):
+        before = _build.launch_counts()["dequant_int8"]
+        x = tq.dequantize_int8(qq, ss, out)
+        ref = tq._dequantize_plain(qq, ss, out)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["dequant_int8"] == before + 1
+        assert x.dtype == out and x.shape == qq.shape
+        bits = torch.int16 if out == torch.bfloat16 else torch.int32
+        assert torch.equal(x.view(bits), ref.view(bits))
+
+
+def test_dequant_kernel_refuses_what_it_cannot_take(gen):
+    q = torch.zeros((2, 512), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="blocks"):
+        tq.dequantize_int8(q, torch.ones((2, 1), device="cuda"))   # 512
+    with pytest.raises(ValueError, match="blocks"):
+        tq.dequantize_int8(q, torch.ones((2, 128), device="cuda"))  # 4
+    with pytest.raises(ValueError, match="writes"):
+        tq.dequantize_int8(q, torch.ones((2, 2), device="cuda"),
+                           torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        tq.dequantize_int8(q, torch.ones((2, 2), device="cuda").bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.dequantize_int8(q[:, ::2], torch.ones((2, 1), device="cuda"))
+    with pytest.raises(ValueError, match="aligned"):
+        tq.dequantize_int8(q.reshape(-1)[8:520].reshape(1, 512),
+                           torch.ones((1, 2), device="cuda"))
+
+
+def test_dequantize_any_on_the_card(gen):
+    x = torch.randn((7, 13), generator=gen, device="cuda")
+    q, s, shape, pad = tq.quantize_any(x, 64)
+    assert (q.shape, s.shape, shape, pad) == ((1, 128), (1, 2), (7, 13), 37)
+    y = tq.dequantize_any(q, s, shape, pad)
+    want = tq.dequantize_any(q.cpu(), s.cpu(), shape, pad)
+    assert torch.equal(y.cpu(), want)
+
+
+def _int8_state(shapes, block, seed):
+    """A nonzero Int8AdamState-like numpy state (count 5): quantized
+    random moments in the [1, padded] layout."""
+    rng = np.random.default_rng(seed)
+    state = {k: [] for k in ("q_mu", "s_mu", "q_nu", "s_nu")}
+    for shape in shapes:
+        for m, x in (("mu", rng.standard_normal(shape) * 1e-3),
+                     ("nu", np.abs(rng.standard_normal(shape)) * 1e-3)):
+            q, s, _, _ = tq.quantize_any(
+                torch.from_numpy(x.astype(np.float32)), block)
+            state["q_" + m].append(q.numpy())
+            state["s_" + m].append(s.numpy())
+    state["count"] = 5
+    return state
+
+
+def test_int8_adam_step_on_the_card_matches_cpu(gen):
+    """One Int8AdamW step (weight decay, nonzero state) on the card and
+    on CPU copies: the int8 levels equal, or one apart in at most 0.1%
+    of the entries, the scales within 1e-6 relative (torch's CPU f32
+    sqrt is one ulp off the correctly rounded root that CUDA's gives for
+    some 0.65% of inputs), the params within 2^-20 relative plus lr x
+    2^-6; kernels 5 and 6 each launched twice a leaf."""
+    from dlrover_tpu_torch.optim.low_precision import (
+        int8_adam,
+        int8_adam_state_from_numpy,
+    )
+
+    shapes = [(512, 256), (256,), (7, 13)]
+    lr, block = 1e-3, 256
+    rng = np.random.default_rng(1)
+    ps = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    gs = [(rng.standard_normal(s) * 1e-2).astype(np.float32) for s in shapes]
+    state = _int8_state(shapes, block, 2)
+    opts, params = {}, {}
+    for dev in ("cpu", "cuda"):
+        params[dev] = [torch.tensor(p, device=dev) for p in ps]
+        opts[dev] = int8_adam(lr, weight_decay=1e-2)(params[dev])
+        int8_adam_state_from_numpy(opts[dev], state)
+        for p, g in zip(params[dev], gs):
+            p.grad = torch.tensor(g, device=dev)
+    before = _build.launch_counts()
+    opts["cuda"].step()
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for name in ("dequant_int8", "quant_int8"):
+        assert after[name] - before[name] == 2 * len(shapes)
+    opts["cpu"].step()
+    for pc, pg in zip(params["cpu"], params["cuda"]):
+        got = pg.cpu()
+        tol = 2.0 ** -20 * pc.abs() + lr * 2.0 ** -6
+        assert ((got - pc).abs() <= tol).all()
+        sc, sg = opts["cpu"].state[pc], opts["cuda"].state[pg]
+        for m in ("mu", "nu"):
+            diff = (sg["q_" + m].cpu().int() - sc["q_" + m].int()).abs()
+            assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3
+            rel = ((sg["s_" + m].cpu() - sc["s_" + m]).abs()
+                   / sc["s_" + m].abs())
+            assert rel.max() <= 1e-6
+    assert opts["cuda"].count == opts["cpu"].count == 6
+
+
+def test_trainer_with_int8_adam_on_the_card(gen, tmp_path, monkeypatch):
+    """Three Trainer steps of a small Llama with int8_adam: the falling
+    loss, and the dequant and quant kernels each launched exactly twice
+    a param leaf and step (both moments of every leaf, the zero state of
+    step 1 included, as in JAX)."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.optim import int8_adam
+    from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
+    from dlrover_tpu_torch.trainer.trainer import (
+        Trainer,
+        TrainerCallback,
+        TrainingArguments,
+    )
+
+    monkeypatch.setenv("DLROVER_TPU_RUNTIME_METRICS_PATH",
+                       str(tmp_path / "runtime.json"))
+    monkeypatch.setenv("DLROVER_TPU_CHIP_METRICS_PATH",
+                       str(tmp_path / "chip.json"))
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                  mlp_dim=512, vocab_size=512,
+                                  attn_impl="auto", remat=True)
+    et = ElasticTrainer(
+        lambda g: tllama.init_params(cfg, g, dtype=torch.float32),
+        lambda p, b: tllama.loss_fn(cfg, p, b),
+        int8_adam(1e-3, weight_decay=1e-4),
+        global_batch_size=4, max_per_replica_batch=2,
+    )
+    tokens = torch.randint(0, cfg.vocab_size, (4, 129), generator=gen,
+                           device="cuda")
+    losses = []
+
+    class Record(TrainerCallback):
+        def on_log(self, trainer, state, logs):
+            losses.append(logs["loss"])
+
+    state = et.init_state(gen)
+    leaves = len(state["opt_state"].state)
+    assert leaves == 12
+    _build.reset_launch_counts()
+    Trainer(et, TrainingArguments(max_steps=3, logging_steps=1),
+            train_data=[{"tokens": tokens}] * 3,
+            callbacks=[Record()]).train(state)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert counts["dequant_int8"] == counts["quant_int8"] == 2 * leaves * 3
+    assert counts["flash_fwd"] == 2 * cfg.n_layers * 2 * 3
+    assert len(losses) == 3 and losses[-1] < losses[0]
 
 
 @pytest.mark.parametrize(
