@@ -6,12 +6,14 @@ Phases, one line each (any failure exits non-zero before the last line):
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: the six CUDA sources compiled from dlrover_tpu_torch/csrc
      with nvcc for sm_90a (one nvcc per source, in parallel), with
-     ptxas's register and spill lines;
+     ptxas's register, spill, warning and wgmma-serialization lines;
   3. kernels: each kernel against its plain PyTorch version at the
      Llama-3-8B shapes of the serving and training paths, with error,
      tolerance, kernel / plain / library times and the bound:
-     flash_fwd and flash_bwd (the dq and dk/dv kernels) at B=1 with
-     S = 77, 512 and 2048 and at the train path's B=2, S=2048,
+     flash_fwd (its wgmma variant, which every main path takes, with
+     the mma.sync variant's time and error beside it) and flash_bwd
+     (the dq and dk/dv kernels) at B=1 with S = 77, 512 and 2048 and
+     at the train path's B=2, S=2048,
      paged_attention, quantize_int8 (one w_gate layer slab, and the
      embedding flattened as the int8 AdamW quantizes it; bytes equal
      to the plain version), dequantize_int8 (the training path's
@@ -22,12 +24,12 @@ Phases, one line each (any failure exits non-zero before the last line):
   4. serve: ContinuousBatcher on Llama-3-8B at full width and depth
      (random weights from a seed), kv_layout="paged", greedy-serving 12
      requests; every request must finish, both attention kernels must
-     have run on that path, the first-decode-step logits must match the
+     have run on that path (every flash forward on its wgmma variant), the first-decode-step logits must match the
      plain attention path, and a reference-attention engine gives the
      greedy agreement;
   5. serve.int8: the same traffic through weight_quant="int8" on the
-     same weights; the quantize kernel must have run once per layer
-     slice and the dequant-matmul kernel on every product of every
+     same weights; every flash forward must have taken the wgmma
+     variant, the quantize kernel must have run once per layer slice and the dequant-matmul kernel on every product of every
      forward, one installed layer slice of every quantized weight (and
      the lm_head) must equal the plain quantizer's bytes, the weight
      bytes must be <= 0.55x the bf16 engine's, and
@@ -37,8 +39,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      llama.loss_fn on Llama-3-8B at full width, 4 layers (f32 params,
      bf16 compute, remat "full", AdamW), 8 steps of a global batch of
      4 x 2048 tokens in microbatches of 2; the losses must be finite and
-     fall, the flash forward and both backward kernels must have run
-     exactly as often as the path calls them, and the first
+     fall, the flash forward (on its wgmma variant) and both backward
+     kernels must have run exactly as often as the path calls them, and the first
      microbatch's loss and gradients must match the same model with
      plain attention;
   7. train.int8_adam: the same workload from the same params and
@@ -238,7 +240,8 @@ def phase_build():
     ptxas = {
         name: [ln.strip() for ln in r["log"].splitlines()
                if "registers" in ln or "spill" in ln
-               or "entry function" in ln]
+               or "entry function" in ln or "warning" in ln
+               or "Performance Loss" in ln]
         for name, r in report.items()
     }
     log("build", seconds=time.perf_counter() - t0,
@@ -246,6 +249,13 @@ def phase_build():
 
 
 def phase_flash(gen):
+    """The forward (kernel 1) at the FLASH_CASES shapes (32 q heads, 8
+    KV heads of 128, causal, bf16): every case takes the wgmma variant,
+    held to `_fwd_plain` on O (FLASH_TOL) and LSE (1e-3) and timed as
+    `ms`; the mma.sync variant runs on the same inputs, held to the
+    same tolerances, and its time is `mma_ms`. library_ms is
+    scaled_dot_product_attention (is_causal, enable_gqa), a yardstick
+    the port never calls."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     F = torch.nn.functional
@@ -253,27 +263,39 @@ def phase_flash(gen):
     scale = d ** -0.5
     rows = []
     for b, s in FLASH_CASES:
+        variant = fa._fwd_variant(b, s, s, h, kv, d, True)
+        if variant != "wgmma":
+            raise AssertionError(f"B={b} S={s} takes the {variant} forward")
         q = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
         k = torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16()
         v = torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16()
-        o, lse = fa._fwd(q, k, v, True, scale)
         o_ref, lse_ref = fa._fwd_plain(q, k, v, True, scale)
-        torch.cuda.synchronize()
-        err = (o.float() - o_ref.float()).abs().max().item()
-        lse_err = (lse - lse_ref).abs().max().item()
-        if not (err <= FLASH_TOL and lse_err <= 1e-3):
-            raise AssertionError(
-                f"flash kernel disagrees at B={b} S={s}: max_abs_err {err} "
-                f"(tol {FLASH_TOL}), lse err {lse_err} (tol 1e-3)"
-            )
+        errs = {}
+        for name, run in (
+                ("wgmma", lambda: fa._fwd(q, k, v, True, scale)),
+                ("mma", lambda: fa._fwd_launch(q, k, v, True, scale, "mma"))):
+            o, lse = run()
+            torch.cuda.synchronize()
+            errs[name] = ((o.float() - o_ref.float()).abs().max().item(),
+                          (lse - lse_ref).abs().max().item())
+            if not (errs[name][0] <= FLASH_TOL and errs[name][1] <= 1e-3):
+                raise AssertionError(
+                    f"flash {name} kernel disagrees at B={b} S={s}: "
+                    f"max_abs_err {errs[name][0]} (tol {FLASH_TOL}), lse "
+                    f"err {errs[name][1]} (tol 1e-3)"
+                )
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         flops = 2.0 * b * h * d * s * (s + 1)   # causal: QK^T and PV
         nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d) + 4 * b * h * s
         bms, by = bound_ms(flops, nbytes)
         row = dict(
-            B=b, S=s, max_abs_err=err, lse_err=lse_err, tol=FLASH_TOL,
+            B=b, S=s, variant=variant, max_abs_err=errs["wgmma"][0],
+            lse_err=errs["wgmma"][1], mma_max_abs_err=errs["mma"][0],
+            mma_lse_err=errs["mma"][1], tol=FLASH_TOL,
             tol_reason=TOL_REASON,
             ms=device_ms(lambda: fa._fwd(q, k, v, True, scale)),
+            mma_ms=device_ms(
+                lambda: fa._fwd_launch(q, k, v, True, scale, "mma")),
             eager_ms=time_ms(lambda: fa._fwd(q, k, v, True, scale), 20),
             plain_ms=time_ms(lambda: fa._fwd_plain(q, k, v, True, scale), 5),
             library_ms=device_ms(
@@ -283,9 +305,19 @@ def phase_flash(gen):
             ),
             bound_ms=bms, bound_by=by,
         )
+        row["tflops"] = flops / row["ms"] / 1e9
         log("kernel.flash_fwd", **row)
         rows.append(row)
     return rows
+
+
+def _check_wgmma_forward(phase, launches):
+    """Every flash forward of a main path took the wgmma variant."""
+    if launches["flash_fwd_wgmma"] != launches["flash_fwd"]:
+        raise AssertionError(
+            f"{phase}: {launches['flash_fwd_wgmma']} of "
+            f"{launches['flash_fwd']} flash forwards on the wgmma variant"
+        )
 
 
 def phase_flash_bwd(gen):
@@ -777,6 +809,7 @@ def phase_serve(params, cfg):
             f"kernels not on the path: launches {launches}, want "
             f">= {want_flash} flash and >= {want_paged} paged"
         )
+    _check_wgmma_forward("serve", launches)
     e2e = dict(
         requests=len(prompts), prompt_lens=[len(p) for p in prompts],
         max_new=max_new, n_slots=n_slots, admissions=engine.admissions,
@@ -944,6 +977,7 @@ def phase_serve_int8(params, cfg, bf16):
             f"int8 kernels not on the path: (launches, want) {short}, "
             f"quant launches at install {quant_launches}"
         )
+    _check_wgmma_forward("serve.int8", launches)
     wbytes = engine.weight_bytes_device()
     if not wbytes <= 0.55 * bf16["weight_bytes"]:
         raise AssertionError(
@@ -1071,7 +1105,8 @@ def _state_bytes(opt):
 def _run_trainer(cfg, et, state, tokens, phase):
     """TRAIN_STEPS Trainer steps on the one batch, with the launch counts
     set to 0 just before and read just after: the flash kernels must
-    have run exactly as often as the path calls them and the losses
+    have run exactly as often as the path calls them (every forward on
+    its wgmma variant) and the losses
     must be finite and fall. Returns the phase's numbers (and the
     Trainer's launch counts) without logging them."""
     from dlrover_tpu_torch.models import llama
@@ -1112,6 +1147,7 @@ def _run_trainer(cfg, et, state, tokens, phase):
                 flash_bwd_dkv=per_pass)
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{phase} launches {launches}, want {want}")
+    _check_wgmma_forward(phase, launches)
     losses = rec.losses
     if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
             and losses[-1] < losses[0]):
@@ -1388,9 +1424,11 @@ def main():
              replaces="dlrover_tpu/ops/flash_attention.py:163",
              launches=sum(flash_by_path.values()),
              launches_by_path=flash_by_path,
+             variant="wgmma", mma_ms=main_flash["mma_ms"],
              **{k: main_flash[k] for k in keys},
              shape="B=1 S=512 H=32 KV=8 D=128 bf16 causal (the train "
-                   "path's B=2 S=2048 in per_shape)",
+                   "path's B=2 S=2048 in per_shape; mma_ms: the mma.sync "
+                   "variant on the same inputs)",
              per_shape=flash_rows),
         dict(name="flash_bwd_dq", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",

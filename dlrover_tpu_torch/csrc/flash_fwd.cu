@@ -9,25 +9,59 @@
 // of bf16 tensor cores; below a few hundred tokens the bytes of Q, K,
 // V and O against 3.35 TB/s, and the launch.
 //
-// Design: one block of 4 warps per (64-row q tile, q head, batch row);
-// each warp owns 16 q rows. The TPU kernel carries its running max,
-// sum and accumulator across sequential grid steps in VMEM scratch;
-// here they live in registers for the whole walk over the K/V tiles
-// (64 keys each, up to the causal diagonal of the q tile). Both
-// products run on the tensor cores as mma.sync m16n8k16 (bf16 in, f32
-// accumulate), whose documented fragment layout lets the softmax work
-// on the accumulators in place: each lane holds 2 rows x 2 columns of
-// every 16x8 tile, a row's max and sum reduce over the 4 lanes of a
-// quad, the rescale of O by exp(m_old - m_new) is a per-row register
-// multiply, and S's accumulators repack straight into the A operand of
-// P V (P rounded to bf16, as the TPU kernel feeds its MXU). K/V tiles
-// are double-buffered in shared memory with cp.async, so the next
-// tile's loads overlap this tile's math; V's B fragments come from
-// ldmatrix.trans. GQA reads KV head h / n_rep; nothing is repeated in
-// memory. Keys past S_k, q rows past S_q and head_dim columns past D
-// are masked or zero-filled, so any length and any D multiple of 8
-// up to 256 runs. Not yet: wgmma, TMA, warp specialisation.
+// Two variants, chosen by shape in ops/flash_attention.py
+// `_fwd_variant`:
+//
+// flash_fwd_wgmma_kernel (`flash_fwd_wgmma_bf16`; head_dim 64 or 128,
+// q_len == k_len, causal or not: the prefill and training shapes). One
+// block of 3 warpgroups per (128-row q tile, q head, batch row), q
+// tiles walked in reverse so the longest causal walks start first.
+// Warpgroup 0 is the producer: after `setmaxnreg` it keeps 24
+// registers and one thread issues every load as a TMA box of a 4-D
+// tensor map over [B, S, heads, D] (64 columns x 1 head x 128 rows,
+// 128-byte swizzle, rows past S zero-filled by the hardware): Q once,
+// then K and V through a ring of 2 stages of 128 keys, each stage with
+// a "full" mbarrier for K and one for V (expect-tx bytes) and an
+// "empty" one that each consumer warp arrives on. Warpgroups 1 and 2
+// are consumers with 240 registers, 64 q rows each: S = Q K^T is 8
+// (D=128) wgmma m64n128k16 with both operands K-major in shared
+// memory; the online softmax runs on the accumulators in base 2 (a
+// row lives in the 4 lanes of a quad, as in the mma.sync layout); P is
+// rounded to bf16 and repacked in registers as the A operand of
+// O += P V (wgmma register-A form, whose fragment layout is the
+// accumulator's), with V's [keys][D] tile read as an MN-major B
+// operand (transposed-B bit; 8-key atoms at the stride byte offset,
+// 64-column halves at the leading byte offset). The two consumers take
+// turns issuing their products (ping-pong on two named barriers), so
+// one's softmax runs under the other's wgmma. O / l is rounded once
+// and stored from registers. Not kept (PERF.md, findings): softmax
+// overlapped with the next Q K^T inside a warpgroup (ptxas serializes
+// the wgmma at D=128 for want of registers) and persistent blocks.
+//
+// flash_fwd_kernel (`flash_fwd_bf16`; every other shape: head_dim any
+// multiple of 8 up to 256, the single-query decode shape). One block
+// of 4 warps per (64-row q tile, q head, batch row); each warp owns 16
+// q rows. The TPU kernel carries its running max, sum and accumulator
+// across sequential grid steps in VMEM scratch; here they live in
+// registers for the whole walk over the K/V tiles (64 keys each, up to
+// the causal diagonal of the q tile). Both products run on the tensor
+// cores as mma.sync m16n8k16 (bf16 in, f32 accumulate), whose
+// documented fragment layout lets the softmax work on the accumulators
+// in place: each lane holds 2 rows x 2 columns of every 16x8 tile, a
+// row's max and sum reduce over the 4 lanes of a quad, the rescale of
+// O by exp(m_old - m_new) is a per-row register multiply, and S's
+// accumulators repack straight into the A operand of P V (P rounded to
+// bf16, as the TPU kernel feeds its MXU). K/V tiles are
+// double-buffered in shared memory with cp.async, so the next tile's
+// loads overlap this tile's math; V's B fragments come from
+// ldmatrix.trans. Keys past S_k, q rows past S_q and head_dim columns
+// past D are masked or zero-filled.
+//
+// Both read KV head h / n_rep (GQA; nothing is repeated in memory) and
+// write LSE = m + log(l) (natural log) for the backward.
 
+#include <cuda.h>           // CUtensorMap (no libcuda call is linked)
+#include <cudaTypedefs.h>   // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -340,6 +374,478 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
+// ---- the Hopper-native variant: TMA, mbarrier ring, wgmma ------------
+
+constexpr int WG_BM = 128;           // q rows a block, 64 a consumer
+constexpr int WG_BN = 128;           // keys a K/V stage
+constexpr int WG_STAGES = 2;
+constexpr int WG_NT = 384;           // producer + 2 consumer warpgroups
+constexpr int WG_HALF = WG_BN * 128; // bytes of 128 rows x 64 bf16 columns
+constexpr uint32_t WG_SPIN_LIMIT = 1u << 24;
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// the one arrival a "full" barrier expects, with the bytes its TMA
+// loads will complete
+__device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a wait that
+// never ends (a lost arrival) faults the launch instead of hanging
+__device__ inline void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == WG_SPIN_LIMIT) __trap();
+  }
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into
+// shared memory, completing its bytes on `bar`
+__device__ inline void tma_load_4d(void* dst, const CUtensorMap* map,
+                                   uint64_t* bar, int c0, int c1, int c2,
+                                   int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// named barrier `id` over the two consumer warpgroups (256 threads):
+// bar_sync waits for this warpgroup's turn, bar_arrive hands it over
+__device__ inline void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ inline void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ inline void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ inline void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of an accumulator
+// register across the asynchronous wgmma that owns it
+__device__ inline void reg_fence(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+
+// descriptor of a tile of 128-byte rows under the 128-byte swizzle
+// (8-row atoms of 1024 bytes; layout type 1 in bits 62-63): start >> 4,
+// leading byte offset >> 4 in bits 16-29, stride byte offset (1024,
+// the next 8-row atom) >> 4 in bits 32-45. K-major (the operand's K
+// along the rows' bytes: Q and K here) leaves the leading offset
+// unused (1); MN-major (N along the rows' bytes, K down the rows: V)
+// reaches the next 64 columns of N at the leading offset, the next
+// 64-column half of the tile
+__device__ inline uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// D[64 x 128] f32 (+)= A[64 x 16] . B[16 x 128], both bf16 in shared
+// memory, both K-major; scale_d 0 overwrites D
+__device__ inline void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] f32 += A[64 x 16] (bf16, registers: the accumulator
+// layout of a k16 slice) . B[16 x 128] (bf16 in shared memory, MN-major:
+// imm-trans-b 1)
+__device__ inline void wgmma_rs_n128(float* d, const uint32_t* a,
+                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] f32 += A[64 x 16] (bf16, registers: the accumulator
+// layout of a k16 slice) . B[16 x 64] (bf16 in shared memory, MN-major:
+// imm-trans-b 1)
+__device__ inline void wgmma_rs_n64(float* d, const uint32_t* a,
+                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D = 64 or 128: NH = D / 64 halves of 64 columns in every tile
+template <int D>
+__global__ void __launch_bounds__(WG_NT, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int s, int h, int kvh,
+                       float scale, int causal) {
+  constexpr int NH = D / 64;
+  constexpr int TILE = NH * WG_HALF;          // bytes of a 128-row tile
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle and the descriptors need 1024-byte atoms
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* sq = smem;                   // then K0, V0, K1, V1
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + TILE * (1 + 2 * WG_STAGES));
+  uint64_t* full_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = bars + 1 + WG_STAGES;
+  uint64_t* empty = bars + 1 + 2 * WG_STAGES;
+
+  const int q0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * WG_BM;
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kv_head = head / (h / kvh);
+  int n_tiles = (s + WG_BN - 1) / WG_BN;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + WG_BM, s) - 1) / WG_BN + 1);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(full_k + st, 1);
+      mbar_init(full_v + st, 1);
+      mbar_init(empty + st, 8);               // the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, TILE);
+      for (int hf = 0; hf < NH; ++hf)
+        tma_load_4d(sq + hf * WG_HALF, &tm_q, full_q, 64 * hf, head, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % WG_STAGES;
+        // stage st was last read by tile t - 2: its release is the
+        // (t / 2 - 1)-th completion of empty[st]
+        if (t >= WG_STAGES) mbar_wait(empty + st, (t / WG_STAGES - 1) & 1);
+        unsigned char* sk = sq + TILE * (1 + 2 * st);
+        unsigned char* sv = sk + TILE;
+        mbar_expect_tx(full_k + st, TILE);
+        for (int hf = 0; hf < NH; ++hf)
+          tma_load_4d(sk + hf * WG_HALF, &tm_k, full_k + st, 64 * hf,
+                      kv_head, t * WG_BN, b);
+        mbar_expect_tx(full_v + st, TILE);
+        for (int hf = 0; hf < NH; ++hf)
+          tma_load_4d(sv + hf * WG_HALF, &tm_v, full_v + st, 64 * hf,
+                      kv_head, t * WG_BN, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 q rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wgc = warp / 4 - 1;             // 0 or 1
+    const int wq = warp % 4;                  // 16-row slice of the 64
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    const int wrow = q0 + 64 * wgc + 16 * wq; // this warp's first row
+    const int row0 = wrow + g;                // this lane's: row0, +8
+    const unsigned char* qa = sq + 64 * wgc * 128;
+    const float sl2 = scale * 1.4426950408889634f;
+
+    // accumulator i of an m64nN wgmma: n8 block j = i / 4, element
+    // e = i % 4 at row row0 + 8 * (e / 2), column 8j + 2tq + e % 2
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};
+    float l_r[2] = {0.f, 0.f};              // this lane's partial sums
+
+    // the consumers take turns issuing their products (named barriers 1
+    // and 2), so one's softmax runs under the other's wgmma; warpgroup
+    // 0 goes first
+    if (wgc == 1) bar_arrive(1);
+    mbar_wait(full_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % WG_STAGES;
+      const int ph = (t / WG_STAGES) & 1;
+      const unsigned char* sk = sq + TILE * (1 + 2 * st);
+      const unsigned char* sv = sk + TILE;
+      const int k0 = t * WG_BN;
+
+      // S = Q K^T: 64 rows x 128 keys, D / 16 k-steps of 32 bytes
+      float sc[64];
+      mbar_wait(full_k + st, ph);
+      bar_sync(1 + wgc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int off = (ks / 4) * WG_HALF + 32 * (ks % 4);
+        wgmma_ss_n128(sc, sw128_desc(qa + off, 16), sw128_desc(sk + off, 16),
+                      ks > 0);
+      }
+      wgmma_commit();
+      bar_arrive(2 - wgc);
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) reg_fence(sc[i]);
+
+      // online softmax in base 2; only the ragged last tile and tiles
+      // crossing this warp's causal diagonal need the mask
+      const bool need_mask =
+          k0 + WG_BN > s || (causal && k0 + WG_BN - 1 > wrow);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int e = i % 4;
+        float x = sc[i] * sl2;
+        if (need_mask) {
+          const int row = row0 + 8 * (e / 2);
+          const int col = k0 + 8 * (i / 4) + 2 * tq + (e % 2);
+          if (col >= s || (causal && col > row)) x = -INFINITY;
+        }
+        sc[i] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+      float alpha[2], mb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        // a row with nothing visible yet keeps a finite base
+        mb[r] = (m_new == -INFINITY) ? 0.f : m_new;
+        alpha[r] = ex2(m_r[r] - mb[r]);
+        m_r[r] = m_new;
+        l_r[r] *= alpha[r];
+      }
+      // P rounded to bf16 as the A operand of P V: k-step kk covers
+      // keys 16kk..16kk+15, n8 blocks 2kk and 2kk+1 of S
+      uint32_t pa[32];
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int r = (i % 4) / 2;
+        const float p0 = ex2(sc[i] - mb[r]);
+        const float p1 = ex2(sc[i + 1] - mb[r]);
+        l_r[r] += p0 + p1;                  // unrounded, as the TPU sums
+        pa[i / 2] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i % 4) / 2];
+
+      // O += P V: V's [keys][D] tile as an MN-major B operand
+      mbar_wait(full_v + st, ph);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) reg_fence(acc[i]);
+      bar_sync(1 + wgc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BN / 16; ++kk) {
+        const uint64_t dv = sw128_desc(sv + kk * 16 * 128, WG_HALF);
+        if constexpr (D == 128)
+          wgmma_rs_n128(acc, pa + 4 * kk, dv);
+        else
+          wgmma_rs_n64(acc, pa + 4 * kk, dv);
+      }
+      wgmma_commit();
+      bar_arrive(2 - wgc);
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) reg_fence(acc[i]);
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+
+    // finalize: full row sums over the quad, O / l, LSE = m + log(l)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+      if (l_r[r] == 0.f) l_r[r] = 1.f;      // fully masked row
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= s) continue;
+      __nv_bfloat16* dst = o + (((int64_t)b * s + row) * h + head) * D;
+      const float inv = 1.f / l_r[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                  acc[4 * j + 2 * r + 1] * inv);
+      if (tq == 0)   // m_r is in base 2
+        lse[((int64_t)b * h + head) * s + row] =
+            m_r[r] * 0.6931471805599453f + logf(l_r[r]);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so
+// the library links no libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a tensor map over a contiguous [B, S, heads, D] bf16 tensor: dims
+// (D, heads, S, B) innermost first, boxes of 64 columns x 1 head x 128
+// rows x 1, 128-byte swizzle; rows past S read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
+              int d) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row = (cuuint64_t)d * sizeof(__nv_bfloat16);
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
+  const cuuint32_t box[4] = {64, 1, WG_BN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int b, int s, int h, int kvh, float scale,
+                 int causal, cudaStream_t stream) {
+  // encoded on the host for each launch (a few microseconds) and passed
+  // by value, so a captured CUDA graph holds its own copies
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map(&tm_q, q, b, s, h, D) || !make_map(&tm_k, k, b, s, kvh, D) ||
+      !make_map(&tm_v, v, b, s, kvh, D))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = (D / 64) * WG_HALF * (1 + 2 * WG_STAGES) +
+                       8 * (1 + 3 * WG_STAGES) + 1024;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid(h, b, (s + WG_BM - 1) / WG_BM);
+  flash_fwd_wgmma_kernel<D><<<grid, WG_NT, smem, stream>>>(
+      tm_q, tm_k, tm_v, (__nv_bfloat16*)o, (float*)lse, s, h, kvh, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
@@ -353,4 +859,23 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                        st);
   return launch<256>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal,
                      st);
+}
+
+// The Hopper-native variant: head_dim 64 or 128 and q_len == k_len;
+// the same arguments as flash_fwd_bf16.
+extern "C" int flash_fwd_wgmma_bf16(const void* q, const void* k,
+                                    const void* v, void* o, void* lse,
+                                    int b, int sq, int sk, int h, int kvh,
+                                    int d, float scale, int causal,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sq != sk || sq < 1 || b < 1 || kvh < 1 || h % kvh != 0)
+    return (int)cudaErrorInvalidValue;
+  if (d == 64)
+    return launch_wgmma<64>(q, k, v, o, lse, b, sq, h, kvh, scale, causal,
+                            st);
+  if (d == 128)
+    return launch_wgmma<128>(q, k, v, o, lse, b, sq, h, kvh, scale, causal,
+                             st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,8 @@ Every kernel wrapper calls `count_launch(name)` right where it launches
 its kernel, and nowhere else, so a run can show that its main path went
 through the kernels (`launch_counts()` / `reset_launch_counts()`). A
 source holding several kernels counts each under its own name
-(`LAUNCHES`).
+(`LAUNCHES`); the forward counts every launch under "flash_fwd" and
+those of its wgmma variant also under "flash_fwd_wgmma".
 """
 
 import ctypes
@@ -30,7 +31,8 @@ KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "quant_int8",
            "dequant_int8", "dqmm")
 # the launch counters of each source (a source not named here holds one
 # kernel, counted under the source's name)
-LAUNCHES = {"flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv")}
+LAUNCHES = {"flash_fwd": ("flash_fwd", "flash_fwd_wgmma"),
+            "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

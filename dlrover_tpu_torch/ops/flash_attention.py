@@ -1,13 +1,15 @@
 """Flash attention: CUDA kernels for Hopper (csrc/flash_fwd.cu, the
-forward; csrc/flash_bwd.cu, the dQ and dK/dV backward) and their plain
-PyTorch versions, joined by a `torch.autograd.Function`.
+forward in two variants that `_fwd_variant` picks by shape;
+csrc/flash_bwd.cu, the dQ and dK/dV backward) and their plain PyTorch
+versions, joined by a `torch.autograd.Function`.
 
 Counterpart of dlrover_tpu/ops/flash_attention.py (`_fwd_kernel`
 launched by `_fwd`, `_bwd_dq_kernel` and `_bwd_dkv_kernel` launched by
 `_bwd`, the `_flash` custom VJP and `flash_attention`). What the TPU
 version needed and this one drops: the VMEM-sized `auto_blocks` (the
-kernels tile 64 x 64 and mask the ragged tail, so any sequence length
-runs) and the 8-lane LSE pad (LSE and delta are plain [B, H, S] f32).
+kernels tile 64 or 128 rows and keys and mask the ragged tail, so any
+sequence length runs) and the 8-lane LSE pad (LSE and delta are plain
+[B, H, S] f32).
 GQA runs inside the kernels by reading KV head h // n_rep; K/V are
 never repeated, and the dK/dV kernel sums its group's gradients in f32
 before one rounding (the JAX package repeats K/V outside the VJP and
@@ -69,6 +71,51 @@ def _fwd_plain(q, k, v, causal: bool, scale: float):
     return o.to(q.dtype), lse
 
 
+def _launch_args(q, k, causal, scale):
+    b, s_q, h, d = q.shape
+    return (b, s_q, k.shape[1], h, k.shape[2], d, float(scale), int(causal),
+            _build.current_stream(q.get_device()))
+
+
+_ARG_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p]
+
+
+def _fwd_variant(b: int, s_q: int, s_k: int, h: int, kv: int, d: int,
+                 causal: bool) -> str:
+    """Which forward kernel takes this shape: "wgmma" (the Hopper-native
+    variant: TMA, mbarrier ring, warp-specialised wgmma) for head_dim
+    64 or 128 with q_len == k_len, causal or not (the prefill and
+    training shapes); "mma" (mma.sync) for every other shape the
+    kernels take (other head_dims, the single-query decode shape)."""
+    del b, h, kv, causal
+    return "wgmma" if d in (64, 128) and s_q == s_k else "mma"
+
+
+_FWD_SYMBOLS = {"wgmma": "flash_fwd_wgmma_bf16", "mma": "flash_fwd_bf16"}
+
+
+def _fwd_launch(q, k, v, causal: bool, scale: float, variant: str):
+    """Launch forward `variant` on inputs `_fwd_cuda` has checked. Every
+    launch counts under "flash_fwd"; the wgmma variant's also under
+    "flash_fwd_wgmma"."""
+    b, s_q, h, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    fn = _build.function(_NAME, _FWD_SYMBOLS[variant],
+                         [ctypes.c_void_p] * 5 + _ARG_TAIL)
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *_launch_args(q, k, causal, scale),
+    )
+    _build.count_launch(_NAME)
+    if variant == "wgmma":
+        _build.count_launch("flash_fwd_wgmma")
+    _build.check(err, _NAME, f"{variant}: q{tuple(q.shape)} "
+                 f"k{tuple(k.shape)}")
+    return o, lse
+
+
 def _fwd_cuda(q, k, v, causal: bool, scale: float):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -92,18 +139,8 @@ def _fwd_cuda(q, k, v, causal: bool, scale: float):
         raise ValueError(
             f"flash kernel does not take q{tuple(q.shape)} k{tuple(k.shape)}"
         )
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    fn = _build.function(_NAME, "flash_fwd_bf16", [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, s_q, s_k, h, kvh, d, float(scale),
-        int(causal), _build.current_stream(q.get_device()),
-    )
-    _build.count_launch(_NAME)
-    _build.check(err, _NAME, f"q{tuple(q.shape)} k{tuple(k.shape)}")
-    return o, lse
+    return _fwd_launch(q, k, v, causal, scale,
+                       _fwd_variant(b, s_q, s_k, h, kvh, d, causal))
 
 
 def _fwd(q, k, v, causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -184,16 +221,6 @@ def _bwd_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
     delta = _delta(o, do)
     return (_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale),
             *_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale))
-
-
-def _launch_args(q, k, causal, scale):
-    b, s_q, h, d = q.shape
-    return (b, s_q, k.shape[1], h, k.shape[2], d, float(scale), int(causal),
-            _build.current_stream(q.get_device()))
-
-
-_ARG_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                  ctypes.c_void_p]
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):

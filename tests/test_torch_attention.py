@@ -170,3 +170,40 @@ def test_cpu_tensors_never_touch_launch_counter():
     counts = _build.launch_counts()
     assert counts["flash_fwd"] == 0 and counts["paged_attention"] == 0
     assert set(counts.values()) == {0}
+
+
+@pytest.mark.parametrize(
+    "b,s,h,kv,d",
+    [(1, 77, 32, 8, 128), (1, 512, 32, 8, 128), (1, 2048, 32, 8, 128),
+     (2, 2048, 32, 8, 128), (1, 300, 8, 2, 64), (2, 1, 4, 4, 64)],
+)
+def test_fwd_variant_wgmma_for_prefill_and_train_shapes(b, s, h, kv, d):
+    """The Llama-3-8B serve-prefill and train shapes (32 q / 8 KV heads
+    of 128, causal) and head_dim 64 take the wgmma forward, causal or
+    not."""
+    for causal in (True, False):
+        assert tfa._fwd_variant(b, s, s, h, kv, d, causal) == "wgmma"
+
+
+@pytest.mark.parametrize(
+    "s_q,s_k,d,causal",
+    [(48, 48, 40, True), (130, 130, 256, True), (77, 77, 32, False),
+     (1, 300, 128, False), (1, 77, 64, False)],
+)
+def test_fwd_variant_mma_for_other_shapes(s_q, s_k, d, causal):
+    """Other head_dims and the single-query decode shape stay on the
+    mma.sync forward."""
+    assert tfa._fwd_variant(2, s_q, s_k, 8, 2, d, causal) == "mma"
+
+
+@pytest.mark.parametrize("d", [40, 64, 128, 256])
+def test_cpu_forward_touches_neither_flash_counter(d):
+    """The plain forward on CPU tensors counts no launch of either
+    variant, whichever `_fwd_variant` would pick on the card."""
+    _build.reset_launch_counts()
+    q, k, v = _t(*_qkv(8, 1, 20, 20, 4, 2, d))
+    o, lse = tfa._fwd(q, k, v, True, d ** -0.5)
+    tfa.flash_attention(q[:, :1], k, v)
+    counts = _build.launch_counts()
+    assert counts["flash_fwd"] == 0 and counts["flash_fwd_wgmma"] == 0
+    assert o.shape == q.shape and lse.shape == (1, 4, 20)

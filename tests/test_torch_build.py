@@ -46,8 +46,9 @@ def test_launch_counters():
     _build.count_launch("paged_attention")
     _build.count_launch("paged_attention")
     assert _build.launch_counts() == {
-        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "paged_attention": 2, "quant_int8": 0, "dequant_int8": 0, "dqmm": 0,
+        "flash_fwd": 0, "flash_fwd_wgmma": 0, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0, "paged_attention": 2, "quant_int8": 0,
+        "dequant_int8": 0, "dqmm": 0,
     }
     _build.reset_launch_counts()
     assert set(_build.launch_counts().values()) == {0}

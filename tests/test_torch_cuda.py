@@ -7,8 +7,8 @@ so it also runs on a machine without it:
 
 Tolerance 2e-2 abs on bf16 outputs of magnitude ~1: the output is bf16
 (2^-8 relative), and P is rounded to bf16 at other points — the flash
-kernel at each 64-key tile's running max, its plain version at the
-final max; the paged plain version before P V, the paged kernel never.
+forward at each key tile's running max (64 keys in the mma.sync
+variant, 128 in the wgmma one), its plain version at the final max; the paged plain version before P V, the paged kernel never.
 The int8 quantize and dequantize kernels must give their plain
 versions' bytes; the dequant-matmul kernel is held to DQMM_TOL of the
 largest |output|: both round the same bf16 weights and a bf16 output,
@@ -56,23 +56,80 @@ def test_flash_kernel_matches_plain(gen, b, s, h, kv, d):
     q = torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
     k = torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16()
     v = torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16()
-    before = _build.launch_counts()["flash_fwd"]
+    before = _build.launch_counts()
     for causal in (True, False):
         o, lse = tfa._fwd(q, k, v, causal, d ** -0.5)
         o_ref, lse_ref = tfa._fwd_plain(q, k, v, causal, d ** -0.5)
         torch.cuda.synchronize()
         assert (o.float() - o_ref.float()).abs().max().item() < TOL
         assert (lse - lse_ref).abs().max().item() < 1e-3
-    assert _build.launch_counts()["flash_fwd"] == before + 2
+    after = _build.launch_counts()
+    assert after["flash_fwd"] == before["flash_fwd"] + 2
+    wgmma = 2 if d in (64, 128) else 0   # D = 40 and 256: mma.sync
+    assert after["flash_fwd_wgmma"] == before["flash_fwd_wgmma"] + wgmma
+
+
+def _flash_case(gen, b, s, h, kv, d):
+    def rand(heads):
+        return torch.randn((b, s, heads, d), generator=gen,
+                           device="cuda").bfloat16()
+
+    return rand(h), rand(kv), rand(kv)
+
+
+def _check_wgmma(q, k, v, causal):
+    """One forward through the wgmma variant, held to the plain version
+    on O and LSE; the call bumps "flash_fwd_wgmma" (and "flash_fwd") by
+    exactly one."""
+    b, s, h, d = q.shape
+    assert tfa._fwd_variant(b, s, s, h, k.shape[2], d, causal) == "wgmma"
+    before = _build.launch_counts()
+    o, lse = tfa._fwd(q, k, v, causal, d ** -0.5)
+    after = _build.launch_counts()
+    o_ref, lse_ref = tfa._fwd_plain(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert after["flash_fwd_wgmma"] == before["flash_fwd_wgmma"] + 1
+    assert after["flash_fwd"] == before["flash_fwd"] + 1
+    err = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    assert err < TOL and lse_err < 1e-3, (b, s, h, d, causal, err, lse_err)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_below_one_tile(gen, d):
+    """Every length shorter than the wgmma variant's 128-row tile (TMA
+    zero-fills the rows past S; the keys past S are masked), B=2, GQA
+    4."""
+    for s in range(1, 64):
+        q, k, v = _flash_case(gen, 2, s, 8, 2, d)
+        for causal in (True, False):
+            _check_wgmma(q, k, v, causal)
+
+
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [77, 128, 200, 1000, 2048])
+def test_flash_wgmma_matches_plain(gen, s, d, n_rep):
+    """The wgmma variant at a ragged tile (77, 200, 1000), exact tiles
+    (128, 2048) and across the 2-stage K/V ring, B=2, GQA ratios 1, 4
+    and 8, causal and not."""
+    q, k, v = _flash_case(gen, 2, s, 8, 8 // n_rep, d)
+    for causal in (True, False):
+        _check_wgmma(q, k, v, causal)
 
 
 def test_flash_kernel_single_query(gen):
     q = torch.randn((2, 1, 8, 128), generator=gen, device="cuda").bfloat16()
     k = torch.randn((2, 300, 2, 128), generator=gen, device="cuda").bfloat16()
     v = torch.randn((2, 300, 2, 128), generator=gen, device="cuda").bfloat16()
+    before = _build.launch_counts()
     o = tfa.flash_attention(q, k, v, causal=True)
+    after = _build.launch_counts()
     o_ref = tfa._fwd_plain(q, k, v, False, 128 ** -0.5)[0]
     assert (o.float() - o_ref.float()).abs().max().item() < TOL
+    # the single-query shape runs on the mma.sync variant
+    assert after["flash_fwd"] == before["flash_fwd"] + 1
+    assert after["flash_fwd_wgmma"] == before["flash_fwd_wgmma"]
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(gen):
@@ -427,8 +484,8 @@ def test_flash_attention_grads_through_the_kernels(gen):
     _build.reset_launch_counts()
     grads = torch.autograd.grad(tfa.flash_attention(q, k, v), (q, k, v), g)
     counts = _build.launch_counts()
-    assert (counts["flash_fwd"], counts["flash_bwd_dq"],
-            counts["flash_bwd_dkv"]) == (1, 1, 1)
+    assert (counts["flash_fwd"], counts["flash_fwd_wgmma"],
+            counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) == (1, 1, 1, 1)
     ref = torch.autograd.grad(tattn.reference_attention(q, k, v), (q, k, v), g)
     for name, x, y in zip("qkv", grads, ref):
         # the reference rounds P to bf16 once, after the softmax, and
@@ -492,6 +549,7 @@ def test_train_step_with_kernels_matches_reference_attention(gen):
     ck, cr = counts["auto"], counts["reference"]
     assert (ck["flash_fwd"], ck["flash_bwd_dq"], ck["flash_bwd_dkv"]) == (
         2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    assert ck["flash_fwd_wgmma"] == ck["flash_fwd"]   # head_dim 64
     assert cr["flash_fwd"] == cr["flash_bwd_dq"] == 0
     mk, mr = metrics["auto"], metrics["reference"]
     assert abs(mk["loss"].item() - mr["loss"].item()) <= (
