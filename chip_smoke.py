@@ -10,10 +10,10 @@ Phases, one line each (any failure exits non-zero before the last line):
   3. kernels: each kernel against its plain PyTorch version at the
      Llama-3-8B shapes of the serving and training paths, with error,
      tolerance, kernel / plain / library times and the bound:
-     flash_fwd (its wgmma variant, which every main path takes, with
-     the mma.sync variant's time and error beside it) and flash_bwd
-     (the dq and dk/dv kernels) at B=1 with S = 77, 512 and 2048 and
-     at the train path's B=2, S=2048,
+     flash_fwd and flash_bwd (the dq and dk/dv kernels; for each its
+     wgmma variant, which every main path takes, with the mma.sync
+     variant's time and error beside it) at B=1 with S = 77, 512 and
+     2048 and at the train path's B=2, S=2048,
      paged_attention, quantize_int8 (one w_gate layer slab, and the
      embedding flattened as the int8 AdamW quantizes it; bytes equal
      to the plain version), dequantize_int8 (the training path's
@@ -39,8 +39,9 @@ Phases, one line each (any failure exits non-zero before the last line):
      llama.loss_fn on Llama-3-8B at full width, 4 layers (f32 params,
      bf16 compute, remat "full", AdamW), 8 steps of a global batch of
      4 x 2048 tokens in microbatches of 2; the losses must be finite and
-     fall, the flash forward (on its wgmma variant) and both backward
-     kernels must have run exactly as often as the path calls them, and the first
+     fall, the flash forward and both backward kernels (each on its
+     wgmma variant) must have run exactly as often as the path calls
+     them, and the first
      microbatch's loss and gradients must match the same model with
      plain attention;
   7. train.int8_adam: the same workload from the same params and
@@ -311,25 +312,30 @@ def phase_flash(gen):
     return rows
 
 
-def _check_wgmma_forward(phase, launches):
-    """Every flash forward of a main path took the wgmma variant."""
-    if launches["flash_fwd_wgmma"] != launches["flash_fwd"]:
-        raise AssertionError(
-            f"{phase}: {launches['flash_fwd_wgmma']} of "
-            f"{launches['flash_fwd']} flash forwards on the wgmma variant"
-        )
+def _check_wgmma(phase, launches, names=("flash_fwd",)):
+    """Every launch of the named flash kernels on a main path took the
+    kernel's wgmma variant."""
+    for name in names:
+        if launches[f"{name}_wgmma"] != launches[name]:
+            raise AssertionError(
+                f"{phase}: {launches[f'{name}_wgmma']} of "
+                f"{launches[name]} {name} launches on the wgmma variant"
+            )
 
 
 def phase_flash_bwd(gen):
     """Both backward kernels (kernels 2 and 3) against `_bwd_plain` at
     the training path's attention shapes (32 q heads, 8 KV heads of
     128, causal, bf16): B=1 at S = 77, 512 and 2048, and B=2, S=2048,
-    the train phase's microbatch. `ms` is the whole backward (delta,
-    dq kernel, dkv kernel), its bound the five products the function
-    needs (2.5x the forward's causal FLOPs; the two-kernel split
-    computes seven) and the bytes of q, k, v, o, dO, dq, dk, dv, lse
-    and delta; `dq_ms` / `dkv_ms` each kernel alone, beside the bound
-    of what that kernel alone must do (three and four products).
+    the train phase's microbatch. Every case takes the wgmma variants;
+    the mma.sync kernels run on the same inputs, held to the same
+    tolerance. `ms` is the whole backward (delta, dq kernel, dkv
+    kernel), its bound the five products the function needs (2.5x the
+    forward's causal FLOPs; the two-kernel split computes seven) and
+    the bytes of q, k, v, o, dO, dq, dk, dv, lse and delta; `dq_ms` /
+    `dkv_ms` each kernel alone, beside the bound of what that kernel
+    alone must do (three and four products); `mma_ms`, `mma_dq_ms`
+    and `mma_dkv_ms` the same for the mma.sync kernels.
     library_ms: the backward of scaled_dot_product_attention(is_causal,
     enable_gqa) on the same inputs (a yardstick, not used by the port),
     CUDA-graph device time as `ms`: its forward and backward captured
@@ -342,26 +348,46 @@ def phase_flash_bwd(gen):
     scale = d ** -0.5
     rows = []
     for b, s in FLASH_CASES:
+        variant = fa._bwd_variant(b, s, s, h, kv, d, True)
+        if variant != "wgmma":
+            raise AssertionError(f"B={b} S={s} takes the {variant} backward")
+
         def rand(heads):
             return torch.randn((b, s, heads, d), generator=gen,
                                device="cuda").bfloat16()
 
         q, k, v, do = rand(h), rand(kv), rand(kv), rand(h)
         o, lse = fa._fwd(q, k, v, True, scale)
-        got = fa._bwd(q, k, v, o, lse, do, True, scale)
-        want = fa._bwd_plain(q, k, v, o, lse, do, True, scale)
-        torch.cuda.synchronize()
-        errs, tols = {}, {}
-        for name, x, y in zip(("dq", "dk", "dv"), got, want):
-            errs[name] = (x.float() - y.float()).abs().max().item()
-            tols[name] = BWD_REL_TOL * y.float().abs().max().item()
-            if not (torch.isfinite(x).all() and errs[name] <= tols[name]):
-                raise AssertionError(
-                    f"flash backward disagrees at B={b} S={s}: {name} "
-                    f"max_abs_err {errs[name]} (tol {tols[name]})"
-                )
-        del got, want
         delta = fa._delta(o, do)
+
+        def mma_bwd():
+            dlt = fa._delta(o, do)
+            return (fa._bwd_dq_cuda(q, k, v, do, lse, dlt, True, scale,
+                                    "mma"),
+                    *fa._bwd_dkv_cuda(q, k, v, do, lse, dlt, True, scale,
+                                      "mma"))
+
+        want = fa._bwd_plain(q, k, v, o, lse, do, True, scale)
+        errs, tols = {}, {}
+        for prefix, run in (
+                ("", lambda: fa._bwd(q, k, v, o, lse, do, True, scale)),
+                ("mma_", mma_bwd)):
+            got = run()
+            torch.cuda.synchronize()
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                errs[prefix + name] = (x.float() - y.float()).abs().max(
+                ).item()
+                tols[prefix + name] = BWD_REL_TOL * y.float().abs().max(
+                ).item()
+                if not (torch.isfinite(x).all()
+                        and errs[prefix + name] <= tols[prefix + name]):
+                    raise AssertionError(
+                        f"flash backward {prefix or 'wgmma_'}kernels "
+                        f"disagree at B={b} S={s}: {name} max_abs_err "
+                        f"{errs[prefix + name]} (tol {tols[prefix + name]})"
+                    )
+            del got
+        del want
         fwd_flops = 2.0 * b * h * d * s * (s + 1)   # causal QK^T and PV
         qo_bytes = 2 * b * s * h * d                # one [B,S,H,D] bf16
         kv_bytes = 2 * b * s * kv * d
@@ -393,15 +419,23 @@ def phase_flash_bwd(gen):
         qt, kt, vt = leaves()
         lib_out = lib_fwd((qt, kt, vt))
         row = dict(
-            B=b, S=s, max_abs_err=max(errs.values()), errs=errs, tols=tols,
-            tol_reason=BWD_TOL_REASON,
+            B=b, S=s, variant=variant,
+            max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")),
+            mma_max_abs_err=max(errs[n] for n in ("mma_dq", "mma_dk",
+                                                  "mma_dv")),
+            errs=errs, tols=tols, tol_reason=BWD_TOL_REASON,
             ms=device_ms(lambda: fa._bwd(q, k, v, o, lse, do, True, scale)),
             eager_ms=time_ms(
                 lambda: fa._bwd(q, k, v, o, lse, do, True, scale), 20),
             dq_ms=device_ms(lambda: fa._bwd_dq_cuda(
-                q, k, v, do, lse, delta, True, scale)),
+                q, k, v, do, lse, delta, True, scale, variant)),
             dkv_ms=device_ms(lambda: fa._bwd_dkv_cuda(
-                q, k, v, do, lse, delta, True, scale)),
+                q, k, v, do, lse, delta, True, scale, variant)),
+            mma_ms=device_ms(mma_bwd),
+            mma_dq_ms=device_ms(lambda: fa._bwd_dq_cuda(
+                q, k, v, do, lse, delta, True, scale, "mma")),
+            mma_dkv_ms=device_ms(lambda: fa._bwd_dkv_cuda(
+                q, k, v, do, lse, delta, True, scale, "mma")),
             delta_ms=device_ms(lambda: fa._delta(o, do)),
             plain_ms=time_ms(
                 lambda: fa._bwd_plain(q, k, v, o, lse, do, True, scale), 3),
@@ -412,6 +446,7 @@ def phase_flash_bwd(gen):
             bound_ms=bms, bound_by=by, dq_bound_ms=dq_bms, dq_bound_by=dq_by,
             dkv_bound_ms=dkv_bms, dkv_bound_by=dkv_by,
         )
+        row["tflops"] = 3.5 * fwd_flops / row["ms"] / 1e9   # seven products
         log("kernel.flash_bwd", **row)
         rows.append(row)
         del q, k, v, do, o, lse, delta, qt, kt, vt, lib_out
@@ -809,7 +844,7 @@ def phase_serve(params, cfg):
             f"kernels not on the path: launches {launches}, want "
             f">= {want_flash} flash and >= {want_paged} paged"
         )
-    _check_wgmma_forward("serve", launches)
+    _check_wgmma("serve", launches)
     e2e = dict(
         requests=len(prompts), prompt_lens=[len(p) for p in prompts],
         max_new=max_new, n_slots=n_slots, admissions=engine.admissions,
@@ -977,7 +1012,7 @@ def phase_serve_int8(params, cfg, bf16):
             f"int8 kernels not on the path: (launches, want) {short}, "
             f"quant launches at install {quant_launches}"
         )
-    _check_wgmma_forward("serve.int8", launches)
+    _check_wgmma("serve.int8", launches)
     wbytes = engine.weight_bytes_device()
     if not wbytes <= 0.55 * bf16["weight_bytes"]:
         raise AssertionError(
@@ -1105,8 +1140,8 @@ def _state_bytes(opt):
 def _run_trainer(cfg, et, state, tokens, phase):
     """TRAIN_STEPS Trainer steps on the one batch, with the launch counts
     set to 0 just before and read just after: the flash kernels must
-    have run exactly as often as the path calls them (every forward on
-    its wgmma variant) and the losses
+    have run exactly as often as the path calls them (every forward and
+    backward launch on its wgmma variant) and the losses
     must be finite and fall. Returns the phase's numbers (and the
     Trainer's launch counts) without logging them."""
     from dlrover_tpu_torch.models import llama
@@ -1147,7 +1182,8 @@ def _run_trainer(cfg, et, state, tokens, phase):
                 flash_bwd_dkv=per_pass)
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{phase} launches {launches}, want {want}")
-    _check_wgmma_forward(phase, launches)
+    _check_wgmma(phase, launches,
+                 ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
     losses = rec.losses
     if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
             and losses[-1] < losses[0]):
@@ -1436,12 +1472,14 @@ def main():
              launches=sum(bwd_by_path["flash_bwd_dq"].values()),
              launches_by_path=bwd_by_path["flash_bwd_dq"],
              max_abs_err=main_bwd["errs"]["dq"], ms=main_bwd["dq_ms"],
+             variant="wgmma", mma_ms=main_bwd["mma_dq_ms"],
              plain_ms=main_bwd["plain_ms"], bound_ms=main_bwd["dq_bound_ms"],
              bound_by=main_bwd["dq_bound_by"],
              library_ms=main_bwd["library_ms"],
              shape="B=2 S=2048 H=32 KV=8 D=128 bf16 causal, the train "
                    "path's microbatch (plain_ms and library_ms: the whole "
-                   "backward)",
+                   "backward; mma_ms: the mma.sync kernel on the same "
+                   "inputs)",
              per_shape=bwd_rows),
         dict(name="flash_bwd_dkv", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",
@@ -1449,13 +1487,15 @@ def main():
              launches=sum(bwd_by_path["flash_bwd_dkv"].values()),
              launches_by_path=bwd_by_path["flash_bwd_dkv"],
              max_abs_err=max(main_bwd["errs"]["dk"], main_bwd["errs"]["dv"]),
-             ms=main_bwd["dkv_ms"], plain_ms=main_bwd["plain_ms"],
+             ms=main_bwd["dkv_ms"], variant="wgmma",
+             mma_ms=main_bwd["mma_dkv_ms"], plain_ms=main_bwd["plain_ms"],
              bound_ms=main_bwd["dkv_bound_ms"],
              bound_by=main_bwd["dkv_bound_by"],
              library_ms=main_bwd["library_ms"],
              shape="B=2 S=2048 H=32 KV=8 D=128 bf16 causal, the train "
                    "path's microbatch (plain_ms and library_ms: the whole "
-                   "backward)"),
+                   "backward; mma_ms: the mma.sync kernel on the same "
+                   "inputs)"),
         dict(name="paged_attention", route="cuda",
              source="dlrover_tpu_torch/csrc/paged_attention.cu",
              replaces="dlrover_tpu/ops/paged_attention.py:160",

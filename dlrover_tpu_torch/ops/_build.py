@@ -4,20 +4,23 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface, loaded with `ctypes`. The
 build happens at first use (or all at once through `build()`, which
 starts one `nvcc` per source in parallel), into `_build/` beside
-`csrc/`, keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once.
+`csrc/`, keyed by a hash of the source, of the shared headers it
+includes (`csrc/*.cuh`) and of the flags, so an edited source or header
+rebuilds and an unchanged one loads at once.
 
 Every kernel wrapper calls `count_launch(name)` right where it launches
 its kernel, and nowhere else, so a run can show that its main path went
 through the kernels (`launch_counts()` / `reset_launch_counts()`). A
 source holding several kernels counts each under its own name
-(`LAUNCHES`); the forward counts every launch under "flash_fwd" and
-those of its wgmma variant also under "flash_fwd_wgmma".
+(`LAUNCHES`); a flash kernel counts every launch under its name
+("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") and those of its wgmma
+variant also under "<name>_wgmma".
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,7 +35,8 @@ KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "quant_int8",
 # the launch counters of each source (a source not named here holds one
 # kernel, counted under the source's name)
 LAUNCHES = {"flash_fwd": ("flash_fwd", "flash_fwd_wgmma"),
-            "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv")}
+            "flash_bwd": ("flash_bwd_dq", "flash_bwd_dq_wgmma",
+                          "flash_bwd_dkv", "flash_bwd_dkv_wgmma")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -73,9 +77,28 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: Optional[set] = None) -> list:
+    """`path` and every file of `csrc/` it includes with `#include "..."`,
+    transitively, each once, in the order they are first met."""
+    seen = set() if seen is None else seen
+    if path in seen:
+        return []
+    seen.add(path)
+    found = [path]
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if dep.is_file():
+            found += _sources(dep, seen)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for src in _sources(CSRC / f"{name}.cu"):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

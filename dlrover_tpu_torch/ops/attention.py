@@ -1,5 +1,6 @@
-"""Attention entry point: the flash kernel (ops/flash_attention.py) for
-tensors on the card, the plain f32-softmax reference elsewhere.
+"""Attention entry point: the flash kernels (ops/flash_attention.py) for
+tensors on the card where they take the shapes, the plain f32-softmax
+reference elsewhere.
 
 Counterpart of dlrover_tpu/ops/attention.py. Shapes follow the JAX
 package's layout [batch, seq, heads, head_dim].
@@ -57,6 +58,18 @@ def reference_attention(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def takes_flash(q_shape, k_shape, segment_ids, device) -> bool:
+    """impl="auto"'s choice (JAX `dot_product_attention`): the flash
+    kernels for tensors on the card where `flash_attention.supports`
+    passes, the reference everywhere else (CPU tensors, `segment_ids`,
+    q_len != k_len unless q_len == 1, head_dims the kernels refuse)."""
+    if torch.device(device).type != "cuda":
+        return False
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    return fa.supports_shapes(q_shape, k_shape, segment_ids)
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -68,15 +81,16 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Main entry. impl: 'auto' | 'flash' | 'reference'.
 
-    'auto' takes the flash kernel for CUDA tensors (a shape it refuses
-    raises, there is no fallback) and the reference for CPU tensors —
-    the JAX package's off-TPU behaviour. 'flash' demands the kernel
-    (on CPU tensors it runs the kernel's plain version)."""
+    'auto' takes the flash kernels where `takes_flash` says so and the
+    reference otherwise, as the JAX package does on its accelerator.
+    'flash' demands the kernels: a shape they refuse raises (on CPU
+    tensors it runs their plain version)."""
     if impl == "reference":
         return reference_attention(q, k, v, causal, scale, segment_ids)
     if impl not in ("auto", "flash"):
         raise ValueError(f"unknown attention impl: {impl}")
-    if impl == "auto" and not q.is_cuda:
+    if impl == "auto" and not takes_flash(q.shape, k.shape, segment_ids,
+                                          q.device):
         return reference_attention(q, k, v, causal, scale, segment_ids)
     if segment_ids is not None:
         raise ValueError(

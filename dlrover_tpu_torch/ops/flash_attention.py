@@ -1,7 +1,8 @@
 """Flash attention: CUDA kernels for Hopper (csrc/flash_fwd.cu, the
-forward in two variants that `_fwd_variant` picks by shape;
-csrc/flash_bwd.cu, the dQ and dK/dV backward) and their plain PyTorch
-versions, joined by a `torch.autograd.Function`.
+forward, and csrc/flash_bwd.cu, the dQ and dK/dV backward, each in a
+wgmma variant and an mma.sync one that `_fwd_variant` / `_bwd_variant`
+pick by shape) and their plain PyTorch versions, joined by a
+`torch.autograd.Function`.
 
 Counterpart of dlrover_tpu/ops/flash_attention.py (`_fwd_kernel`
 launched by `_fwd`, `_bwd_dq_kernel` and `_bwd_dkv_kernel` launched by
@@ -36,16 +37,21 @@ def heads_ok(h: int, kv: int, d: int) -> bool:
     return d % 8 == 0 and 32 <= d <= 256 and h % kv == 0
 
 
-def supports(q, k, segment_ids=None) -> bool:
-    """Whether the kernel handles these shapes: the head gate, and
-    either equal q/k lengths or the single-query (q_len == 1) decode
-    shape."""
+def supports_shapes(q_shape, k_shape, segment_ids=None) -> bool:
+    """Whether the kernels (forward and backward) take q / k of these
+    [B, S, H, D] shapes: no `segment_ids`, the head gate, and either
+    equal q/k lengths or the single-query (q_len == 1) decode shape."""
     if segment_ids is not None:
         return False
-    s_q, s_k = q.shape[1], k.shape[1]
+    s_q, s_k = q_shape[1], k_shape[1]
     if s_q != s_k and s_q != 1:
         return False
-    return heads_ok(q.shape[2], k.shape[2], q.shape[3])
+    return heads_ok(q_shape[2], k_shape[2], q_shape[3])
+
+
+def supports(q, k, segment_ids=None) -> bool:
+    """`supports_shapes` of two tensors."""
+    return supports_shapes(q.shape, k.shape, segment_ids)
 
 
 def _fwd_plain(q, k, v, causal: bool, scale: float):
@@ -90,6 +96,13 @@ def _fwd_variant(b: int, s_q: int, s_k: int, h: int, kv: int, d: int,
     kernels take (other head_dims, the single-query decode shape)."""
     del b, h, kv, causal
     return "wgmma" if d in (64, 128) and s_q == s_k else "mma"
+
+
+# the backward kernels split the shapes as the forward's do: its wgmma
+# variants (`flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel`)
+# take head_dim 64 or 128 with q_len == k_len, the mma.sync kernels
+# everything else up to head_dim 256
+_bwd_variant = _fwd_variant
 
 
 _FWD_SYMBOLS = {"wgmma": "flash_fwd_wgmma_bf16", "mma": "flash_fwd_bf16"}
@@ -212,41 +225,60 @@ def _bwd_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
                          "on q's device")
     if causal and s_q != s_k:
         raise ValueError("causal flash needs q_len == k_len")
-    if not heads_ok(h, kvh, d) or d > 128:
+    if not heads_ok(h, kvh, d):
         raise ValueError(
             f"flash backward kernels do not take q{tuple(q.shape)} "
-            f"k{tuple(k.shape)} (head_dim a multiple of 8 in [32, 128], "
+            f"k{tuple(k.shape)} (head_dim a multiple of 8 in [32, 256], "
             "whole GQA groups)"
         )
     delta = _delta(o, do)
-    return (_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale),
-            *_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale))
+    variant = _bwd_variant(b, s_q, s_k, h, kvh, d, causal)
+    return (_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, variant),
+            *_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale, variant))
 
 
-def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale):
-    """dQ by the dq kernel, on inputs `_bwd_cuda` has checked."""
-    dq = torch.empty_like(q)
-    fn = _build.function(_BWD, "flash_bwd_dq_bf16",
-                         [ctypes.c_void_p] * 7 + _ARG_TAIL)
+_BWD_SYMBOLS = {
+    ("dq", "wgmma"): "flash_bwd_dq_wgmma_bf16",
+    ("dq", "mma"): "flash_bwd_dq_bf16",
+    ("dkv", "wgmma"): "flash_bwd_dkv_wgmma_bf16",
+    ("dkv", "mma"): "flash_bwd_dkv_bf16",
+}
+
+
+def _bwd_launch(kernel, variant, q, k, v, do, lse, delta, outs, causal,
+                scale):
+    """Launch backward `kernel` ("dq" or "dkv") in `variant` on inputs
+    `_bwd_cuda` has checked, into `outs`. Every launch counts under
+    "flash_bwd_<kernel>"; the wgmma variant's also under
+    "flash_bwd_<kernel>_wgmma"."""
+    name = f"flash_bwd_{kernel}"
+    fn = _build.function(_BWD, _BWD_SYMBOLS[kernel, variant],
+                         [ctypes.c_void_p] * (6 + len(outs)) + _ARG_TAIL)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
              *_launch_args(q, k, causal, scale))
-    _build.count_launch("flash_bwd_dq")
-    _build.check(err, "flash_bwd_dq", f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    _build.count_launch(name)
+    if variant == "wgmma":
+        _build.count_launch(f"{name}_wgmma")
+    _build.check(err, name, f"{variant}: q{tuple(q.shape)} "
+                 f"k{tuple(k.shape)}")
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, variant):
+    """dQ by the dq kernel's `variant`, on inputs `_bwd_cuda` has
+    checked."""
+    dq = torch.empty_like(q)
+    _bwd_launch("dq", variant, q, k, v, do, lse, delta, (dq,), causal, scale)
     return dq
 
 
-def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale):
-    """(dK, dV) by the dkv kernel, on inputs `_bwd_cuda` has checked."""
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale, variant):
+    """(dK, dV) by the dkv kernel's `variant`, on inputs `_bwd_cuda` has
+    checked."""
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _build.function(_BWD, "flash_bwd_dkv_bf16",
-                         [ctypes.c_void_p] * 8 + _ARG_TAIL)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             *_launch_args(q, k, causal, scale))
-    _build.count_launch("flash_bwd_dkv")
-    _build.check(err, "flash_bwd_dkv", f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    _bwd_launch("dkv", variant, q, k, v, do, lse, delta, (dk, dv), causal,
+                scale)
     return dk, dv
 
 

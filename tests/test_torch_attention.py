@@ -8,6 +8,8 @@ f32 throughout, atol 1e-5: both sides compute the same f32 softmax;
 the only differences are summation order (one-pass here, online in
 the JAX kernel), which stay near 1e-7 at these sizes."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -132,6 +134,50 @@ def test_dispatch():
         tattn.dot_product_attention(q, k, v, impl="nope")
     with pytest.raises(ValueError, match="causal"):
         tfa.flash_attention(q[:, :8], k, v, causal=True)
+
+
+def _shape(*dims):
+    """A stand-in for an array: the JAX gate reads only `.shape`."""
+    return types.SimpleNamespace(shape=dims)
+
+
+@pytest.mark.parametrize("d", [*range(8, 257, 8), 12, 36, 100])
+def test_auto_choice_matches_jax_gate(d):
+    """impl="auto"'s choice on the card (`takes_flash`) is the JAX
+    dispatcher's `fa.supports(...)` shape for shape over the port's
+    range: head_dim up to 256, lengths the JAX kernels tile (multiples
+    of 128) and the single query, GQA groups whole or not, with and
+    without segment_ids. On CPU tensors "auto" is always the
+    reference."""
+    lengths = [(128, 128), (256, 256), (1, 128), (1, 256), (128, 256),
+               (256, 128), (128, 1)]
+    heads = [(4, 2), (8, 8), (6, 4), (4, 1)]
+    for s_q, s_k in lengths:
+        for h, kv in heads:
+            for seg in (None, np.zeros((1, s_q), np.int32)):
+                qs, ks = (1, s_q, h, d), (1, s_k, kv, d)
+                want = jfa.supports(_shape(*qs), _shape(*ks), seg)
+                got = tattn.takes_flash(qs, ks, seg, "cuda")
+                assert got == want, (qs, ks, seg is not None)
+                assert not tattn.takes_flash(qs, ks, seg, "cpu")
+                assert not tattn.takes_flash(qs, ks, seg,
+                                             torch.device("cpu"))
+
+
+def test_auto_choice_differs_from_jax_only_where_documented():
+    """Outside that range the port's choice differs from the JAX gate
+    in two known ways: its kernels take any length (they mask the
+    ragged tile; JAX needs a block of >= 128 dividing S), and it sends
+    head_dim 264-512 to the reference (JAX's kernels take them; queued
+    in ROADMAP)."""
+    for s in (48, 77, 200):
+        qs, ks = (1, s, 4, 64), (1, s, 2, 64)
+        assert tattn.takes_flash(qs, ks, None, "cuda")
+        assert not jfa.supports(_shape(*qs), _shape(*ks))
+    for d in (264, 384, 512):
+        qs, ks = (1, 128, 4, d), (1, 128, 2, d)
+        assert not tattn.takes_flash(qs, ks, None, "cuda")
+        assert jfa.supports(_shape(*qs), _shape(*ks))
 
 
 def test_supports_gate():

@@ -28,6 +28,37 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     assert _build.library_path("k") != first         # flags -> rebuild
 
 
+def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
+    """A shared header (`csrc/*.cuh`) is hashed into the name of every
+    library whose source includes it, directly or through another
+    header, and into no other: an edited header rebuilds exactly the
+    libraries that include it."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    (tmp_path / "base.cuh").write_text("// base one\n")
+    (tmp_path / "mid.cuh").write_text('#pragma once\n#include "base.cuh"\n')
+    (tmp_path / "a.cu").write_text('#include <stdint.h>\n#include "mid.cuh"\n')
+    (tmp_path / "b.cu").write_text('  #  include "base.cuh"\n')
+    (tmp_path / "c.cu").write_text("#include <cuda_runtime.h>\n")
+    first = {n: _build.library_path(n) for n in "abc"}
+    (tmp_path / "base.cuh").write_text("// base two\n")
+    second = {n: _build.library_path(n) for n in "abc"}
+    assert second["a"] != first["a"] and second["b"] != first["b"]
+    assert second["c"] == first["c"]
+    (tmp_path / "mid.cuh").write_text('#include "base.cuh"\n// edited\n')
+    third = {n: _build.library_path(n) for n in "abc"}
+    assert third["a"] != second["a"]
+    assert third["b"] == second["b"] and third["c"] == second["c"]
+
+
+def test_the_attention_sources_share_the_hopper_header():
+    """Both flash sources take their TMA, mbarrier and wgmma pieces from
+    csrc/hopper.cuh, so its bytes are part of both library names."""
+    for name in ("flash_fwd", "flash_bwd"):
+        found = [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
+        assert found == [f"{name}.cu", "hopper.cuh"]
+
+
 def test_missing_nvcc_is_refused(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
@@ -47,7 +78,8 @@ def test_launch_counters():
     _build.count_launch("paged_attention")
     assert _build.launch_counts() == {
         "flash_fwd": 0, "flash_fwd_wgmma": 0, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0, "paged_attention": 2, "quant_int8": 0,
+        "flash_bwd_dq_wgmma": 0, "flash_bwd_dkv": 0,
+        "flash_bwd_dkv_wgmma": 0, "paged_attention": 2, "quant_int8": 0,
         "dequant_int8": 0, "dqmm": 0,
     }
     _build.reset_launch_counts()

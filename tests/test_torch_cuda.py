@@ -486,6 +486,7 @@ def test_flash_attention_grads_through_the_kernels(gen):
     counts = _build.launch_counts()
     assert (counts["flash_fwd"], counts["flash_fwd_wgmma"],
             counts["flash_bwd_dq"], counts["flash_bwd_dkv"]) == (1, 1, 1, 1)
+    assert counts["flash_bwd_dq_wgmma"] == counts["flash_bwd_dkv_wgmma"] == 1
     ref = torch.autograd.grad(tattn.reference_attention(q, k, v), (q, k, v), g)
     for name, x, y in zip("qkv", grads, ref):
         # the reference rounds P to bf16 once, after the softmax, and
@@ -498,9 +499,137 @@ def test_flash_bwd_refuses_what_it_cannot_take(gen):
     lse = torch.zeros((1, 4, 16), device="cuda")
     with pytest.raises(ValueError, match="bfloat16"):
         tfa._bwd(q, q, q, q, lse, q, True, 0.125)
-    qb = torch.randn((1, 16, 4, 256), generator=gen, device="cuda").bfloat16()
+    # head_dim 264: above the kernels' 256 (the JAX kernels take up to
+    # 512, queued)
+    qb = torch.randn((1, 16, 4, 264), generator=gen, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="do not take"):
-        tfa._bwd(qb, qb, qb, qb, lse, qb, True, 0.0625)
+        tfa._bwd(qb, qb, qb, qb, lse, qb, True, 264 ** -0.5)
+
+
+def _check_bwd(gen, b, s_q, s_k, h, kv, d, causal, variant):
+    """One backward through both kernels, on the variant `_bwd_variant`
+    must pick, held to `_bwd_plain` within BWD_REL of the largest |grad|
+    of each of dq, dk, dv (with a floor of 2^-10: at S=1 dq and dk
+    vanish, dP == delta, and both sides hold only f32 rounding noise);
+    the call bumps each kernel's counter by one, and its wgmma counter by
+    one exactly when the variant is wgmma."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    assert tfa._bwd_variant(b, s_q, s_k, h, kv, d, causal) == variant
+    q, k, v = rand(b, s_q, h, d), rand(b, s_k, kv, d), rand(b, s_k, kv, d)
+    do = rand(b, s_q, h, d)
+    scale = d ** -0.5
+    o, lse = tfa._fwd(q, k, v, causal, scale)
+    before = _build.launch_counts()
+    got = tfa._bwd(q, k, v, o, lse, do, causal, scale)
+    after = _build.launch_counts()
+    want = tfa._bwd_plain(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    wg = int(variant == "wgmma")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+        assert after[name + "_wgmma"] == before[name + "_wgmma"] + wg, name
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.dtype == torch.bfloat16, name
+        assert torch.isfinite(x).all(), name
+        err = (x.float() - y.float()).abs().max().item()
+        tol = BWD_REL * max(y.float().abs().max().item(), 2 ** -10)
+        assert err <= tol, (name, b, s_q, h, kv, d, causal, err, tol)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_wgmma_below_one_tile(gen, d):
+    """Every length below one 64-row (key) tile of the wgmma backward
+    (TMA zero-fills the rows past S; keys past S are masked), B=2, GQA
+    4, causal and not."""
+    for s in range(1, 64):
+        for causal in (True, False):
+            _check_bwd(gen, 2, s, s, 8, 2, d, causal, "wgmma")
+
+
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [77, 128, 200, 2049])
+def test_flash_bwd_wgmma_matches_plain(gen, s, d, n_rep):
+    """The wgmma backward at ragged tiles (77, 200, 2049: one row past
+    16 blocks of 128), an exact tile (128) and across both 2-stage
+    rings, B=2, GQA ratios 1, 4 and 8, causal and not."""
+    for causal in (True, False):
+        _check_bwd(gen, 2, s, s, 8, 8 // n_rep, d, causal, "wgmma")
+
+
+@pytest.mark.parametrize(
+    "b,s_q,s_k,h,kv,d,causal",
+    [(1, 48, 48, 4, 2, 40, True), (2, 77, 77, 8, 2, 40, False),
+     (1, 200, 200, 4, 2, 256, True), (2, 130, 130, 4, 4, 256, False),
+     (1, 128, 128, 4, 1, 136, True), (1, 65, 65, 4, 2, 192, False),
+     (2, 1, 300, 8, 2, 256, False), (2, 1, 300, 8, 2, 64, False)],
+)
+def test_flash_bwd_mma_matches_plain(gen, b, s_q, s_k, h, kv, d, causal):
+    """The mma.sync backward at the shapes the wgmma one refuses:
+    head_dim 40, and 136 to 256 (two blocks of 128 output columns
+    each, S and dP over the full head_dim), and the single query
+    (q_len 1 against 300 keys)."""
+    _check_bwd(gen, b, s_q, s_k, h, kv, d, causal, "mma")
+
+
+def test_flash_attention_trains_at_head_dim_256(gen):
+    """`flash_attention` at head_dim 256 (q/k/v [1, 128, 4, 256], the
+    shape of ROADMAP's fault F3): the backward runs through the
+    mma.sync kernels and its gradients agree with autograd through
+    plain attention (2^-5 of the largest |grad|, as below)."""
+    from dlrover_tpu_torch.ops import attention as tattn
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16(
+        ).requires_grad_()
+
+    q, k, v = leaf(1, 128, 4, 256), leaf(1, 128, 4, 256), leaf(1, 128, 4, 256)
+    g = torch.randn((1, 128, 4, 256), generator=gen, device="cuda").bfloat16()
+    _build.reset_launch_counts()
+    grads = torch.autograd.grad(tfa.flash_attention(q, k, v), (q, k, v), g)
+    counts = _build.launch_counts()
+    assert (counts["flash_bwd_dq"], counts["flash_bwd_dkv"],
+            counts["flash_bwd_dq_wgmma"], counts["flash_bwd_dkv_wgmma"]) == (
+        1, 1, 0, 0)
+    ref = torch.autograd.grad(tattn.reference_attention(q, k, v), (q, k, v), g)
+    for name, x, y in zip("qkv", grads, ref):
+        assert _rel_err(x, y) <= 2 ** -5, (name, _rel_err(x, y))
+
+
+def test_auto_attention_takes_the_reference_where_flash_refuses(gen):
+    """impl="auto" on CUDA tensors returns `reference_attention` (bit for
+    bit, no kernel launched) for what the flash kernels refuse:
+    segment_ids, q_len != k_len with q_len > 1, head_dim below 32 or
+    above 256; impl="flash" raises for each."""
+    from dlrover_tpu_torch.ops import attention as tattn
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    seg = torch.tensor([[0] * 8 + [1] * 8], device="cuda")
+    cases = [
+        (rand(1, 16, 4, 64), rand(1, 16, 2, 64), seg),
+        (rand(1, 8, 4, 64), rand(1, 16, 2, 64), None),
+        (rand(1, 16, 4, 16), rand(1, 16, 2, 16), None),
+        (rand(1, 16, 4, 264), rand(1, 16, 2, 264), None),
+    ]
+    for q, k, seg_ids in cases:
+        _build.reset_launch_counts()
+        got = tattn.dot_product_attention(q, k, k, segment_ids=seg_ids)
+        want = tattn.reference_attention(q, k, k, segment_ids=seg_ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (tuple(q.shape), tuple(k.shape))
+        assert set(_build.launch_counts().values()) == {0}
+        with pytest.raises(ValueError):
+            tattn.dot_product_attention(q, k, k, segment_ids=seg_ids,
+                                        impl="flash")
+    # what the kernels take, "auto" sends to them
+    q, k = rand(1, 16, 4, 64), rand(1, 16, 2, 64)
+    _build.reset_launch_counts()
+    tattn.dot_product_attention(q, k, k)
+    assert _build.launch_counts()["flash_fwd"] == 1
 
 
 def test_train_step_with_kernels_matches_reference_attention(gen):
@@ -550,6 +679,8 @@ def test_train_step_with_kernels_matches_reference_attention(gen):
     assert (ck["flash_fwd"], ck["flash_bwd_dq"], ck["flash_bwd_dkv"]) == (
         2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
     assert ck["flash_fwd_wgmma"] == ck["flash_fwd"]   # head_dim 64
+    assert ck["flash_bwd_dq_wgmma"] == ck["flash_bwd_dq"]
+    assert ck["flash_bwd_dkv_wgmma"] == ck["flash_bwd_dkv"]
     assert cr["flash_fwd"] == cr["flash_bwd_dq"] == 0
     mk, mr = metrics["auto"], metrics["reference"]
     assert abs(mk["loss"].item() - mr["loss"].item()) <= (

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from dlrover_tpu.ops import flash_attention as jfa
+from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import attention as tattn
 from dlrover_tpu_torch.ops import flash_attention as tfa
 
@@ -68,6 +69,23 @@ def _np(x):
 )
 def test_f32_grads_match_jax_flash(s, kv, causal):
     q, k, v, g = _inputs(0, s, 4, kv, 64)
+    out, grads = _port_grads(
+        lambda *t: tfa.flash_attention(*t, causal=causal), q, k, v, g,
+        torch.float32)
+    j_out, j_grads = _jax_grads(q, k, v, g, causal, jnp.float32)
+    np.testing.assert_allclose(_np(out), _np(j_out), atol=F32_TOL,
+                               rtol=F32_TOL)
+    for name, got, want in zip("qkv", grads, j_grads):
+        np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL,
+                                   rtol=F32_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_f32_grads_match_jax_flash_at_head_dim_256(causal):
+    """head_dim 256, which the forward and (split into two 128-column
+    halves of the outputs) the mma.sync backward kernels take: q/k/v
+    [1, 128, 4, 256]; the JAX kernels run in interpret mode."""
+    q, k, v, g = _inputs(4, 128, 4, 4, 256)
     out, grads = _port_grads(
         lambda *t: tfa.flash_attention(*t, causal=causal), q, k, v, g,
         torch.float32)
@@ -134,3 +152,41 @@ def test_flash_attention_still_refuses_cross_length_causal():
     k = torch.zeros((1, 16, 2, 32))
     with pytest.raises(ValueError, match="equal q/k"):
         tfa.flash_attention(q, k, k, causal=True)
+
+
+@pytest.mark.parametrize(
+    "b,s,h,kv,d",
+    [(2, 2048, 32, 8, 128), (1, 2048, 32, 8, 128), (1, 512, 32, 8, 128),
+     (1, 77, 32, 8, 128), (2, 200, 8, 4, 64), (2, 1, 8, 1, 64)],
+)
+def test_bwd_variant_wgmma_for_train_shapes(b, s, h, kv, d):
+    """The Llama-3-8B train shapes (32 q / 8 KV heads of 128, causal;
+    B=2, S=2048 in `train`) and head_dim 64 take the wgmma backward
+    kernels, causal or not."""
+    for causal in (True, False):
+        assert tfa._bwd_variant(b, s, s, h, kv, d, causal) == "wgmma"
+
+
+@pytest.mark.parametrize(
+    "s_q,s_k,d",
+    [(48, 48, 40), (128, 128, 136), (128, 128, 256), (77, 77, 32),
+     (1, 300, 128)],
+)
+def test_bwd_variant_mma_for_other_shapes(s_q, s_k, d):
+    """Other head_dims (up to 256) and q_len != k_len stay on the
+    mma.sync backward kernels."""
+    for causal in (True, False):
+        assert tfa._bwd_variant(2, s_q, s_k, 8, 2, d, causal) == "mma"
+
+
+@pytest.mark.parametrize("d", [64, 136, 256])
+def test_cpu_backward_touches_no_backward_counter(d):
+    """The plain backward on CPU tensors counts no launch of either
+    backward kernel or variant, whichever `_bwd_variant` would pick on
+    the card."""
+    q, k, v, g = _inputs(5, 24, 4, 2, d)
+    _build.reset_launch_counts()
+    _port_grads(lambda *t: tfa.flash_attention(*t, causal=True), q, k, v,
+                g, torch.float32)
+    counts = _build.launch_counts()
+    assert all(counts[n] == 0 for n in _build.LAUNCHES["flash_bwd"])

@@ -378,6 +378,45 @@ def test_trainer_max_steps_callbacks_eval_and_metrics(tmp_path, monkeypatch):
     assert set(logs) == {"eval_loss", "eval_loss_weight"}
 
 
+class _CountingElastic:
+    """An elastic trainer whose step only counts and reports a loss: the
+    Trainer loop around it is what is under test."""
+
+    def __init__(self):
+        self.steps = 0
+
+    def step(self, state, batch):
+        self.steps += 1
+        return state, {"loss": 1.0}
+
+
+def test_trainer_keeps_training_when_chip_metrics_cannot_be_written(
+        tmp_path, monkeypatch):
+    """The card-metrics file lies under a regular file, so it cannot be
+    written: the JAX Trainer swallows the error and so does the port's.
+    Both take all 3 steps (logging every step, so every step tries the
+    write); the step-metrics file beside it is still written."""
+    import json
+
+    blocker = tmp_path / "a_file"
+    blocker.write_text("")
+    monkeypatch.setenv("DLROVER_TPU_CHIP_METRICS_PATH",
+                       str(blocker / "chip.json"))
+    monkeypatch.setenv("DLROVER_TPU_RUNTIME_METRICS_PATH",
+                       str(tmp_path / "runtime.json"))
+    data = [{"tokens": None}] * 3
+    j_et, t_et = _CountingElastic(), _CountingElastic()
+    jt = JTrainer(j_et, JArgs(logging_steps=1, resume=False, save_steps=0),
+                  train_data=data)
+    jt.train({})
+    tt = Trainer(t_et, TrainingArguments(logging_steps=1, resume=False),
+                 train_data=data)
+    tt.train({})
+    assert j_et.steps == t_et.steps == 3
+    assert jt.global_step == tt.global_step == 3
+    assert json.loads((tmp_path / "runtime.json").read_text())["step"] == 3
+
+
 def test_not_ported_options_raise():
     tcfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
     et = ElasticTrainer(
