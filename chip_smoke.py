@@ -19,8 +19,9 @@ Phases, one line each (any failure exits non-zero before the last line):
      to the plain version), dequantize_int8 (the training path's
      flattened leaves, bits equal to the plain version), one Int8AdamW
      step on the card against the same step on the CPU (opt.int8_adam),
-     and dqmm (the five weight shapes at T = 8, 77 and 1024, with the
-     dense bf16 matmul's time beside it);
+     and dqmm (the five weight shapes at T = 8 and 77 and at the
+     serving prompt buckets 128, 256, 512 and 1024, with the dense bf16
+     matmul's time and the variant that ran beside it);
   4. serve: ContinuousBatcher on Llama-3-8B at full width and depth
      (random weights from a seed), kv_layout="paged", greedy-serving 12
      requests; every request must finish, both attention kernels must
@@ -30,7 +31,9 @@ Phases, one line each (any failure exits non-zero before the last line):
   5. serve.int8: the same traffic through weight_quant="int8" on the
      same weights; every flash forward must have taken the wgmma
      variant, the quantize kernel must have run once per layer slice and the dequant-matmul kernel on every product of every
-     forward, one installed layer slice of every quantized weight (and
+     forward (every prefill product on its persistent TMA + wgmma
+     variant, `dqmm_ws`, every decode product on the decode one),
+     one installed layer slice of every quantized weight (and
      the lm_head) must equal the plain quantizer's bytes, the weight
      bytes must be <= 0.55x the bf16 engine's, and
      the first-decode-step logits must match the same decode functions
@@ -59,7 +62,12 @@ Exits non-zero, printing no result, where CUDA is not available.
 admission wave and one decode chunk of the same engine (kernel times,
 device busy share; --int8 with weight_quant="int8"), and `--profile
 --train [--int8-adam]` one step of the train phase (with int8_adam);
-neither prints a result line.
+neither prints a result line. `python3 chip_smoke.py --dqmm
+[--package-root DIR]` runs only the card, build and dqmm phases, with
+the `dlrover_tpu_torch` found under DIR (another checkout, such as a
+parent commit unpacked by `git archive`) where one is given: the A/B
+of two versions of kernel 7 in one call; it prints no result line
+either.
 """
 
 import dataclasses
@@ -94,7 +102,9 @@ DQMM_SHAPES = (
     ((4096, 14336), "w_gate, w_up"), ((14336, 4096), "w_down"),
     ((4096, 128256), "lm_head"),
 )
-DQMM_TOKENS = (8, 77, 1024)
+# decode (8 slots), a ragged prefill, and the prompt buckets of the
+# serving traffic (`_prompts`: 128 x1, 256 x1, 512 x3, 1024 x7)
+DQMM_TOKENS = (8, 77, 128, 256, 512, 1024)
 BWD_REL_TOL = 2 ** -6
 BWD_TOL_REASON = (
     "2^-6 of the largest |grad| of each of dq, dk, dv: both sides round P "
@@ -710,10 +720,13 @@ def phase_opt_int8():
 
 def phase_dqmm(gen):
     """Kernel 7 at every Llama-3-8B weight shape (block 256) and T = 8
-    (decode), 77 (ragged) and 1024 (a prefill bucket), against its
-    plain version on the same inputs. `ms` and `dense_ms` cycle through
-    enough weight copies to overflow L2, as a decode step streams every
-    layer's weights."""
+    (decode), 77 (ragged) and the serving prompt buckets, against its
+    plain version on the same inputs, with the variant that ran (the
+    launch counters: `dqmm_ws` counts the prefill kernel; a package
+    without that counter ran its older prefill kernel, "wgmma"). `ms`
+    and `dense_ms` cycle through enough weight copies to overflow L2, as
+    a decode step streams every layer's weights."""
+    from dlrover_tpu_torch.ops import _build
     from dlrover_tpu_torch.ops import quantization as tq
 
     block = 256
@@ -732,9 +745,21 @@ def phase_dqmm(gen):
         ]
         for t in DQMM_TOKENS:
             x = torch.randn((t, k), generator=gen, device="cuda").bfloat16()
+            before = _build.launch_counts()
             y = tq.quantized_matmul(x, qw)
+            after = _build.launch_counts()
             ref = tq.quantized_matmul_reference(x, qw)
             torch.cuda.synchronize()
+            if "dqmm_ws" in after:
+                ws = after["dqmm_ws"] - before["dqmm_ws"]
+                if after["dqmm"] - before["dqmm"] != 1 or ws != int(t > 16):
+                    raise AssertionError(
+                        f"dqmm at T={t}: launches {before} -> {after}, "
+                        f"want one, on the prefill kernel iff T > 16"
+                    )
+                variant = "ws" if ws else "decode"
+            else:
+                variant = "wgmma" if t > 16 else "decode"
             err = (y.float() - ref.float()).abs().max().item()
             ref_max = ref.float().abs().max().item()
             tol = DQMM_REL_TOL * ref_max
@@ -745,9 +770,10 @@ def phase_dqmm(gen):
                 )
             nbytes = o * k + 4 * o * (k // block) + 2 * t * k + 2 * t * o
             bms, by = bound_ms(2.0 * t * k * o, nbytes)
+            plan = tq._dqmm_plan(t, k, o)
             row = dict(
-                T=t, K=k, O=o, weights=names, block=block,
-                splits=tq._dqmm_plan(t, k, o)[1],
+                T=t, K=k, O=o, weights=names, block=block, variant=variant,
+                splits=plan[1], grid=plan[3] if len(plan) > 3 else None,
                 max_abs_err=err, ref_max_abs=ref_max, tol=tol,
                 tol_reason=DQMM_TOL_REASON,
                 ms=device_ms(cycling(lambda w: tq.quantized_matmul(x, w),
@@ -1007,10 +1033,19 @@ def phase_serve_int8(params, cfg, bf16):
         paged_attention=engine.decode_steps * cfg.n_layers,
     )
     short = {k: (launches[k], v) for k, v in want.items() if launches[k] < v}
-    if short or quant_launches < per_forward:
+    # every prefill product (T = a prompt bucket > 16) on the prefill
+    # kernel, every decode product (T = 8 slots) on the decode kernel
+    by_variant = dict(
+        ws=launches["dqmm_ws"],
+        decode=launches["dqmm"] - launches["dqmm_ws"],
+    )
+    want_variant = dict(ws=engine.admissions * per_forward,
+                        decode=engine.decode_steps * per_forward)
+    if short or quant_launches < per_forward or by_variant != want_variant:
         raise AssertionError(
             f"int8 kernels not on the path: (launches, want) {short}, "
-            f"quant launches at install {quant_launches}"
+            f"quant launches at install {quant_launches}, dqmm launches "
+            f"by variant {by_variant}, want {want_variant}"
         )
     _check_wgmma("serve.int8", launches)
     wbytes = engine.weight_bytes_device()
@@ -1023,6 +1058,7 @@ def phase_serve_int8(params, cfg, bf16):
     e2e = dict(
         requests=len(prompts), admissions=engine.admissions,
         decode_steps=engine.decode_steps, launches=launches,
+        dqmm_launches_by_variant=by_variant,
         quant_launches_at_install=quant_launches, install_s=install_s,
         weight_quant_path=engine.weight_quant_path,
         weight_quant_stats=engine.weight_quant_stats(),
@@ -1399,6 +1435,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    args = sys.argv[1:]
+    if "--package-root" in args:
+        # another checkout's package (an A/B of kernel 7 in one call)
+        sys.path.insert(0, args[args.index("--package-root") + 1])
     from dlrover_tpu_torch.models import llama
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1406,6 +1446,12 @@ def main():
     smi = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if "--dqmm" in args:
+        import dlrover_tpu_torch
+
+        log("dqmm.package", path=dlrover_tpu_torch.__file__)
+        phase_dqmm(gen)
+        return 0
     if "--profile" in sys.argv[1:] and "--train" in sys.argv[1:]:
         phase_profile_train("--int8-adam" in sys.argv[1:])
         return 0
@@ -1452,6 +1498,8 @@ def main():
     main_dequant = dequant_rows[0]
     main_dqmm = next(r for r in dqmm_rows
                      if (r["T"], r["K"], r["O"]) == (8, 4096, 14336))
+    main_ws = next(r for r in dqmm_rows
+                   if (r["T"], r["K"], r["O"]) == (1024, 4096, 14336))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [
@@ -1527,10 +1575,14 @@ def main():
              source="dlrover_tpu_torch/csrc/dqmm.cu",
              replaces="dlrover_tpu/ops/quantization.py:306",
              launches=e2e_int8["launches"]["dqmm"],
+             launches_by_variant=e2e_int8["dqmm_launches_by_variant"],
              **{k: main_dqmm[k] for k in keys},
              dense_ms=main_dqmm["dense_ms"],
+             prefill_ms=main_ws["ms"], prefill_bound_ms=main_ws["bound_ms"],
+             prefill_dense_ms=main_ws["dense_ms"],
              shape="T=8 K=4096 O=14336 (w_gate decode) bf16 x int8, "
-                   "block 256",
+                   "block 256; prefill_*: the same weight at T=1024 on "
+                   "the prefill kernel (dqmm_ws)",
              per_shape=dqmm_rows),
     ]
     print(json.dumps({"kernels": kernels}, default=float), flush=True)

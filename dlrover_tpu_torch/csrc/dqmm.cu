@@ -15,7 +15,7 @@
 // What bounds it on this card: at decode (T = 8, one row per slot) the
 // bytes of the weight, O*K int8 plus 4*O*K/block of scales, against
 // 3.35 TB/s: every projection of a decode step reads its weight once
-// and does 16 FLOPs per weight byte. At prefill (T = 16..1024 tokens)
+// and does 16 FLOPs per weight byte. At prefill (T = 17..2048 tokens)
 // the 2*T*K*O operations against 989 TFLOP/s of bf16 tensor cores.
 //
 // Decode design. The product runs on the tensor cores as mma.sync
@@ -45,68 +45,79 @@
 // (blockIdx.z) into 256 to 1024 values so the grid holds ~8 blocks an
 // SM (wk and wv alone give 16 blocks): each split writes f32 partials
 // and a second kernel sums them in split order and rounds once. Also
-// tried on the card, and slower: the prefill kernel's shape (a tile
-// per chunk behind a block barrier), register rings 1 to 8 chunks deep
+// tried on the card, and slower: a block-wide tile per chunk behind a
+// block barrier (the first prefill kernel's shape), register rings 1
+// to 8 chunks deep
 // with activations from L1, and weights staged through shared memory
 // with cp.async.
 //
-// Prefill (T > 16): `dqmm_wgmma_kernel`, on Hopper's warpgroup MMA.
-// A block of 1 (T < 256) or 2 warpgroups computes 128 or 256 tokens x
-// 128 outputs; each warpgroup holds two m64n128 f32 accumulators. Per
-// 64-wide chunk the activation tile arrives by cp.async and the int8
-// weight tile is read into registers (the decode lane pattern),
-// dequantized as above and stored as bf16, once for all the block's
-// tokens; both tiles are K-major with 128-byte rows under the 128-byte
-// swizzle that the wgmma descriptors name, double-buffered, so chunk
-// c's 8 wgmma a warpgroup run asynchronously while the block
-// dequantizes chunk c + 1 and loads the weights of chunk c + 2. The 256-token block halves the dequant work
-// per product and wins from T = 256 up; below, its idle rows cost
-// more. An mma.sync version of the prefill kernel (128 x 128 blocks)
-// ran 1.0-1.4x slower at every prefill shape, and staging its weights
-// through a cp.async ring slower still (chip_smoke.py and PERF.md, on
-// an H100 80GB HBM3 at a 700 W power limit). Not yet: TMA, a
-// producer warp, a persistent schedule.
+// Prefill (T > 16): `dqmm_ws_kernel`, persistent and warp-specialised
+// on Hopper's TMA, mbarriers and warpgroup MMA. One block an SM (384
+// threads) walks work units: output tiles of 128 (T <= 128) or 256
+// tokens x 128 outputs, times a K split where the tiles alone would
+// leave SMs idle. The token tiles of one output tile are adjacent
+// units, so the blocks that run at once share each weight tile (one
+// read from device memory, the others from L2), and the activations
+// stay in L2. A ring of 4 (256-token tiles) or 6 stages: a stage holds
+// the activation tile [tokens, 64] bf16, the bf16 weight tile [128, 64]
+// and the scale box of the tile's rows [128, 4 blocks].
+//  - Warp 0 of the producer warpgroup: its thread 0 refills a stage by
+//    TMA as soon as the consumers free it (the int8 weight tile into
+//    the upper half of the bf16 tile's bytes, the scale box, the
+//    activation tile under the 128-byte swizzle), all completing on
+//    the stage's "full" barrier.
+//  - Warps 1-3 dequantize in place: they read all of the chunk's int8
+//    and scales, meet at a named barrier, write the bf16 tile K-major
+//    under the 128-byte swizzle that the wgmma descriptor names, with
+//    `dequant16`'s arithmetic, fence the writes to the async proxy and
+//    arrive on the stage's "ready" barrier.
+//  - Warpgroups 1 and 2 consume: each owns 64 or 128 of the tile's
+//    tokens by all 128 outputs (64 or 128 f32 accumulators a thread),
+//    issues 4 or 8 m64n128k16 wgmma a stage from shared memory, keeps
+//    one stage's group in flight and frees the stage before it through
+//    its "empty" barrier. No block-wide barrier runs after the set-up;
+//    a unit's epilogue overlaps the next unit's loads and dequant.
+// `setmaxnreg` gives the producer 96 registers and each consumer 200
+// (compiled at 168 for 384 threads). TMA needs scale rows of a 16-byte
+// multiple: where K / block is not a multiple of 4, the wrapper hands
+// the kernel a copy of the scales padded to one. Split K writes f32
+// partials [splits, T, O] that `dqmm_combine_kernel` sums in split
+// order and rounds once; it stays for the shapes whose tiles fill less
+// than one wave (wq, wk, wv, wo and w_down at T = 128 to 512, wk and
+// wv at T = 1024).
+//
+// What bounds it (PERF.md): the tensor cores at T >= 256 (2*T*K*O
+// operations), the weight bytes at T = 128 (256 operations a weight
+// byte, below the card's ~295). The kernel reaches about 0.4 of the
+// first. Taken apart on the card, the wgmma loop alone takes most of
+// the time, the TMA ring adds little and the dequant arithmetic the
+// rest, whichever warps run it: only fewer dequantized weights (a
+// cluster sharing each tile) could cut that. Tried on the card against
+// this design in one call each, and slower or no faster: the producer's
+// four warps dequantizing with thread 0 loading between its own chunks
+// (a chunk's TMA then leaves only 2 chunks before its use, and the ring
+// runs dry behind its ~µs latency); the scales loaded per chunk by the
+// dequantizing threads (__ldg or cp.async) or by warp 0's lanes
+// (cp.async) instead of TMA; the operand swap (y^T = W x^T with the
+// weight dequantized by the consumers into wgmma's register A operand,
+// so no bf16 weight touches shared memory: slower at every shape, with
+// a fence, commit and wait every k-step); the consumers dequantizing
+// half of each weight tile under their own wgmma; four dequantizing
+// warps with the loads issued by a consumer thread; separate activation
+// and weight rings of different depths; 64 to 136 producer registers;
+// shifts or I2F in place of the byte permute.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int NWARPS = 4;
 constexpr int NT = NWARPS * 32;
 constexpr int KC = 64;          // contraction values per chunk
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ inline void mma_bf16(float* c, const uint32_t* a,
-                                const uint32_t* b) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ inline void cp_async16(void* smem, const void* gmem, bool valid) {
-  uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
-  int src_size = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(src_size));
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 // int8 byte `sel` (0..3) of a word whose sign bits were flipped (so
 // the byte is q + 128), as the exact f32 q: the byte becomes the low
@@ -261,64 +272,15 @@ dqmm_decode_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// ---- prefill on wgmma ------------------------------------------------
+// ---- prefill: TMA ring, dequantizing producer, wgmma consumers ------
 
-__device__ inline void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ inline void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ inline void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// make this thread's generic-proxy shared-memory writes (st.shared,
-// cp.async) visible to the async proxy that wgmma reads through
-__device__ inline void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// descriptor of a K-major tile with 128-byte rows, 128-byte swizzle
-// (8-row atoms of 1024 bytes): start >> 4, LBO unused (1), SBO = 1024
-// bytes >> 4, layout type 1 (B128) in bits 62-63
-__device__ inline uint64_t sw128_desc(const void* smem_ptr) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_ptr);
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// D[64 x 128] f32 += A[64 x 16] (bf16, smem) . B[16 x 128] (bf16, smem)
-__device__ inline void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
+constexpr int WS_NT = 384;               // producer + 2 consumer warpgroups
+constexpr int WS_BO = 128;               // outputs a tile
+constexpr int W8_TILE = WS_BO * KC;      // bytes of a staged int8 tile
+constexpr int B_TILE = WS_BO * 128;      // bytes of its bf16 tile
+constexpr int S_TILE = WS_BO * 4 * 4;    // a chunk's scale box, f32
+constexpr int DQ_THREADS = 96;           // the 3 dequantizing warps
+constexpr int DQ_ROWS = 6;               // rows a dequantizing thread takes
 
 // byte offset of 16-byte group `kg` (0..7) of row `r` in a 128-byte-row
 // tile under the 128-byte swizzle: group index XOR (row % 8)
@@ -326,136 +288,205 @@ __device__ inline int sw128(int r, int kg) {
   return r * 128 + ((kg ^ (r & 7)) << 4);
 }
 
-// Prefill variant on wgmma: one warpgroup a block, 128 tokens x 128
-// outputs (two m64n128 accumulators, 128 f32 registers a thread). Per
-// 64-wide chunk the activation tile [128, 64] bf16 arrives by cp.async
-// and the weight tile [128, 64] int8 is read into registers (lane
-// pattern of the decode kernel: 8 rows x 64 contiguous bytes a warp
-// load), dequantized exactly as elsewhere and stored as bf16; both
-// tiles are K-major with 128-byte rows, 128-byte swizzled, double
-// buffered. The 8 wgmma (2 m-halves x 4 k-steps) of chunk c run
-// asynchronously while the block loads and dequantizes chunk c + 1.
-template <int WG>
-__global__ void __launch_bounds__(128 * WG)
-dqmm_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int8_t* __restrict__ q8,
-                  const float* __restrict__ s8,
-                  __nv_bfloat16* __restrict__ y, float* __restrict__ part,
-                  int T, int K, int O, int block, int chunks_per_split) {
-  constexpr int NTH = 128 * WG;              // threads
-  constexpr int BT = 128 * WG, BO = 128;     // tokens, outputs a block
-  constexpr int X_TILE = BT * 128, W_TILE = BO * 128;   // bytes
-  constexpr int P = 4 / WG;                  // weight rows-of-8 a warp
+// MH m64 halves a consumer: 128 * MH tokens a tile. A stage holds the
+// activation tile, the weight tile (the int8 tile lands in the upper
+// half of its bytes and is dequantized in place), both at 1024-byte
+// offsets (the swizzle atoms), and the scale box of the tile's rows:
+// 4 blocks from the aligned quad that holds the chunk's first block
+template <int MH>
+struct WsShape {
+  static constexpr int BT = 128 * MH;
+  static constexpr int STAGES = MH == 2 ? 4 : 6;
+  static constexpr int X_TILE = BT * 128;
+  static constexpr int STAGE = X_TILE + B_TILE + S_TILE;
+  static constexpr int BYTES = X_TILE + W8_TILE + S_TILE;   // TMA a stage
+  static constexpr int SMEM = STAGES * STAGE + 3 * STAGES * 8 + 1024;
+};
+
+// work unit u: token tile m (fastest), K split z, output tile n
+struct WsUnit {
+  int t0, o0, z, c_begin, c_end;
+};
+
+__device__ inline WsUnit ws_unit(int u, int mt, int splits, int per_split,
+                                 int chunks, int bt) {
+  WsUnit w;
+  const int rest = u / mt;
+  w.t0 = (u % mt) * bt;
+  w.z = rest % splits;
+  w.o0 = (rest / splits) * WS_BO;
+  w.c_begin = w.z * per_split;
+  w.c_end = min(chunks, w.c_begin + per_split);
+  return w;
+}
+
+template <int MH>
+__global__ void __launch_bounds__(WS_NT, 1)
+dqmm_ws_kernel(const __grid_constant__ CUtensorMap tm_x,
+               const __grid_constant__ CUtensorMap tm_w,
+               const __grid_constant__ CUtensorMap tm_s,
+               __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+               int T, int K, int O, int block, int splits, int per_split) {
+  using S = WsShape<MH>;
+  constexpr int NS = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
-  // swizzle atoms need 1024-byte alignment
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  unsigned char* xs[2] = {smem, smem + X_TILE};
-  unsigned char* ws[2] = {smem + 2 * X_TILE, smem + 2 * X_TILE + W_TILE};
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NS * S::STAGE);
+  uint64_t* ready = full + NS;
+  uint64_t* empty = ready + NS;
 
+  const int chunks = K / KC;
+  const int mt = (T + S::BT - 1) / S::BT;
+  const int units = mt * ((O + WS_BO - 1) / WS_BO) * splits;
   const int warp = threadIdx.x / 32;
-  const int wg = warp / 4;                   // this warp's warpgroup
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int t0 = blockIdx.x * BT;
-  const int o0 = blockIdx.y * BO;
-  const int c_begin = blockIdx.z * chunks_per_split;
-  const int c_end = min(K / KC, c_begin + chunks_per_split);
-  const int nblk = K / block;
 
-  auto load_x = [&](int stage, int c) {
-    const int k0 = c * KC;
-    for (int idx = threadIdx.x; idx < BT * 8; idx += NTH) {
-      const int r = idx / 8;
-      const int kg = idx % 8;
-      const bool valid = t0 + r < T;
-      cp_async16(xs[stage] + sw128(r, kg),
-                 valid ? x + (int64_t)(t0 + r) * K + k0 + kg * 8 : x, valid);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full + st, 1);                // the TMA thread
+      mbar_init(ready + st, 3);               // the 3 dequantizing warps
+      mbar_init(empty + st, 8);               // the 8 consumer warps
     }
-    cp_async_commit();
-  };
-  // this lane's weight rows: warp * 8P + g + 8p, bytes 16t .. 16t + 15
-  uint4 wv[P];
-  float wsc[P];
-  auto load_w = [&](int c) {
-    const int k = c * KC + 16 * t;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int o = o0 + warp * 8 * P + g + 8 * p;
-      const bool ok = o < O;
-      wv[p] = ok ? __ldg(reinterpret_cast<const uint4*>(
-                       q8 + (int64_t)o * K + k))
-                 : make_uint4(0u, 0u, 0u, 0u);
-      wsc[p] = ok ? __ldg(s8 + (int64_t)o * nblk + k / block) : 0.f;
-    }
-  };
-  auto store_w = [&](int stage) {
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      uint32_t bw[8];
-      dequant16(wv[p], wsc[p], bw);
-      const int r = warp * 8 * P + g + 8 * p;
-      *reinterpret_cast<uint4*>(ws[stage] + sw128(r, 2 * t)) =
-          make_uint4(bw[0], bw[1], bw[2], bw[3]);
-      *reinterpret_cast<uint4*>(ws[stage] + sw128(r, 2 * t + 1)) =
-          make_uint4(bw[4], bw[5], bw[6], bw[7]);
-    }
-  };
-
-  float acc[2][64];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
-
-  // the weight registers run one chunk ahead of the shared-memory
-  // tiles: chunk c + 2 loads while chunk c multiplies, so its device-
-  // memory latency hides behind a whole chunk, not behind the dequant
-  if (c_begin < c_end) {
-    load_x(0, c_begin);
-    load_w(c_begin);
-    store_w(0);
-    if (c_begin + 1 < c_end) load_w(c_begin + 1);
+    mbar_fence_init();
   }
-  for (int c = c_begin; c < c_end; ++c) {
-    const int st = (c - c_begin) & 1;
-    cp_async_wait<0>();
-    fence_proxy_async();
-    __syncthreads();  // both tiles of chunk c are in shared memory
-    wgmma_fence();
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n" ::: "memory");
+    if (warp == 0) {
+      // thread 0 keeps the ring full: chunk n loads as soon as the
+      // consumers have freed chunk n - NS, by TMA: the int8 weight tile
+      // and the scale box (device memory) first, then the activation
+      // tile (L2)
+      if (lane == 0) {
+        int n = 0;
+        for (int u = blockIdx.x; u < units; u += gridDim.x) {
+          const WsUnit w = ws_unit(u, mt, splits, per_split, chunks, S::BT);
+          for (int c = w.c_begin; c < w.c_end; ++c, ++n) {
+            const int st = n % NS;
+            if (n >= NS) mbar_wait(empty + st, (n / NS - 1) & 1);
+            unsigned char* base = smem + st * S::STAGE;
+            mbar_expect_tx(full + st, S::BYTES);
+            tma_load_2d(base + S::X_TILE + B_TILE - W8_TILE, &tm_w,
+                        full + st, c * KC, w.o0);
+            tma_load_2d(base + S::X_TILE + B_TILE, &tm_s, full + st,
+                        (c * KC / block) & ~3, w.o0);
+            tma_load_2d(base, &tm_x, full + st, c * KC, w.t0);
+          }
+        }
+      }
+    } else {
+      // warps 1-3 dequantize in place. Thread p takes values 16j ..
+      // 16j + 15 of rows p / 4 + 24i (i < 6, rows < 128; the sixth
+      // only in warp 1): a warp reads 512 contiguous staged bytes, and
+      // each 8-thread phase of its 16-byte stores hits 8 distinct
+      // 16-byte bank groups under the swizzle. The three warps read
+      // every int8 value before any writes its bf16 (named barrier 1):
+      // the int8 tile shares the bytes of the bf16 one.
+      const int p = threadIdx.x - 32;
+      const int j = p % 4;
+      int n = 0;                              // chunks dequantized
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const WsUnit w = ws_unit(u, mt, splits, per_split, chunks, S::BT);
+        for (int c = w.c_begin; c < w.c_end; ++c, ++n) {
+          const int st = n % NS;
+          unsigned char* wb = smem + st * S::STAGE + S::X_TILE;
+          const unsigned char* w8 = wb + B_TILE - W8_TILE;
+          const float* sd = reinterpret_cast<const float*>(wb + B_TILE);
+          // this thread's scale of a row: the block of value 16j of the
+          // chunk, within the box's quad
+          const int q = (c * KC + 16 * j) / block - ((c * KC / block) & ~3);
+          mbar_wait(full + st, (n / NS) & 1);
+          uint4 raw[DQ_ROWS];
+          float sc[DQ_ROWS];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+          for (int i = 0; i < DQ_ROWS; ++i) {
+            const int r = p / 4 + 24 * i;
+            if (r < WS_BO) {
+              raw[i] = *reinterpret_cast<const uint4*>(w8 + r * KC + 16 * j);
+              sc[i] = sd[4 * r + q];
+            }
+          }
+          asm volatile("bar.sync 1, %0;\n" :: "n"(DQ_THREADS) : "memory");
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        // k-step ks: 32 bytes further along the swizzled rows
-        wgmma_m64n128k16(
-            acc[h], sw128_desc(xs[st] + (128 * wg + 64 * h) * 128 + 32 * ks),
-            sw128_desc(ws[st] + 32 * ks));
+          for (int i = 0; i < DQ_ROWS; ++i) {
+            const int r = p / 4 + 24 * i;
+            if (r >= WS_BO) continue;
+            uint32_t bw[8];
+            dequant16(raw[i], sc[i], bw);
+            *reinterpret_cast<uint4*>(wb + sw128(r, 2 * j)) =
+                make_uint4(bw[0], bw[1], bw[2], bw[3]);
+            *reinterpret_cast<uint4*>(wb + sw128(r, 2 * j + 1)) =
+                make_uint4(bw[4], bw[5], bw[6], bw[7]);
+          }
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(ready + st);
+        }
       }
     }
-    wgmma_commit();
-    if (c + 1 < c_end) {   // the other stage was last read by chunk c-1
-      load_x(st ^ 1, c + 1);
-      store_w(st ^ 1);       // chunk c + 1, loaded one iteration ago
-      if (c + 2 < c_end) load_w(c + 2);
-    }
-    wgmma_wait_all();
-    __syncthreads();  // nobody refills stage st before all its reads end
-  }
+  } else {
+    // ---- consumer warpgroups: 64 * MH tokens x 128 outputs each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+    const int wgc = warp / 4 - 1;             // 0 or 1
+    const int wq = warp % 4;                  // 16-row slice of an m64
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    float acc[MH][64];
+#pragma unroll
+    for (int h = 0; h < MH; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    int n = 0;                                // chunks consumed
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const WsUnit w = ws_unit(u, mt, splits, per_split, chunks, S::BT);
+      for (int c = w.c_begin; c < w.c_end; ++c, ++n) {
+        const int st = n % NS;
+        const int ph = (n / NS) & 1;
+        unsigned char* base = smem + st * S::STAGE;
+        const uint32_t xa = sw128_lo(base + 64 * MH * wgc * 128, 16);
+        const uint32_t wb = sw128_lo(base + S::X_TILE, 16);
+        mbar_wait(full + st, ph);
+        mbar_wait(ready + st, ph);
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < MH; ++h) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            // k-step ks: 32 bytes further along the swizzled rows; the
+            // first of a unit overwrites the accumulators
+            wgmma_ss_n128(acc[h], desc_at(xa, 64 * 128 * h + 32 * ks),
+                          desc_at(wb, 32 * ks), c > w.c_begin || ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        // the group of the chunk before is done: free its stage
+        if (c > w.c_begin && lane == 0) mbar_arrive(empty + (n - 1) % NS);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < MH; ++h)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) reg_fence(acc[h][i]);
+      if (lane == 0) mbar_arrive(empty + (n - 1) % NS);
 
-  // accumulator i of half h: n8 block j = i / 4, element e = i % 4:
-  // token row 64h + 16 * warp + g + 8 * (e / 2), output 8j + 2t + e % 2
+      // accumulator i of half h: n8 block jn = i / 4, element e = i % 4
+      // at token row 64 (MH wgc + h) + 16 wq + g + 8 (e / 2), output
+      // 8 jn + 2 tq + e % 2
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < MH; ++h) {
+        const int tok = w.t0 + 64 * (MH * wgc + h) + 16 * wq + g;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int tok = t0 + 128 * wg + 64 * h + 16 * (warp % 4) + g;
-      const int o = o0 + 8 * j + 2 * t;
-      store_pair(acc[h][4 * j], acc[h][4 * j + 1], tok, o, T, O, y, part,
-                 blockIdx.z);
-      store_pair(acc[h][4 * j + 2], acc[h][4 * j + 3], tok + 8, o, T, O, y,
-                 part, blockIdx.z);
+        for (int jn = 0; jn < 16; ++jn) {
+          const int o = w.o0 + 8 * jn + 2 * tq;
+          store_pair(acc[h][4 * jn], acc[h][4 * jn + 1], tok, o, T, O, y,
+                     part, w.z);
+          store_pair(acc[h][4 * jn + 2], acc[h][4 * jn + 3], tok + 8, o, T,
+                     O, y, part, w.z);
+        }
+      }
     }
   }
 }
@@ -476,34 +507,48 @@ constexpr int DEC_NO = 2;            // decode: 8 * 2 outputs per warp
 constexpr int DEC_UNR = 2;           // decode: chunks per load batch
 constexpr int DEC_MAX_CHUNKS = 16;   // decode: K range of one block
 
-// one- or two-warpgroup prefill kernel: 128 * WG tokens x 128 outputs
-template <int WG>
-int launch_wgmma(const __nv_bfloat16* x, const int8_t* q8, const float* s8,
-                 __nv_bfloat16* y, float* part, int T, int K, int O,
-                 int block, int splits, int chunks_per_split,
-                 cudaStream_t stream) {
-  constexpr int smem = 2 * (128 * WG + 128) * 128 + 1024;
+// the prefill kernel with 128 * MH-token tiles on `grid` persistent
+// blocks; the tensor maps are encoded on the host for each launch (a
+// few microseconds) and passed by value, so a captured CUDA graph
+// holds its own copies
+template <int MH>
+int launch_ws(const void* x, const void* q8, const float* s8q,
+              __nv_bfloat16* y, float* part, int T, int K, int O, int block,
+              int splits, int per_split, int grid, cudaStream_t stream) {
+  using S = WsShape<MH>;
+  // the scales as [O, quads of 4 blocks] (a row pitch of 16 bytes'
+  // multiple, as TMA needs: the wrapper pads K / block to a multiple
+  // of 4 where it is not)
+  const int nblk4 = (K / block + 3) & ~3;
+  CUtensorMap tm_x, tm_w, tm_s;
+  if (!make_map_2d(&tm_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, T, K,
+                   S::BT, KC, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&tm_w, q8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O, K, WS_BO,
+                   KC, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_map_2d(&tm_s, s8q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, O, nblk4,
+                   WS_BO, 4, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
   // raise the dynamic shared-memory cap once (not per launch: the
   // attribute call is host work, and launches may be graph-captured)
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        dqmm_wgmma_kernel<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        dqmm_ws_kernel<MH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        S::SMEM);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((T + 128 * WG - 1) / (128 * WG), (O + 127) / 128, splits);
-  dqmm_wgmma_kernel<WG><<<grid, 128 * WG, smem, stream>>>(
-      x, q8, s8, y, part, T, K, O, block, chunks_per_split);
+  dqmm_ws_kernel<MH><<<grid, WS_NT, S::SMEM, stream>>>(
+      tm_x, tm_w, tm_s, y, part, T, K, O, block, splits, per_split);
   return 0;
 }
 
-// variant 0: the decode kernel (T <= 16); 1: the one-warpgroup prefill
-// kernel; 2: the two-warpgroup prefill kernel
+// variant 0: the decode kernel (T <= 16); 1: the prefill kernel with
+// 128-token tiles; 2: with 256-token tiles
 int launch(int variant, const void* x, const void* q8, const void* s8,
-           void* y, void* part, int T, int K, int O, int block, int splits,
-           int chunks_per_split, cudaStream_t stream) {
+           const void* s8q, void* y, void* part, int T, int K, int O,
+           int block, int splits, int chunks_per_split, int grid,
+           cudaStream_t stream) {
   const __nv_bfloat16* xp = (const __nv_bfloat16*)x;
   const int8_t* qp = (const int8_t*)q8;
   const float* sp = (const float*)s8;
@@ -512,21 +557,21 @@ int launch(int variant, const void* x, const void* q8, const void* s8,
   int err = 0;
   if (variant == 0) {
     constexpr int BO = NWARPS * 8 * DEC_NO;
-    const dim3 grid(1, (O + BO - 1) / BO, splits);
+    const dim3 dgrid(1, (O + BO - 1) / BO, splits);
     const int rows = T > 8 ? 16 : 8;
     const int smem = rows * (chunks_per_split * KC + 8) * 2;  // <= 33 KB
     if (T > 8)
-      dqmm_decode_kernel<DEC_NO, DEC_UNR, true><<<grid, NT, smem, stream>>>(
+      dqmm_decode_kernel<DEC_NO, DEC_UNR, true><<<dgrid, NT, smem, stream>>>(
           xp, qp, sp, yp, pp, T, K, O, block, chunks_per_split);
     else
-      dqmm_decode_kernel<DEC_NO, DEC_UNR, false><<<grid, NT, smem, stream>>>(
+      dqmm_decode_kernel<DEC_NO, DEC_UNR, false><<<dgrid, NT, smem, stream>>>(
           xp, qp, sp, yp, pp, T, K, O, block, chunks_per_split);
   } else if (variant == 1) {
-    err = launch_wgmma<1>(xp, qp, sp, yp, pp, T, K, O, block, splits,
-                          chunks_per_split, stream);
+    err = launch_ws<1>(x, q8, (const float*)s8q, yp, pp, T, K, O, block,
+                       splits, chunks_per_split, grid, stream);
   } else {
-    err = launch_wgmma<2>(xp, qp, sp, yp, pp, T, K, O, block, splits,
-                          chunks_per_split, stream);
+    err = launch_ws<2>(x, q8, (const float*)s8q, yp, pp, T, K, O, block,
+                       splits, chunks_per_split, grid, stream);
   }
   if (err != 0) return err;
   cudaError_t cerr = cudaGetLastError();
@@ -541,24 +586,29 @@ int launch(int variant, const void* x, const void* q8, const void* s8,
 }  // namespace
 
 // x [T, K] bf16, q8 [O, K] int8, s8 [O, K / block] f32, y [T, O] bf16,
-// all contiguous and 16-byte aligned; part [splits, T, O] f32 scratch
-// when splits > 1. variant 0: T <= 16 tiles, 1: 64-token tiles. The
-// wrapper (ops/quantization.py) checks shapes and picks variant and
-// split; this refuses what would read out of bounds.
+// all contiguous and 16-byte aligned; s8q the same scales with rows
+// padded to a multiple of 4 blocks (s8 itself where K / block is one),
+// read by the prefill kernel; part [splits, T, O] f32 scratch when
+// splits > 1. variant 0: the decode kernel (T <= 16), 1 and 2: the
+// prefill kernel with 128- and 256-token tiles on `grid` blocks. The
+// wrapper (ops/quantization.py) checks shapes and picks variant, split
+// and grid; this refuses what would read out of bounds.
 extern "C" int dqmm_bf16(const void* x, const void* q8, const void* s8,
-                         void* y, void* part, int T, int K, int O,
-                         int block, int variant, int splits,
-                         int chunks_per_split, void* stream) {
+                         const void* s8q, void* y, void* part, int T, int K,
+                         int O, int block, int variant, int splits,
+                         int chunks_per_split, int grid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (T < 1 || O < 1 || K < KC || K % KC != 0 || block < 16 ||
       (block & (block - 1)) != 0 || K % block != 0 || splits < 1 ||
       chunks_per_split < 1 ||
       (long long)splits * chunks_per_split < K / KC ||
+      (long long)(splits - 1) * chunks_per_split >= K / KC ||
       (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((variant == 0 && (T > 16 || chunks_per_split > DEC_MAX_CHUNKS)) ||
-      variant < 0 || variant > 2)
+      (variant != 0 && grid < 1) || variant < 0 || variant > 2)
     return (int)cudaErrorInvalidValue;
-  return launch(variant, x, q8, s8, y, part, T, K, O, block, splits,
-                chunks_per_split, st);
+  if (variant != 0 && s8q == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(variant, x, q8, s8, s8q, y, part, T, K, O, block, splits,
+                chunks_per_split, grid, st);
 }

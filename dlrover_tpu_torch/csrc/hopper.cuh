@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// (flash_fwd.cu, flash_bwd.cu): mma.sync helpers, the mbarrier ring,
-// TMA tensor maps and loads, named barriers and the wgmma forms with
-// their 128-byte-swizzle shared-memory descriptors.
+// (flash_fwd.cu, flash_bwd.cu) and the dequant-matmul (dqmm.cu):
+// mma.sync helpers, the mbarrier ring, TMA tensor maps and loads,
+// named barriers and the wgmma forms with their 128-byte-swizzle
+// shared-memory descriptors.
 //
 // Each source that includes this header builds into its own library;
 // ops/_build.py hashes the header into every library name that
@@ -128,6 +129,24 @@ __device__ inline void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of a 2-D tensor map (coordinates innermost first) into
+// shared memory, completing its bytes on `bar`
+__device__ inline void tma_load_2d(void* dst, const CUtensorMap* map,
+                                   uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// make this thread's generic-proxy shared-memory writes (st.shared)
+// visible to the async proxy that wgmma and TMA read through
+__device__ inline void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // named barrier `id` over two consumer warpgroups (256 threads): one
@@ -370,6 +389,26 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int b, int s,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a tensor map over a contiguous row-major [rows, cols] matrix of
+// `elem_bytes`-byte values: boxes of `box_cols` x `box_rows` values,
+// under `swizzle`; rows past `rows` read as zeros (a box still
+// completes its whole size in bytes on its barrier)
+inline bool make_map_2d(CUtensorMap* map, const void* ptr,
+                        CUtensorMapDataType type, int elem_bytes, int rows,
+                        int cols, int box_rows, int box_cols,
+                        CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -14,7 +14,9 @@ through the kernels (`launch_counts()` / `reset_launch_counts()`). A
 source holding several kernels counts each under its own name
 (`LAUNCHES`); a flash kernel counts every launch under its name
 ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") and those of its wgmma
-variant also under "<name>_wgmma".
+variant also under "<name>_wgmma"; the dequant-matmul counts every
+launch under "dqmm" and those of its prefill kernel also under
+"dqmm_ws".
 """
 
 import ctypes
@@ -36,7 +38,8 @@ KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "quant_int8",
 # kernel, counted under the source's name)
 LAUNCHES = {"flash_fwd": ("flash_fwd", "flash_fwd_wgmma"),
             "flash_bwd": ("flash_bwd_dq", "flash_bwd_dq_wgmma",
-                          "flash_bwd_dkv", "flash_bwd_dkv_wgmma")}
+                          "flash_bwd_dkv", "flash_bwd_dkv_wgmma"),
+            "dqmm": ("dqmm", "dqmm_ws")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

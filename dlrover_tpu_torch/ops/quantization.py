@@ -41,12 +41,13 @@ _INV_INT8_MAX = float(torch.tensor(1.0) / INT8_MAX)
 _QUANT = "quant_int8"
 _DEQUANT = "dequant_int8"
 _DQMM = "dqmm"
+_DQMM_WS = "dqmm_ws"     # the prefill kernel's launches (T > 16)
 # the C signatures of csrc/quant_int8.cu `quant_int8` and
 # csrc/dequant_int8.cu `dequant_int8` (one and the same) and of
 # csrc/dqmm.cu `dqmm_bf16` (pointers and the stream as void*)
 _ROW_ARGTYPES = (ctypes.c_int,) + (ctypes.c_void_p,) * 3 + (
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
-_DQMM_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
+_DQMM_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8 + (
     ctypes.c_void_p,)
 # what csrc/quant_int8.cu instantiates: 8 values a lane, block/8 lanes
 # a row, so any power-of-two block from 8 to 256; csrc/dequant_int8.cu
@@ -57,18 +58,22 @@ _DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
 # consecutive values of a weight row, which must share one scale
 _DQMM_CHUNK = 64
 _DQMM_MIN_BLOCK = 16
-# (tokens, outputs) per block of each dqmm variant: 0 the decode kernel
-# (T <= 16), 1 the one-warpgroup prefill kernel (T < 256), 2 the
-# two-warpgroup one (T >= 256: it halves the dequant work per product,
-# and its 256-token tile is mostly full)
+# (tokens, outputs) per tile of each dqmm variant: 0 the decode kernel
+# (T <= 16), 1 and 2 the persistent prefill kernel with 128-token tiles
+# (T <= 128) and 256-token tiles (T > 128: it halves the dequant work
+# per product, and at the engine's buckets its tiles are full)
 _DQMM_TILES = ((16, 64), (128, 128), (256, 128))
-_DQMM_TWO_WARPGROUPS_FROM = 256
-# split K over blocks until the grid holds this many blocks (8 or 2 an
-# SM on 132), keeping 4 to 16 (decode) or >= 4 (prefill) chunks a split:
-# the decode kernel stages a split's activations in shared memory
-_DQMM_TARGET_BLOCKS = (1056, 264, 264)
+_DQMM_WIDE_FROM = 129
+# the decode kernel splits K over blocks until the grid holds this many
+# (8 an SM on 132), keeping 4 to 16 chunks a split (it stages a split's
+# activations in shared memory); the prefill kernel splits K only where
+# its tiles fill less than one wave of the card's SMs, keeping >= 4
+# chunks a split
+_DQMM_TARGET_BLOCKS = 1056
 _DQMM_MIN_CHUNKS_PER_SPLIT = 4
 _DQMM_DECODE_MAX_CHUNKS = 16
+# the SMs of an H100 SXM: the plan's default where no card is asked
+_DQMM_SMS = 132
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtypes, device: int) -> None:
@@ -242,7 +247,7 @@ class QuantizedWeight:
     fields are fixed once built: the dqmm wrapper checks q8, s8 and
     block once per weight (`_checked_on`), not at every launch."""
 
-    __slots__ = ("q8", "s8", "block", "_slices", "_checked_on")
+    __slots__ = ("q8", "s8", "block", "_slices", "_checked_on", "_s8q")
 
     def __init__(self, q8: torch.Tensor, s8: torch.Tensor, block: int):
         self.q8 = q8
@@ -251,6 +256,9 @@ class QuantizedWeight:
         self._slices = {}
         # the CUDA device index this weight passed the kernel's checks on
         self._checked_on = None
+        # the scales as the prefill kernel's TMA reads them (set by the
+        # checks): s8 itself, or a copy with rows padded to 4 blocks
+        self._s8q = None
 
     @property
     def shape(self):
@@ -323,21 +331,33 @@ def dqmm_supports(t: int, k: int, o: int, block: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _dqmm_plan(t: int, k: int, o: int):
-    """(variant, splits, chunks per split) for x [t, k] . w [o, k]."""
-    if t <= _DQMM_TILES[0][0]:
-        variant = 0
-    else:
-        variant = 1 if t < _DQMM_TWO_WARPGROUPS_FROM else 2
-    bt, bo = _DQMM_TILES[variant]
-    blocks = -(-t // bt) * -(-o // bo)
+def _dqmm_plan(t: int, k: int, o: int, sms: int = _DQMM_SMS):
+    """(variant, splits, chunks per split, grid) for x [t, k] . w [o, k]
+    on a card with `sms` SMs. The decode kernel's grid is its tiles
+    times its splits; the prefill kernel's is persistent: one block an
+    SM at most, walking its work units (tiles times splits)."""
     chunks = k // _DQMM_CHUNK
-    want = -(-_DQMM_TARGET_BLOCKS[variant] // blocks)
-    splits = max(1, min(want, chunks // _DQMM_MIN_CHUNKS_PER_SPLIT))
-    if variant == 0:
+    if t <= _DQMM_TILES[0][0]:
+        bt, bo = _DQMM_TILES[0]
+        blocks = -(-t // bt) * -(-o // bo)
+        want = -(-_DQMM_TARGET_BLOCKS // blocks)
+        splits = max(1, min(want, chunks // _DQMM_MIN_CHUNKS_PER_SPLIT))
         splits = max(splits, -(-chunks // _DQMM_DECODE_MAX_CHUNKS))
+        per_split = -(-chunks // splits)
+        splits = -(-chunks // per_split)
+        return 0, splits, per_split, blocks * splits
+    variant = 1 if t < _DQMM_WIDE_FROM else 2
+    bt, bo = _DQMM_TILES[variant]
+    tiles = -(-t // bt) * -(-o // bo)
+    splits = max(1, min(sms // tiles, chunks // _DQMM_MIN_CHUNKS_PER_SPLIT))
     per_split = -(-chunks // splits)
-    return variant, -(-chunks // per_split), per_split
+    splits = -(-chunks // per_split)
+    return variant, splits, per_split, min(tiles * splits, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_dqmm_weight(w: QuantizedWeight, dev: int) -> None:
@@ -351,6 +371,9 @@ def _check_dqmm_weight(w: QuantizedWeight, dev: int) -> None:
     o, k = w.q8.shape
     if w.s8.shape != (o, k // w.block) or not dqmm_supports(1, k, o, w.block):
         raise ValueError(f"dqmm kernel does not take {w!r}")
+    # TMA reads the scales in rows of a 16-byte multiple: 4 blocks
+    pad = -(k // w.block) % 4
+    w._s8q = F.pad(w.s8, (0, pad)).contiguous() if pad else w.s8
     w._checked_on = dev
 
 
@@ -365,7 +388,7 @@ def _dqmm_cuda(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
         raise ValueError(
             f"dqmm: x{tuple(x.shape)} does not match q8{tuple(w.q8.shape)}"
         )
-    variant, splits, per_split = _dqmm_plan(t, k, o)
+    variant, splits, per_split, grid = _dqmm_plan(t, k, o, _sm_count(dev))
     y = x.new_empty((t, o))
     part = (
         x.new_empty((splits, t, o), dtype=torch.float32)
@@ -373,12 +396,15 @@ def _dqmm_cuda(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
     )
     fn = _build.function(_DQMM, "dqmm_bf16", _DQMM_ARGTYPES)
     err = fn(
-        x.data_ptr(), w.q8.data_ptr(), w.s8.data_ptr(), y.data_ptr(),
+        x.data_ptr(), w.q8.data_ptr(), w.s8.data_ptr(), w._s8q.data_ptr(),
+        y.data_ptr(),
         part.data_ptr() if part is not None else None,
-        t, k, o, w.block, variant, splits, per_split,
+        t, k, o, w.block, variant, splits, per_split, grid,
         _build.current_stream(dev),
     )
     _build.count_launch(_DQMM)
+    if variant:
+        _build.count_launch(_DQMM_WS)
     _build.check(err, _DQMM, f"x{tuple(x.shape)} q8{tuple(w.q8.shape)}")
     return y
 

@@ -59,6 +59,13 @@ def test_the_attention_sources_share_the_hopper_header():
         assert found == [f"{name}.cu", "hopper.cuh"]
 
 
+def test_dqmm_shares_the_hopper_header():
+    """The dequant-matmul takes its TMA, mbarrier and wgmma pieces from
+    csrc/hopper.cuh too, so an edited header rebuilds it as well."""
+    found = [p.name for p in _build._sources(_build.CSRC / "dqmm.cu")]
+    assert found == ["dqmm.cu", "hopper.cuh"]
+
+
 def test_missing_nvcc_is_refused(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
@@ -80,7 +87,7 @@ def test_launch_counters():
         "flash_fwd": 0, "flash_fwd_wgmma": 0, "flash_bwd_dq": 0,
         "flash_bwd_dq_wgmma": 0, "flash_bwd_dkv": 0,
         "flash_bwd_dkv_wgmma": 0, "paged_attention": 2, "quant_int8": 0,
-        "dequant_int8": 0, "dqmm": 0,
+        "dequant_int8": 0, "dqmm": 0, "dqmm_ws": 0,
     }
     _build.reset_launch_counts()
     assert set(_build.launch_counts().values()) == {0}

@@ -363,7 +363,14 @@ def test_trainer_with_int8_adam_on_the_card(gen, tmp_path, monkeypatch):
     "t,k,o,block",
     [(1, 256, 40, 256), (8, 512, 200, 256), (8, 4096, 1024, 256),
      (77, 1024, 300, 128), (16, 128, 72, 64), (130, 512, 136, 16),
-     (300, 256, 200, 64)],
+     (300, 256, 200, 64),
+     # the prefill kernel's edges: one token past the decode kernel,
+     # either side of its 128- / 256-token tiles, ragged output tiles,
+     # one chunk of K and the MLP's 14336, the smallest block
+     (17, 64, 136, 16), (64, 128, 200, 64), (65, 4096, 1000, 256),
+     (128, 14336, 136, 256), (129, 128, 1000, 16), (256, 4096, 200, 64),
+     (257, 64, 1000, 64), (1000, 4096, 1000, 16), (1024, 14336, 200, 256),
+     (1024, 4096, 136, 64)],
 )
 def test_dqmm_kernel_matches_plain(gen, t, k, o, block):
     w = torch.randn((o, k), generator=gen, device="cuda")
@@ -376,6 +383,42 @@ def test_dqmm_kernel_matches_plain(gen, t, k, o, block):
     torch.cuda.synchronize()
     assert _build.launch_counts()["dqmm"] == before + 1
     assert y.shape == (t, o) and y.dtype == torch.bfloat16
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= DQMM_TOL * ref.float().abs().max().item()
+
+
+def test_dqmm_ws_counts_prefill_launches_only(gen):
+    """`dqmm_ws` counts one launch of the prefill kernel for every
+    product with T > 16, and none for T <= 16 (the decode kernel);
+    `dqmm` counts every launch."""
+    w = torch.randn((200, 512), generator=gen, device="cuda")
+    qw = tq.QuantizedWeight(*tq.quantize_int8(w, 64), 64)
+    for t, ws in ((1, 0), (16, 0), (17, 1), (1024, 1)):
+        x = torch.randn((t, 512), generator=gen, device="cuda").bfloat16()
+        before = _build.launch_counts()
+        tq.quantized_matmul(x, qw)
+        after = _build.launch_counts()
+        assert after["dqmm"] - before["dqmm"] == 1
+        assert after["dqmm_ws"] - before["dqmm_ws"] == ws
+    torch.cuda.synchronize()
+
+
+def test_dqmm_prefill_on_a_layer_slice(gen):
+    """T = 1024 against layer 3 of a stacked weight: the TMA maps start
+    inside the allocation, not at its base."""
+    layers, o, k, block = 4, 520, 4096, 256
+    w = torch.randn((layers * o, k), generator=gen, device="cuda")
+    q8, s8 = tq.quantize_int8(w, block)
+    stack = tq.QuantizedWeight(q8.reshape(layers, o, k),
+                               s8.reshape(layers, o, k // block), block)
+    layer = stack[3]
+    assert layer.q8.data_ptr() != stack.q8.data_ptr()
+    x = torch.randn((1024, k), generator=gen, device="cuda").bfloat16()
+    before = _build.launch_counts()["dqmm_ws"]
+    y = tq.quantized_matmul(x, layer)
+    ref = tq.quantized_matmul_reference(x, layer)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["dqmm_ws"] == before + 1
     err = (y.float() - ref.float()).abs().max().item()
     assert err <= DQMM_TOL * ref.float().abs().max().item()
 

@@ -226,10 +226,54 @@ def test_dqmm_plan_covers_k(t, k, o):
     """The split over K covers every 64-wide chunk exactly once, keeps
     at least 4 chunks a split where K allows, at most 16 in the decode
     kernel (its shared-memory activation slab), and picks the decode
-    tile for T <= 16 and the two-warpgroup prefill tile from T = 256."""
-    variant, splits, per = tq._dqmm_plan(t, k, o)
+    kernel for T <= 16, the prefill kernel's 128-token tiles up to
+    T = 128 and its 256-token tiles above. The prefill kernel is
+    persistent: at most one block an SM, and it splits K only where
+    its tiles fill less than one wave, never into more than a wave."""
+    variant, splits, per, grid = tq._dqmm_plan(t, k, o)
     chunks = k // 64
-    assert variant == (0 if t <= 16 else 1 if t < 256 else 2)
+    assert variant == (0 if t <= 16 else 1 if t <= 128 else 2)
     assert (splits - 1) * per < chunks <= splits * per
     assert splits == 1 or per >= 4
-    assert variant > 0 or per <= 16
+    if variant == 0:
+        assert per <= 16
+        assert grid == -(-o // 64) * splits
+        return
+    bt = 128 if variant == 1 else 256
+    tiles = -(-t // bt) * -(-o // 128)
+    assert grid == min(tiles * splits, 132)
+    assert splits == 1 or tiles * splits <= 132
+
+
+def _engine_prefill_buckets():
+    from dlrover_tpu_torch.serving.engine import _pad_bucket
+
+    return sorted({_pad_bucket(n) for n in range(17, 2049)})
+
+
+# the Llama-3-8B matmul weights as (K, O): wq / wo, wk / wv, w_gate /
+# w_up, w_down, lm_head
+_LLAMA3_8B_WEIGHTS = ((4096, 4096), (4096, 1024), (4096, 14336),
+                      (14336, 4096), (4096, 128256))
+
+
+def test_dqmm_plan_takes_every_engine_bucket():
+    """Every prompt bucket the engine prefills (17 to 2048 tokens) plans
+    onto the prefill kernel at every Llama-3-8B weight shape (block
+    256), and every decode batch (T <= 16) onto the decode kernel; the
+    prefill grid never exceeds the card's SMs and K splits only where
+    the tiles leave SMs idle (wk / wv at T = 1024: 4 splits of 16
+    chunks)."""
+    buckets = _engine_prefill_buckets()
+    assert buckets == [32, 64, 128, 256, 512, 1024, 2048]
+    for k, o in _LLAMA3_8B_WEIGHTS:
+        for t in buckets:
+            assert tq.dqmm_supports(t, k, o, 256)
+            variant, splits, per, grid = tq._dqmm_plan(t, k, o)
+            assert variant == (1 if t <= 128 else 2)
+            assert 1 <= grid <= 132
+            if t >= 1024 and o >= 4096:
+                assert splits == 1
+        for t in range(1, 17):
+            assert tq._dqmm_plan(t, k, o)[0] == 0
+    assert tq._dqmm_plan(1024, 4096, 1024)[:3] == (2, 4, 16)
