@@ -14,25 +14,34 @@ Phases, one line each (any failure exits non-zero before the last line):
      wgmma variant, which every main path takes, with the mma.sync
      variant's time and error beside it) at B=1 with S = 77, 512 and
      2048 and at the train path's B=2, S=2048,
-     paged_attention, quantize_int8 (one w_gate layer slab, and the
+     paged_attention (bf16 and int8 pools; the TMA-ring kernel the
+     serving shape takes and the split kernel it replaced, each timed
+     cold over pool copies that overflow L2 and warm on one pool),
+     quantize_int8 (one w_gate layer slab, and the
      embedding flattened as the int8 AdamW quantizes it; bytes equal
      to the plain version), dequantize_int8 (the training path's
      flattened leaves, bits equal to the plain version), one Int8AdamW
      step on the card against the same step on the CPU (opt.int8_adam),
      and dqmm (the five weight shapes at T = 8 and 77 and at the
      serving prompt buckets 128, 256, 512 and 1024, with the dense bf16
-     matmul's time and the variant that ran beside it);
+     matmul's time and the variant that ran beside it; at T = 8 the
+     TMA-ring decode kernel, with the mma.sync decode kernel it replaced
+     timed on the same inputs);
   4. serve: ContinuousBatcher on Llama-3-8B at full width and depth
      (random weights from a seed), kv_layout="paged", greedy-serving 12
      requests; every request must finish, both attention kernels must
-     have run on that path (every flash forward on its wgmma variant), the first-decode-step logits must match the
+     have run on that path (every flash forward on its wgmma variant,
+     every paged launch on the TMA-ring kernel), the first-decode-step
+     logits must match the
      plain attention path, and a reference-attention engine gives the
      greedy agreement;
   5. serve.int8: the same traffic through weight_quant="int8" on the
      same weights; every flash forward must have taken the wgmma
      variant, the quantize kernel must have run once per layer slice and the dequant-matmul kernel on every product of every
      forward (every prefill product on its persistent TMA + wgmma
-     variant, `dqmm_ws`, every decode product on the decode one),
+     variant, `dqmm_ws`, every decode product on the TMA-ring decode
+     kernel, `dqmm_decode_tma`, which launches no combine kernel; every
+     paged launch on the TMA-ring kernel),
      one installed layer slice of every quantized weight (and
      the lm_head) must equal the plain quantizer's bytes, the weight
      bytes must be <= 0.55x the bf16 engine's, and
@@ -67,7 +76,11 @@ neither prints a result line. `python3 chip_smoke.py --dqmm
 the `dlrover_tpu_torch` found under DIR (another checkout, such as a
 parent commit unpacked by `git archive`) where one is given: the A/B
 of two versions of kernel 7 in one call; it prints no result line
-either.
+either. `python3 chip_smoke.py --decode-kernels [--package-root DIR]`
+runs the card, build and paged-attention phases and the dqmm rows at
+T = 1, 8 and 16 of the five weight shapes: the A/B of the two decode
+kernels (kernel 4 and kernel 7's decode variant) in one call, no result
+line.
 """
 
 import dataclasses
@@ -105,6 +118,8 @@ DQMM_SHAPES = (
 # decode (8 slots), a ragged prefill, and the prompt buckets of the
 # serving traffic (`_prompts`: 128 x1, 256 x1, 512 x3, 1024 x7)
 DQMM_TOKENS = (8, 77, 128, 256, 512, 1024)
+# `--decode-kernels`: one slot, the serving batch, the decode kernels' most
+DECODE_TOKENS = (1, 8, 16)
 BWD_REL_TOL = 2 ** -6
 BWD_TOL_REASON = (
     "2^-6 of the largest |grad| of each of dq, dk, dv: both sides round P "
@@ -322,6 +337,16 @@ def phase_flash(gen):
     return rows
 
 
+def _check_paged_tma(phase, launches):
+    """Every paged-attention launch of a serving run on the TMA-ring
+    kernel (one launch a layer and decode step, no combine kernel)."""
+    if launches["paged_attention_tma"] != launches["paged_attention"]:
+        raise AssertionError(
+            f"{phase}: {launches['paged_attention']} paged launches, "
+            f"{launches['paged_attention_tma']} on the TMA-ring kernel"
+        )
+
+
 def _check_wgmma(phase, launches, names=("flash_fwd",)):
     """Every launch of the named flash kernels on a main path took the
     kernel's wgmma variant."""
@@ -491,46 +516,92 @@ def _paged_case(gen, quant):
             torch.from_numpy(lengths).cuda(), lengths)
 
 
+def _launched(before, after, name):
+    return after.get(name, 0) - before.get(name, 0)
+
+
 def phase_paged(gen):
+    """Kernel 4 at the serving decode shape, bf16 and int8 pools: the
+    kernel the shape takes (the TMA-ring one, `paged_attention_tma`)
+    and the split kernel it replaced (`old_*`) against the plain version;
+    `ms` / `old_ms` cycle through copies of the pool that read over 128
+    MB, so each call finds its pages in device memory as a decode step
+    does (the pool of a layer is not in L2), `warm_ms` / `old_warm_ms`
+    repeat one pool. A package without the TMA-ring kernel (an older
+    checkout, `--package-root`) runs its one kernel as `ms`."""
+    from dlrover_tpu_torch.ops import _build
     from dlrover_tpu_torch.ops import paged_attention as pa
 
+    has_tma = hasattr(pa, "kernel_variant")
     rows = []
     for quant in (False, True):
         q, pages, table, lens, lengths = _paged_case(gen, quant)
         b, h, hd = q.shape
         kv = pages["k"].shape[2]
         scale = hd ** -0.5
-        ker = pa._kernel(q, pages, table, lens, scale)
-        ref = pa._reference(q, pages, table, lens, scale)
-        torch.cuda.synchronize()
-        err = (ker.float() - ref.float()).abs().max().item()
-        if not err <= PAGED_TOL:
-            raise AssertionError(
-                f"paged kernel disagrees (quant={quant}): max_abs_err "
-                f"{err} (tol {PAGED_TOL})"
-            )
         cells = int(lengths.sum())
         elem = 1 if quant else 2
-        nbytes = (2 * cells * kv * hd * elem
-                  + (2 * cells * kv * 2 if quant else 0)
-                  + 2 * 2 * b * h * hd + table.numel() * 4 + b * 4)
+        live = (2 * cells * kv * hd * elem
+                + (2 * cells * kv * 2 if quant else 0))
+        pools = cold_copies(
+            lambda: {n: t.clone() for n, t in pages.items()}, live)
+        ref = pa._reference(q, pages, table, lens, scale)
+        before = _build.launch_counts()
+        ker = pa._kernel(q, pages, table, lens, scale)
+        after = _build.launch_counts()
+        again = pa._kernel(q, pages, table, lens, scale)
+        torch.cuda.synchronize()
+        tma = _launched(before, after, "paged_attention_tma")
+        if _launched(before, after, "paged_attention") != 1 or tma != int(
+                has_tma):
+            raise AssertionError(
+                f"paged kernel (quant={quant}): launches {before} -> "
+                f"{after}, want one, on the TMA-ring kernel")
+        err = (ker.float() - ref.float()).abs().max().item()
+        if not (err <= PAGED_TOL and torch.equal(ker, again)):
+            raise AssertionError(
+                f"paged kernel disagrees (quant={quant}): max_abs_err "
+                f"{err} (tol {PAGED_TOL}), rerun bit-equal "
+                f"{torch.equal(ker, again)}"
+            )
+        nbytes = live + 2 * 2 * b * h * hd + table.numel() * 4 + b * 4
         flops = 4.0 * cells * h * hd
         bms, by = bound_ms(flops, nbytes)
+
+        def run(pool, variant="auto"):
+            if variant == "auto":
+                return pa._kernel(q, pool, table, lens, scale)
+            return pa._kernel(q, pool, table, lens, scale, variant=variant)
+
         row = dict(
             pool="int8" if quant else "bf16", B=b, live_cells=cells,
+            variant="tma" if tma else "split", copies=len(pools),
             max_abs_err=err, tol=PAGED_TOL, tol_reason=TOL_REASON,
-            ms=device_ms(lambda: pa._kernel(q, pages, table, lens, scale)),
-            eager_ms=time_ms(
-                lambda: pa._kernel(q, pages, table, lens, scale), 50
-            ),
+            ms=device_ms(cycling(run, pools), calls=len(pools)),
+            warm_ms=device_ms(lambda: run(pages)),
+            eager_ms=time_ms(lambda: run(pages), 50),
             plain_ms=time_ms(
                 lambda: pa._reference(q, pages, table, lens, scale), 5
             ),
             library_ms=None, bound_ms=bms, bound_by=by,
         )
+        if has_tma:
+            old = run(pages, "split")
+            torch.cuda.synchronize()
+            row["old_max_abs_err"] = (old.float() - ref.float()).abs().max(
+            ).item()
+            if not row["old_max_abs_err"] <= PAGED_TOL:
+                raise AssertionError(
+                    f"split paged kernel disagrees (quant={quant}): "
+                    f"{row['old_max_abs_err']}")
+            row["old_ms"] = device_ms(
+                cycling(lambda pool: run(pool, "split"), pools),
+                calls=len(pools))
+            row["old_warm_ms"] = device_ms(lambda: run(pages, "split"))
         log("kernel.paged_attention", **row)
         rows.append(row)
-        del pages
+        del pages, pools
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -718,17 +789,20 @@ def phase_opt_int8():
         )
 
 
-def phase_dqmm(gen):
-    """Kernel 7 at every Llama-3-8B weight shape (block 256) and T = 8
-    (decode), 77 (ragged) and the serving prompt buckets, against its
-    plain version on the same inputs, with the variant that ran (the
-    launch counters: `dqmm_ws` counts the prefill kernel; a package
-    without that counter ran its older prefill kernel, "wgmma"). `ms`
-    and `dense_ms` cycle through enough weight copies to overflow L2, as
-    a decode step streams every layer's weights."""
+def phase_dqmm(gen, tokens=DQMM_TOKENS):
+    """Kernel 7 at every Llama-3-8B weight shape (block 256) and T in
+    `tokens` (8: decode; 77: ragged; the serving prompt buckets), against
+    its plain version on the same inputs, with the variant that ran (the
+    launch counters: `dqmm_decode_tma` counts the TMA-ring decode kernel,
+    `dqmm_ws` the prefill kernel; a package without a counter ran its
+    older kernel: "decode", "wgmma"). For T <= 16 the mma.sync decode
+    kernel it replaced runs on the same inputs too (`old_*`). `ms`,
+    `old_ms` and `dense_ms` cycle through enough weight copies to
+    overflow L2, as a decode step streams every layer's weights."""
     from dlrover_tpu_torch.ops import _build
     from dlrover_tpu_torch.ops import quantization as tq
 
+    has_tma = hasattr(tq, "_dqmm_mma_plan")
     block = 256
     rows = []
     for (k, o), names in DQMM_SHAPES:
@@ -743,23 +817,30 @@ def phase_dqmm(gen):
             tq._dq_weight(c.q8, c.s8, block, torch.bfloat16)
             for c in qws[1:max(1, -(-(128 * 2**20) // (2 * o * k)))]
         ]
-        for t in DQMM_TOKENS:
+        for t in tokens:
             x = torch.randn((t, k), generator=gen, device="cuda").bfloat16()
             before = _build.launch_counts()
             y = tq.quantized_matmul(x, qw)
             after = _build.launch_counts()
             ref = tq.quantized_matmul_reference(x, qw)
+            again = tq.quantized_matmul(x, qw)
             torch.cuda.synchronize()
+            ws = _launched(before, after, "dqmm_ws")
+            dec = _launched(before, after, "dqmm_decode_tma")
             if "dqmm_ws" in after:
-                ws = after["dqmm_ws"] - before["dqmm_ws"]
-                if after["dqmm"] - before["dqmm"] != 1 or ws != int(t > 16):
+                if (_launched(before, after, "dqmm") != 1
+                        or ws != int(t > 16)
+                        or dec != int(has_tma and t <= 16)):
                     raise AssertionError(
                         f"dqmm at T={t}: launches {before} -> {after}, "
-                        f"want one, on the prefill kernel iff T > 16"
+                        f"want one, on the prefill kernel iff T > 16 and "
+                        f"else on the TMA-ring decode kernel"
                     )
-                variant = "ws" if ws else "decode"
+                variant = "ws" if ws else "decode_tma" if dec else "decode"
             else:
                 variant = "wgmma" if t > 16 else "decode"
+            if t <= 16 and not torch.equal(y, again):
+                raise AssertionError(f"dqmm at T={t}: reruns differ")
             err = (y.float() - ref.float()).abs().max().item()
             ref_max = ref.float().abs().max().item()
             tol = DQMM_REL_TOL * ref_max
@@ -786,9 +867,21 @@ def phase_dqmm(gen):
                 dense_eager_ms=time_ms(lambda: x @ dense.t(), 20),
                 library_ms=None, bound_ms=bms, bound_by=by,
             )
+            if has_tma and t <= 16:
+                old = tq._dqmm_cuda(x, qw, decode="mma")
+                torch.cuda.synchronize()
+                row["old_max_abs_err"] = (old.float() - ref.float()).abs(
+                ).max().item()
+                if not row["old_max_abs_err"] <= tol:
+                    raise AssertionError(
+                        f"mma.sync dqmm decode kernel disagrees at T={t} "
+                        f"K={k} O={o}: {row['old_max_abs_err']} (tol {tol})")
+                row["old_ms"] = device_ms(
+                    cycling(lambda w: tq._dqmm_cuda(x, w, decode="mma"),
+                            qws), calls=max(10, len(qws)))
             log("kernel.dqmm", **row)
             rows.append(row)
-            del x, y, ref
+            del x, y, ref, again
         del qws, qw, dense, denses
         torch.cuda.empty_cache()
     return rows
@@ -871,6 +964,7 @@ def phase_serve(params, cfg):
             f">= {want_flash} flash and >= {want_paged} paged"
         )
     _check_wgmma("serve", launches)
+    _check_paged_tma("serve", launches)
     e2e = dict(
         requests=len(prompts), prompt_lens=[len(p) for p in prompts],
         max_new=max_new, n_slots=n_slots, admissions=engine.admissions,
@@ -1034,13 +1128,17 @@ def phase_serve_int8(params, cfg, bf16):
     )
     short = {k: (launches[k], v) for k, v in want.items() if launches[k] < v}
     # every prefill product (T = a prompt bucket > 16) on the prefill
-    # kernel, every decode product (T = 8 slots) on the decode kernel
+    # kernel, every decode product (T = 8 slots) on the TMA-ring decode
+    # kernel (one launch, no combine), none on the mma.sync one
     by_variant = dict(
         ws=launches["dqmm_ws"],
-        decode=launches["dqmm"] - launches["dqmm_ws"],
+        decode_tma=launches["dqmm_decode_tma"],
+        decode_mma=(launches["dqmm"] - launches["dqmm_ws"]
+                    - launches["dqmm_decode_tma"]),
     )
     want_variant = dict(ws=engine.admissions * per_forward,
-                        decode=engine.decode_steps * per_forward)
+                        decode_tma=engine.decode_steps * per_forward,
+                        decode_mma=0)
     if short or quant_launches < per_forward or by_variant != want_variant:
         raise AssertionError(
             f"int8 kernels not on the path: (launches, want) {short}, "
@@ -1048,6 +1146,7 @@ def phase_serve_int8(params, cfg, bf16):
             f"by variant {by_variant}, want {want_variant}"
         )
     _check_wgmma("serve.int8", launches)
+    _check_paged_tma("serve.int8", launches)
     wbytes = engine.weight_bytes_device()
     if not wbytes <= 0.55 * bf16["weight_bytes"]:
         raise AssertionError(
@@ -1446,11 +1545,15 @@ def main():
     smi = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    if "--dqmm" in args:
+    if "--dqmm" in args or "--decode-kernels" in args:
         import dlrover_tpu_torch
 
-        log("dqmm.package", path=dlrover_tpu_torch.__file__)
-        phase_dqmm(gen)
+        log("package", path=dlrover_tpu_torch.__file__)
+        if "--dqmm" in args:
+            phase_dqmm(gen)
+        else:
+            phase_paged(gen)
+            phase_dqmm(gen, DECODE_TOKENS)
         return 0
     if "--profile" in sys.argv[1:] and "--train" in sys.argv[1:]:
         phase_profile_train("--int8-adam" in sys.argv[1:])
@@ -1548,8 +1651,17 @@ def main():
              source="dlrover_tpu_torch/csrc/paged_attention.cu",
              replaces="dlrover_tpu/ops/paged_attention.py:160",
              launches=e2e["launches"]["paged_attention"],
+             launches_by_path={
+                 "serve": e2e["launches"]["paged_attention"],
+                 "serve.int8": e2e_int8["launches"]["paged_attention"]},
+             variant=main_paged["variant"], warm_ms=main_paged["warm_ms"],
+             old_ms=main_paged["old_ms"],
+             old_warm_ms=main_paged["old_warm_ms"],
              **{k: main_paged[k] for k in keys},
-             shape="B=8 H=32 KV=8 D=128 page 16 bf16 pool",
+             shape="B=8 H=32 KV=8 D=128 page 16 bf16 pool, 5812 live "
+                   "cells (ms: cold, the pool cycled through copies that "
+                   "overflow L2; warm_ms: one pool; old_*: the split "
+                   "kernel it replaced; the int8 pool in per_variant)",
              per_variant=paged_rows),
         dict(name="quantize_int8", route="cuda",
              source="dlrover_tpu_torch/csrc/quant_int8.cu",
@@ -1577,12 +1689,14 @@ def main():
              launches=e2e_int8["launches"]["dqmm"],
              launches_by_variant=e2e_int8["dqmm_launches_by_variant"],
              **{k: main_dqmm[k] for k in keys},
+             variant=main_dqmm["variant"], old_ms=main_dqmm["old_ms"],
              dense_ms=main_dqmm["dense_ms"],
              prefill_ms=main_ws["ms"], prefill_bound_ms=main_ws["bound_ms"],
              prefill_dense_ms=main_ws["dense_ms"],
-             shape="T=8 K=4096 O=14336 (w_gate decode) bf16 x int8, "
-                   "block 256; prefill_*: the same weight at T=1024 on "
-                   "the prefill kernel (dqmm_ws)",
+             shape="T=8 K=4096 O=14336 (w_gate decode, the TMA-ring "
+                   "decode kernel; old_ms: the mma.sync decode kernel it "
+                   "replaced) bf16 x int8, block 256; prefill_*: the same "
+                   "weight at T=1024 on the prefill kernel (dqmm_ws)",
              per_shape=dqmm_rows),
     ]
     print(json.dumps({"kernels": kernels}, default=float), flush=True)

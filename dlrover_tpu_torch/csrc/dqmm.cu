@@ -15,8 +15,11 @@
 // What bounds it on this card: at decode (T = 8, one row per slot) the
 // bytes of the weight, O*K int8 plus 4*O*K/block of scales, against
 // 3.35 TB/s: every projection of a decode step reads its weight once
-// and does 16 FLOPs per weight byte. At prefill (T = 17..2048 tokens)
-// the 2*T*K*O operations against 989 TFLOP/s of bf16 tensor cores.
+// and does 16 FLOPs per weight byte. The dequantize arithmetic (a byte
+// permute, a subtraction, a product and half a pack: 3.5 instructions a
+// weight byte) is what keeps the decode kernels below it. At prefill
+// (T = 17..2048 tokens) the 2*T*K*O operations against 989 TFLOP/s of
+// bf16 tensor cores.
 //
 // Decode design. The product runs on the tensor cores as mma.sync
 // m16n8k16 (bf16 in, f32 accumulate), with the activations as the A
@@ -37,9 +40,51 @@
 // once. Activation rows in shared memory are padded by 16 bytes, so
 // the lanes' 16-byte reads hit all 32 banks once.
 //
-// Decode (T <= 16): `dqmm_decode_kernel`, one 16-token m-tile and 16
-// outputs a warp (64 a block). The block stages its activation slab (8
-// or 16 token rows by at most 1024 K values) in shared memory once;
+// Decode (T <= 16) at blocks of 64 or more (every decode product of the
+// engine): `dqmm_dec_tma_kernel`, one launch. What held the kernel below
+// back (it stays for blocks 16 and 32): a second launch for every
+// product (its K splits write f32 partials that `dqmm_combine_kernel`
+// sums: 16 MB written and read again for the lm_head), short-lived
+// blocks with two chunks of loads in flight a warp behind a cp.async
+// slab prologue, and a partial second wave (w_gate: 1120 blocks). The
+// design answers each:
+//  - at most two blocks an SM, each an even share of the sequence of
+//    (64-output tile, 256-value K range) stages (`share_start`), or,
+//    where the tiles fill fewer than two an SM, the tiles times the K
+//    splits that fit (so a tile's pieces are equal and end together:
+//    one block a tile for w_gate and w_up, four for wq, wo and w_down,
+//    eight for wk and wv): every block streams the same bytes, no
+//    second wave;
+//  - one thread keeps 4 stages in flight by TMA (the tensor maps
+//    prefetched at the block's start; the int8 tile [64,
+//    256], the prefill kernel's scale quad box [64, 4 blocks] from
+//    `_s8q`, and the activation tile [8 or 16 rows, 256] from L2): the
+//    bytes in flight cost no registers or instructions, which is where
+//    the first decode kernel's register rings and cp.async staging lost;
+//  - 8 consumer warps of 8 outputs each dequantize with `dequant16`
+//    and multiply on mma.sync in two accumulator chains;
+//  - a tile cut by a share's edge writes an f32 partial to its share's
+//    slot and one thread adds one to the tile's counter (a gpu-scope
+//    acq_rel fence around it); the block that finds itself last at the
+//    end of its share sums the pieces in block order and rounds once,
+//    and resets the counter: the same bits every run, no second launch.
+// Tried on the card and dropped (variants side by side in one call
+// each; PERF.md has the rankings): 64-bit share arithmetic (a
+// software division: a few dozen in an epilogue cost more than the
+// small products' whole stream), `__threadfence()` in every thread and
+// waiting on the counter's atomic mid-stream (the consumers stalled at
+// every cut tile), even shares where the tiles fill fewer than two
+// blocks an SM (cut tiles whose pieces end far apart), a thread-block
+// cluster of 4 or 8 blocks along K a tile with its pieces summed in
+// rank 0's shared memory over DSMEM after two cluster barriers (slower
+// at every split shape, w_down by more than a quarter), three blocks an
+// SM with 3 stages, and grids of 4 or 8 blocks an SM (more pieces to
+// sum; slower every time).
+//
+// Decode (T <= 16) at blocks 16 and 32: `dqmm_decode_kernel`, one
+// 16-token m-tile and 16 outputs a warp (64 a block). The block stages
+// its activation slab (8 or 16 token rows by at most 1024 K values) in
+// shared memory once;
 // then each warp issues the weight loads of two chunks before it uses
 // either, with no further barrier. The K range of a block is split
 // (blockIdx.z) into 256 to 1024 values so the grid holds ~8 blocks an
@@ -118,17 +163,6 @@ using namespace hopper;
 constexpr int NWARPS = 4;
 constexpr int NT = NWARPS * 32;
 constexpr int KC = 64;          // contraction values per chunk
-
-// int8 byte `sel` (0..3) of a word whose sign bits were flipped (so
-// the byte is q + 128), as the exact f32 q: the byte becomes the low
-// mantissa of 2^23 (f32 bits 0x4B0000uu = 2^23 + u, one byte permute)
-// and 2^23 + 128 is subtracted (exact). This keeps the conversion
-// off the SM's 16-per-clock conversion unit, which an I2F per weight
-// saturates before the memory does.
-__device__ inline float q8_to_f32(uint32_t flipped, int sel) {
-  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 + sel)) -
-         8388736.0f;
-}
 
 // 16 int8 weights (one lane's share of a row's chunk) times their
 // scale, rounded to bf16, as 8 packed pairs: pair 2j / 2j + 1 are the
@@ -503,6 +537,228 @@ dqmm_combine_kernel(const float* __restrict__ part,
   }
 }
 
+// ---- decode: even shares of a TMA ring (dqmm_dec_tma_kernel) ---------
+
+constexpr int DT_BO = 64;                 // outputs a tile
+constexpr int DT_KS = 256;                // K values a stage
+constexpr int DT_CW = 8;                  // consumer warps, 8 outputs each
+constexpr int DT_NT = 32 * (DT_CW + 1);   // and the loading warp
+constexpr int DT_NS = 4;                  // ring stages
+constexpr int DT_W = DT_BO * DT_KS;       // a stage's int8 tile, 16 KB
+constexpr int DT_S = DT_BO * 4 * 4;       // its scale box [64 rows, 4]
+constexpr int DT_SLOT = DT_CW * 32 * 4;   // f32 values of a partial
+
+// XR activation rows a stage (8 for T <= 8, else 16), every part at a
+// 1024-byte offset; TMA counts whole boxes, rows past T and K included
+template <int XR>
+struct DtShape {
+  static constexpr int X = XR * DT_KS * 2;
+  static constexpr int STAGE = DT_W + DT_S + X;
+  static constexpr int SMEM = DT_NS * STAGE + 2 * DT_NS * 8 + 16 + 1024;
+};
+
+// The decode kernel on a TMA ring (the design is in the header). Warp 8's
+// lane 0 loads, warps 0-7 compute (the decode kernel's k permutation:
+// lane (g, t) takes values 16t .. 16t + 15 of each 64-value chunk of
+// weight row 8 * warp + g); slot 2b of the partials holds share b's
+// first tile when the share cuts it, slot 2b + 1 its last.
+template <bool HI>
+__global__ void __launch_bounds__(DT_NT, 2)
+dqmm_dec_tma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_w,
+                    const __grid_constant__ CUtensorMap tm_s,
+                    __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+                    int* __restrict__ counters, int T, int K, int O,
+                    int block) {
+  using S = DtShape<HI ? 16 : 8>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DT_NS * S::STAGE);
+  uint64_t* empty = full + DT_NS;
+  volatile int* last_flag = reinterpret_cast<volatile int*>(empty + DT_NS);
+
+  const int kst = (K + DT_KS - 1) / DT_KS;
+  const int total = (O + DT_BO - 1) / DT_BO * kst;
+  const int grid = gridDim.x;
+  const int s0 = share_start(blockIdx.x, total, grid);
+  const int s1 = share_start(blockIdx.x + 1, total, grid);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < DT_NS; ++st) {
+      mbar_init(full + st, 1);                // the loading thread
+      mbar_init(empty + st, DT_CW);           // the consumer warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == DT_CW) {
+    if (lane == 0) {
+      prefetch_map(&tm_w);
+      prefetch_map(&tm_s);
+      prefetch_map(&tm_x);
+      for (int s = s0, tile = s0 / kst, kc = s0 % kst; s < s1; ++s) {
+        const int n = s - s0;
+        const int st = n % DT_NS;
+        if (n >= DT_NS) mbar_wait(empty + st, (n / DT_NS - 1) & 1);
+        unsigned char* base = smem + st * S::STAGE;
+        const int o0 = tile * DT_BO;
+        const int k0 = kc * DT_KS;
+        if (++kc == kst) {
+          kc = 0;
+          ++tile;
+        }
+        mbar_expect_tx(full + st, S::STAGE);
+        tma_load_2d(base, &tm_w, full + st, k0, o0);
+        tma_load_2d(base + DT_W, &tm_s, full + st, (k0 / block) & ~3, o0);
+        tma_load_2d(base + DT_W + DT_S, &tm_x, full + st, k0, 0);
+      }
+    }
+    return;
+  }
+
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int row = warp * 8 + g;               // this lane's weight row
+  const int lb = __ffs(block) - 1;            // block = 2^lb
+  // two accumulator chains (even and odd chunks), added at the tile's end
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  // the tiles this share cuts (at most its first and its last): each
+  // writes its partial as it ends and thread 0 adds one to its counter;
+  // whether this block was the last to do so is read at the share's end,
+  // so no warp waits on the atomic's round trip mid-stream
+  int cut0 = -1, cut1 = -1, old0 = 0, old1 = 0;
+  for (int s = s0, tile = s0 / kst, kc = s0 % kst; s < s1;
+       ++s, kc = kc + 1 == kst ? 0 : kc + 1, tile += kc == 0) {
+    const int n = s - s0;
+    const int st = n % DT_NS;
+    const int k0 = kc * DT_KS;
+    const unsigned char* base = smem + st * S::STAGE;
+    const unsigned char* w8 = base + row * DT_KS;
+    const float* sc = reinterpret_cast<const float*>(base + DT_W) + row * 4 -
+                      ((k0 >> lb) & ~3);
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(base + DT_W + DT_S);
+    // one 64-value chunk: this lane's 16 weights of its row, dequantized,
+    // times the activations' matching 16 values of rows g and g + 8
+    auto chunk = [&](int c, float* ac) {
+      const int kk = c * KC + 16 * t;
+      uint32_t bw[8];
+      dequant16(*reinterpret_cast<const uint4*>(w8 + kk),
+                sc[(k0 + kk) >> lb], bw);
+      const __nv_bfloat16* xr = xs + g * DT_KS + kk;
+      const uint4 l0 = *reinterpret_cast<const uint4*>(xr);
+      const uint4 l1 = *reinterpret_cast<const uint4*>(xr + 8);
+      const uint32_t rg[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+      uint32_t rh[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+      if (HI) {
+        const uint4 h0 = *reinterpret_cast<const uint4*>(xr + 8 * DT_KS);
+        const uint4 h1 = *reinterpret_cast<const uint4*>(xr + 8 * DT_KS + 8);
+        rh[0] = h0.x; rh[1] = h0.y; rh[2] = h0.z; rh[3] = h0.w;
+        rh[4] = h1.x; rh[5] = h1.y; rh[6] = h1.z; rh[7] = h1.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t a[4] = {rg[2 * j], rh[2 * j], rg[2 * j + 1],
+                               rh[2 * j + 1]};
+        mma_bf16(ac, a, &bw[2 * j]);
+      }
+    };
+    mbar_wait(full + st, (n / DT_NS) & 1);
+    if (K - k0 >= DT_KS) {
+#pragma unroll
+      for (int c = 0; c < DT_KS / KC; ++c) chunk(c, acc[c & 1]);
+    } else {
+      for (int c = 0; c < (K - k0) / KC; ++c) chunk(c, acc[0]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+    if (kc != kst - 1 && s != s1 - 1) continue;
+
+    // the tile ends here, or the share does
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[0][e] += acc[1][e];
+      acc[1][e] = 0.f;
+    }
+    const int ts = tile * kst;
+    if (ts >= s0 && ts + kst <= s1) {
+      const int o = tile * DT_BO + warp * 8 + 2 * t;
+      store_pair(acc[0][0], acc[0][1], g, o, T, O, y, nullptr, 0);
+      store_pair(acc[0][2], acc[0][3], g + 8, o, T, O, y, nullptr, 0);
+    } else {
+      const int slot = 2 * blockIdx.x + (ts > s0 ? 1 : 0);
+      __stcg(reinterpret_cast<float4*>(part + (int64_t)slot * DT_SLOT) +
+                 threadIdx.x,
+             make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]));
+      bar_sync_n(1, DT_CW * 32);
+      // (the atomic's result lands in old0 / old1 and is not read until
+      // the share's end: no move of it stalls the warp here)
+      if (threadIdx.x == 0) fence_acq_rel_gpu();   // release the partials
+      if (cut0 < 0) {
+        if (threadIdx.x == 0) old0 = atomicAdd(counters + tile, 1);
+        cut0 = tile;
+      } else {
+        if (threadIdx.x == 0) old1 = atomicAdd(counters + tile, 1);
+        cut1 = tile;
+      }
+    }
+    acc[0][0] = acc[0][1] = acc[0][2] = acc[0][3] = 0.f;
+  }
+  if (cut0 < 0) return;
+
+  // the cut tiles this block finished last: their pieces in block order,
+  // 8 loads in flight at a time, rounded once
+  if (threadIdx.x == 0) {
+    int flags = 0;
+    if (old0 == share_count(cut0 * kst, cut0 * kst + kst - 1, total, grid) - 1)
+      flags |= 1;
+    if (cut1 >= 0 &&
+        old1 == share_count(cut1 * kst, cut1 * kst + kst - 1, total, grid) - 1)
+      flags |= 2;
+    if (flags) fence_acq_rel_gpu();           // acquire the others' partials
+    *last_flag = flags;
+  }
+  bar_sync_n(1, DT_CW * 32);
+  const int flags = *last_flag;
+  for (int i = 0; i < 2; ++i) {
+    if (!(flags >> i & 1)) continue;
+    const int tile = i == 0 ? cut0 : cut1;
+    const int ts = tile * kst;
+    const int bf = share_block(ts, total, grid);
+    const int bl = share_block(ts + kst - 1, total, grid);
+    const bool mid = ts > (int)share_start(bf, total, grid);
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int b0 = bf; b0 <= bl; b0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int b = b0 + j;
+        const int sl = 2 * b + (b == bf && mid ? 1 : 0);
+        v[j] = b <= bl && share_any(b, total, grid)
+                   ? __ldcg(reinterpret_cast<const float4*>(
+                                part + (int64_t)sl * DT_SLOT) +
+                            threadIdx.x)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (b0 + j > bl) break;
+        if (!share_any(b0 + j, total, grid)) continue;
+        sum.x += v[j].x; sum.y += v[j].y;
+        sum.z += v[j].z; sum.w += v[j].w;
+      }
+    }
+    const int o = tile * DT_BO + warp * 8 + 2 * t;
+    store_pair(sum.x, sum.y, g, o, T, O, y, nullptr, 0);
+    store_pair(sum.z, sum.w, g + 8, o, T, O, y, nullptr, 0);
+    if (threadIdx.x == 0) counters[tile] = 0;   // for the next launch
+  }
+}
+
 constexpr int DEC_NO = 2;            // decode: 8 * 2 outputs per warp
 constexpr int DEC_UNR = 2;           // decode: chunks per load batch
 constexpr int DEC_MAX_CHUNKS = 16;   // decode: K range of one block
@@ -583,7 +839,64 @@ int launch(int variant, const void* x, const void* q8, const void* s8,
   return (int)cudaGetLastError();
 }
 
+template <bool HI>
+int launch_dec_tma(const void* x, const void* q8, const float* s8q,
+                   __nv_bfloat16* y, float* part, int* counters, int T,
+                   int K, int O, int block, int grid, cudaStream_t stream) {
+  using S = DtShape<HI ? 16 : 8>;
+  const int nblk4 = (K / block + 3) & ~3;
+  CUtensorMap tm_x, tm_w, tm_s;
+  if (!make_map_2d(&tm_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, T, K,
+                   HI ? 16 : 8, DT_KS, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_map_2d(&tm_w, q8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O, K, DT_BO,
+                   DT_KS, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_map_2d(&tm_s, s8q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, O, nblk4,
+                   DT_BO, 4, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dqmm_dec_tma_kernel<HI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        S::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dqmm_dec_tma_kernel<HI><<<grid, DT_NT, S::SMEM, stream>>>(
+      tm_x, tm_w, tm_s, y, part, counters, T, K, O, block);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The decode kernel on a TMA ring (T <= 16): x [T, K] bf16, q8 [O, K]
+// int8, s8q [O, K / block padded to 4] f32 (the prefill kernel's
+// scales), y [T, O] bf16, all contiguous and 16-byte aligned; `grid`
+// blocks (at most two an SM) take even shares of the (64-output tile,
+// 256-value K range) stages; part [2 * grid, 1024] f32 scratch for the
+// tiles a share's edge cuts; counters [ceil(O / 64)] int32, zero before
+// the launch and zero again after it (the kernel resets what it uses).
+// Launches of it on one device must not overlap (one stream): they
+// share the counters. Takes a block of at least 64 (the scale quad box
+// covers a stage's blocks); one launch, no second kernel.
+extern "C" int dqmm_decode_tma_bf16(const void* x, const void* q8,
+                                    const void* s8q, void* y, void* part,
+                                    void* counters, int T, int K, int O,
+                                    int block, int grid, void* stream) {
+  if (T < 1 || T > 16 || O < 1 || K < KC || K % KC != 0 || block < 64 ||
+      (block & (block - 1)) != 0 || K % block != 0 || grid < 1 ||
+      s8q == nullptr || part == nullptr || counters == nullptr ||
+      (uint64_t)((O + DT_BO - 1) / DT_BO) * ((K + DT_KS - 1) / DT_KS) *
+              (grid + 1) >= (1ull << 32))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (T > 8)
+    return launch_dec_tma<true>(x, q8, (const float*)s8q, (__nv_bfloat16*)y,
+                                (float*)part, (int*)counters, T, K, O, block,
+                                grid, st);
+  return launch_dec_tma<false>(x, q8, (const float*)s8q, (__nv_bfloat16*)y,
+                               (float*)part, (int*)counters, T, K, O, block,
+                               grid, st);
+}
 
 // x [T, K] bf16, q8 [O, K] int8, s8 [O, K / block] f32, y [T, O] bf16,
 // all contiguous and 16-byte aligned; s8q the same scales with rows

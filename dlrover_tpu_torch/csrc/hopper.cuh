@@ -52,6 +52,25 @@ __device__ inline void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
       : "r"(addr));
 }
 
+// int8 byte `sel` (0..3) of a word whose sign bits were flipped (so
+// the byte is q + 128), as the exact f32 q: the byte becomes the low
+// mantissa of 2^23 (f32 bits 0x4B0000uu = 2^23 + u, one byte permute)
+// and 2^23 + 128 is subtracted (exact). This keeps the conversion off
+// the SM's 16-per-clock conversion unit, which an I2F per value
+// saturates before the memory does.
+__device__ inline float q8_to_f32(uint32_t flipped, int sel) {
+  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 + sel)) -
+         8388736.0f;
+}
+
+__device__ inline void ldmatrix_x4(uint32_t* r, const void* smem) {
+  uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 __device__ inline void cp_async16(void* smem, const void* gmem, bool valid) {
   uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
   int src_size = valid ? 16 : 0;  // 0: zero-fill, nothing read
@@ -143,6 +162,18 @@ __device__ inline void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory by the bulk-copy engine, completing on
+// `bar` as a TMA box does
+__device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                 uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // make this thread's generic-proxy shared-memory writes (st.shared)
 // visible to the async proxy that wgmma and TMA read through
 __device__ inline void fence_proxy_async() {
@@ -157,6 +188,68 @@ __device__ inline void bar_sync(int id) {
 }
 __device__ inline void bar_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// named barrier `id` over the first `n` threads of the block (whole
+// warps): the consumer warps of a kernel whose loading warp runs apart
+__device__ inline void bar_sync_n(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// ---- even shares of a work sequence (the decode kernels) ----------------
+//
+// `total` work units in a fixed order split over `grid` blocks: block b
+// takes units [share_start(b), share_start(b + 1)), so shares differ by
+// at most one unit and no block waits on a second wave. A run of units
+// that several blocks share (a dqmm output tile's K range, a paged
+// row's pages) is summed by the last of them to finish, in block order
+// (`share_block`: the block whose share holds unit s; `share_count`:
+// how many blocks hold a piece of a run). The host keeps
+// total * (grid + 1) below 2^32, so the divisions are 32-bit ones (a
+// 64-bit division is a long software routine: dozens of them in one
+// epilogue cost microseconds).
+
+__host__ __device__ inline uint32_t share_start(uint32_t b, uint32_t total,
+                                                uint32_t grid) {
+  return b * total / grid;
+}
+
+__host__ __device__ inline uint32_t share_block(uint32_t s, uint32_t total,
+                                                uint32_t grid) {
+  return ((s + 1) * grid - 1) / total;
+}
+
+// whether block b's share holds any unit (a grid larger than the work
+// leaves some empty: they hold no piece of a run they fall inside)
+__host__ __device__ inline bool share_any(uint32_t b, uint32_t total,
+                                          uint32_t grid) {
+  return total >= grid ||
+         share_start(b + 1, total, grid) > share_start(b, total, grid);
+}
+
+// the blocks whose shares hold some of units [first, last]
+__device__ inline int share_count(uint32_t first, uint32_t last,
+                                  uint32_t total, uint32_t grid) {
+  const uint32_t bf = share_block(first, total, grid);
+  const uint32_t bl = share_block(last, total, grid);
+  if (total >= grid) return (int)(bl - bf + 1);
+  int n = 0;
+  for (uint32_t b = bf; b <= bl; ++b) n += share_any(b, total, grid);
+  return n;
+}
+
+// have the TMA unit fetch a tensor map before its first load needs it
+__device__ inline void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// the gpu-scope acquire-release fence one thread puts around the counter
+// of a shared run (the writers' stores reach it through the CTA barrier
+// before it: cumulativity), far cheaper than a sequentially consistent
+// __threadfence() in every thread
+__device__ inline void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
 }
 
 // ---- wgmma ---------------------------------------------------------------

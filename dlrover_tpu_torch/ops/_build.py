@@ -15,11 +15,19 @@ source holding several kernels counts each under its own name
 (`LAUNCHES`); a flash kernel counts every launch under its name
 ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") and those of its wgmma
 variant also under "<name>_wgmma"; the dequant-matmul counts every
-launch under "dqmm" and those of its prefill kernel also under
-"dqmm_ws".
+launch under "dqmm", those of its prefill kernel also under "dqmm_ws"
+and those of its TMA-ring decode kernel under "dqmm_decode_tma"; the
+paged attention counts every launch under "paged_attention" and those of
+its TMA-ring kernel also under "paged_attention_tma".
+
+The two decode kernels that share their work evenly over a fixed grid
+sum a run of work that several blocks shared in the last block to finish
+it, found by a counter per run: `zeroed_counters` holds one zeroed int32
+buffer per device for them, which each launch leaves zero again.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -39,7 +47,8 @@ KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "quant_int8",
 LAUNCHES = {"flash_fwd": ("flash_fwd", "flash_fwd_wgmma"),
             "flash_bwd": ("flash_bwd_dq", "flash_bwd_dq_wgmma",
                           "flash_bwd_dkv", "flash_bwd_dkv_wgmma"),
-            "dqmm": ("dqmm", "dqmm_ws")}
+            "paged_attention": ("paged_attention", "paged_attention_tma"),
+            "dqmm": ("dqmm", "dqmm_ws", "dqmm_decode_tma")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -64,6 +73,40 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+# the SMs of an H100 SXM: the launch plans' default where no card is asked
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """The SMs of CUDA device `device` (the launch plans size grids by)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_COUNTERS: Dict[int, Any] = {}
+# counters kept at first use: enough for every output tile of a 262144
+# vocabulary's lm_head and every (row, KV head) of a 1024-slot batch,
+# so a CUDA graph captured later never grows the buffer
+_MIN_COUNTERS = 8192
+
+
+def zeroed_counters(device: int, n: int):
+    """An int32 buffer of at least `n` zeros on CUDA device `device`,
+    the same one for every launch there (grown, never shrunk). The
+    kernels that take it leave it zero, so launches that use it must
+    not overlap: one stream per device."""
+    import torch
+
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
+                          device=torch.device("cuda", device))
+        _COUNTERS[device] = buf
+    return buf
 
 
 def _nvcc() -> str:

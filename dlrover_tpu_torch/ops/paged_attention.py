@@ -14,7 +14,12 @@ TABLE `[P]` of physical page ids covering logical positions
   dense bank on the CPU. It is also the kernel's plain version.
 - `impl="kernel"`: the CUDA kernel for CUDA tensors (never
   materializes the dense view; int8 pools dequantize in the kernel),
-  the reference for CPU tensors.
+  the reference for CPU tensors. Two kernels, chosen by shape
+  (`kernel_variant`): the TMA-ring kernel (one launch over even shares
+  of the live pages; counted under "paged_attention" and
+  "paged_attention_tma") for bf16 queries, pages of 16 cells, head_dim
+  64 or 128, and the split kernel with its log-sum-exp combine for the
+  rest (f32 queries, other pages and head dims).
 - `impl="auto"`: the kernel when `use_kernel` says so (CUDA tensors),
   else the reference.
 """
@@ -28,12 +33,26 @@ from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as fa
 
 _NAME = "paged_attention"
+_NAME_TMA = "paged_attention_tma"
 # what csrc/paged_attention.cu instantiates
 _KERNEL_REPS = (1, 2, 4, 8)
 _KERNEL_HEAD_DIMS = (64, 128, 256)
 _CHUNK = 32                # cells per warp step in the kernel (a lane each)
 # 128 cells per block split: one chunk for each of the kernel's 4 warps
 _CHUNKS_PER_SPLIT = 4
+# the TMA-ring kernel: pages of 16 cells (a box of 16 rows, one k16
+# step), head dims 64 and 128, at most 1024 rows (it scans their page
+# counts in shared memory) and 32 KV heads for int8 pages (one bulk copy
+# of a page's scales); two blocks an SM, the grid fixed by the table's
+# capacity (B x KV x table pages), not by the lengths
+_TMA_PAGE = 16
+_TMA_HEAD_DIMS = (64, 128)
+_TMA_MAX_ROWS = 1024
+_TMA_MAX_KV_INT8 = 32
+_TMA_BLOCKS_PER_SM = 2
+_TMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_void_p])
 
 
 def supports(q, pages: Dict, table) -> bool:
@@ -97,11 +116,38 @@ def _reference(q, pages, table, lengths, scale):
     return out.reshape(b, h, hd)
 
 
-def _kernel(q, pages, table, lengths, scale):
-    """q [B, H, hd] -> [B, H, hd]: the CUDA kernel for CUDA tensors, its
-    plain version (`_reference`) for CPU tensors."""
+def kernel_variant(q_dtype, page_size: int, kv: int, hd: int, b: int,
+                   quant: bool, n_table: int = 1,
+                   sms: int = _build.H100_SMS) -> str:
+    """Which CUDA kernel takes a decode step of these shapes: "tma" (the
+    TMA-ring kernel) for bf16 queries over pages of 16 cells at head_dim
+    64 or 128 (at most 1024 rows; int8 pages at most 32 KV heads; the
+    table's capacity times the grid within the kernel's 32-bit share
+    arithmetic), else "split" (the split kernel and its combine)."""
+    if (q_dtype == torch.bfloat16 and page_size == _TMA_PAGE
+            and hd in _TMA_HEAD_DIMS and b <= _TMA_MAX_ROWS
+            and (not quant or kv <= _TMA_MAX_KV_INT8)
+            and b * kv * n_table * (tma_grid(b, kv, n_table, sms) + 1)
+            < 2 ** 32):
+        return "tma"
+    return "split"
+
+
+def tma_grid(b: int, kv: int, n_table: int, sms: int) -> int:
+    """The TMA-ring kernel's grid: two blocks an SM, or one block per
+    page the table can hold where that is fewer; fixed by capacity."""
+    return max(1, min(_TMA_BLOCKS_PER_SM * sms, b * kv * n_table))
+
+
+def _kernel(q, pages, table, lengths, scale, variant: str = "auto"):
+    """q [B, H, hd] -> [B, H, hd]: the CUDA kernel for CUDA tensors (the
+    one `kernel_variant` picks; variant="split" asks for the split kernel
+    where it would pick the TMA-ring one, to time the two on the same
+    inputs), its plain version (`_reference`) for CPU tensors."""
     if not q.is_cuda:
         return _reference(q, pages, table, lengths, scale)
+    if variant not in ("auto", "split"):
+        raise ValueError(f"unknown paged kernel variant {variant!r}")
     quant = "k_scale" in pages
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"paged kernel takes f32/bf16 q, got {q.dtype}")
@@ -136,6 +182,10 @@ def _kernel(q, pages, table, lengths, scale):
         )
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be [{b}], got {tuple(lengths.shape)}")
+    if (variant == "auto" and kernel_variant(
+            q.dtype, page_size, kv, hd, b, quant, table.shape[1],
+            _build.sm_count(q.get_device())) == "tma"):
+        return _kernel_tma(q, pages, table, lengths, scale, quant)
     # the split over blocks covers a row's table capacity (lengths stay
     # on the device); splits past a row's length exit at once
     max_chunks = -(-table.shape[1] * page_size // _CHUNK)
@@ -164,6 +214,41 @@ def _kernel(q, pages, table, lengths, scale):
     )
     _build.count_launch(_NAME)
     _build.check(err, _NAME, f"q{tuple(q.shape)} pages{tuple(pages['k'].shape)}")
+    return out
+
+
+def _kernel_tma(q, pages, table, lengths, scale, quant):
+    """The TMA-ring kernel on checked tensors (see `_kernel`)."""
+    b, h, hd = q.shape
+    n_pages, _, kv, _ = pages["k"].shape
+    names = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
+    for name in ("q",) + names:
+        t = q if name == "q" else pages[name]
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged TMA kernel: {name} must be 16-byte "
+                             "aligned")
+    dev = q.get_device()
+    grid = tma_grid(b, kv, table.shape[1], _build.sm_count(dev))
+    out = torch.empty_like(q)
+    part = torch.empty((2 * grid, (h // kv) * hd + 16), dtype=torch.float32,
+                       device=q.device)
+    counters = _build.zeroed_counters(dev, b * kv)
+    null = ctypes.c_void_p(0)
+    fn = _build.function(_NAME, "paged_attention_tma_launch", _TMA_ARGTYPES)
+    err = fn(
+        int(quant), q.data_ptr(), pages["k"].data_ptr(),
+        pages["v"].data_ptr(),
+        pages["k_scale"].data_ptr() if quant else null,
+        pages["v_scale"].data_ptr() if quant else null,
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        part.data_ptr(), counters.data_ptr(),
+        b, table.shape[1], n_pages, kv, h // kv, hd, float(scale), grid,
+        _build.current_stream(dev),
+    )
+    _build.count_launch(_NAME)
+    _build.count_launch(_NAME_TMA)
+    _build.check(err, _NAME_TMA,
+                 f"q{tuple(q.shape)} pages{tuple(pages['k'].shape)}")
     return out
 
 

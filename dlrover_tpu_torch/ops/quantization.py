@@ -42,12 +42,15 @@ _QUANT = "quant_int8"
 _DEQUANT = "dequant_int8"
 _DQMM = "dqmm"
 _DQMM_WS = "dqmm_ws"     # the prefill kernel's launches (T > 16)
+_DQMM_DEC_TMA = "dqmm_decode_tma"   # the TMA-ring decode kernel's
 # the C signatures of csrc/quant_int8.cu `quant_int8` and
 # csrc/dequant_int8.cu `dequant_int8` (one and the same) and of
 # csrc/dqmm.cu `dqmm_bf16` (pointers and the stream as void*)
 _ROW_ARGTYPES = (ctypes.c_int,) + (ctypes.c_void_p,) * 3 + (
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
 _DQMM_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8 + (
+    ctypes.c_void_p,)
+_DQMM_DEC_TMA_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
     ctypes.c_void_p,)
 # what csrc/quant_int8.cu instantiates: 8 values a lane, block/8 lanes
 # a row, so any power-of-two block from 8 to 256; csrc/dequant_int8.cu
@@ -58,22 +61,33 @@ _DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
 # consecutive values of a weight row, which must share one scale
 _DQMM_CHUNK = 64
 _DQMM_MIN_BLOCK = 16
-# (tokens, outputs) per tile of each dqmm variant: 0 the decode kernel
-# (T <= 16), 1 and 2 the persistent prefill kernel with 128-token tiles
-# (T <= 128) and 256-token tiles (T > 128: it halves the dequant work
-# per product, and at the engine's buckets its tiles are full)
-_DQMM_TILES = ((16, 64), (128, 128), (256, 128))
+# (tokens, outputs) per tile of each dqmm variant: 0 the mma.sync
+# decode kernel (T <= 16, blocks 16 and 32), 1 and 2 the persistent
+# prefill kernel with 128-token tiles (T <= 128) and 256-token tiles
+# (T > 128: it halves the dequant work per product, and at the
+# engine's buckets its tiles are full), 3 the TMA-ring decode kernel
+# (T <= 16, blocks >= 64: every decode product of the engine, whose
+# quantizer gives a K that is a multiple of 64 a block of 64 or more;
+# not past ~2^40 weights, where its 32-bit share arithmetic would wrap)
+_DQMM_TILES = ((16, 64), (128, 128), (256, 128), (16, 64))
 _DQMM_WIDE_FROM = 129
-# the decode kernel splits K over blocks until the grid holds this many
-# (8 an SM on 132), keeping 4 to 16 chunks a split (it stages a split's
-# activations in shared memory); the prefill kernel splits K only where
-# its tiles fill less than one wave of the card's SMs, keeping >= 4
-# chunks a split
+_DQMM_DECODE, _DQMM_DECODE_TMA = 0, 3
+# the mma.sync decode kernel splits K over blocks until the grid holds
+# this many (8 an SM on 132), keeping 4 to 16 chunks a split (it stages
+# a split's activations in shared memory); the prefill kernel splits K
+# only where its tiles fill less than one wave of the card's SMs,
+# keeping >= 4 chunks a split
 _DQMM_TARGET_BLOCKS = 1056
 _DQMM_MIN_CHUNKS_PER_SPLIT = 4
 _DQMM_DECODE_MAX_CHUNKS = 16
-# the SMs of an H100 SXM: the plan's default where no card is asked
-_DQMM_SMS = 132
+# the TMA-ring decode kernel: stages of 256 K values of a 64-output tile,
+# at most two blocks an SM, each an even share of the stages (at least
+# two where K allows)
+_DQMM_DEC_TMA_KS = 256
+_DQMM_DEC_TMA_BLOCKS_PER_SM = 2
+_DQMM_DEC_TMA_MIN_STAGES = 2
+_DQMM_DEC_TMA_MIN_BLOCK = 64
+_DQMM_DEC_TMA_SLOT = 1024     # f32 values of one partial tile
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtypes, device: int) -> None:
@@ -330,22 +344,53 @@ def dqmm_supports(t: int, k: int, o: int, block: int) -> bool:
     )
 
 
+def _dec_tma_work(k: int, o: int) -> Tuple[int, int]:
+    """(stages, stages a tile) of the TMA-ring decode kernel: its work
+    sequence is (64-output tile, 256-value K range), K fastest."""
+    kst = -(-k // _DQMM_DEC_TMA_KS)
+    return -(-o // _DQMM_TILES[_DQMM_DECODE_TMA][1]) * kst, kst
+
+
+def _share_start(b: int, total: int, grid: int) -> int:
+    """First unit of block b's even share (csrc/hopper.cuh)."""
+    return b * total // grid
+
+
+def _share_block(s: int, total: int, grid: int) -> int:
+    """The block whose even share holds unit s (csrc/hopper.cuh)."""
+    return ((s + 1) * grid - 1) // total
+
+
 @functools.lru_cache(maxsize=None)
-def _dqmm_plan(t: int, k: int, o: int, sms: int = _DQMM_SMS):
+def _dqmm_plan(t: int, k: int, o: int, sms: int = _build.H100_SMS,
+               block: int = DEFAULT_BLOCK):
     """(variant, splits, chunks per split, grid) for x [t, k] . w [o, k]
-    on a card with `sms` SMs. The decode kernel's grid is its tiles
-    times its splits; the prefill kernel's is persistent: one block an
-    SM at most, walking its work units (tiles times splits)."""
+    quantized at `block` on a card with `sms` SMs. T <= 16 takes the
+    TMA-ring decode kernel (variant 3: splits = the most blocks that
+    share one output tile, chunks per split = the most 256-value stages
+    a block takes) where the block is 64 or more, else the mma.sync
+    decode kernel (variant 0: grid = its tiles times its K splits). The
+    prefill kernel (variants 1, 2) is persistent: one block an SM at
+    most, walking its work units (tiles times splits)."""
     chunks = k // _DQMM_CHUNK
+    total, kst = _dec_tma_work(k, o)
+    # two blocks an SM; where the tiles alone fill fewer, the grid is the
+    # tiles times the K splits that fit (so a tile's pieces are equal and
+    # finish together), at least two stages a piece
+    tiles, cap = total // kst, _DQMM_DEC_TMA_BLOCKS_PER_SM * sms
+    grid = cap if tiles >= cap else tiles * max(
+        1, min(cap // tiles, kst // _DQMM_DEC_TMA_MIN_STAGES))
+    # (its shares are counted in 32 bits: total * (grid + 1) < 2^32)
+    if (t <= _DQMM_TILES[0][0] and block >= _DQMM_DEC_TMA_MIN_BLOCK
+            and total * (grid + 1) < 2 ** 32):
+        splits = max(
+            _share_block((tile + 1) * kst - 1, total, grid)
+            - _share_block(tile * kst, total, grid) + 1
+            for tile in range(tiles)
+        )
+        return _DQMM_DECODE_TMA, splits, -(-total // grid), grid
     if t <= _DQMM_TILES[0][0]:
-        bt, bo = _DQMM_TILES[0]
-        blocks = -(-t // bt) * -(-o // bo)
-        want = -(-_DQMM_TARGET_BLOCKS // blocks)
-        splits = max(1, min(want, chunks // _DQMM_MIN_CHUNKS_PER_SPLIT))
-        splits = max(splits, -(-chunks // _DQMM_DECODE_MAX_CHUNKS))
-        per_split = -(-chunks // splits)
-        splits = -(-chunks // per_split)
-        return 0, splits, per_split, blocks * splits
+        return _dqmm_mma_plan(t, k, o)
     variant = 1 if t < _DQMM_WIDE_FROM else 2
     bt, bo = _DQMM_TILES[variant]
     tiles = -(-t // bt) * -(-o // bo)
@@ -355,9 +400,19 @@ def _dqmm_plan(t: int, k: int, o: int, sms: int = _DQMM_SMS):
     return variant, splits, per_split, min(tiles * splits, sms)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _dqmm_mma_plan(t: int, k: int, o: int):
+    """The mma.sync decode kernel's plan (variant 0, T <= 16): its grid
+    is its tiles times its K splits, and a split's partials are summed
+    by a second kernel."""
+    chunks = k // _DQMM_CHUNK
+    bt, bo = _DQMM_TILES[_DQMM_DECODE]
+    blocks = -(-t // bt) * -(-o // bo)
+    want = -(-_DQMM_TARGET_BLOCKS // blocks)
+    splits = max(1, min(want, chunks // _DQMM_MIN_CHUNKS_PER_SPLIT))
+    splits = max(splits, -(-chunks // _DQMM_DECODE_MAX_CHUNKS))
+    per_split = -(-chunks // splits)
+    splits = -(-chunks // per_split)
+    return _DQMM_DECODE, splits, per_split, blocks * splits
 
 
 def _check_dqmm_weight(w: QuantizedWeight, dev: int) -> None:
@@ -377,7 +432,11 @@ def _check_dqmm_weight(w: QuantizedWeight, dev: int) -> None:
     w._checked_on = dev
 
 
-def _dqmm_cuda(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
+def _dqmm_cuda(x: torch.Tensor, w: QuantizedWeight,
+               decode: str = "auto") -> torch.Tensor:
+    """The kernel the plan picks; decode="mma" asks for the mma.sync
+    decode kernel where the plan picks the TMA-ring one (T <= 16), to
+    time the two on the same inputs."""
     dev = x.get_device()
     _check_cuda("x", x, (torch.bfloat16,), dev)
     if w._checked_on != dev:
@@ -388,8 +447,29 @@ def _dqmm_cuda(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
         raise ValueError(
             f"dqmm: x{tuple(x.shape)} does not match q8{tuple(w.q8.shape)}"
         )
-    variant, splits, per_split, grid = _dqmm_plan(t, k, o, _sm_count(dev))
+    if decode not in ("auto", "mma"):
+        raise ValueError(f"unknown decode kernel {decode!r}")
+    variant, splits, per_split, grid = _dqmm_plan(
+        t, k, o, _build.sm_count(dev), w.block)
+    if variant == _DQMM_DECODE_TMA and decode == "mma":
+        variant, splits, per_split, grid = _dqmm_mma_plan(t, k, o)
     y = x.new_empty((t, o))
+    if variant == _DQMM_DECODE_TMA:
+        part = x.new_empty((2 * grid, _DQMM_DEC_TMA_SLOT),
+                           dtype=torch.float32)
+        counters = _build.zeroed_counters(
+            dev, -(-o // _DQMM_TILES[_DQMM_DECODE_TMA][1]))
+        fn = _build.function(_DQMM, "dqmm_decode_tma_bf16",
+                             _DQMM_DEC_TMA_ARGTYPES)
+        err = fn(
+            x.data_ptr(), w.q8.data_ptr(), w._s8q.data_ptr(), y.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), t, k, o, w.block, grid,
+            _build.current_stream(dev),
+        )
+        _build.count_launch(_DQMM)
+        _build.count_launch(_DQMM_DEC_TMA)
+        _build.check(err, _DQMM, f"x{tuple(x.shape)} q8{tuple(w.q8.shape)}")
+        return y
     part = (
         x.new_empty((splits, t, o), dtype=torch.float32)
         if splits > 1 else None

@@ -13,7 +13,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
-from dlrover_tpu_torch._device import DeviceLike
+from dlrover_tpu_torch._device import DeviceLike, resolve_device
 
 
 @dataclass(frozen=True)
@@ -57,8 +57,11 @@ class LossScaleState(NamedTuple):
 
 
 def init_loss_scale(
-    initial: float = 2.0 ** 15, device: DeviceLike = "cpu"
+    initial: float = 2.0 ** 15, device: DeviceLike = None
 ) -> LossScaleState:
+    """The loss-scale state on `device` (None: the card, as every entry
+    point of the port; the CPU only when the caller names it)."""
+    device = resolve_device(device)
     return LossScaleState(
         scale=torch.tensor(initial, dtype=torch.float32, device=device),
         good_steps=torch.tensor(0, dtype=torch.int32, device=device),

@@ -172,6 +172,111 @@ def test_paged_kernel_matches_plain(gen, quant, dtype):
     assert (ker.float() - ref.float()).abs().max().item() < tol
 
 
+def _paged_tma_case(gen, quant, poison=None):
+    """B=8 rows at lengths 0, 1, 15, 16, 17, a page boundary (48), the
+    full capacity (128) and 77, over a permuted table: n_rep 4, hd 128,
+    page 16. `poison` fills every cell past a row's length (in its last
+    live page, and the pages it does not use) with that value."""
+    rng = np.random.default_rng(3)
+    b, h, kv, hd, ps, per_row = 8, 16, 4, 128, 16, 8
+    n_pages = b * per_row + 1
+    lengths = np.array([0, 1, 15, 16, 17, 48, per_row * ps, 77], np.int32)
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    table = perm[: b * per_row].reshape(b, per_row).copy()
+    k = torch.randn((n_pages, ps, kv, hd), generator=gen, device="cuda")
+    v = torch.randn((n_pages, ps, kv, hd), generator=gen, device="cuda")
+    if quant:
+        kq, ks = tdec._kv_quantize(k)
+        vq, vs = tdec._kv_quantize(v)
+        pages = {"k": kq, "v": vq, "k_scale": ks.bfloat16(),
+                 "v_scale": vs.bfloat16()}
+    else:
+        pages = {"k": k.bfloat16(), "v": v.bfloat16()}
+    if poison is not None:
+        dead = torch.ones((n_pages, ps), dtype=torch.bool)
+        for row, n in enumerate(lengths):
+            for cell in range(int(n)):
+                dead[table[row, cell // ps], cell % ps] = False
+        dead = dead.cuda()
+        for name in pages:
+            if pages[name].dtype == torch.bfloat16:
+                pages[name][dead] = poison
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").bfloat16()
+    return (q, pages, torch.from_numpy(table).cuda(),
+            torch.from_numpy(lengths).cuda())
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_tma_kernel_matches_plain(gen, quant):
+    """The TMA-ring kernel, one launch, against the plain version; the
+    row of length 0 is zeros."""
+    q, pages, tab, lens = _paged_tma_case(gen, quant)
+    before = _build.launch_counts()
+    ker = tpa.paged_attention(q, pages, tab, lens, impl="kernel")
+    after = _build.launch_counts()
+    ref = tpa.paged_attention(q, pages, tab, lens, impl="reference")
+    torch.cuda.synchronize()
+    assert after["paged_attention"] == before["paged_attention"] + 1
+    assert after["paged_attention_tma"] == before["paged_attention_tma"] + 1
+    assert torch.isfinite(ker.float()).all()
+    assert not ker[0].any()
+    assert (ker[1:].float() - ref[1:].float()).abs().max().item() < TOL
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_tma_kernel_is_deterministic_and_ignores_dead_cells(gen, quant):
+    """Two runs give the same bits, and NaN in every cell past a row's
+    length (the tail of its last live page included) changes nothing."""
+    q, pages, tab, lens = _paged_tma_case(gen, quant)
+    a = tpa.paged_attention(q, pages, tab, lens, impl="kernel")
+    b = tpa.paged_attention(q, pages, tab, lens, impl="kernel")
+    gen.manual_seed(0)
+    qp, poisoned, _, _ = _paged_tma_case(gen, quant, poison=float("nan"))
+    assert torch.equal(qp, q)
+    c = tpa.paged_attention(q, poisoned, tab, lens, impl="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize(
+    "dtype,hd,ps", [(torch.float32, 128, 16), (torch.bfloat16, 256, 16),
+                    (torch.bfloat16, 64, 8), (torch.bfloat16, 128, 32)],
+)
+def test_paged_split_kernel_keeps_the_other_shapes(gen, dtype, hd, ps):
+    """f32 queries, head_dim 256 and pages of other than 16 cells take the
+    split kernel (no `paged_attention_tma` count); it still matches the
+    plain version there, and where asked for at the main path's shape."""
+    rng = np.random.default_rng(5)
+    b, h, kv, per_row = 3, 8, 2, 4
+    n_pages = b * per_row + 1
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((n_pages, ps, kv, hd), generator=gen, device="cuda")
+    v = torch.randn((n_pages, ps, kv, hd), generator=gen, device="cuda")
+    pages = {"k": k.to(dtype), "v": v.to(dtype)}
+    table = torch.from_numpy(rng.permutation(np.arange(1, n_pages))
+                             .astype(np.int32).reshape(b, per_row)).cuda()
+    lens = torch.tensor([1, per_row * ps - 3, per_row * ps],
+                        dtype=torch.int32, device="cuda")
+    before = _build.launch_counts()
+    ker = tpa.paged_attention(q, pages, table, lens, impl="kernel")
+    after = _build.launch_counts()
+    ref = tpa.paged_attention(q, pages, table, lens, impl="reference")
+    torch.cuda.synchronize()
+    assert after["paged_attention"] == before["paged_attention"] + 1
+    assert after["paged_attention_tma"] == before["paged_attention_tma"]
+    tol = TOL if dtype == torch.bfloat16 else 1e-4
+    assert (ker.float() - ref.float()).abs().max().item() < tol
+    q, pages, tab, lens = _paged_tma_case(gen, False)
+    before = _build.launch_counts()["paged_attention_tma"]
+    old = tpa._kernel(q, pages, tab, lens, 128 ** -0.5, variant="split")
+    ref = tpa._reference(q, pages, tab, lens, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["paged_attention_tma"] == before
+    assert not old[0].any()           # length 0 (the plain version: NaN)
+    assert (old[1:].float() - ref[1:].float()).abs().max().item() < TOL
+
+
 @pytest.mark.parametrize("block", [64, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_kernel_bytes_equal_plain(gen, block, dtype):
@@ -385,6 +490,94 @@ def test_dqmm_kernel_matches_plain(gen, t, k, o, block):
     assert y.shape == (t, o) and y.dtype == torch.bfloat16
     err = (y.float() - ref.float()).abs().max().item()
     assert err <= DQMM_TOL * ref.float().abs().max().item()
+
+
+# the Llama-3-8B matmul weights as (K, O): wq / wo, wk / wv, w_gate /
+# w_up, w_down, lm_head
+LLAMA3_8B_WEIGHTS = ((4096, 4096), (4096, 1024), (4096, 14336),
+                     (14336, 4096), (4096, 128256))
+
+
+def _qweight(gen, o, k, block):
+    """A random weight quantized at `block` (the plain quantizer for
+    blocks the quantize kernel does not take)."""
+    w = torch.randn((o, k), generator=gen, device="cuda") * k ** -0.5
+    quant = tq.quantize_int8 if block <= 256 else tq._quantize_plain
+    return tq.QuantizedWeight(*quant(w, block), block)
+
+
+def _check_decode_tma(gen, qw, ts):
+    for t in ts:
+        x = torch.randn((t, qw.q8.shape[1]), generator=gen,
+                        device="cuda").bfloat16()
+        before = _build.launch_counts()
+        y = tq.quantized_matmul(x, qw)
+        after = _build.launch_counts()
+        ref = tq.quantized_matmul_reference(x, qw)
+        torch.cuda.synchronize()
+        assert after["dqmm"] == before["dqmm"] + 1
+        assert after["dqmm_decode_tma"] == before["dqmm_decode_tma"] + 1
+        assert after["dqmm_ws"] == before["dqmm_ws"]
+        assert y.shape == (t, qw.q8.shape[0]) and y.dtype == torch.bfloat16
+        err = (y.float() - ref.float()).abs().max().item()
+        assert err <= DQMM_TOL * ref.float().abs().max().item(), (t, err)
+
+
+@pytest.mark.parametrize("k,o", LLAMA3_8B_WEIGHTS,
+                         ids=["wq", "wk", "w_gate", "w_down", "lm_head"])
+def test_dqmm_decode_tma_at_the_llama3_8b_shapes(gen, k, o):
+    """The TMA-ring decode kernel, one launch a product, against the
+    plain version at T = 1, 7, 8, 9 and 16 (block 256)."""
+    _check_decode_tma(gen, _qweight(gen, o, k, 256), (1, 7, 8, 9, 16))
+
+
+@pytest.mark.parametrize(
+    "o,k,block", [(40, 64, 64), (72, 128, 128), (136, 64, 64),
+                  (200, 128, 64), (200, 4096, 128), (1000, 192, 64),
+                  (64, 4096, 512)],
+)
+def test_dqmm_decode_tma_ragged_shapes(gen, o, k, block):
+    """Ragged outputs (a tile's rows past O), a K shorter than a stage or
+    not a multiple of it, and blocks 64 to 512."""
+    _check_decode_tma(gen, _qweight(gen, o, k, block), (1, 7, 8, 9, 16))
+
+
+def test_dqmm_decode_tma_is_deterministic(gen):
+    """Two runs give the same bits where K splits a tile over blocks
+    (wk / wv: 8 blocks a tile; w_down: up to 5) and where it does not."""
+    for k, o in ((4096, 1024), (14336, 4096), (64, 200)):
+        qw = _qweight(gen, o, k, 64 if k == 64 else 256)
+        x = torch.randn((8, k), generator=gen, device="cuda").bfloat16()
+        a = tq.quantized_matmul(x, qw)
+        b = tq.quantized_matmul(x, qw)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("block", [16, 32])
+def test_dqmm_decode_mma_keeps_blocks_16_and_32(gen, block):
+    """T <= 16 at blocks 16 and 32 (the quantizer gives them to no K that
+    the kernel takes) stays on the mma.sync decode kernel, and that kernel
+    still matches the plain version where asked for at block 256."""
+    qw = _qweight(gen, 136, 512, block)
+    x = torch.randn((8, 512), generator=gen, device="cuda").bfloat16()
+    before = _build.launch_counts()
+    y = tq.quantized_matmul(x, qw)
+    after = _build.launch_counts()
+    ref = tq.quantized_matmul_reference(x, qw)
+    assert after["dqmm"] == before["dqmm"] + 1
+    assert after["dqmm_decode_tma"] == before["dqmm_decode_tma"]
+    assert (y.float() - ref.float()).abs().max().item() <= (
+        DQMM_TOL * ref.float().abs().max().item())
+    qw = _qweight(gen, 14336, 4096, 256)
+    x = torch.randn((8, 4096), generator=gen, device="cuda").bfloat16()
+    before = _build.launch_counts()["dqmm_decode_tma"]
+    y = tq._dqmm_cuda(x, qw, decode="mma")
+    ref = tq.quantized_matmul_reference(x, qw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["dqmm_decode_tma"] == before
+    assert (y.float() - ref.float()).abs().max().item() <= (
+        DQMM_TOL * ref.float().abs().max().item())
 
 
 def test_dqmm_ws_counts_prefill_launches_only(gen):

@@ -144,3 +144,67 @@ def test_supports_gate():
             torch.empty((3, 8, 64)), pages, table,
             torch.ones(3, dtype=torch.int32), impl="nope",
         )
+
+
+def _tma_shares(lengths, kv, n_table, grid):
+    """The TMA-ring kernel's work split as csrc/paged_attention.cu
+    computes it from `lengths` on the card: the units (row b, KV head g,
+    page p) in order (pages of 16 cells, capped by the table), and each
+    block's share [b * total // grid, (b + 1) * total // grid)."""
+    units = []
+    for b, n in enumerate(lengths):
+        pages = -(-min(max(int(n), 0), n_table * 16) // 16)
+        units += [(b, g, p) for g in range(kv) for p in range(pages)]
+    total = len(units)
+    starts = [i * total // grid for i in range(grid + 1)]
+    return units, [(starts[i], starts[i + 1]) for i in range(grid)]
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize(
+    "lengths,kv,n_table",
+    [([0, 1, 15, 16, 17, 48, 128, 77], 4, 8),     # the card test's batch
+     ([1000, 50, 2048, 300, 0, 717, 1, 1024], 8, 128),
+     ([5000, 3], 2, 4),                          # past the capacity
+     ([0, 0, 0], 8, 16)],
+)
+def test_tma_shares_cover_every_live_page_once(lengths, kv, n_table, sms):
+    """The TMA-ring kernel's work split, as it computes it on the device:
+    every live page of every (row, KV head), and nothing past a row's
+    length or the table's capacity, lies in exactly one block's share;
+    the shares are contiguous, differ by at most one page, and the grid
+    (fixed by capacity) is at most two blocks an SM."""
+    grid = tpa.tma_grid(len(lengths), kv, n_table, sms)
+    assert 1 <= grid <= 2 * sms and grid <= len(lengths) * kv * n_table
+    units, shares = _tma_shares(lengths, kv, n_table, grid)
+    want = [(b, g, p) for b, n in enumerate(lengths) for g in range(kv)
+            for p in range(-(-min(n, n_table * 16) // 16))]
+    assert units == want
+    assert shares[0][0] == 0 and shares[-1][1] == len(units)
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    sizes = [e - s for s, e in shares]
+    assert max(sizes) - min(sizes) <= 1
+    covered = [u for s, e in shares for u in units[s:e]]
+    assert covered == want
+
+
+def test_engine_decode_shapes_take_the_tma_kernel():
+    """The serving decode step (bf16 queries, pages of 16 cells) takes the
+    TMA-ring kernel at Llama-3-8B's heads (32 q / 8 KV of 128), bf16 or
+    int8 pool; f32 queries, head_dim 256 and other pages take the split
+    kernel."""
+    from dlrover_tpu_torch.models import llama as tllama
+
+    cfg = tllama.LlamaConfig.llama3_8b()
+    hd, kv = cfg.head_dim, cfg.n_kv_heads
+    for quant in (False, True):
+        assert tpa.kernel_variant(torch.bfloat16, 16, kv, hd, 8,
+                                  quant) == "tma"
+    assert tpa.kernel_variant(torch.bfloat16, 16, 2, 64, 2, False) == "tma"
+    assert tpa.kernel_variant(torch.float32, 16, kv, hd, 8, False) == "split"
+    assert tpa.kernel_variant(torch.bfloat16, 16, kv, 256, 8,
+                              False) == "split"
+    assert tpa.kernel_variant(torch.bfloat16, 8, kv, hd, 8, False) == "split"
+    assert tpa.kernel_variant(torch.bfloat16, 16, 64, hd, 8, True) == "split"
+    assert tpa.kernel_variant(torch.bfloat16, 16, kv, hd, 2048,
+                              False) == "split"

@@ -223,22 +223,32 @@ def test_dqmm_gate(t, k, o, block, ok):
      (256, 14336, 4096)],
 )
 def test_dqmm_plan_covers_k(t, k, o):
-    """The split over K covers every 64-wide chunk exactly once, keeps
-    at least 4 chunks a split where K allows, at most 16 in the decode
-    kernel (its shared-memory activation slab), and picks the decode
-    kernel for T <= 16, the prefill kernel's 128-token tiles up to
-    T = 128 and its 256-token tiles above. The prefill kernel is
-    persistent: at most one block an SM, and it splits K only where
-    its tiles fill less than one wave, never into more than a wave."""
+    """The plan picks the TMA-ring decode kernel for T <= 16 (at block
+    256; its even shares are checked in
+    `test_dqmm_decode_tma_shares_cover_every_stage_once`), the prefill
+    kernel's 128-token tiles up to T = 128 and its 256-token tiles
+    above. The mma.sync decode kernel's split over K (block 16, or
+    asked for) covers every 64-wide chunk exactly once, keeps at least 4
+    chunks a split where K allows and at most 16 (its shared-memory
+    activation slab). The prefill kernel is persistent: at most one
+    block an SM, and it splits K only where its tiles fill less than one
+    wave, never into more than a wave."""
     variant, splits, per, grid = tq._dqmm_plan(t, k, o)
     chunks = k // 64
-    assert variant == (0 if t <= 16 else 1 if t <= 128 else 2)
+    assert variant == (3 if t <= 16 else 1 if t <= 128 else 2)
+    if variant == 3:
+        assert 1 <= grid <= 2 * 132
+        for plan in (tq._dqmm_plan(t, k, o, 132, 16),
+                     tq._dqmm_mma_plan(t, k, o)):
+            variant, splits, per, grid = plan
+            assert variant == 0
+            assert (splits - 1) * per < chunks <= splits * per
+            assert splits == 1 or per >= 4
+            assert per <= 16
+            assert grid == -(-o // 64) * splits
+        return
     assert (splits - 1) * per < chunks <= splits * per
     assert splits == 1 or per >= 4
-    if variant == 0:
-        assert per <= 16
-        assert grid == -(-o // 64) * splits
-        return
     bt = 128 if variant == 1 else 256
     tiles = -(-t // bt) * -(-o // 128)
     assert grid == min(tiles * splits, 132)
@@ -260,10 +270,10 @@ _LLAMA3_8B_WEIGHTS = ((4096, 4096), (4096, 1024), (4096, 14336),
 def test_dqmm_plan_takes_every_engine_bucket():
     """Every prompt bucket the engine prefills (17 to 2048 tokens) plans
     onto the prefill kernel at every Llama-3-8B weight shape (block
-    256), and every decode batch (T <= 16) onto the decode kernel; the
-    prefill grid never exceeds the card's SMs and K splits only where
-    the tiles leave SMs idle (wk / wv at T = 1024: 4 splits of 16
-    chunks)."""
+    256), and every decode batch (T <= 16) onto the TMA-ring decode
+    kernel; the prefill grid never exceeds the card's SMs and K splits
+    only where the tiles leave SMs idle (wk / wv at T = 1024: 4 splits
+    of 16 chunks)."""
     buckets = _engine_prefill_buckets()
     assert buckets == [32, 64, 128, 256, 512, 1024, 2048]
     for k, o in _LLAMA3_8B_WEIGHTS:
@@ -275,5 +285,52 @@ def test_dqmm_plan_takes_every_engine_bucket():
             if t >= 1024 and o >= 4096:
                 assert splits == 1
         for t in range(1, 17):
-            assert tq._dqmm_plan(t, k, o)[0] == 0
+            assert tq._dqmm_plan(t, k, o)[0] == 3
     assert tq._dqmm_plan(1024, 4096, 1024)[:3] == (2, 4, 16)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 7])
+@pytest.mark.parametrize(
+    "k,o", list(_LLAMA3_8B_WEIGHTS) + [(64, 40), (192, 136), (128, 200),
+                                       (4096, 64)],
+)
+def test_dqmm_decode_tma_shares_cover_every_stage_once(k, o, sms):
+    """The TMA-ring decode kernel's plan, replayed as the kernel computes
+    it: the shares of the (64-output tile, 256-value K range) stages
+    cover every stage exactly once, in order, none empty, differing by
+    at most one, at most two blocks an SM (where the tiles fill fewer,
+    the tiles times the K splits that fit, at least two stages a piece);
+    every 64-wide K chunk lies in one stage; and each tile cut by a
+    share's edge has its pieces in distinct slots, at most `splits`."""
+    variant, splits, per_block, grid = tq._dqmm_plan(8, k, o, sms)
+    assert variant == 3
+    assert 1 <= grid <= 2 * sms
+    total, kst = tq._dec_tma_work(k, o)
+    tiles = total // kst
+    assert kst * 256 >= k > (kst - 1) * 256
+    if tiles < 2 * sms:
+        assert grid % tiles == 0
+        assert grid == tiles or kst // (grid // tiles) >= 2
+    starts = [tq._share_start(b, total, grid) for b in range(grid + 1)]
+    assert starts[0] == 0 and starts[-1] == total
+    sizes = [b - a for a, b in zip(starts, starts[1:])]
+    assert min(sizes) >= 1 and max(sizes) <= per_block
+    assert max(sizes) - min(sizes) <= 1
+    for s in range(total):
+        b = tq._share_block(s, total, grid)
+        assert starts[b] <= s < starts[b + 1]
+    slots = {}
+    for tile in range(tiles):
+        ts, te = tile * kst, (tile + 1) * kst
+        blocks = range(tq._share_block(ts, total, grid),
+                       tq._share_block(te - 1, total, grid) + 1)
+        assert len(blocks) <= splits
+        if len(blocks) == 1:
+            continue
+        for b in blocks:
+            # the writer's slot and the summing block's read agree
+            slot = 2 * b + (1 if ts > starts[b] else 0)
+            assert slot not in slots, (tile, b)
+            slots[slot] = tile
+    assert tq._dqmm_plan(16, k, o, sms)[0] == 3
+    assert tq._dqmm_plan(8, k, o, sms, 32)[0] == 0

@@ -240,7 +240,7 @@ def test_loss_scale_skips_a_non_finite_step():
         strategy=Strategy(device="cpu", loss_scale=True),
     )
     state = t_acc.init(torch.Generator().manual_seed(0))
-    state["loss_scale"] = amp.init_loss_scale(3e38)
+    state["loss_scale"] = amp.init_loss_scale(3e38, device="cpu")
     before = {k: v.detach().clone() for k, v in _leaves(state["params"]).items()}
     state, m = t_acc.train_step(state, _t_batch(_batch(3, b=2)))
     assert not torch.isfinite(m["grad_norm"])
@@ -249,9 +249,21 @@ def test_loss_scale_skips_a_non_finite_step():
     assert state["opt_state"].state == {}
     assert float(m["loss_scale"]) == pytest.approx(1.5e38)
     assert int(state["loss_scale"].good_steps) == 0 and state["step"] == 1
-    want = amp.adjust_loss_scale(amp.init_loss_scale(2.0),
-                                 torch.tensor(True), growth_interval=1)
+    want = amp.adjust_loss_scale(
+        amp.init_loss_scale(2.0, device="cpu"), torch.tensor(True),
+        growth_interval=1)
     assert float(want.scale) == 4.0 and int(want.good_steps) == 0
+
+
+def test_init_loss_scale_defaults_to_the_card(monkeypatch):
+    """F4: `init_loss_scale()` with no device resolves to the card, as
+    every entry point of the port does, so it raises where CUDA is
+    missing instead of running on the CPU; naming the CPU still works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        amp.init_loss_scale()
+    st = amp.init_loss_scale(8.0, device="cpu")
+    assert st.scale.device.type == "cpu" and float(st.scale) == 8.0
 
 
 def test_elastic_batch_plan_matches_jax():
