@@ -56,7 +56,19 @@ Phases, one line each (any failure exits non-zero before the last line):
      them, and the first
      microbatch's loss and gradients must match the same model with
      plain attention;
-  7. train.int8_adam: the same workload from the same params and
+  7. train.ckpt: the train workload with fused_ce=True through flash
+     checkpoint: fused against unfused loss and gradients on one
+     microbatch (each loss's time and peak memory); the snapshot
+     buffers and the page-locked shm segment prepared, then 8 Trainer
+     steps saving to memory every 2 steps and to disk at the end
+     (blocking, staging and persist seconds; the flash kernels' exact
+     launch counts); then steps 9 and 10, and again from a fresh state
+     (another seed) that Trainer(resume=True) restores from memory,
+     bit-equal on every leaf, and from disk once the segment is
+     unlinked, bit-equal again: the losses of steps 9 and 10 must equal
+     the uninterrupted run's bit for bit. The segment and the
+     checkpoint directory are removed whatever happens;
+  8. train.int8_adam: the same workload from the same params and
      tokens with int8_adam (int8 block-quantized moments) in place of
      AdamW; the losses must be finite and fall, step 1's loss must
      equal train's, the dequantize and quantize kernels must have run
@@ -70,7 +82,8 @@ Exits non-zero, printing no result, where CUDA is not available.
 `python3 chip_smoke.py --profile [--int8]` instead profiles one
 admission wave and one decode chunk of the same engine (kernel times,
 device busy share; --int8 with weight_quant="int8"), and `--profile
---train [--int8-adam]` one step of the train phase (with int8_adam);
+--train [--int8-adam] [--fused-ce]` one step of the train phase (with
+int8_adam; with the fused loss);
 neither prints a result line. `python3 chip_smoke.py --dqmm
 [--package-root DIR]` runs only the card, build and dqmm phases, with
 the `dlrover_tpu_torch` found under DIR (another checkout, such as a
@@ -161,6 +174,20 @@ DEQUANT_CASES = (
 )
 TRAIN_LOSS_REL_TOL = 1e-3
 TRAIN_GRAD_REL_TOL = 5e-2
+# train.ckpt: memory saves every 2 of the 8 steps, then steps 9 and 10
+# taken twice (on from step 8, and from the restored step 8), the
+# restore target's params drawn from another seed
+CKPT_SAVE_STEPS = 2
+CKPT_MORE_STEPS = 2
+CKPT_RESTORE_SEED = TRAIN_SEED + 1
+FUSED_TOL_REASON = (
+    "fused against unfused loss_fn on one microbatch: loss within 1e-3 "
+    "relative, each gradient within 5e-2 of its norm (L2 of the "
+    "difference): the unfused loss rounds the logits to bf16 before its "
+    "f32 softmax where the fused one keeps them f32, both round dlogits "
+    "to bf16 before the head's backward products, and the differences "
+    "carry through the backward of 4 bf16 layers"
+)
 TRAIN_TOL_REASON = (
     "loss within 1e-3 relative, each gradient within 5e-2 of its norm "
     "(L2 of the difference): bf16 compute on both sides, but the flash "
@@ -1211,11 +1238,18 @@ def _adamw(params):
                              eps=1e-8, weight_decay=TRAIN_WD)
 
 
-def _train_setup(optimizer):
+def _smoke_out():
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "smoke_out")
+
+
+def _train_setup(optimizer, fused_ce=False):
     """The train phases' model, ElasticTrainer over `optimizer` (a
     factory), batch and the generator to draw the params from next:
-    both phases draw the tokens and then the params from one fixed
-    seed, so both start from the same point. The Trainer's step and
+    every phase draws the tokens and then the params from one fixed
+    seed, so all start from the same point. The Trainer's step and
     card metrics files are pointed into smoke_out/ beside this
     script."""
     import os
@@ -1223,13 +1257,13 @@ def _train_setup(optimizer):
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
 
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "smoke_out")
+    out = _smoke_out()
     os.environ["DLROVER_TPU_RUNTIME_METRICS_PATH"] = os.path.join(
         out, "runtime_metrics.json")
     os.environ["DLROVER_TPU_CHIP_METRICS_PATH"] = os.path.join(
         out, "chip_metrics.json")
-    cfg = llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS)
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS,
+                                      fused_ce=fused_ce)
     assert cfg.remat and cfg.remat_policy == "full"
     gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     tokens = torch.randint(0, cfg.vocab_size,
@@ -1247,18 +1281,19 @@ def _train_setup(optimizer):
 
 def _timed_steps(opt):
     """Record the wall time of each `opt.step()`, synchronised before
-    and after (the list it returns fills as the Trainer steps). Step
-    hooks, not a wrapper bound to `opt`: a closure over the optimizer
-    stored on it would be a reference cycle, and the optimizer (params
-    and moments) would outlive its phase until a garbage collection."""
+    and after on the training stream (the list it returns fills as the
+    Trainer steps). Step hooks, not a wrapper bound to `opt`: a closure
+    over the optimizer stored on it would be a reference cycle, and the
+    optimizer (params and moments) would outlive its phase until a
+    garbage collection."""
     times, start = [], []
 
     def pre(optimizer, args, kwargs):
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         start.append(time.perf_counter())
 
     def post(optimizer, args, kwargs):
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         times.append(time.perf_counter() - start[-1])
 
     opt.register_step_pre_hook(pre)
@@ -1272,13 +1307,16 @@ def _state_bytes(opt):
                for t in st.values() if torch.is_tensor(t))
 
 
-def _run_trainer(cfg, et, state, tokens, phase):
+def _run_trainer(cfg, et, state, tokens, phase, checkpointer=None,
+                 output_dir=None):
     """TRAIN_STEPS Trainer steps on the one batch, with the launch counts
     set to 0 just before and read just after: the flash kernels must
     have run exactly as often as the path calls them (every forward and
     backward launch on its wgmma variant) and the losses
-    must be finite and fall. Returns the phase's numbers (and the
-    Trainer's launch counts) without logging them."""
+    must be finite and fall. With a `checkpointer` the Trainer saves
+    to memory every CKPT_SAVE_STEPS steps and to disk at the end.
+    Returns the phase's numbers (and the Trainer's launch counts)
+    without logging them."""
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.ops import _build
     from dlrover_tpu_torch.trainer.trainer import (
@@ -1299,17 +1337,24 @@ def _run_trainer(cfg, et, state, tokens, phase):
 
     rec = Record()
     opt_s = _timed_steps(state["opt_state"])
+    if checkpointer is None:
+        args = TrainingArguments(max_steps=TRAIN_STEPS, logging_steps=1,
+                                 save_steps=0, resume=False)
+    else:
+        args = TrainingArguments(
+            output_dir=output_dir, max_steps=TRAIN_STEPS, logging_steps=1,
+            save_steps=CKPT_SAVE_STEPS, save_storage="memory",
+            resume=False)
     trainer = Trainer(
-        et, TrainingArguments(max_steps=TRAIN_STEPS, logging_steps=1,
-                              save_steps=0, resume=False),
-        train_data=[{"tokens": tokens}] * TRAIN_STEPS, callbacks=[rec],
+        et, args, train_data=[{"tokens": tokens}] * TRAIN_STEPS,
+        callbacks=[rec], checkpointer=checkpointer,
     )
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     state = trainer.train(state)
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()   # not a staging's stream
     wall = time.perf_counter() - t0
     launches = _build.launch_counts()
     per_pass = cfg.n_layers * et.grad_accum * TRAIN_STEPS
@@ -1448,6 +1493,323 @@ def phase_train_int8(train):
     return e2e
 
 
+def _fused_vs_unfused(cfg, params, micro):
+    """train.ckpt (1): on one microbatch, the loss and the gradients of
+    the lm_head, the final norm and layer 0 of loss_fn with fused_ce
+    against the unfused loss_fn on the same params, each variant's
+    whole forward + backward peak memory; then the loss alone (the
+    final hidden states to the loss and back): forward + backward ms
+    and peak memory above what was allocated before it."""
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops.fused_ce import fused_cross_entropy
+
+    layer_keys = sorted(params["layers"])
+    names = ["lm_head", "final_norm"] + [f"layers/{k}[0]" for k in layer_keys]
+    leaves = ([params["lm_head"]["weight"], params["final_norm"]["scale"]]
+              + [params["layers"][k] for k in layer_keys])
+    res = {}
+    for fused in (True, False):
+        c = dataclasses.replace(cfg, fused_ce=fused)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _ = llama.loss_fn(c, params, micro)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        res[fused] = (loss.detach(), [g if i < 2 else g[0].clone()
+                                      for i, g in enumerate(grads)], peak)
+        del grads, loss
+    loss_f, grads_f, peak_f = res[True]
+    loss_u, grads_u, peak_u = res[False]
+    loss_err = abs(loss_f.item() - loss_u.item())
+    grad_errs = {n: ((a - b).norm() / b.norm()).item()
+                 for n, a, b in zip(names, grads_f, grads_u)}
+    del res, grads_f, grads_u
+
+    with torch.no_grad():
+        hidden = llama.apply(cfg, params, micro["tokens"][:, :-1],
+                             return_hidden=True)
+        head = params["lm_head"]["weight"].to(cfg.dtype)
+    targets = micro["tokens"][:, 1:]
+
+    def fused():
+        x = hidden.detach().requires_grad_(True)
+        h = head.detach().requires_grad_(True)
+        ls, w = fused_cross_entropy(x, h, targets)
+        (ls / w).backward()
+
+    def unfused():   # loss_fn's unfused branch
+        x = hidden.detach().requires_grad_(True)
+        h = head.detach().requires_grad_(True)
+        logits = (x @ h).float()
+        F.cross_entropy(logits.flatten(0, 1), targets.flatten().long(),
+                        reduction="none").mean().backward()
+
+    loss_only = {}
+    for name, fn in (("fused", fused), ("unfused", unfused)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        loss_only[name] = dict(
+            peak_gb=(torch.cuda.max_memory_allocated() - base) / 2**30,
+            fwd_bwd_ms=time_ms(fn, 5))
+    out = dict(loss=loss_f.item(), unfused_loss=loss_u.item(),
+               loss_abs_err=loss_err, grad_rel_l2_err=grad_errs,
+               loss_rel_tol=TRAIN_LOSS_REL_TOL,
+               grad_rel_tol=TRAIN_GRAD_REL_TOL, tol_reason=FUSED_TOL_REASON,
+               model_fwd_bwd_peak_gb={"fused": peak_f, "unfused": peak_u},
+               loss_only=loss_only,
+               loss_only_shape=f"x {list(hidden.shape)} bf16, head "
+                               f"{list(head.shape)} bf16")
+    log("train.ckpt.fused_vs_unfused", **out)
+    if not (loss_err <= TRAIN_LOSS_REL_TOL * abs(loss_u.item())
+            and all(e <= TRAIN_GRAD_REL_TOL for e in grad_errs.values())):
+        raise AssertionError(
+            f"train.ckpt: fused vs unfused loss err {loss_err}, gradient "
+            f"errors {grad_errs}")
+    return out
+
+
+def _bit_mismatch(state, ref):
+    """Paths of the train state's leaves whose bytes differ from `ref`'s
+    (a dict of the same paths), or that it lacks or adds."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        state_leaves,
+    )
+
+    leaves = state_leaves(state)
+    bad = sorted(set(leaves) ^ set(ref))
+    for path, t in leaves.items():
+        r = ref.get(path)
+        if r is None:
+            continue
+        a, b = t.reshape(-1).view(torch.uint8), r.reshape(-1).view(torch.uint8)
+        if a.device != b.device:
+            b = b.to(a.device)
+        if not torch.equal(a, b):
+            bad.append(path)
+    return bad
+
+
+def phase_train_ckpt(train):
+    """The train phase's model, params, tokens and AdamW with
+    fused_ce=True, through flash checkpointing. (1) fused against
+    unfused loss on one microbatch; (2) the snapshot buffers and the
+    page-locked segment prepared, then a Trainer for 8 steps that
+    saves to memory (async) every 2 steps and to disk at the end, with
+    the launch counts set to 0 just before and read just after, then 2
+    more steps without saving; (3) the state freed, a fresh
+    ElasticTrainer from another seed under Trainer(resume=True)
+    restores step 8 from memory, bit-equal on every leaf, then from
+    disk once the segment is unlinked, bit-equal again; (4) steps 9 and
+    10 from the restored state, whose losses must equal the
+    uninterrupted run's bit for bit (the path is deterministic: cuBLAS
+    on one stream, the split flash backward, no atomics in the loss).
+    This script plays the agent: the IPC server and the saver live
+    beside the Trainers, as the agent's do, so the staged step outlives
+    the first Trainer. The segment and the checkpoint directory are
+    removed at the end, whatever happens."""
+    import gc
+    import os
+    import shutil
+
+    from dlrover_tpu_torch.agent.ckpt_saver import (
+        AsyncCheckpointSaver,
+        shm_segment_name,
+    )
+    from dlrover_tpu_torch.common.multi_process import (
+        LocalSocketServer,
+        shm_dir,
+    )
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        Checkpointer,
+        StorageType,
+    )
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        state_leaves,
+    )
+    from dlrover_tpu_torch.trainer.trainer import (
+        Trainer,
+        TrainerCallback,
+        TrainingArguments,
+    )
+
+    class TimedCheckpointer(Checkpointer):
+        """Each save's blocking seconds and, once the next save (or the
+        end) has waited for it, its staging seconds."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.saves = []
+
+        def save_checkpoint(self, step, state, storage_type=StorageType.DISK):
+            t = time.perf_counter()
+            blocked = super().save_checkpoint(step, state, storage_type)
+            if self.saves:
+                self.saves[-1]["staging_s"] = self.engine.last_staging_s
+            self.saves.append(dict(step=step, storage=storage_type,
+                                   blocked_s=blocked, t=t))
+            return blocked
+
+    job = f"chip-smoke-{os.getpid()}"
+    root = os.path.join(_smoke_out(), f"ckpt-{os.getpid()}")
+    shm = shm_dir()
+    seg_path = os.path.join(shm, shm_segment_name(job, 0))
+    shm_du = shutil.disk_usage(shm)
+    os.environ["DLROVER_TPU_JOB_NAME"] = job
+    server = LocalSocketServer(job)
+    server.start()
+    saver = AsyncCheckpointSaver(job_name=job)
+    saver.start()
+    checkpointers = []
+    try:
+        cfg, et, tokens, gen = _train_setup(_adamw, fused_ce=True)
+        state = et.init_state(gen)
+        fused = _fused_vs_unfused(
+            cfg, state["params"], {"tokens": tokens[:TRAIN_MICROBATCH]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (2) train and save
+        ck = TimedCheckpointer(os.path.join(root, "checkpoints"),
+                               job_name=job)
+        checkpointers.append(ck)
+        # the snapshot buffers and the page-locked segment, before the
+        # steps (the Trainer does the same; timed here on its own)
+        prepare_s = ck.prepare(state)
+        e2e = _run_trainer(cfg, et, state, tokens, "train.ckpt",
+                           checkpointer=ck, output_dir=root)
+        ck.engine.wait_for_staging()
+        ck.saves[-1]["staging_s"] = ck.engine.last_staging_s
+        if not ck.wait_latest_checkpoint(TRAIN_STEPS, timeout=900):
+            raise AssertionError("train.ckpt: step 8 never persisted")
+        persist_s = time.perf_counter() - ck.saves[-1]["t"]
+        saves = [{k: v for k, v in sv.items() if k != "t"}
+                 for sv in ck.saves]
+        staged_bytes = ck.engine.last_staged_bytes
+        pinned = ck.engine.pinned
+        ck.close()   # frees the snapshot buffers, unpins the segment
+        ref = {p: t.detach().clone() for p, t in state_leaves(state).items()}
+        on_losses, more_s = [], []
+        for _ in range(CKPT_MORE_STEPS):
+            t0 = time.perf_counter()
+            state, m = et.step(state, {"tokens": tokens})
+            on_losses.append(m["loss"].item())
+            more_s.append(time.perf_counter() - t0)
+        del state, et, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (3) restore into a fresh trainer, (4) continue
+        _, et2, _, _ = _train_setup(_adamw, fused_ce=True)
+        state2 = et2.init_state(
+            torch.Generator(device="cuda").manual_seed(CKPT_RESTORE_SEED))
+        if not _bit_mismatch(state2, ref):
+            raise AssertionError("train.ckpt: the fresh state equals step 8")
+
+        class Resume(TrainerCallback):
+            def __init__(self):
+                self.ends, self.losses, self.out = [], [], {}
+
+            def on_train_begin(self, trainer, st):
+                torch.cuda.synchronize()
+                out = self.out
+                out["memory_restore_s"] = time.perf_counter() - t_resume
+                out["memory_step"] = trainer.global_step
+                out["memory_mismatch"] = _bit_mismatch(st, ref)
+                os.unlink(seg_path)
+                out["segment_unlinked"] = not os.path.exists(seg_path)
+                with torch.no_grad():   # the disk restore must rewrite all
+                    for t in state_leaves(st).values():
+                        t.fill_(-1)
+                t0 = time.perf_counter()
+                step, _ = trainer.checkpointer.load_checkpoint(target=st)
+                torch.cuda.synchronize()
+                out["disk_restore_s"] = time.perf_counter() - t0
+                out["disk_step"] = step
+                out["disk_mismatch"] = _bit_mismatch(st, ref)
+                ref.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                self.t0 = time.perf_counter()
+
+            def on_step_end(self, trainer, st, metrics):
+                self.ends.append(time.perf_counter())
+
+            def on_log(self, trainer, st, logs):
+                self.losses.append(logs["loss"])
+
+        rec = Resume()
+        n = TRAIN_STEPS + CKPT_MORE_STEPS
+        trainer2 = Trainer(
+            et2, TrainingArguments(output_dir=root, max_steps=n,
+                                   logging_steps=1, save_steps=0,
+                                   resume=True),
+            train_data=[{"tokens": tokens}] * n, callbacks=[rec])
+        checkpointers.append(trainer2.checkpointer)
+        t_resume = time.perf_counter()
+        trainer2.train(state2)
+        torch.cuda.synchronize()
+        resumed_peak = torch.cuda.max_memory_allocated() / 2**30
+        resumed_s = np.diff([rec.t0] + rec.ends).tolist()
+        trainer2.checkpointer.close()
+        del state2, et2, trainer2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        fused_steps = more_s + resumed_s
+        checks = dict(
+            memory_restore=rec.out["memory_step"] == TRAIN_STEPS
+            and not rec.out["memory_mismatch"],
+            disk_restore=rec.out["disk_step"] == TRAIN_STEPS
+            and not rec.out["disk_mismatch"]
+            and rec.out["segment_unlinked"],
+            continuation=rec.losses == on_losses,
+            steps=len(rec.losses) == CKPT_MORE_STEPS,
+        )
+        e2e.update(
+            fused_vs_unfused=fused, prepare_s=prepare_s, saves=saves,
+            blocking_s_per_save=[sv["blocked_s"] for sv in saves],
+            staging_s=[sv.get("staging_s") for sv in saves],
+            persist_s=persist_s, staged_bytes=staged_bytes,
+            staged_gb=staged_bytes / 2**30, pinned=pinned,
+            shm_dir=shm, shm_capacity_bytes=shm_du.total,
+            shm_free_bytes=shm_du.free, depth_cut="none",
+            checkpoint_dir=root, restore=rec.out,
+            uninterrupted_losses_9_10=on_losses,
+            resumed_losses_9_10=rec.losses,
+            continuation_bit_equal=rec.losses == on_losses,
+            fused_no_save_step_s=fused_steps,
+            fused_median_no_save_step_s=float(np.median(fused_steps)),
+            fused_resumed_peak_mem_gb=resumed_peak,
+            unfused_median_step_s=train["median_step_s"],
+            unfused_peak_mem_gb=train["peak_mem_gb"],
+            checks=checks,
+        )
+        log("train.ckpt", **e2e)
+        if not all(checks.values()):
+            raise AssertionError(f"train.ckpt: failed checks {checks}")
+        return e2e
+    finally:
+        for c in checkpointers:
+            c.close()
+        saver.stop()
+        saver.join(timeout=60)
+        saver.shm_handler.close()
+        server.stop()
+        if os.path.exists(seg_path):
+            os.unlink(seg_path)
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("DLROVER_TPU_JOB_NAME", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_profile(params, cfg, weight_quant="none"):
     """`--profile`: where the time of one admission wave (8 prefills +
     one 8-step chunk) and of one pure decode chunk goes, by CUDA kernel
@@ -1493,17 +1855,19 @@ def phase_profile(params, cfg, weight_quant="none"):
             sort_by="self_device_time_total", row_limit=40), flush=True)
 
 
-def phase_profile_train(int8):
-    """`--profile --train [--int8-adam]`: where the device time of one
-    training step of the train phase goes (after two warm-up steps), by
-    CUDA kernel, and the device's busy share of the step's wall time;
-    with AdamW, or with int8_adam as in train.int8_adam."""
+def phase_profile_train(int8, fused_ce=False):
+    """`--profile --train [--int8-adam] [--fused-ce]`: where the device
+    time of one training step of the train phase goes (after two
+    warm-up steps), by CUDA kernel, and the device's busy share of the
+    step's wall time; with AdamW, or with int8_adam as in
+    train.int8_adam; with the fused loss as in train.ckpt."""
     from torch.profiler import ProfilerActivity, profile
 
     from dlrover_tpu_torch.optim import int8_adam
 
     _, et, tokens, gen = _train_setup(
-        int8_adam(TRAIN_LR, weight_decay=TRAIN_WD) if int8 else _adamw)
+        int8_adam(TRAIN_LR, weight_decay=TRAIN_WD) if int8 else _adamw,
+        fused_ce=fused_ce)
     state = et.init_state(gen)
     batch = {"tokens": tokens}
     for _ in range(2):
@@ -1522,6 +1886,7 @@ def phase_profile_train(int8):
     dev_us = sum(e.self_device_time_total for e in rows)
     rows.sort(key=lambda e: -e.self_device_time_total)
     log("profile.train_step", optimizer="int8_adam" if int8 else "adamw",
+        fused_ce=fused_ce,
         wall_ms=1e3 * wall, device_ms=dev_us / 1e3,
         device_busy_share=dev_us / 1e6 / wall,
         top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
@@ -1556,7 +1921,8 @@ def main():
             phase_dqmm(gen, DECODE_TOKENS)
         return 0
     if "--profile" in sys.argv[1:] and "--train" in sys.argv[1:]:
-        phase_profile_train("--int8-adam" in sys.argv[1:])
+        phase_profile_train("--int8-adam" in sys.argv[1:],
+                            "--fused-ce" in sys.argv[1:])
         return 0
     if "--profile" in sys.argv[1:]:
         cfg = llama.LlamaConfig.llama3_8b()
@@ -1583,6 +1949,7 @@ def main():
     del params
     torch.cuda.empty_cache()
     train = phase_train()
+    ckpt = phase_train_ckpt(train)
     train_int8 = phase_train_int8(train)
 
     main_flash = next(r for r in flash_rows if (r["B"], r["S"]) == (1, 512))
@@ -1590,8 +1957,10 @@ def main():
     flash_by_path = {"serve": e2e["launches"]["flash_fwd"],
                      "serve.int8": e2e_int8["launches"]["flash_fwd"],
                      "train": train["launches"]["flash_fwd"],
+                     "train.ckpt": ckpt["launches"]["flash_fwd"],
                      "train.int8_adam": train_int8["launches"]["flash_fwd"]}
     bwd_by_path = {name: {"train": train["launches"][name],
+                          "train.ckpt": ckpt["launches"][name],
                           "train.int8_adam": train_int8["launches"][name]}
                    for name in ("flash_bwd_dq", "flash_bwd_dkv")}
     main_paged = paged_rows[0]

@@ -13,7 +13,9 @@ paged-attention decode kernel (`ops/paged_attention.py`), and its
 int8 weight-quantized form (`weight_quant="int8"`: the quantize and
 dequant-matmul kernels of `ops/quantization.py`); one-device training
 (`trainer/`, `parallel/accelerate.py`, the flash-attention backward
-kernels); and the optimizer package `optim/` (`int8_adam`,
+kernels, the chunked cross entropy of `ops/fused_ce.py`, and flash
+checkpoint: `trainer/flash_checkpoint/` over `agent/ckpt_saver.py`
+and `common/`); and the optimizer package `optim/` (`int8_adam`,
 `bf16_adam`, `agd`, `wsam` / `sam_gradient`, muP), whose int8 AdamW
 runs the quantize and the dequantize kernels (`ops/quantization.py`)
 on its moments. Every Pallas kernel of the JAX package now has its

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from dlrover_tpu_torch._device import DeviceLike, resolve_device
 from dlrover_tpu_torch.ops.attention import dot_product_attention
+from dlrover_tpu_torch.ops.fused_ce import fused_cross_entropy
 from dlrover_tpu_torch.ops.quantization import QuantizedWeight, matmul_any
 from dlrover_tpu_torch.parallel.remat import apply_remat
 
@@ -55,8 +56,8 @@ class LlamaConfig:
     # parallel/remat.py policy name: "full" recomputes everything
     remat_policy: str = "full"
     attn_impl: str = "auto"               # auto | flash | reference
-    # chunked fused cross-entropy (ops/fused_ce.py): not ported, must
-    # stay False (the JAX default)
+    # chunked fused cross-entropy (ops/fused_ce.py): the [B, S, vocab]
+    # logits are never formed
     fused_ce: bool = False
     tie_embeddings: bool = False
     n_experts: int = 0                    # MoE is not ported; must be 0
@@ -326,19 +327,29 @@ def loss_fn(
     """Next-token cross entropy. batch: tokens [B, S], optional
     loss_mask [B, S]. Returns (loss, {"loss", "loss_weight"}); the
     weight (valid target count) lets grad accumulation weight
-    microbatches by tokens."""
-    if cfg.fused_ce:
-        raise NotImplementedError(
-            "fused cross-entropy (ops/fused_ce.py) is not ported yet "
-            "(ROADMAP queue 1, item 5); use fused_ce=False"
-        )
+    microbatches by tokens.
+
+    With `cfg.fused_ce` the loss is the chunked `fused_cross_entropy`
+    over the final hidden states and the head matrix (a tied head,
+    `embed.T`, gets its gradient through the embedding). JAX takes that
+    branch only without sequence parallelism; the port has none, so
+    `fused_ce` alone decides."""
     tokens = batch["tokens"]
     targets = tokens[:, 1:]
+    mask = batch.get("loss_mask")
+    if cfg.fused_ce:
+        hidden = apply(cfg, params, tokens[:, :-1], return_hidden=True)
+        m = mask[:, 1:] if mask is not None else None
+        loss_sum, weight = fused_cross_entropy(
+            hidden, _head_matrix(cfg, params), targets, m
+        )
+        weight = weight.clamp_min(1.0)
+        loss = loss_sum / weight
+        return loss, {"loss": loss, "loss_weight": weight}
     logits = apply(cfg, params, tokens[:, :-1])
     nll = F.cross_entropy(
         logits.flatten(0, 1), targets.flatten().long(), reduction="none"
     ).view(targets.shape)
-    mask = batch.get("loss_mask")
     if mask is not None:
         m = mask[:, 1:].to(nll.dtype)
         weight = m.sum().clamp_min(1.0)

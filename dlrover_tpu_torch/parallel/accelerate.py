@@ -13,8 +13,13 @@ Activation checkpointing is the model's (`LlamaConfig.remat`, per
 layer); the JAX Strategy's whole-loss `remat` / `remat_save_names`
 are not ported.
 
-The optimizer is a factory `params -> torch.optim.Optimizer`, called on
-the list of param leaves (the tree's flatten order). The counterpart of
+The train state is `{"params": tree, "opt_state": the optimizer,
+"step": int[, "loss_scale"]}`, updated in place by each step (the
+optimizer holds the param tensors); `trainer/flash_checkpoint` saves
+it under the paths JAX's `flatten_state` gives the JAX state and
+restores it in place. The optimizer is a factory `params ->
+torch.optim.Optimizer`, called on the list of param leaves (the tree's
+flatten order). The counterpart of
 `optax.adamw(1e-4)` is `torch.optim.AdamW(params, lr=1e-4, betas=(0.9,
 0.999), eps=1e-8, weight_decay=1e-4)`: torch's default weight decay is
 1e-2, optax's 1e-4.

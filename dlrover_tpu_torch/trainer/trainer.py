@@ -2,17 +2,20 @@
 (reference atorch/atorch/trainer/atorch_trainer.py:136, `AtorchTrainer`).
 
 The loop drives an `ElasticTrainer` (a fixed global batch on one card):
-epochs, resume-skip of consumed batches, a logging window with
-`steps_per_sec`, periodic evaluation, `max_steps`, step and card
-metrics published for the agent, and a `HangingDetector` watching step
-liveness. Callbacks mirror the HF `TrainerCallback` surface.
+epochs, resume of the latest flash checkpoint (memory first) with the
+skip of consumed batches, a logging window with `steps_per_sec`,
+periodic evaluation and saves (`save_steps`: the state staged to shm
+asynchronously, persisted too under `save_storage=DISK`; a DISK save at
+the end), `max_steps`, step and card metrics published for the agent,
+and a `HangingDetector` watching step liveness. Callbacks mirror the HF
+`TrainerCallback` surface.
 
-Not ported yet: the checkpoint half (`Checkpointer`, `save`, resume;
-ROADMAP queue 1, item 8: flash checkpoint) and the control plane (the
-master client; item 9). Arguments that ask for either raise
+Not ported yet: the control plane (the master client and
+`report_model_info`; ROADMAP queue 1, item 9). `master_client` raises
 `NotImplementedError`; nothing is skipped quietly.
 """
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional
@@ -24,28 +27,31 @@ from dlrover_tpu_torch.agent.monitor import (
     write_step_metrics,
 )
 from dlrover_tpu_torch.common.log import default_logger as logger
-from dlrover_tpu_torch.utils.hanging_detector import HangingDetector
-
-_NO_CHECKPOINT = (
-    "checkpoint save and resume are not ported yet (ROADMAP queue 1, "
-    "item 8: flash checkpoint); pass save_steps=0 and resume=False"
+from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+    Checkpointer,
+    StorageType,
 )
+from dlrover_tpu_torch.utils.hanging_detector import HangingDetector
 
 
 @dataclass
 class TrainingArguments:
     """Reference: atorch/atorch/trainer/atorch_args.py (HF-style args).
-    The JAX package's checkpoint fields (output_dir, save_storage,
-    save_total_limit) and report_model_info come with the checkpoint
-    and control-plane ports; until then `resume` defaults to False (in
-    JAX it is True, a no-op where there is nothing to resume)."""
+    The JAX package's fields but `report_model_info`, which comes with
+    the control plane. `resume` (default True, as in JAX) restores the
+    latest checkpoint under `output_dir/checkpoints`, a no-op where
+    there is none; with `save_steps` or `resume` the Trainer holds a
+    `Checkpointer` (`trainer.checkpointer`; its owner closes it)."""
 
+    output_dir: str = "output"
     max_steps: int = -1
     num_epochs: int = 1
     logging_steps: int = 10
     eval_steps: int = 0  # 0 = no periodic eval
-    save_steps: int = 0  # 0 = no periodic save (> 0 is not ported)
-    resume: bool = False  # True (the JAX default) is not ported yet
+    save_steps: int = 0  # 0 = no periodic save
+    save_storage: str = StorageType.DISK
+    save_total_limit: int = 0  # kept by the storage deletion strategy
+    resume: bool = True
     hang_timeout: float = 1800.0
     publish_step_metrics: bool = True
 
@@ -73,13 +79,15 @@ class TrainerCallback:
 
 
 def _sync(value) -> None:
-    """Wait for the device to finish the work behind `value`."""
+    """Wait for the training stream to finish the work behind `value`
+    (that stream only: a checkpoint staging's copies on their own
+    stream go on, as a JAX block_until_ready on the loss lets them)."""
     if isinstance(value, torch.Tensor) and value.is_cuda:
-        torch.cuda.synchronize(value.device)
+        torch.cuda.current_stream(value.device).synchronize()
 
 
 class Trainer:
-    """Train an ElasticTrainer-wrapped model.
+    """Train an ElasticTrainer-wrapped model with flash checkpointing.
 
     ``train_data`` yields host batches whose leading dim equals the
     elastic trainer's global batch size (any iterable); ``eval_data``
@@ -93,12 +101,11 @@ class Trainer:
         train_data: Optional[Iterable] = None,
         eval_data: Optional[Iterable] = None,
         callbacks: Optional[List[TrainerCallback]] = None,
+        checkpointer: Optional[Checkpointer] = None,
         master_client=None,
     ):
         self.et = elastic_trainer
         self.args = args or TrainingArguments()
-        if self.args.save_steps > 0 or self.args.resume:
-            raise NotImplementedError(_NO_CHECKPOINT)
         if master_client is not None:
             raise NotImplementedError(
                 "the master client (control plane) is not ported yet "
@@ -107,9 +114,50 @@ class Trainer:
         self.train_data = train_data
         self.eval_data = eval_data
         self.callbacks = list(callbacks or [])
+        self.checkpointer = checkpointer
+        if self.checkpointer is None and (
+            self.args.save_steps > 0 or self.args.resume
+        ):
+            self.checkpointer = Checkpointer(
+                os.path.join(self.args.output_dir, "checkpoints"),
+                max_to_keep=self.args.save_total_limit,
+            )
         self.global_step = 0
         self.last_logs: Dict = {}
         self._hang = HangingDetector(timeout=self.args.hang_timeout)
+
+    # -- checkpoint --------------------------------------------------------
+
+    def save(self, state, storage_type: Optional[str] = None) -> float:
+        """Save `state` as `global_step`; returns the seconds the loop
+        blocked (the on-device snapshot; staging and persisting run in
+        the background)."""
+        st = storage_type or self.args.save_storage
+        blocked = self.checkpointer.save_checkpoint(
+            self.global_step, state, storage_type=st
+        )
+        logger.info(
+            "saved step %d to %s (blocked %.3f s)",
+            self.global_step,
+            st,
+            blocked,
+        )
+        for cb in self.callbacks:
+            cb.on_save(self, state, self.global_step)
+        return blocked
+
+    def _maybe_resume(self, state):
+        """Restore the latest checkpoint into `state` in place (params,
+        optimizer, step) and set `global_step`; a no-op with nothing
+        saved."""
+        if not (self.args.resume and self.checkpointer):
+            return state
+        step, restored = self.checkpointer.load_checkpoint(target=state)
+        if restored is None:
+            return state
+        self.global_step = step
+        logger.info("resumed from step %d", step)
+        return restored
 
     # -- evaluation --------------------------------------------------------
 
@@ -137,16 +185,24 @@ class Trainer:
             state = self.et.init_state(
                 torch.Generator(device=self.et.device).manual_seed(0)
             )
+        state = self._maybe_resume(state)
+        if self.args.save_steps and self.checkpointer:
+            # the snapshot buffers and the page-locked segment, before
+            # the first step rather than inside the first save
+            self.checkpointer.prepare(state)
         self._hang.start()
         for cb in self.callbacks:
             cb.on_train_begin(self, state)
 
-        # a second train() on the same Trainer does not replay the
-        # batches the first consumed: fully consumed epochs are skipped,
-        # the partial one skips to where it left off
+        # after a resume, or on a second train() of this Trainer, the
+        # consumed batches are not replayed (fully consumed epochs are
+        # skipped, the partial one skips to where it left off) unless
+        # the loader restores its own position (`load_state_dict`)
         skip = 0
         start_epoch = 0
-        if self.global_step > 0:
+        if self.global_step > 0 and not hasattr(
+            self.train_data, "load_state_dict"
+        ):
             try:
                 n_batches = len(self.train_data)
             except TypeError:
@@ -206,11 +262,15 @@ class Trainer:
                         window_steps = 0
                     if a.eval_steps and self.global_step % a.eval_steps == 0:
                         self.evaluate(state)
+                    if a.save_steps and self.global_step % a.save_steps == 0:
+                        self.save(state)
                     if a.max_steps > 0 and self.global_step >= a.max_steps:
                         stop = True
                         break
         finally:
             self._hang.stop()
+        if self.args.save_steps and self.checkpointer:
+            self.save(state, storage_type=StorageType.DISK)
         for cb in self.callbacks:
             cb.on_train_end(self, state)
         return state

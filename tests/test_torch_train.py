@@ -27,6 +27,7 @@ Tolerances, each relative to the largest |value| of the tensor compared:
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -429,7 +430,20 @@ def test_trainer_keeps_training_when_chip_metrics_cannot_be_written(
     assert json.loads((tmp_path / "runtime.json").read_text())["step"] == 3
 
 
-def test_not_ported_options_raise():
+def test_not_ported_options_raise(tmp_path, monkeypatch):
+    """What ROADMAP queue 1 has not ported raises: the named remat
+    policies (item 6), the control plane and its checkpoint replica and
+    Orbax format (item 9). Fused cross entropy (item 5) and checkpoint
+    save and resume (item 8), ported since, work: `resume` defaults to
+    True as in JAX."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        CheckpointEngine,
+        OrbaxCheckpointer,
+    )
+
+    monkeypatch.setenv("DLROVER_TPU_SHM_DIR", str(tmp_path))
+    monkeypatch.setenv("DLROVER_TPU_JOB_NAME",
+                       f"torch-train-options-{os.getpid()}")
     tcfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
     et = ElasticTrainer(
         lambda g: tllama.init_params(tcfg, g, device="cpu"),
@@ -437,15 +451,22 @@ def test_not_ported_options_raise():
         _optimizer(), global_batch_size=2, max_per_replica_batch=2,
         device="cpu",
     )
-    assert Trainer(et).args.resume is False  # no checkpointer to resume
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Trainer(et, TrainingArguments(resume=True))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Trainer(et, TrainingArguments(save_steps=5, resume=False))
+    trainer = Trainer(et, TrainingArguments(output_dir=str(tmp_path)))
+    assert trainer.args.resume is True and trainer.checkpointer is not None
+    trainer.checkpointer.close()
+    trainer = Trainer(et, TrainingArguments(output_dir=str(tmp_path),
+                                            save_steps=5, resume=False))
+    assert trainer.checkpointer is not None
+    trainer.checkpointer.close()
+    assert Trainer(et, TrainingArguments(resume=False)).checkpointer is None
     with pytest.raises(NotImplementedError, match="item 9"):
         Trainer(et, TrainingArguments(resume=False), master_client=object())
     with pytest.raises(NotImplementedError, match="item 9"):
         et.on_world_change(None)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        CheckpointEngine(str(tmp_path), replica_manager=object())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        OrbaxCheckpointer(str(tmp_path))
     for name in ("dots", "dots_no_batch", "proj", "proj_mlp", "save_names",
                  "offload_names"):
         with pytest.raises(NotImplementedError, match="item 6"):
@@ -458,9 +479,112 @@ def test_not_ported_options_raise():
     cfg = dataclasses.replace(tcfg, remat=True, remat_policy="proj")
     with pytest.raises(NotImplementedError, match="item 6"):
         tllama.loss_fn(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tllama.loss_fn(dataclasses.replace(tcfg, fused_ce=True), params,
-                       batch)
+    fused, _ = tllama.loss_fn(dataclasses.replace(tcfg, fused_ce=True),
+                              params, batch)
+    plain, _ = tllama.loss_fn(tcfg, params, batch)
+    _close(_np(fused), _np(plain), F32_REL, "fused_ce loss")
+
+
+def _ckpt_trainer(tmp_path, max_steps, save_steps, resume, seed):
+    tcfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
+    et = ElasticTrainer(
+        lambda g: tllama.init_params(tcfg, g, device="cpu",
+                                     dtype=torch.float32),
+        lambda p, b: tllama.loss_fn(tcfg, p, b),
+        _optimizer(lr=1e-3), global_batch_size=2, max_per_replica_batch=2,
+        device="cpu",
+    )
+    data = [{"tokens": _batch(20 + i, b=2, s=16)["tokens"]}
+            for i in range(10)]
+    trainer = Trainer(et, TrainingArguments(
+        output_dir=str(tmp_path), max_steps=max_steps, logging_steps=0,
+        save_steps=save_steps, resume=resume, publish_step_metrics=False),
+        train_data=data)
+    return trainer, et.init_state(torch.Generator().manual_seed(seed))
+
+
+def _state_bits(state):
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        flatten_state,
+    )
+
+    return {k: v.tobytes() for k, v in flatten_state(state)[0].items()}
+
+
+def test_trainer_save_resume_roundtrip(tmp_path, monkeypatch):
+    """save_steps=2 over 4 steps (memory saves at 2 and 4, the DISK save
+    at the end); a new Trainer from another seed with resume=True
+    restores step 4 bit-equal on every leaf (memory first, and from
+    disk once the segment is gone), skips the 4 consumed batches, and
+    its steps 5 and 6 equal those of the Trainer that goes on."""
+    monkeypatch.setenv("DLROVER_TPU_SHM_DIR", str(tmp_path))
+    monkeypatch.setenv("DLROVER_TPU_JOB_NAME",
+                       f"torch-train-resume-{os.getpid()}")
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.common.multi_process import LocalSocketServer
+
+    # the agent: its IPC server holds the staged step across Trainers,
+    # its saver persists
+    agent = LocalSocketServer(os.environ["DLROVER_TPU_JOB_NAME"])
+    agent.start()
+    saver = AsyncCheckpointSaver(job_name=os.environ["DLROVER_TPU_JOB_NAME"])
+    saver.start()
+    try:
+        saves = []
+
+        class OnSave(TrainerCallback):
+            def on_save(self, trainer, state, step):
+                saves.append(step)
+
+        tr, state = _ckpt_trainer(tmp_path, 4, 2, False, 0)
+        tr.callbacks.append(OnSave())
+        state = tr.train(state)
+        assert saves == [2, 4, 4] and tr.global_step == 4
+        assert tr.checkpointer.wait_latest_checkpoint(4, timeout=30)
+        saved = _state_bits(state)
+        tr.checkpointer.close()
+        assert os.path.exists(tmp_path / "checkpoints" / "4" / "host_0.npz")
+
+        tr_on, _ = _ckpt_trainer(tmp_path, 6, 0, False, 0)
+        tr_on.global_step = 4
+        on = tr_on.train(state)          # the uninterrupted steps 5, 6
+
+        for source in ("memory", "disk"):
+            tr2, st2 = _ckpt_trainer(tmp_path, 6, 0, True, 1)
+            assert _state_bits(st2) != saved
+            st2 = tr2._maybe_resume(st2)
+            assert tr2.global_step == 4 and st2["step"] == 4, source
+            assert _state_bits(st2) == saved, source
+            if source == "memory":
+                tr2.checkpointer.engine.shm_handler.close(unlink=True)
+                tr2.checkpointer.close()
+                continue
+            tr2.global_step = 0          # train() resumes again
+            st2 = tr2.train(st2)
+            tr2.checkpointer.close()
+            assert tr2.global_step == 6
+            assert _state_bits(st2) == _state_bits(on)
+    finally:
+        saver.stop()
+        assert saver.join(timeout=10)
+        saver.shm_handler.close()
+        agent.stop()
+
+
+def test_resume_with_nothing_saved_is_a_no_op(tmp_path, monkeypatch):
+    monkeypatch.setenv("DLROVER_TPU_SHM_DIR", str(tmp_path))
+    monkeypatch.setenv("DLROVER_TPU_JOB_NAME",
+                       f"torch-train-noop-{os.getpid()}")
+    tr, state = _ckpt_trainer(tmp_path, 2, 0, True, 0)
+    before = _state_bits(state)
+    try:
+        assert tr._maybe_resume(state) is state
+        assert tr.global_step == 0 and _state_bits(state) == before
+        state = tr.train(state)
+        assert tr.global_step == 2 and state["step"] == 2
+    finally:
+        tr.checkpointer.close()
+    assert not (tmp_path / "checkpoints").exists()
 
 
 def test_hanging_detector_logs_one_hang_until_the_next_step(caplog):
