@@ -47,7 +47,29 @@ Phases, one line each (any failure exits non-zero before the last line):
      bytes must be <= 0.55x the bf16 engine's, and
      the first-decode-step logits must match the same decode functions
      on a dense bf16 tree of exactly the dequantized weights;
-  6. train: Trainer(ElasticTrainer(...)) over accelerate over
+  6. serve.prefix_pressure: the paged engine with the prefix cache
+     (4 rows, blocks of 256) on a pool of 129 pages (the least that
+     backs one maximal request; the dense-equivalent is 1025), greedy-
+     serving 16 requests of one shared 512-token system prompt plus
+     50-400 user tokens: every request must finish, preemption must
+     fire and every preempted request resume, the prefix cache must
+     hit, the allocator must be consistent after the drain with only
+     the published prefix runs' pages held, the flash forward must
+     have run once a layer for each prefix miss (every cold admission,
+     replays included; warm and full-hit admissions attend through
+     the cached-attention path), every launch on its wgmma variant,
+     every paged launch on the TMA-ring kernel; the engine's own
+     first-decode logits of its first cold and first warm admission,
+     and of a full-hit admission (the system prompt alone, after the
+     timed run, with copy-on-write of the frontier page), must match
+     the same prompt admitted cold; greedy agreement with the same prompts on the dense-equivalent
+     pool with no knob is reported;
+  7. serve.prefill_chunk: the same engine with prefill_chunk=256:
+     every request finishes, interleaved chunks ran, no flash launch
+     (chunked admissions prefill through the cached-attention path),
+     the paged checks as above, and the first chunked admission's
+     first-decode logits must match the same prompt admitted cold;
+  8. train: Trainer(ElasticTrainer(...)) over accelerate over
      llama.loss_fn on Llama-3-8B at full width, 4 layers (f32 params,
      bf16 compute, remat "full", AdamW), 8 steps of a global batch of
      4 x 2048 tokens in microbatches of 2; the losses must be finite and
@@ -56,7 +78,7 @@ Phases, one line each (any failure exits non-zero before the last line):
      them, and the first
      microbatch's loss and gradients must match the same model with
      plain attention;
-  7. train.ckpt: the train workload with fused_ce=True through flash
+  9. train.ckpt: the train workload with fused_ce=True through flash
      checkpoint: fused against unfused loss and gradients on one
      microbatch (each loss's time and peak memory); the snapshot
      buffers and the page-locked shm segment prepared, then 8 Trainer
@@ -68,7 +90,7 @@ Phases, one line each (any failure exits non-zero before the last line):
      unlinked, bit-equal again: the losses of steps 9 and 10 must equal
      the uninterrupted run's bit for bit. The segment and the
      checkpoint directory are removed whatever happens;
-  8. train.int8_adam: the same workload from the same params and
+  10. train.int8_adam: the same workload from the same params and
      tokens with int8_adam (int8 block-quantized moments) in place of
      AdamW; the losses must be finite and fall, step 1's loss must
      equal train's, the dequantize and quantize kernels must have run
@@ -122,6 +144,13 @@ DQMM_TOL_REASON = (
     "sides, f32 sums in another order, and a bf16 output (2^-8 relative)"
 )
 LOGITS_REL_TOL = 0.05
+# the pressure phases: 16 requests on a 512-token system prompt, and a
+# pool of max_len / page + 1 pages, the least that backs one maximal
+# request (a request holds pages for its own limit only, at most 60 of
+# them here, so a pool of half the dense-equivalent 1025 never preempts)
+PRESSURE_SYSTEM = 512
+PRESSURE_REQUESTS = 16
+PRESSURE_PAGES = 2048 // 16 + 1
 # the Llama-3-8B matmul weights as (K, O), with their names
 DQMM_SHAPES = (
     ((4096, 4096), "wq, wo"), ((4096, 1024), "wk, wv"),
@@ -1219,6 +1248,232 @@ def phase_serve_int8(params, cfg, bf16):
     return e2e
 
 
+def _pressure_prompts(cfg):
+    """The pressure phases' traffic: 16 requests, one shared 512-token
+    system prompt followed by 50-400 user tokens each (seed SEED + 3)."""
+    rng = np.random.default_rng(SEED + 3)
+    system = rng.integers(1, cfg.vocab_size, size=PRESSURE_SYSTEM).tolist()
+    return [system + rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+            for n in rng.integers(50, 401, size=PRESSURE_REQUESTS)]
+
+
+def _pressure_reference(params, cfg, prompts):
+    """The same prompts through the engine with no knob on the
+    dense-equivalent pool: the greedy streams the two phases agree
+    with (reported, not asserted: their warm and chunked prefills
+    attend through the cached-attention path where a cold prefill uses
+    flash, so bf16 rounding differs)."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    engine = ContinuousBatcher(
+        cfg, params, n_slots=8, max_len=2048, max_new_tokens=32, chunk=8,
+        kv_layout="paged")
+    outs, _ = _serve(engine, prompts, 32)
+    del engine
+    torch.cuda.empty_cache()
+    return outs
+
+
+def _published_pages(engine):
+    return len({p for run in engine._row_pages.values() for p in run})
+
+
+def phase_serve_pressure(params, cfg, prompts, ref_outs, prefill_chunk):
+    """serve.prefix_pressure (prefill_chunk=0) or serve.prefill_chunk
+    (prefill_chunk=256): the paged engine with the prefix cache on a
+    pool of PRESSURE_PAGES pages (preemption fires), the launch counts
+    set to 0 just before the run and read just after. The engine's own
+    first-decode logits are held to a cold prefill of the same prompt:
+    its first cold and first warm admission and, after the timed run, a
+    full-hit admission (the system prompt alone) on the same engine; or
+    its first chunked admission."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    phase = "serve.prefill_chunk" if prefill_chunk else "serve.prefix_pressure"
+    max_new = 32
+    engine = ContinuousBatcher(
+        cfg, params, n_slots=8, max_len=2048, max_new_tokens=max_new,
+        chunk=8, kv_layout="paged", page_size=16, n_pages=PRESSURE_PAGES,
+        swap_headroom=1, prefix_cache_rows=4, prefix_block=256,
+        prefill_chunk=prefill_chunk)
+    seen = _watch_first_decodes(engine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    outs, tm = _serve(engine, prompts, max_new)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    lens = [len(o) for o in outs]
+    if lens != [max_new] * len(prompts):
+        raise AssertionError(f"{phase}: token counts {lens}, want {max_new}")
+    toks = np.concatenate(outs)
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{phase}: token id out of the vocabulary")
+    paged = engine.paged_stats()
+    prefix = engine.prefix_cache.stats()
+    prefill = engine.prefill_stats()
+    engine.allocator.check()
+    published = _published_pages(engine)
+    # every admission, replays of preempted requests included, records
+    # one hit or one miss; only a miss runs a cold prefill (flash, one
+    # launch a layer): warm, full-hit and chunked admissions attend
+    # through the cached-attention path
+    want_flash = 0 if prefill_chunk else prefix["misses"] * cfg.n_layers
+    checks = {
+        "flash_fwd == want": launches["flash_fwd"] == want_flash,
+        "paged >= decode_steps x layers": (
+            launches["paged_attention"] >= engine.decode_steps * cfg.n_layers),
+        "free == capacity - published": (
+            engine.allocator.free_pages
+            == engine.allocator.capacity - published),
+        "swap_resumes == swap_preemptions": (
+            paged["swap_resumes"] == paged["swap_preemptions"]),
+    }
+    if prefill_chunk:
+        checks["prefill_chunks_total >= 1"] = prefill["prefill_chunks_total"] >= 1
+    else:
+        checks["swap_preemptions >= 1"] = paged["swap_preemptions"] >= 1
+        checks["prefix hits >= 1"] = prefix["hits"] >= 1
+    _check_wgmma(phase, launches)
+    _check_paged_tma(phase, launches)
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(outs, ref_outs))
+    e2e = dict(
+        requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+        max_new=max_new, n_pages=PRESSURE_PAGES, prefill_chunk=prefill_chunk,
+        admissions=engine.admissions, decode_steps=engine.decode_steps,
+        launches=launches, want_flash=want_flash, paged_stats=paged,
+        prefix_stats=prefix, prefill_stats=prefill,
+        admission_stall_ms=prefill["admission_stall_ms"],
+        published_pages=published, checks=checks,
+        **_timings(tm, lens),
+        greedy_streams_identical=same,
+        greedy_token_agreement=float(
+            np.mean(np.concatenate(outs) == np.concatenate(ref_outs))),
+    )
+    log(phase, **e2e)
+    if prefill_chunk:
+        kinds = ["chunked"]
+    else:
+        # every surviving prefix row starts with the system prompt; its
+        # last page is shared with the published run, so the full hit
+        # copies it before the first decode step rewrites cell 511
+        _serve(engine, [prompts[0][:PRESSURE_SYSTEM]], 2)
+        cow = engine.paged_stats()["cow_copies"] - paged["cow_copies"]
+        log(phase + ".full_hit", cow_copies=cow)
+        checks["full hit copied its frontier page"] = cow >= 1
+        kinds = ["cold", "warm", "full_hit"]
+    del engine
+    torch.cuda.empty_cache()
+    _check_engine_first_decodes(phase, params, cfg, seen, kinds)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase}: failed {failed}")
+    return e2e
+
+
+def _paged_first_decode(cfg, params, row, p, max_len):
+    """Logits of the first decode step of prompt `p` whose K/V `row` (an
+    exact cache row) holds: its cells installed into a page pool, one
+    paged decode step at position len(p) - 1."""
+    from dlrover_tpu_torch.models import decode as dec
+
+    per_slot = max_len // 16
+    table = torch.arange(1, per_slot + 1, dtype=torch.int32,
+                         device="cuda")[None]
+    pool = dec.init_page_pool(cfg, per_slot + 1, 16)
+    dec.paged_install_row(pool, row, table[0], 0, max_len)
+    logits, _ = dec.paged_decode_step(
+        cfg, params, torch.tensor([p[-1]], device="cuda"), pool, table,
+        torch.tensor([len(p) - 1], device="cuda"),
+    )
+    return logits
+
+
+def _watch_first_decodes(engine):
+    """Record, during a run, the engine's own first-decode logits (the
+    step that samples a request's first token) for the first admission
+    of each kind: "warm" (a prefix hit with a suffix prefill), "full_hit"
+    (the whole prompt cached: copy-on-write of the frontier page, no
+    prefill), "cold" and "chunked" (prefilled by interleaved chunks).
+    The engine's `_admit`, `_flip_to_decode` and `_advance` are wrapped
+    on the instance; the cost is one host check a step and one logits
+    row copied for each kind. Returns {kind: (prompt, logits [V])}."""
+    pc = engine.prefix_cache
+    seen, pending = {}, {}
+    admit, flip, advance = (engine._admit, engine._flip_to_decode,
+                            engine._advance)
+
+    def watch_admit(slot, req):
+        before = pc.stats()
+        admit(slot, req)
+        if engine._prefilling[slot]:
+            return  # a chunked admission: its first decode follows the flip
+        after = pc.stats()
+        reused = after["tokens_reused"] - before["tokens_reused"]
+        if after["hits"] == before["hits"]:
+            kind = "cold"
+        else:
+            kind = "full_hit" if reused >= len(req.prompt) else "warm"
+        watch(slot, kind)
+
+    def watch_flip(slot):
+        flip(slot)
+        watch(slot, "chunked")
+
+    def watch(slot, kind):
+        if kind not in seen and kind not in {k for k, _ in pending.values()}:
+            pending[slot] = (kind, engine.slot_req[slot])
+
+    def watch_advance(logits, tok, pos, done, limit):
+        # a slot preempted before its first step (a later admission of
+        # the same step reclaimed its pages) is dropped; its kind waits
+        # for the next admission
+        for slot, (kind, req) in pending.items():
+            if engine.slot_req[slot] is req:
+                seen[kind] = (req.prompt.tolist(),
+                              logits[slot].float().clone())
+        pending.clear()
+        return advance(logits, tok, pos, done, limit)
+
+    engine._admit = watch_admit
+    engine._flip_to_decode = watch_flip
+    engine._advance = watch_advance
+    return seen
+
+
+def _check_engine_first_decodes(phase, params, cfg, seen, want_kinds,
+                                max_len=2048):
+    """Each watched kind's first-decode logits from the engine against
+    the same prompt admitted cold (one flash prefill of its bucket into
+    a fresh pool, one paged decode step) within LOGITS_REL_TOL of the
+    largest logit."""
+    from dlrover_tpu_torch.models import decode as dec
+    from dlrover_tpu_torch.serving.engine import _pad_bucket
+
+    missing = [kind for kind in want_kinds if kind not in seen]
+    if missing:
+        raise AssertionError(f"{phase}: no {missing} admission was watched")
+    for kind in want_kinds:
+        prompt, got = seen[kind]
+        bucket = min(_pad_bucket(len(prompt)), max_len)
+        toks = torch.zeros(bucket, dtype=torch.long, device="cuda")
+        toks[: len(prompt)] = torch.tensor(prompt, device="cuda")
+        cold = dec.prefill_exact_row(cfg, params, toks, max_len)
+        want = _paged_first_decode(cfg, params, cold, prompt, max_len)[0]
+        del cold
+        _check_first_decode(
+            f"{phase}.{kind}_first_decode_logits", got, want,
+            "5% of the largest logit: the engine's cells come from the "
+            "cached-attention path (suffix and chunked prefills, f32 "
+            "scores over the bf16 cache) or from an earlier request's "
+            "flash prefill (shared pages) where the cold side runs one "
+            "flash prefill of this prompt; bf16 roundings carried "
+            "through 32 layers",
+        )
+    torch.cuda.empty_cache()
+
+
 def _layer0_grads(cfg, params, batch):
     """Loss and the gradients of layer 0's wq/wk/wv/wo/w_down and of
     the embedding, on one microbatch."""
@@ -1946,6 +2201,12 @@ def main():
         dtype=str(cfg.dtype), init_s=time.perf_counter() - t0)
     e2e = phase_serve(params, cfg)
     e2e_int8 = phase_serve_int8(params, cfg, e2e)
+    pressure_prompts = _pressure_prompts(cfg)
+    pressure_ref = _pressure_reference(params, cfg, pressure_prompts)
+    e2e_pressure = phase_serve_pressure(params, cfg, pressure_prompts,
+                                        pressure_ref, 0)
+    e2e_chunked = phase_serve_pressure(params, cfg, pressure_prompts,
+                                       pressure_ref, 256)
     del params
     torch.cuda.empty_cache()
     train = phase_train()
@@ -1954,8 +2215,11 @@ def main():
 
     main_flash = next(r for r in flash_rows if (r["B"], r["S"]) == (1, 512))
     main_bwd = next(r for r in bwd_rows if (r["B"], r["S"]) == (2, 2048))
-    flash_by_path = {"serve": e2e["launches"]["flash_fwd"],
-                     "serve.int8": e2e_int8["launches"]["flash_fwd"],
+    serve_paths = {"serve": e2e, "serve.int8": e2e_int8,
+                   "serve.prefix_pressure": e2e_pressure,
+                   "serve.prefill_chunk": e2e_chunked}
+    flash_by_path = {**{path: run["launches"]["flash_fwd"]
+                        for path, run in serve_paths.items()},
                      "train": train["launches"]["flash_fwd"],
                      "train.ckpt": ckpt["launches"]["flash_fwd"],
                      "train.int8_adam": train_int8["launches"]["flash_fwd"]}
@@ -1963,6 +2227,8 @@ def main():
                           "train.ckpt": ckpt["launches"][name],
                           "train.int8_adam": train_int8["launches"][name]}
                    for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    paged_by_path = {path: run["launches"]["paged_attention"]
+                     for path, run in serve_paths.items()}
     main_paged = paged_rows[0]
     main_quant = next(r for r in quant_rows if r["input"] == "bfloat16")
     quant_by_path = {"serve.int8": e2e_int8["launches"]["quant_int8"],
@@ -2019,10 +2285,8 @@ def main():
         dict(name="paged_attention", route="cuda",
              source="dlrover_tpu_torch/csrc/paged_attention.cu",
              replaces="dlrover_tpu/ops/paged_attention.py:160",
-             launches=e2e["launches"]["paged_attention"],
-             launches_by_path={
-                 "serve": e2e["launches"]["paged_attention"],
-                 "serve.int8": e2e_int8["launches"]["paged_attention"]},
+             launches=sum(paged_by_path.values()),
+             launches_by_path=paged_by_path,
              variant=main_paged["variant"], warm_ms=main_paged["warm_ms"],
              old_ms=main_paged["old_ms"],
              old_warm_ms=main_paged["old_warm_ms"],

@@ -8,11 +8,12 @@ writes the cache or pool IN PLACE and returns the same dict (the
 callers hold the only reference, exactly as donation assumes).
 
 Prefill and decode share `_block` (S=P vs S=1) so there is exactly one
-attention/cache implementation to keep correct. Prefill attends with
-plain causal attention over the chunk (the flash kernel on the card);
-decode attends over the whole buffer under the position mask (the
-dense bank), or over the page pool (the paged-attention kernel on the
-card, the gathered dense view on the CPU).
+attention/cache implementation to keep correct. A cold prefill attends
+with plain causal attention over the chunk (the flash kernel on the
+card); warm (suffix) and chunked prefills and decode attend over the
+whole buffer under the position mask (the dense bank), or over the
+page pool (decode through the paged-attention kernel on the card, the
+gathered dense view otherwise).
 """
 
 from typing import Dict, Tuple
@@ -234,6 +235,18 @@ def prefill_into_slot(cfg, params, prompt, cache, slot: int):
     return cache
 
 
+# ---------------------------------------------------------------------------
+# prefix-pool primitives (serving/engine.py's admission-time prefix cache)
+#
+# The prefix pool is a second KV bank beside the slot bank whose rows
+# hold EXACT (unquantized) K/V of block-aligned prompt prefixes. An exact
+# pool is what makes a cached admission token-for-token equal to a cold
+# prefill even with an int8 slot bank: install quantizes the exact values
+# with the `_kv_quantize` the cold write path uses, so the slot bytes
+# come out the same either way.
+# ---------------------------------------------------------------------------
+
+
 def exact_row_cache(cfg, max_len: int, device: DeviceLike = None) -> Cache:
     """A single-sequence full-precision cache row [L, 1, M, KV, hd]."""
     return init_kv_cache(cfg, 1, max_len, quant=False, device=device)
@@ -244,6 +257,63 @@ def prefill_exact_row(cfg, params, prompt, max_len: int) -> Cache:
     row = exact_row_cache(cfg, max_len, device=prompt.device)
     _, row = prefill(cfg, params, prompt[None], row)
     return row
+
+
+def _chunk_positions(start: int, n: int, device):
+    return (int(start) + torch.arange(n, device=device))[None]
+
+
+def prefill_suffix_row(cfg, params, suffix, row: Cache, start: int) -> Cache:
+    """Warm-admission prefill: extend an exact row that holds K/V of
+    positions [0, start) with `suffix` [S] at positions [start,
+    start+S), in place. The suffix queries attend over the installed
+    prefix and the suffix itself through the position-masked
+    `_cached_attention` (each position is written before it is read),
+    not flash. The caller keeps start + S within the row."""
+    positions = _chunk_positions(start, suffix.shape[0], suffix.device)
+    _forward_cached(cfg, params, suffix[None], row, positions, start)
+    return row
+
+
+def prefill_chunk_into_slot(cfg, params, chunk, cache: Cache, slot: int,
+                            start: int) -> Cache:
+    """Resume slot `slot`'s prefill at its write frontier: run `chunk`
+    [C] (real tokens only, no pad tail) at positions [start, start+C),
+    writing K/V straight into that row of the multi-slot bank, in place:
+    `prefill_suffix_row` on a view of the row (for exact banks the K/V
+    one blocking prefill writes; an int8 bank attends the dequantized
+    earlier chunks)."""
+    prefill_suffix_row(cfg, params, chunk,
+                       {name: arr[:, slot:slot + 1]
+                        for name, arr in cache.items()}, start)
+    return cache
+
+
+def install_exact_row(cache: Cache, row: Cache, slot: int) -> Cache:
+    """Write an exact row into slot `slot` of the (possibly int8) slot
+    bank, in place, quantizing on the way in when the bank is int8 (the
+    cold write path's per-vector scheme on the same exact values). A
+    whole-row write: cells past the valid prefix are hidden by the
+    decode position mask until generation overwrites them."""
+    if "k_scale" in cache:
+        kq, ks = _kv_quantize(row["k"])
+        vq, vs = _kv_quantize(row["v"])
+        row = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    for name, arr in cache.items():
+        arr[:, slot] = row[name][:, 0].to(arr.dtype)
+    return cache
+
+
+def pool_take_row(pool: Cache, row: int) -> Cache:
+    """A copy of pool row `row` as a single-sequence exact cache."""
+    return {name: arr[:, row:row + 1].clone() for name, arr in pool.items()}
+
+
+def pool_put_row(pool: Cache, row_cache: Cache, row: int) -> Cache:
+    """Publish an exact row into pool row `row` (whole-row write)."""
+    for name, arr in pool.items():
+        arr[:, row] = row_cache[name][:, 0].to(arr.dtype)
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +453,28 @@ def paged_install_row(pool: Cache, row_cache: Cache, table_row, start: int,
         src = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     for name, arr in pool.items():
         arr[:, pids, offs] = src[name].to(arr.dtype)
+    return pool
+
+
+def paged_prefill_chunk(cfg, params, chunk, pool: Cache, table_row,
+                        start: int) -> Cache:
+    """Paged twin of `prefill_chunk_into_slot`: run `chunk` [C] at
+    positions [start, start+C), scattering its K/V through `table_row`
+    [P], the slot's REAL page ids (never the trash-routed table a decode
+    dispatch sees: a mid-prefill slot rides the decode half as a done
+    row). The engine allocates the slot's whole page run at admission,
+    so every chunk position maps to an owned page."""
+    positions = _chunk_positions(start, chunk.shape[0], chunk.device)
+    _forward_paged(cfg, params, chunk[None], pool, table_row[None],
+                   positions)
+    return pool
+
+
+def pool_copy_page(pool: Cache, src: int, dst: int) -> Cache:
+    """Copy physical page `src` onto `dst` in every layer, in place: the
+    device half of copy-on-write."""
+    for arr in pool.values():
+        arr[:, dst] = arr[:, src]
     return pool
 
 

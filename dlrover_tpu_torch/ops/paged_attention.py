@@ -20,8 +20,8 @@ TABLE `[P]` of physical page ids covering logical positions
   "paged_attention_tma") for bf16 queries, pages of 16 cells, head_dim
   64 or 128, and the split kernel with its log-sum-exp combine for the
   rest (f32 queries, other pages and head dims).
-- `impl="auto"`: the kernel when `use_kernel` says so (CUDA tensors),
-  else the reference.
+- `impl="auto"`: the kernel where the JAX package takes its kernel
+  (`takes_kernel`: CUDA tensors within JAX's gate), else the reference.
 """
 
 import ctypes
@@ -73,11 +73,29 @@ def supports(q, pages: Dict, table) -> bool:
     return table.ndim == 2 and table.shape[0] == b
 
 
+def takes_kernel(q_shape, pages_shape, table_shape, device) -> bool:
+    """impl="auto"'s choice on shapes: the JAX package's `use_kernel`
+    (its `supports` on the device). The kernel for a query on the card
+    with head_dim a multiple of 8 in [32, 512], whole GQA groups, pages
+    of at least 8 cells and a [B, P] table; the reference elsewhere,
+    as JAX serves those shapes through its reference. Inside this gate
+    the kernel is instantiated for fewer shapes (`supports`); on the
+    others it raises (GQA groups 3 or 7, head_dim 96 or above 256:
+    ROADMAP queue 2)."""
+    if torch.device(device).type != "cuda":
+        return False
+    b, h, d = q_shape
+    _, page_size, kv, _ = pages_shape
+    return (d % 8 == 0 and 32 <= d <= 512 and h % kv == 0
+            and page_size >= 8
+            and len(table_shape) == 2 and table_shape[0] == b)
+
+
 def use_kernel(q, pages: Dict, table) -> bool:
-    """Dispatch decision for the engine: the kernel for CUDA tensors
-    (where a shape it refuses raises), the reference on the CPU — the
-    byte-parity formulation that keeps the CPU parity tests exact."""
-    return q.is_cuda
+    """`takes_kernel` on the operands: the engine's dispatch. On the CPU
+    the reference, the byte-parity formulation that keeps the CPU
+    parity tests exact."""
+    return takes_kernel(q.shape, pages["k"].shape, table.shape, q.device)
 
 
 def gather_pages(pages: Dict, table) -> Dict:
@@ -262,8 +280,9 @@ def paged_attention(
 ) -> torch.Tensor:
     """Single-query attention over paged KV. impl: "reference" (the
     dense-bank formulation over a gathered view), "kernel" (the CUDA
-    kernel; its plain version on CPU tensors), or "auto" (kernel when
-    `use_kernel` passes, else reference)."""
+    kernel; its plain version on CPU tensors; raises on CUDA tensors of
+    shapes it does not take), or "auto" (kernel when `use_kernel`
+    passes, else reference)."""
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if impl == "reference":

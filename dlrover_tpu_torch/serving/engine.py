@@ -14,10 +14,28 @@ serves colocated dense and paged traffic synchronously.
   `paged_decode_step` every step — the paged-attention kernel on the
   card, the gathered dense view on the CPU — with done rows routed to
   the trash page.
+- prefix_cache_rows > 0: a radix tree over block-aligned prompt
+  prefixes (serving/prefix_cache.py) whose exact K/V rows live in a
+  prefix pool beside the bank. An admission installs the longest cached
+  prefix and prefills only the suffix (through the position-masked
+  cached attention, not flash); it publishes its own aligned prefix for
+  the next arrival. Paged, the matched prefix's pages are shared by
+  refcount and copied only where the slot writes (`_cow_frontier`).
+- Paged, n_pages below the dense-equivalent pool: a dry pool evicts
+  unreferenced prefix runs, then preempts the coldest live request
+  (`_preempt_slot`): its pages are freed and it goes back to the front
+  of the queue with its emitted tokens folded into its prompt, to be
+  replayed under the same absolute cap.
+- prefill_chunk > 0: an admission installs the slot frozen, with a
+  write frontier, and each dispatch runs up to prefill_chunk prompt
+  tokens of the oldest mid-prefill slot before its decode steps, until
+  the frontier reaches the prompt end and the slot starts decoding.
 - Greedy decoding is argmax. Sampling (temperature / top-k / top-p)
   draws from one torch.Generator per request, seeded from the engine
   seed at admission, so a request's stream depends only on its own
-  generator, never on batch composition.
+  generator, never on batch composition; a preempted request keeps its
+  generator's state, and a chunked admission installs its generator
+  only when it starts decoding.
 
 - weight_quant="int8" re-stores the large matmul weights at install
   as output-major per-block int8 (`_quantize_params`, the quantize
@@ -29,13 +47,13 @@ The host keeps the slot state (tok/pos/done/limit) as numpy mirrors;
 each dispatch uploads it, runs its steps on the device, and fetches
 the emitted tokens and the new state once.
 
-Not ported yet (later slices): prefix cache, speculative decoding,
-prefill_chunk, async_depth=1, adapters, weight_quant="int8_stochastic",
-tp / mesh, resize / weight refresh, KV tier, handoff, health, chaos,
-and page-pressure preemption (so n_pages must back every slot in full).
+Not ported yet (later slices): speculative decoding, async_depth=1,
+adapters, weight_quant="int8_stochastic", tp / mesh, resize / weight
+refresh, KV tier, handoff / replica_role, health, chaos.
 """
 
 import dataclasses
+import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,17 +67,29 @@ from dlrover_tpu_torch.models.decode import (
     decode_step,
     init_kv_cache,
     init_page_pool,
+    install_exact_row,
     paged_decode_step,
     paged_install_row,
+    paged_prefill_chunk,
+    pool_copy_page,
+    pool_put_row,
+    pool_take_row,
+    prefill_chunk_into_slot,
     prefill_exact_row,
     prefill_into_slot,
+    prefill_suffix_row,
 )
 from dlrover_tpu_torch.ops.quantization import (
     QuantizedWeight,
     quantize_int8,
     weight_quant_block,
 )
-from dlrover_tpu_torch.serving.paged_kv import TRASH_PAGE, PageAllocator
+from dlrover_tpu_torch.serving.paged_kv import (
+    TRASH_PAGE,
+    OutOfPages,
+    PageAllocator,
+)
+from dlrover_tpu_torch.serving.prefix_cache import RadixPrefixCache
 
 # The large matmul weights weight_quant="int8" re-stores as per-block
 # int8 (ops/quantization.QuantizedWeight), by name on the stacked layer
@@ -87,6 +117,14 @@ class _Request:
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     seed: Optional[int] = None  # sampling seed, drawn at admission
+    # set by preemption: the request gave its pages back and waits in
+    # the queue for resume by replay (paged layout, pool pressure)
+    preempted: bool = False
+    # how many of `out` earlier preemptions folded into `prompt`
+    folded: int = 0
+    # the sampling generator's state when a decoding slot was preempted:
+    # the replay continues it instead of seeding afresh
+    gen_state: Optional[torch.Tensor] = None
 
 
 # one step() event: (request idx, tokens emitted this chunk, finished)
@@ -114,9 +152,14 @@ class ContinuousBatcher:
         chunk: int = 8,   # steps per dispatch; see _next_chunk_len
         seed: int = 0,
         kv_quant: bool = False,  # int8 KV cache
+        prefix_cache_rows: int = 0,  # 0 disables the prefix cache
+        prefix_block: int = 16,      # prefix match granularity (tokens)
         kv_layout: str = "dense",    # "dense" bank | "paged" pool
         page_size: int = 0,          # cells per page (0 = auto pow2)
         n_pages: int = 0,            # pool size (0 = dense-equivalent)
+        swap_headroom: int = 1,      # free pages the scheduler keeps
+        prefill_chunk: int = 0,  # tokens of prefill per interleaved
+                                 # dispatch (0 = blocking admission)
         weight_quant: str = "none",  # | "int8": per-block int8 weights
         device: DeviceLike = None,
     ):
@@ -129,6 +172,10 @@ class ContinuousBatcher:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {prefill_chunk}"
+            )
         if kv_layout not in ("dense", "paged"):
             raise ValueError(
                 f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}"
@@ -162,10 +209,14 @@ class ContinuousBatcher:
         self._paged = kv_layout == "paged"
         if self._paged:
             # auto page size: the largest power of two <= 16 dividing
-            # max_len
+            # max_len (and the prefix block, so a matched prefix is
+            # always a whole number of pages)
             if page_size <= 0:
                 page_size = 16
-                while page_size > 1 and max_len % page_size:
+                while page_size > 1 and (
+                    max_len % page_size
+                    or (prefix_cache_rows > 0 and prefix_block % page_size)
+                ):
                     page_size //= 2
             if max_len % page_size:
                 raise ValueError(
@@ -173,20 +224,25 @@ class ContinuousBatcher:
                     f"{max_len}: a slot's logical cells must map onto "
                     "whole pages"
                 )
-            per_slot = max_len // page_size
-            dense_equiv = n_slots * per_slot + 1
-            if n_pages <= 0:
-                n_pages = dense_equiv
-            if n_pages < dense_equiv:
+            if prefix_cache_rows > 0 and prefix_block % page_size:
                 raise ValueError(
-                    f"n_pages {n_pages} is below the dense-equivalent "
-                    f"pool n_slots * max_len / page_size + 1 = "
-                    f"{dense_equiv} (the +1 is the trash page): this "
-                    "engine has no page-pressure preemption, so every "
-                    "slot's run must always fit"
+                    f"page_size {page_size} must divide prefix_block "
+                    f"{prefix_block}: shared prefixes must cover whole "
+                    "pages or sharing cannot be copy-free"
+                )
+            per_slot = max_len // page_size
+            if n_pages <= 0:
+                # dense-equivalent capacity (+ the trash page);
+                # oversubscription comes from setting n_pages lower
+                n_pages = n_slots * per_slot + 1
+            if n_pages < per_slot + 1:
+                raise ValueError(
+                    f"n_pages {n_pages} cannot back a single maximal "
+                    f"request ({per_slot} pages + the trash page)"
                 )
             self.page_size = page_size
             self.n_pages = n_pages
+            self.swap_headroom = max(0, swap_headroom)
             self._pages_per_slot = per_slot
             self.allocator = PageAllocator(n_pages, page_size)
             self.page_pool = init_page_pool(
@@ -194,15 +250,44 @@ class ContinuousBatcher:
             )
             # all rows start on the trash page; the chunk routes done
             # rows there itself, so the host writes rows only at
-            # admission
+            # admission and copy-on-write
             self._table = torch.zeros(
                 (n_slots, per_slot), dtype=torch.int32, device=self.device
             )
             self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
+            # published radix row -> its ref-counted page run
+            self._row_pages: Dict[int, List[int]] = {}
+            self._swap_preemptions = 0
+            self._swap_resumes = 0
             self.cache = None
         else:
             self.cache = init_kv_cache(
                 cfg, n_slots, max_len, quant=kv_quant, device=self.device
+            )
+        # interleaved chunked prefill: a slot mid-prefill is occupied on
+        # the host (done False) and frozen in the dispatches (done True)
+        # until its frontier reaches the prompt end
+        self._prefill_chunk = prefill_chunk
+        self._prefilling = np.zeros(n_slots, bool)
+        self._frontier = np.zeros(n_slots, np.int64)
+        self._admission_stall_ms = 0.0   # time _admit blocked the loop
+        self._prefill_chunks_total = 0   # interleaved chunks dispatched
+        # the prefix cache: a radix tree over block-aligned prefixes and
+        # an exact-dtype pool row per cached prefix (exact even when the
+        # bank is int8: install quantizes, which keeps warm admissions
+        # byte-identical to cold ones)
+        self.prefix_cache: Optional[RadixPrefixCache] = None
+        self.pool = None
+        # pool row pinned per slot while its request is in flight
+        self._slot_row: List[Optional[int]] = [None] * n_slots
+        if prefix_cache_rows > 0:
+            self.prefix_cache = RadixPrefixCache(
+                prefix_cache_rows, block=prefix_block,
+                # paged: an evicted prefix drops its page run's refs
+                on_evict=self._on_prefix_evict if self._paged else None,
+            )
+            self.pool = init_kv_cache(
+                cfg, prefix_cache_rows, max_len, device=self.device
             )
         # the engine seed only SEEDS per-request generators (one draw
         # per admission); sampling runs on the per-slot generators
@@ -353,12 +438,30 @@ class ContinuousBatcher:
 
     def _admit(self, slot: int, req: _Request):
         p = len(req.prompt)
-        bucket = min(_pad_bucket(p), self.max_len)
-        prompt = self._pad_to(req.prompt, bucket)
-        if self._paged:
-            self._admit_paged(slot, req, prompt)
+        # the stall this admission charges the step loop (with
+        # prefill_chunk > 0 only host bookkeeping: the prefill moves
+        # into the interleaved dispatches)
+        t0 = time.perf_counter()
+        pf_start: Optional[int] = None
+        if self._prefill_chunk > 0:
+            # a preempted readmission that raises OutOfPages goes back
+            # to the queue still marked (see _admit_chunked_paged)
+            pf_start = self._admit_chunked(slot, req, p)
+            if self._paged and req.preempted:
+                req.preempted = False
+                self._swap_resumes += 1
+        elif self._paged:
+            if req.preempted:
+                req.preempted = False
+                self._swap_resumes += 1
+            self._admit_paged(slot, req, p)
+        elif self.prefix_cache is None:
+            bucket = min(_pad_bucket(p), self.max_len)
+            prefill_into_slot(self.cfg, self.params,
+                              self._pad_to(req.prompt, bucket), self.cache,
+                              slot)
         else:
-            prefill_into_slot(self.cfg, self.params, prompt, self.cache, slot)
+            self._admit_with_prefix(slot, req, p)
         self.admissions += 1
         # carry = last REAL prompt token at its position: the first
         # chunk step recomputes its logits (identical K/V rewrite) and
@@ -370,10 +473,166 @@ class ContinuousBatcher:
             req.seed = int(
                 torch.randint(0, 2**62, (1,), generator=self._seed_gen)
             )
-        gen = torch.Generator(device=self.device)
-        self._slot_gen[slot] = gen.manual_seed(req.seed)
         self.done[slot] = False
         self.slot_req[slot] = req
+        if pf_start is None:
+            self._slot_gen[slot] = self._make_gen(req)
+        else:
+            # occupied, but frozen in the dispatches (and drawing
+            # nothing) until _flip_to_decode
+            self._prefilling[slot] = True
+            self._frontier[slot] = pf_start
+            self._slot_gen[slot] = None
+        self._admission_stall_ms += (time.perf_counter() - t0) * 1e3
+
+    def _make_gen(self, req: _Request) -> torch.Generator:
+        """The request's sampling generator: its state at preemption
+        when it is a replay of a decoding slot, else seeded afresh."""
+        gen = torch.Generator(device=self.device)
+        if req.gen_state is not None:
+            gen.set_state(req.gen_state)
+            return gen
+        return gen.manual_seed(req.seed)
+
+    def _admit_with_prefix(self, slot: int, req: _Request, p: int):
+        """Prefix-cached dense admission: install the longest cached
+        block-aligned prefix, prefill only the suffix bucket, publish the
+        request's own aligned prefix for the next arrival."""
+        pc = self.prefix_cache
+        matched, row = pc.match(req.prompt)
+        # a matched depth whose suffix bucket would overrun max_len
+        # retreats block by block (the pool row stays valid for any
+        # shallower start); start 0 degrades to a cold admission
+        start = min(matched, p)
+        while start > 0 and start + _pad_bucket(p - start) > self.max_len:
+            start -= pc.block
+        start = max(start, 0)
+        work = None
+        if start <= 0 or row is None:
+            bucket = min(_pad_bucket(p), self.max_len)
+            work = prefill_exact_row(self.cfg, self.params,
+                                     self._pad_to(req.prompt, bucket),
+                                     self.max_len)
+            install_exact_row(self.cache, work, slot)
+            pc.record_admission(0)
+        else:
+            # pinned for the life of the slot's occupancy
+            pc.acquire(row)
+            self._slot_row[slot] = row
+            if start >= p:
+                # a full-prefix hit: no prefill at all (the first chunk
+                # step recomputes the last prompt token's logits)
+                install_exact_row(self.cache, pool_take_row(self.pool, row),
+                                  slot)
+            else:
+                suffix = self._pad_to(req.prompt[start:],
+                                      _pad_bucket(p - start))
+                work = prefill_suffix_row(self.cfg, self.params, suffix,
+                                          pool_take_row(self.pool, row),
+                                          start)
+                install_exact_row(self.cache, work, slot)
+            pc.record_admission(start)
+        # publish at admission, not retire: the next request of this
+        # very batch (the shared-system-prompt case) already hits
+        publish_len = pc.aligned_len(p)
+        if work is not None and publish_len > matched:
+            new_row, is_new = pc.insert(req.prompt[:publish_len])
+            if is_new:
+                pool_put_row(self.pool, work, new_row)
+
+    def _admit_chunked(self, slot: int, req: _Request, p: int):
+        """Chunked admission (prefill_chunk > 0): run NO prompt forward
+        here, only install any cached prefix. Returns the initial
+        frontier (0 cold, the matched depth warm), or None for a full
+        prefix hit (the slot then admits live). Chunked admissions never
+        publish: that needs the exact work row a blocking prefill
+        returns, which the chunked path never makes."""
+        if self._paged:
+            return self._admit_chunked_paged(slot, req, p)
+        pc = self.prefix_cache
+        start = 0
+        if pc is not None:
+            matched, row = pc.match(req.prompt)
+            start = min(matched, p)
+            if start > 0 and row is not None:
+                pc.acquire(row)
+                self._slot_row[slot] = row
+                # the whole cached row: cells past the matched depth are
+                # dead, each chunk writes cell j before a query attends j
+                install_exact_row(self.cache, pool_take_row(self.pool, row),
+                                  slot)
+                pc.record_admission(start)
+                if start >= p:
+                    return None
+            else:
+                start = 0
+                pc.record_admission(0)
+        return start
+
+    def _admit_chunked_paged(self, slot: int, req: _Request, p: int):
+        """Paged twin of _admit_chunked: allocate the slot's WHOLE page
+        run up front (every chunk position must map to an owned page),
+        share a matched prefix's leading pages copy-free, and report the
+        frontier. No retreat loop: chunks are exact slices of the prompt.
+
+        Only a never-preempted arrival may reclaim by preempting a live
+        slot: a chunked admission installs only a frontier, so two
+        requests that fit alone but not together would otherwise evict
+        each other's zero-token frontiers forever. A preempted
+        readmission that cannot allocate waits in the queue (step()
+        puts it back) until a live slot retires."""
+        pc = self.prefix_cache
+        n_need = self._request_pages(req)
+        matched, row, start = 0, None, 0
+        if pc is not None:
+            matched, row = pc.match(req.prompt)
+            start = min(matched, p)
+            if row is None or row not in self._row_pages:
+                start = 0
+        shared: List[int] = []
+        if start > 0:
+            pc.acquire(row)
+            self._slot_row[slot] = row
+            shared = self._row_pages[row][: start // self.page_size]
+            self.allocator.share(shared)
+        try:
+            own = self._alloc_pages(
+                n_need - len(shared), swap_ok=not req.preempted
+            )
+        except OutOfPages:
+            if shared:
+                self.allocator.free(shared)
+                self._release_slot_row(slot)
+            raise
+        run = shared + own
+        self._slot_pages[slot] = run
+        full_hit = pc is not None and start >= p and start > 0
+        if full_hit:
+            # decode's first step rewrites cell p-1, inside a shared
+            # page: copy it before the table row is built
+            self._cow_frontier(slot, p)
+        self._table[slot] = self._table_row(run)
+        if pc is not None:
+            pc.record_admission(start)
+        if full_hit:
+            return None
+        # start is block-aligned and the block a page multiple, so the
+        # first chunk write lands in an OWN page: no warm-path CoW
+        return start
+
+    def _release_slot_row(self, slot: int):
+        row = self._slot_row[slot]
+        if row is not None:
+            self.prefix_cache.release(row)
+            self._slot_row[slot] = None
+
+    def _on_prefix_evict(self, row: int) -> None:
+        """Radix eviction callback (paged): the published prefix's page
+        run drops its reference; pages nobody else holds go back to
+        the free list (no device work: the bytes just become dead)."""
+        run = self._row_pages.pop(row, None)
+        if run:
+            self.allocator.free(run)
 
     def _request_pages(self, req: _Request) -> int:
         """Exact page need: the request's OWN limit (prompt plus its
@@ -383,29 +642,231 @@ class ContinuousBatcher:
         limit = min(p + (req.max_new or self.max_new), self.max_len)
         return (limit - 1) // self.page_size + 1
 
-    def _admit_paged(self, slot: int, req: _Request, prompt: torch.Tensor):
-        """Cold paged admission: allocate the request's page run,
-        prefill into an exact row, install the prompt bucket's cells
-        into the run's pages (pad cells past the run land on the trash
-        page) and write the slot's table row."""
-        run = self.allocator.alloc(self._request_pages(req))
-        self._slot_pages[slot] = run
+    def _table_row(self, run: List[int]) -> torch.Tensor:
         vals = np.full(self._pages_per_slot, TRASH_PAGE, np.int32)
         vals[: len(run)] = run
-        table_row = torch.from_numpy(vals).to(self.device)
-        row = prefill_exact_row(self.cfg, self.params, prompt, self.max_len)
-        paged_install_row(
-            self.page_pool, row, table_row, 0, prompt.shape[0]
-        )
+        return torch.from_numpy(vals).to(self.device)
+
+    def _admit_paged(self, slot: int, req: _Request, p: int):
+        """Paged admission: size the page run off the request's OWN
+        limit, point the leading table entries at a matched prefix's
+        pages copy-free, allocate the rest, and install only the cells
+        the shared pages do not hold. A dry pool is resolved inline:
+        evict unreferenced prefix runs, then preempt the coldest live
+        request."""
+        pc = self.prefix_cache
+        n_need = self._request_pages(req)
+        matched, row, start = 0, None, 0
+        if pc is not None:
+            matched, row = pc.match(req.prompt)
+            start = min(matched, p)
+            while (start > 0
+                   and start + _pad_bucket(p - start) > self.max_len):
+                start -= pc.block
+            start = max(start, 0)
+            if row is None or row not in self._row_pages:
+                start = 0
+        shared: List[int] = []
+        if start > 0:
+            # pin the matched row BEFORE any reclaim can run: an
+            # eviction must never free the run being shared
+            pc.acquire(row)
+            self._slot_row[slot] = row
+            shared = self._row_pages[row][: start // self.page_size]
+            self.allocator.share(shared)
+        try:
+            own = self._alloc_pages(n_need - len(shared))
+        except OutOfPages:
+            if shared:
+                self.allocator.free(shared)
+                self._release_slot_row(slot)
+            raise
+        run = shared + own
+        self._slot_pages[slot] = run
+        full_hit = pc is not None and start >= p and start > 0
+        if full_hit:
+            # the write frontier (cell p-1, rewritten by the first chunk
+            # step) sits in the last shared page: copy it now
+            self._cow_frontier(slot, p)
+        table_row = self._table_row(run)
+        work = None
+        if full_hit:
+            # the table row is the only device write a full hit needs
+            pc.record_admission(start)
+        elif start > 0:
+            suffix = self._pad_to(req.prompt[start:], _pad_bucket(p - start))
+            work = prefill_suffix_row(self.cfg, self.params, suffix,
+                                      pool_take_row(self.pool, row), start)
+            paged_install_row(self.page_pool, work, table_row, start,
+                              suffix.shape[0])
+            pc.record_admission(start)
+        else:
+            bucket = min(_pad_bucket(p), self.max_len)
+            work = prefill_exact_row(self.cfg, self.params,
+                                     self._pad_to(req.prompt, bucket),
+                                     self.max_len)
+            paged_install_row(self.page_pool, work, table_row, 0, bucket)
+            if pc is not None:
+                pc.record_admission(0)
         self._table[slot] = table_row
+        # publish AFTER install (the published pages must hold the
+        # installed bytes): the run's leading pages become the radix
+        # entry's run by refcount alone; the exact work row goes to the
+        # prefix pool as the source of later suffix prefills
+        if pc is not None and work is not None:
+            publish_len = pc.aligned_len(p)
+            if publish_len > matched:
+                new_row, is_new = pc.insert(req.prompt[:publish_len])
+                if is_new:
+                    pub = list(run[: publish_len // self.page_size])
+                    self.allocator.share(pub)
+                    self._row_pages[new_row] = pub
+                    pool_put_row(self.pool, work, new_row)
+        # whoever now shares the frontier page (the publish of a
+        # page-aligned prompt), the SLOT must own its copy before decode
+        # rewrites cell p-1
+        self._cow_frontier(slot, p)
+
+    def _cow_frontier(self, slot: int, p: int) -> None:
+        """Make the slot the only owner of the page holding its write
+        frontier (cell p-1): a shared page is copied to a fresh one the
+        slot then writes, and readers keep the original. The only CoW
+        site: every cell the slot writes later lies past every
+        published run."""
+        run = self._slot_pages[slot]
+        idx = (p - 1) // self.page_size
+        if idx >= len(run):
+            return
+        page = run[idx]
+        if self.allocator.refcount(page) <= 1:
+            return
+        while True:
+            try:
+                fresh, copied = self.allocator.cow(page)
+                break
+            except OutOfPages:
+                if not self._reclaim_pages():
+                    raise
+        if copied:
+            pool_copy_page(self.page_pool, page, fresh)
+            run[idx] = fresh
+            self._table[slot, idx] = fresh
+
+    # -- reclaim (paged) ---------------------------------------------------
+
+    def _alloc_pages(self, n: int, swap_ok: bool = True) -> List[int]:
+        """Allocate with reclaim: on a dry pool evict LRU unreferenced
+        prefix runs first, then preempt live requests until the
+        allocation fits. swap_ok=False (a preempted chunked readmission)
+        stops after eviction. Raises OutOfPages only when nothing is
+        left to reclaim."""
+        while True:
+            try:
+                return self.allocator.alloc(n)
+            except OutOfPages:
+                if not self._reclaim_pages(swap_ok):
+                    raise
+
+    def _reclaim_pages(self, swap_ok: bool = True) -> bool:
+        """One reclaim step: eviction (no replay) before preemption."""
+        pc = self.prefix_cache
+        if pc is not None and pc.evict_lru():
+            return True  # _on_prefix_evict freed the run
+        if not swap_ok:
+            return False
+        slot = self._pick_preempt_slot()
+        if slot is None:
+            return False
+        self._preempt_slot(slot)
+        return True
+
+    def _slot_progress(self, slot: int) -> int:
+        """Preemption coldness of an occupied slot: mid-decode its pos
+        (the resident cells a replay recomputes); mid-prefill NEGATIVE
+        (frontier minus prompt length), so a slot that emitted nothing
+        ranks colder than any decoding one."""
+        if self._prefilling[slot]:
+            return int(self._frontier[slot]) - len(self.slot_req[slot].prompt)
+        return int(self.pos[slot])
+
+    def _pick_preempt_slot(self) -> Optional[int]:
+        """The coldest live slot (least progress; ties to the lowest
+        slot index, so runs are reproducible)."""
+        best, best_prog = None, None
+        for slot in range(self.n_slots):
+            req = self.slot_req[slot]
+            if req is None or (self.done[slot] and not self._prefilling[slot]):
+                continue
+            prog = self._slot_progress(slot)
+            if best_prog is None or prog < best_prog:
+                best, best_prog = slot, prog
+        return best
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Swap a live request out: free its pages and put it back at
+        the front of the queue for replay. Its emitted tokens fold into
+        its prompt and it keeps the same absolute cap, so greedy replay
+        gives the same tokens; a decoding slot's generator state rides
+        along, so a sampled replay continues the same stream. A
+        mid-prefill victim re-queues with nothing emitted and replays
+        its admission from scratch."""
+        req = self.slot_req[slot]
+        emitted = np.asarray(req.out[req.folded:], np.int64)
+        if emitted.size:
+            req.prompt = np.concatenate([req.prompt, emitted])
+        req.folded = len(req.out)
+        req.max_new = max(int(self.limit[slot]) - len(req.prompt), 1)
+        if self._slot_gen[slot] is not None:
+            req.gen_state = self._slot_gen[slot].get_state()
+        req.preempted = True
+        self._release_slot(slot)
+        self._queue.appendleft(req)
+        if self._paged:
+            self._swap_preemptions += 1
 
     def _release_slot_pages(self, slot: int) -> None:
-        """Drop a slot's page run — host accounting only: the chunk
+        """Drop a slot's page run: host accounting only, the chunk
         routes done rows through the trash page itself."""
         run = self._slot_pages[slot]
         if run:
             self.allocator.free(run)
             self._slot_pages[slot] = []
+
+    def admission_headroom_ok(self) -> bool:
+        """Memory-aware admission gate for a scheduler: True when a
+        worst-case admission fits the free pool (plus swap_headroom
+        slack) without evicting or preempting, counting the exact needs
+        of the queued requests. Admission past a False still succeeds
+        (the engine reclaims inline). Dense layout: always True."""
+        if not self._paged:
+            return True
+        pending = sum(self._request_pages(r) for r in self._queue)
+        want = min(
+            self._pages_per_slot + self.swap_headroom,
+            self.allocator.capacity,
+        )
+        return self.allocator.free_pages >= pending + want
+
+    def paged_stats(self) -> Dict[str, float]:
+        """Page-pool telemetry: occupancy, sharing, CoW copies and the
+        preemption counters; {} under the dense layout."""
+        if not self._paged:
+            return {}
+        s = self.allocator.stats()
+        s["swap_preemptions"] = float(self._swap_preemptions)
+        s["swap_resumes"] = float(self._swap_resumes)
+        return s
+
+    def prefill_stats(self) -> Dict[str, float]:
+        """Chunked-prefill telemetry: the knob, the admission stall
+        charged to the step loop, interleaved chunks dispatched, and the
+        slots mid-prefill now (zeros at prefill_chunk=0)."""
+        return {
+            "prefill_chunk": float(self._prefill_chunk),
+            "admission_stall_ms": self._admission_stall_ms,
+            "prefill_chunks_total": float(self._prefill_chunks_total),
+            "prefilling_slots": float(int(self._prefilling.sum())),
+        }
 
     # -- the loop ----------------------------------------------------------
 
@@ -418,18 +879,20 @@ class ContinuousBatcher:
         return len(self._queue)
 
     def active_count(self) -> int:
-        """Slots currently decoding."""
+        """Slots currently occupied (decoding or mid-prefill)."""
         return int((~self.done).sum())
 
     def free_slots(self) -> int:
         return self.n_slots - self.active_count()
 
     def _next_chunk_len(self) -> int:
-        """Dispatch size: `chunk` steps, shortened only when EVERY live
-        slot's remaining cap (limit - pos - 1) is smaller; the tail
-        quantizes down to a power of two (as the JAX engine does, where
-        each distinct length is its own compiled program)."""
-        live = ~self.done
+        """Dispatch size: `chunk` steps, shortened only when EVERY
+        decoding slot's remaining cap (limit - pos - 1) is smaller; the
+        tail quantizes down to a power of two (as the JAX engine does,
+        where each distinct length is its own compiled program).
+        Mid-prefill slots do not count; with only those occupied the
+        decode half is one vacuous step."""
+        live = ~self.done & ~self._prefilling
         if not live.any():
             return 1
         rem = int((self.limit - self.pos - 1)[live].max())
@@ -441,21 +904,46 @@ class ContinuousBatcher:
             k *= 2
         return k
 
+    def _pf_chunk_len(self, rem: int) -> int:
+        """Prompt tokens of one interleaved dispatch: prefill_chunk, the
+        tail quantized DOWN to a power of two and never padded (a pad
+        tail would write pad K/V into real cells)."""
+        c = min(self._prefill_chunk, rem)
+        k = 1
+        while k * 2 <= c:
+            k *= 2
+        return k
+
     def step(self) -> List[StepEvent]:
         """One engine iteration: admit from the queue into free slots,
-        run ONE chunk dispatch, harvest it, return its events ([] when
-        there is no work)."""
+        run ONE dispatch, harvest it, return its events ([] when there
+        is no work)."""
         for slot in range(self.n_slots):
             if self.done[slot] and self._queue:
-                self._admit(slot, self._queue.popleft())
+                req = self._queue.popleft()
+                try:
+                    self._admit(slot, req)
+                except OutOfPages:
+                    # chunked admission only: a preempted readmission
+                    # has no swap rights, so a dry pool means wait at the
+                    # front of the queue while the live slots drain.
+                    # Nothing live to wait on still raises.
+                    if self._prefill_chunk == 0 or not any(
+                        r is not None for r in self.slot_req
+                    ):
+                        raise
+                    self._queue.appendleft(req)
+                    break
         if self.done.all():
             return []
+        if self._prefill_chunk > 0 and self._prefilling.any():
+            return self._harvest(*self._dispatch_interleaved())
         return self._harvest(*self._dispatch_chunk())
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """Next token per row: argmax when greedy; else a draw from the
-        warped distribution with each slot's own generator (free slots
-        take argmax — their token is replaced by pad anyway)."""
+        warped distribution with each slot's own generator (free and
+        mid-prefill slots take argmax: their token is discarded)."""
         if self.temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
         warped = logits / self.temperature
@@ -484,13 +972,14 @@ class ContinuousBatcher:
 
     def _dispatch_chunk(self):
         """Run k decode steps for every slot on the device; returns the
-        fetched (tok, pos, done, emitted [B, k]) and the entry pos."""
+        fetched (tok, pos, done, emitted [B, k]), the entry pos and no
+        prefill mask. Mid-prefill slots ride along frozen (done)."""
         k = self._next_chunk_len()
         dev = self.device
         old_pos = self.pos.copy()
         tok = torch.from_numpy(self.tok).to(dev)
         pos = torch.from_numpy(self.pos).to(dev)
-        done = torch.from_numpy(self.done).to(dev)
+        done = torch.from_numpy(self.done | self._prefilling).to(dev)
         limit = torch.from_numpy(self.limit).to(dev)
         if self._paged:
             # done-at-entry rows read and write the trash page; rows
@@ -514,22 +1003,72 @@ class ContinuousBatcher:
             t.cpu().numpy()
             for t in (tok, pos, done, torch.stack(emitted, dim=1))
         ]
-        return host, old_pos
+        return host, old_pos, None
 
-    def _harvest(self, host, old_pos) -> List[StepEvent]:
+    def _dispatch_interleaved(self):
+        """One interleaved dispatch: up to prefill_chunk prompt tokens
+        of the OLDEST mid-prefill slot (by request index), written
+        through the slot's real table row (paged) or bank row (dense),
+        then the usual decode steps with that slot frozen. When the
+        chunk reaches the prompt end the slot flips to decoding for the
+        next dispatch."""
+        slot = min(
+            (s for s in range(self.n_slots) if self._prefilling[s]),
+            key=lambda s: self.slot_req[s].idx,
+        )
+        req = self.slot_req[slot]
+        p = len(req.prompt)
+        start = int(self._frontier[slot])
+        plen = self._pf_chunk_len(p - start)
+        ptoks = torch.from_numpy(req.prompt[start:start + plen]).to(
+            self.device)
+        if self._paged:
+            paged_prefill_chunk(self.cfg, self.params, ptoks, self.page_pool,
+                                self._table[slot], start)
+        else:
+            prefill_chunk_into_slot(self.cfg, self.params, ptoks, self.cache,
+                                    slot, start)
+        # the slots mid-prefill DURING this dispatch, captured before the
+        # flip: harvest must read their fetched done as the freeze
+        pf = self._prefilling.copy()
+        host, old_pos, _ = self._dispatch_chunk()
+        self._frontier[slot] = start + plen
+        self._prefill_chunks_total += 1
+        if start + plen >= p:
+            self._flip_to_decode(slot)
+        return host, old_pos, pf
+
+    def _flip_to_decode(self, slot: int) -> None:
+        """The frontier reached the prompt end: the slot decodes from
+        the next dispatch on, with its generator installed now (it drew
+        nothing while frozen)."""
+        self._prefilling[slot] = False
+        self._slot_gen[slot] = self._make_gen(self.slot_req[slot])
+
+    def _clear_prefill(self, slot: int) -> None:
+        self._prefilling[slot] = False
+        self._frontier[slot] = 0
+
+    def _harvest(self, host, old_pos, pf_mask=None) -> List[StepEvent]:
         """Refresh the host mirrors from a dispatch's fetched outputs
         and turn them into events. Live steps form a prefix of the
         chunk (done is sticky) and pos advances once per live step, so
         the first (new_pos - old_pos) emitted entries are the tokens."""
         tok, pos, done, emitted = host
         self.tok, self.pos = tok, pos
-        return self._emit_events(emitted, pos - old_pos, done)
+        return self._emit_events(emitted, pos - old_pos, done, pf_mask)
 
-    def _emit_events(self, emitted, counts, new_done) -> List[StepEvent]:
+    def _emit_events(self, emitted, counts, new_done,
+                     pf_mask=None) -> List[StepEvent]:
+        """`pf_mask` marks the slots that were mid-prefill in the
+        dispatch: their fetched done=True is the freeze, not a finish,
+        so they neither emit nor release."""
         events: List[StepEvent] = []
         for slot in range(self.n_slots):
             req = self.slot_req[slot]
             if req is None or req.done:
+                continue
+            if pf_mask is not None and pf_mask[slot]:
                 continue
             new_toks = [int(t) for t in emitted[slot][: int(counts[slot])]]
             req.out.extend(new_toks)
@@ -541,28 +1080,35 @@ class ContinuousBatcher:
                     # the tokens are on the host and the KV is dead:
                     # the pages back the NEXT admission
                     self._release_slot_pages(slot)
+                if self.prefix_cache is not None:
+                    self._release_slot_row(slot)
             if new_toks or finished:
                 events.append((req.idx, new_toks, finished))
         self.done = new_done.copy()
         for slot in range(self.n_slots):
             if self.slot_req[slot] is None:
                 self.done[slot] = True
+            elif pf_mask is not None and pf_mask[slot]:
+                # still occupied: the fetched done was the freeze
+                self.done[slot] = False
         return events
 
     def retire(self, idx: int) -> np.ndarray:
-        """Drop a request from the ledger and return its continuation."""
+        """Drop a request from the ledger and return its continuation;
+        the slot it holds, its pages and its prefix row are released."""
         if idx not in self._pending:
             raise KeyError(f"request {idx} is not pending")
         del self._pending[idx]
         req = self._requests.pop(idx)
         for slot in range(self.n_slots):
             if self.slot_req[slot] is req:
-                self._free_slot(slot)
+                self._release_slot(slot)
         return np.asarray(req.out, np.int32)
 
     def cancel(self, idx: int) -> None:
-        """Abort a request wherever it is — queued or live in a slot.
-        A no-op for unknown or already-retired indices."""
+        """Abort a request wherever it is — queued, mid-prefill or
+        decoding in a slot. A no-op for unknown or already-retired
+        indices."""
         req = self._requests.pop(idx, None)
         self._pending.pop(idx, None)
         if req is None:
@@ -574,15 +1120,20 @@ class ContinuousBatcher:
         req.done = True
         for slot in range(self.n_slots):
             if self.slot_req[slot] is req:
-                self._free_slot(slot)
+                self._release_slot(slot)
                 break
 
-    def _free_slot(self, slot: int) -> None:
+    def _release_slot(self, slot: int) -> None:
+        """Free a slot whatever its state: its pages, its pinned prefix
+        row and its mid-prefill state."""
         self.slot_req[slot] = None
         self.done[slot] = True
         self._slot_gen[slot] = None
         if self._paged:
             self._release_slot_pages(slot)
+        if self.prefix_cache is not None:
+            self._release_slot_row(slot)
+        self._clear_prefill(slot)
 
     def generate_all(self, prompts: Sequence[Sequence[int]]) -> List[np.ndarray]:
         """Run every queued prompt to completion; returns generated

@@ -163,6 +163,7 @@ class PageAllocator:
             "free_pages": self.free_pages,
             "occupancy": used / self.capacity if self.capacity else 0.0,
             "shared_pages": self.shared_pages,
+            "shared_ratio": self.shared_pages / used if used else 0.0,
             "pages_allocated": self.pages_allocated,
             "pages_freed": self.pages_freed,
             "pages_shared": self.pages_shared,

@@ -1062,3 +1062,155 @@ def test_restore_onto_card_tensors_keeps_the_optimizer_bound(
     finally:
         eng.shm_handler.close(unlink=True)
         eng.close()
+
+
+# -- F5: the auto dispatch follows the JAX gates -----------------------------
+# (ROADMAP queue 3; the CPU decisions against the JAX gates are in
+# tests/test_torch_dispatch_gates.py)
+
+# inside JAX's paged gate but outside the kernel's instantiations: auto
+# takes the kernel, as JAX does, and the kernel raises (ROADMAP queue 2)
+F5_PAGED_KERNEL = [(12, 4, 64, 16), (28, 4, 128, 16), (32, 32, 96, 16),
+                   (8, 2, 512, 16)]
+# outside JAX's gate (pages under 8 cells, head_dim past 512): the
+# reference, as JAX serves them
+F5_PAGED_REFERENCE = [(8, 2, 64, 4), (8, 2, 520, 16)]
+
+
+def _f5_paged_inputs(gen, h, kv, d, ps):
+    b, n_pages, per_row = 2, 12, 4
+    q = torch.randn((b, h, d), generator=gen, device="cuda").bfloat16()
+    pages = {name: torch.randn((n_pages, ps, kv, d), generator=gen,
+                               device="cuda").bfloat16()
+             for name in ("k", "v")}
+    table = torch.arange(1, 1 + b * per_row, dtype=torch.int32,
+                         device="cuda").reshape(b, per_row) % n_pages
+    lens = torch.tensor([3, per_row * ps], dtype=torch.int32, device="cuda")
+    return q, pages, table, lens
+
+
+@pytest.mark.parametrize("h,kv,d,ps", F5_PAGED_REFERENCE,
+                         ids=[f"h{h}-kv{kv}-d{d}-ps{ps}"
+                              for h, kv, d, ps in F5_PAGED_REFERENCE])
+def test_f5_paged_shapes_outside_the_jax_gate_take_the_reference(
+        gen, h, kv, d, ps):
+    """A paged decode JAX serves through its reference runs the
+    reference under impl="auto" (no launch, the reference's own output)
+    and still raises under impl="kernel"."""
+    q, pages, table, lens = _f5_paged_inputs(gen, h, kv, d, ps)
+    assert not tpa.use_kernel(q, pages, table)
+    before = _build.launch_counts()["paged_attention"]
+    got = tpa.paged_attention(q, pages, table, lens, impl="auto")
+    ref = tpa.paged_attention(q, pages, table, lens, impl="reference")
+    assert _build.launch_counts()["paged_attention"] == before
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="does not take"):
+        tpa.paged_attention(q, pages, table, lens, impl="kernel")
+
+
+@pytest.mark.parametrize("h,kv,d,ps", F5_PAGED_KERNEL,
+                         ids=[f"h{h}-kv{kv}-d{d}-ps{ps}"
+                              for h, kv, d, ps in F5_PAGED_KERNEL])
+def test_f5_paged_shapes_inside_the_jax_gate_take_the_kernel(
+        gen, h, kv, d, ps):
+    """A paged decode JAX takes its kernel for takes the kernel under
+    impl="auto" too, which raises on the shapes it is not instantiated
+    for instead of running the reference on the card."""
+    q, pages, table, lens = _f5_paged_inputs(gen, h, kv, d, ps)
+    assert tpa.use_kernel(q, pages, table)
+    assert not tpa.supports(q, pages, table)
+    for impl in ("auto", "kernel"):
+        with pytest.raises(ValueError, match="does not take"):
+            tpa.paged_attention(q, pages, table, lens, impl=impl)
+
+
+@pytest.mark.parametrize("k", [24, 96, 160, 1000])
+def test_f5_dqmm_shapes_take_the_kernel(gen, k):
+    """JAX takes its dequant-matmul kernel for every shape; so does the
+    port, whose kernel raises at a K whose `weight_quant_block` it does
+    not take (block 8 or 32, or K not a multiple of 64) and for f32
+    activations (ROADMAP queue 2), with no launch."""
+    block = tq.weight_quant_block(k)
+    w = torch.randn((48, k), generator=gen, device="cuda")
+    qw = tq.QuantizedWeight(*tq.quantize_int8(w, block), block)
+    x = torch.randn((5, k), generator=gen, device="cuda").bfloat16()
+    before = _build.launch_counts()["dqmm"]
+    with pytest.raises(ValueError, match="does not take"):
+        tq.quantized_matmul(x, qw)
+    w = torch.randn((48, 256), generator=gen, device="cuda")
+    qw = tq.QuantizedWeight(*tq.quantize_int8(w, 64), 64)
+    with pytest.raises(ValueError, match="dtype"):
+        tq.quantized_matmul(torch.randn((5, 256), generator=gen,
+                                        device="cuda"), qw)
+    assert _build.launch_counts()["dqmm"] == before
+
+
+def test_f5_quant_block_512_takes_the_kernel(gen):
+    """JAX quantizes and dequantizes at any block that divides the row
+    with its kernels; the port's kernels raise at block 512
+    (int8_adam(block=512); ROADMAP queue 2), with no launch."""
+    x = torch.randn((3, 1024), generator=gen, device="cuda")
+    before = _build.launch_counts()
+    with pytest.raises(ValueError, match="blocks"):
+        tq.quantize_int8(x, 512)
+    q = torch.zeros((3, 1024), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="blocks"):
+        tq.dequantize_int8(q, torch.ones((3, 2), device="cuda"))
+    after = _build.launch_counts()
+    assert after["quant_int8"] == before["quant_int8"]
+    assert after["dequant_int8"] == before["dequant_int8"]
+
+
+def test_f5_engine_at_page_size_4_on_the_card(gen):
+    """A paged engine whose auto page size is 4 (max_len 44) serves its
+    decode steps through the reference, as the JAX engine does, where
+    it raised before."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                  mlp_dim=512, attn_impl="auto")
+    params = tllama.init_params(cfg, gen)
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=44,
+                            max_new_tokens=5, kv_layout="paged")
+    assert eng.page_size == 4
+    before = _build.launch_counts()["paged_attention"]
+    outs = eng.generate_all([[1, 2, 3], [5] * 20, [9, 8, 7, 6]])
+    assert [len(o) for o in outs] == [5, 5, 5]
+    assert _build.launch_counts()["paged_attention"] == before
+
+
+def test_engine_pressure_prefix_and_chunks_on_the_card(gen):
+    """A small paged engine on the card with a pool below the
+    dense-equivalent, the prefix cache and prefill_chunk: every request
+    finishes, preemption fired and resumed, the allocator is
+    consistent, and the decode steps ran the paged kernel."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                  mlp_dim=512, attn_impl="auto")
+    params = tllama.init_params(cfg, gen)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, 250, size=20).tolist()
+    prompts = [shared + rng.integers(1, 250, size=int(n)).tolist()
+               for n in (4, 18, 6, 11, 3, 25, 8)]
+    for pc in (0, 4):
+        _build.reset_launch_counts()
+        eng = ContinuousBatcher(cfg, params, n_slots=3, max_len=64,
+                                max_new_tokens=24, chunk=3,
+                                kv_layout="paged", n_pages=6,
+                                prefix_cache_rows=4, prefill_chunk=pc)
+        outs = eng.generate_all(prompts)
+        counts = _build.launch_counts()
+        assert [len(o) for o in outs] == [min(len(p) + 24, 64) - len(p)
+                                          for p in prompts]
+        st = eng.paged_stats()
+        assert st["swap_preemptions"] >= 1
+        assert st["swap_resumes"] == st["swap_preemptions"]
+        eng.allocator.check()
+        assert counts["paged_attention"] >= eng.decode_steps * cfg.n_layers
+        assert counts["paged_attention_tma"] == counts["paged_attention"]
+        if pc:
+            assert eng.prefill_stats()["prefill_chunks_total"] >= 1
+            assert counts["flash_fwd"] == 0

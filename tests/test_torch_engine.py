@@ -171,9 +171,16 @@ def test_retire_cancel_release_pages(model, prompts):
 def test_knob_validation(model):
     _, _, tcfg, tparams = model
     mk = teng.ContinuousBatcher
-    with pytest.raises(ValueError, match="dense-equivalent"):
+    # the JAX pool rule: a pool must back one maximal request (32 / 16
+    # pages + the trash page); below the dense-equivalent pool is fine
+    with pytest.raises(ValueError, match="single maximal request"):
         mk(tcfg, tparams, n_slots=2, max_len=32, kv_layout="paged",
-           n_pages=4, device="cpu")
+           page_size=16, n_pages=2, device="cpu")
+    eng = mk(tcfg, tparams, n_slots=2, max_len=32, kv_layout="paged",
+             page_size=16, n_pages=4, device="cpu")
+    assert eng.allocator.capacity == 3
+    with pytest.raises(ValueError, match="prefill_chunk"):
+        mk(tcfg, tparams, prefill_chunk=-1, device="cpu")
     with pytest.raises(ValueError, match="differ"):
         mk(tcfg, tparams, eos_id=0, pad_id=0, device="cpu")
     with pytest.raises(ValueError, match="kv_layout"):
