@@ -96,7 +96,28 @@ Phases, one line each (any failure exits non-zero before the last line):
      equal train's, the dequantize and quantize kernels must have run
      exactly twice a param leaf and step, the moments must take at most
      0.254x of AdamW's bytes and the peak memory must stay below
-     train's.
+     train's;
+  11. train.remat: the train workload (4 steps each) under the model's
+     remat policies "full", "proj", "proj_mlp" and "none" (the model's
+     remat off), and with the model's remat off under
+     Strategy(remat="full"): median step,
+     tokens/s, MFU and peak memory of each; losses finite and falling,
+     exact flash launch counts (all wgmma), peaks none >= proj_mlp >=
+     proj >= full;
+  12. matmul.fp8_dot: fp8_dot on a w_gate-shaped product (x [4096,
+     4096], w [4096, 14336], bf16) forward and backward for 4 steps from
+     a zero state: y, dx and dw against the same products on the fp8
+     values upcast to f32, the amax histories, and its time beside the
+     bf16 product's.
+Between the kernel phases and the serving ones, kernel.jax_gate_shapes
+runs every shape the wider kernel variants cover under the dispatch a
+user calls (flash at head_dim 384 and 512, forward and backward; paged
+decode at GQA groups 3 and 7 and head_dim 40, 96 and 512, bf16 and int8
+pools; the int8 matmul at the engine's blocks of K = 24, 96, 160 and
+1000 and with f32 x at w_gate's shape; quantize and dequantize at block
+512 on the embedding's moment): each launched once on the variant it
+names, held to its plain version and timed beside it
+(`--jax-gate-shapes` runs only the card, build and this phase).
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -940,6 +961,295 @@ def phase_dqmm(gen, tokens=DQMM_TOKENS):
             del x, y, ref, again
         del qws, qw, dense, denses
         torch.cuda.empty_cache()
+    return rows
+
+
+# kernel.jax_gate_shapes: shapes inside the JAX package's gates that the
+# port's kernels take since the wider variants (flash head_dim 264-512,
+# paged groups and head dims, the general dqmm, any quant block)
+GATE_FLASH = ((1, 1024, 8, 2, 384), (1, 1024, 8, 2, 512))   # B S H KV D
+# (H, KV, D, what has the shape): B=8 decode rows, pages of 16
+GATE_PAGED = ((12, 4, 64, "GQA group 3"),
+              (28, 4, 128, "GQA group 7 (Qwen2-7B)"),
+              (32, 32, 40, "head_dim 40"),
+              (32, 32, 96, "head_dim 96 (Phi-3-mini)"),
+              (32, 32, 512, "head_dim 512"))
+# (K, O, x dtype, T): the engine's block of K (`weight_quant_block`: 8 at
+# 24 and 1000, 32 at 96 and 160), and f32 x at w_gate's shape
+GATE_DQMM = tuple((k, 4096, torch.bfloat16, t)
+                  for k in (24, 96, 160, 1000) for t in (8, 1024)) + (
+    (4096, 14336, torch.float32, 8), (4096, 14336, torch.float32, 1024))
+GATE_QUANT_BLOCK = 512       # int8_adam(block=512) on the embedding moment
+GATE_QUANT_VALUES = 128256 * 4096
+
+
+def _gate_flash(gen, b, s, h, kv, d):
+    """Flash at head_dim `d` through `dot_product_attention(impl="auto")`
+    and autograd: one forward and one dq and dk/dv launch, none on the
+    wgmma variants, held to `_fwd_plain` / `_bwd_plain`."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import attention as attn
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    scale = d ** -0.5
+
+    def rand(heads):
+        return torch.randn((b, s, heads, d), generator=gen,
+                           device="cuda").bfloat16()
+
+    q, k, v, do = rand(h), rand(kv), rand(kv), rand(h)
+    qa, ka, va = (x.detach().requires_grad_() for x in (q, k, v))
+    before = _build.launch_counts()
+    out = attn.dot_product_attention(qa, ka, va, causal=True, impl="auto")
+    grads = torch.autograd.grad(out, (qa, ka, va), do)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    launched = {n: _launched(before, after, n) for n in (
+        "flash_fwd", "flash_fwd_wgmma", "flash_bwd_dq", "flash_bwd_dkv",
+        "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")}
+    if launched != {"flash_fwd": 1, "flash_fwd_wgmma": 0, "flash_bwd_dq": 1,
+                    "flash_bwd_dkv": 1, "flash_bwd_dq_wgmma": 0,
+                    "flash_bwd_dkv_wgmma": 0}:
+        raise AssertionError(f"flash at D={d} under auto: {launched}")
+    o, lse = fa._fwd(q, k, v, True, scale)
+    o_ref, lse_ref = fa._fwd_plain(q, k, v, True, scale)
+    want = fa._bwd_plain(q, k, v, o, lse, do, True, scale)
+    err = (out.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    errs = {n: (x.float() - y.float()).abs().max().item()
+            for n, x, y in zip(("dq", "dk", "dv"), grads, want)}
+    tols = {n: BWD_REL_TOL * y.float().abs().max().item()
+            for n, y in zip(("dq", "dk", "dv"), want)}
+    if not (err <= FLASH_TOL and lse_err <= 1e-3
+            and all(errs[n] <= tols[n] for n in errs)
+            and all(torch.isfinite(x).all() for x in grads)):
+        raise AssertionError(
+            f"flash at D={d} disagrees: o {err} (tol {FLASH_TOL}), lse "
+            f"{lse_err}, grads {errs} (tols {tols})")
+    delta = fa._delta(o, do)
+    fwd_flops = 2.0 * b * h * d * s * (s + 1)
+    qo_bytes, kv_bytes, row_bytes = (2 * b * s * h * d, 2 * b * s * kv * d,
+                                     4 * b * h * s)
+    lib_g = do.transpose(1, 2)
+
+    def leaves():
+        return [x.transpose(1, 2).detach().requires_grad_()
+                for x in (q, k, v)]
+
+    def sdpa(qkv=None):
+        return F.scaled_dot_product_attention(
+            *(qkv or leaves()), is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        qkv = leaves()
+        return torch.autograd.grad(sdpa(qkv), qkv, lib_g)
+
+    # library_ms of the backward rows: SDPA's whole backward, its forward
+    # and backward less its forward, as phase_flash_bwd times it
+    lib_fwd = device_ms(sdpa)
+    lib_bwd = device_ms(sdpa_fwd_bwd) - lib_fwd
+    rows = []
+    for name, ms, plain, lib, flops, nbytes, e in (
+            ("flash_fwd", device_ms(lambda: fa._fwd(q, k, v, True, scale)),
+             time_ms(lambda: fa._fwd_plain(q, k, v, True, scale), 3),
+             lib_fwd, fwd_flops, 2 * qo_bytes + 2 * kv_bytes + row_bytes,
+             err),
+            ("flash_bwd_dq", device_ms(lambda: fa._bwd_dq_cuda(
+                q, k, v, do, lse, delta, True, scale, "mma")),
+             time_ms(lambda: fa._bwd_plain(q, k, v, o, lse, do, True,
+                                           scale), 3),
+             lib_bwd, 1.5 * fwd_flops, 3 * qo_bytes + 2 * kv_bytes
+             + 2 * row_bytes, errs["dq"]),
+            ("flash_bwd_dkv", device_ms(lambda: fa._bwd_dkv_cuda(
+                q, k, v, do, lse, delta, True, scale, "mma")),
+             None, lib_bwd, 2.0 * fwd_flops, 2 * qo_bytes + 4 * kv_bytes
+             + 2 * row_bytes, max(errs["dk"], errs["dv"]))):
+        bms, by = bound_ms(flops, nbytes)
+        rows.append(dict(
+            kernel=name, shape=f"B={b} S={s} H={h} KV={kv} D={d} bf16 "
+            "causal", variant="mma", launches=1, max_abs_err=e, ms=ms,
+            plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by))
+    rows[1]["plain_ms_note"] = "the whole plain backward"
+    for r in rows[1:]:
+        r["library_ms_note"] = ("the whole backward of "
+                                "scaled_dot_product_attention")
+    return rows
+
+
+def _gate_paged(gen, h, kv, d, quant):
+    """Paged decode at B=8 rows of 50-2048 cells, pages of 16, through
+    `paged_attention(impl="auto")`: one launch of the split kernel, held
+    to the reference (PAGED_TOL)."""
+    from dlrover_tpu_torch.models import decode as dec
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import paged_attention as pa
+
+    b, ps, per_slot = 8, 16, 128
+    n_pages = b * per_slot + 1
+    rng = np.random.default_rng(SEED + d)
+    lengths = rng.integers(50, per_slot * ps + 1, size=b).astype(np.int32)
+    perm = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    table = np.zeros((b, per_slot), np.int32)
+    for row in range(b):
+        n_live = -(-int(lengths[row]) // ps)
+        table[row, :n_live] = perm[row * per_slot: row * per_slot + n_live]
+    pages = {}
+    for name in ("k", "v"):
+        x = torch.randn((n_pages, ps, kv, d), generator=gen, device="cuda")
+        if quant:
+            pages[name], sc = dec._kv_quantize(x)
+            pages[name + "_scale"] = sc.bfloat16()
+        else:
+            pages[name] = x.bfloat16()
+        del x
+    q = torch.randn((b, h, d), generator=gen, device="cuda").bfloat16()
+    tab = torch.from_numpy(table).cuda()
+    lens = torch.from_numpy(lengths).cuda()
+    before = _build.launch_counts()
+    got = pa.paged_attention(q, pages, tab, lens, impl="auto")
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    if (_launched(before, after, "paged_attention") != 1
+            or _launched(before, after, "paged_attention_tma") != 0):
+        raise AssertionError(f"paged H={h} KV={kv} D={d}: {before} -> "
+                             f"{after}, want one split-kernel launch")
+    ref = pa.paged_attention(q, pages, tab, lens, impl="reference")
+    err = (got.float() - ref.float()).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= PAGED_TOL):
+        raise AssertionError(f"paged H={h} KV={kv} D={d} quant={quant}: "
+                             f"max_abs_err {err} (tol {PAGED_TOL})")
+    cells = int(lengths.sum())
+    elem = 1 if quant else 2
+    nbytes = (2 * cells * kv * d * elem + (4 * cells * kv if quant else 0)
+              + 2 * 2 * b * h * d + 4 * b * per_slot + 4 * b)
+    bms, by = bound_ms(4.0 * cells * h * d, nbytes)
+    scale = d ** -0.5
+    return dict(
+        kernel="paged_attention", variant="split", launches=1,
+        shape=f"B=8 H={h} KV={kv} D={d} page 16, {cells} cells, "
+        f"{'int8' if quant else 'bf16'} pool", max_abs_err=err,
+        ms=device_ms(lambda: pa._kernel(q, pages, tab, lens, scale)),
+        plain_ms=time_ms(lambda: pa._reference(q, pages, tab, lens, scale),
+                         3),
+        library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def _gate_dqmm(gen, k, o, dtype, t):
+    """The int8 matmul at a weight or activation dtype only the general
+    variant takes, through `quantized_matmul`: one launch counted under
+    "dqmm_general", held to the plain version (DQMM_REL_TOL of the
+    largest |output| for bf16 x, 1e-5 for f32 x: f32 FMA on both
+    sides, sums in another order). dense_ms: the dense product in x's
+    dtype on the dequantized weight (the table's yardstick)."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    block = tq.weight_quant_block(k)
+    w = torch.randn((o, k), generator=gen, device="cuda") * k ** -0.5
+    qw = tq.QuantizedWeight(*tq.quantize_int8(w, block), block)
+    del w
+    x = torch.randn((t, k), generator=gen, device="cuda").to(dtype)
+    before = _build.launch_counts()
+    y = tq.quantized_matmul(x, qw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    if (_launched(before, after, "dqmm") != 1
+            or _launched(before, after, "dqmm_general") != 1):
+        raise AssertionError(f"dqmm K={k} O={o} T={t} {dtype}: {before} "
+                             f"-> {after}, want one general launch")
+    ref = tq.quantized_matmul_reference(x, qw)
+    err = (y.float() - ref.float()).abs().max().item()
+    rel = DQMM_REL_TOL if dtype == torch.bfloat16 else 1e-5
+    tol = rel * ref.float().abs().max().item()
+    if not (torch.isfinite(y).all() and err <= tol):
+        raise AssertionError(f"dqmm K={k} O={o} T={t} {dtype}: max_abs_err "
+                             f"{err} (tol {tol})")
+    elem = x.element_size()
+    nbytes = o * k + 4 * o * (k // block) + elem * (t * k + t * o)
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    bms, by = bound_ms(2.0 * t * k * o, nbytes, peak)
+    dense = tq._dq_weight(qw.q8, qw.s8, block, dtype)
+    return dict(
+        kernel="dqmm", variant="general", launches=1,
+        shape=f"T={t} K={k} O={o} block {block} "
+        f"{str(dtype).replace('torch.', '')} x", max_abs_err=err, tol=tol,
+        ms=device_ms(lambda: tq.quantized_matmul(x, qw)),
+        plain_ms=time_ms(lambda: tq.quantized_matmul_reference(x, qw), 3),
+        library_ms=None, dense_ms=device_ms(lambda: x @ dense.t()),
+        bound_ms=bms, bound_by=by)
+
+
+def _gate_quant(gen):
+    """Quantize and dequantize at block 512 on the int8 AdamW's embedding
+    moment ([1, 128256 x 4096] f32): bytes and bits equal to the plain
+    versions, one launch each (the quantizer's warp-a-row kernel,
+    "quant_int8_any"; the dequantizer's 4-values-a-thread kernel, which
+    takes every power of two from 8)."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    block, n = GATE_QUANT_BLOCK, GATE_QUANT_VALUES
+    x = torch.randn((1, n), generator=gen, device="cuda") * 1e-3
+    before = _build.launch_counts()
+    q, sc = tq.quantize_int8(x, block)
+    y = tq.dequantize_int8(q, sc)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    want = {"quant_int8": 1, "quant_int8_any": 1, "dequant_int8": 1,
+            "dequant_int8_any": 0}
+    got = {name: _launched(before, after, name) for name in want}
+    if got != want:
+        raise AssertionError(f"quant at block {block}: launches {got}")
+    q_ref, s_ref = tq._quantize_plain(x, block)
+    diffs = (int((q != q_ref).sum()), int((sc != s_ref).sum()))
+    del q_ref, s_ref
+    y_ref = tq._dequantize_plain(q, sc)
+    y_diff = int((y.view(torch.int32) != y_ref.view(torch.int32)).sum())
+    del y_ref
+    if diffs != (0, 0) or y_diff:
+        raise AssertionError(f"quant at block {block}: q8/s8 differ in "
+                             f"{diffs}, dequantized bits in {y_diff}")
+    rows = []
+    for name, fn, plain, nbytes in (
+            ("quantize_int8", lambda: tq.quantize_int8(x, block),
+             lambda: tq._quantize_plain(x, block), 4 * n + n + 4 * n // block),
+            ("dequantize_int8", lambda: tq.dequantize_int8(q, sc),
+             lambda: tq._dequantize_plain(q, sc), n + 4 * n // block + 4 * n)):
+        bms, by = bound_ms(3.0 * n, nbytes, PEAK_F32_FLOPS)
+        rows.append(dict(
+            kernel=name, launches=1, max_abs_err=0.0,
+            variant="warp a row" if name == "quantize_int8" else "4 a thread",
+            shape=f"[1, {n}] f32, block {block}", ms=device_ms(fn),
+            plain_ms=time_ms(plain, 3), library_ms=None, bound_ms=bms,
+            bound_by=by))
+    del x, q, sc, y
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_jax_gate_shapes(gen):
+    """kernel.jax_gate_shapes: every shape the wider kernel variants
+    cover, under the dispatch a user calls (impl="auto"), launched once
+    (the count and the variant named), held to its plain version and
+    timed beside it, the library call where one computes the same
+    function (SDPA for flash) and the bound."""
+    rows = []
+    for b, s, h, kv, d in GATE_FLASH:
+        rows += _gate_flash(gen, b, s, h, kv, d)
+        torch.cuda.empty_cache()
+    for h, kv, d, what in GATE_PAGED:
+        for quant in (False, True):
+            row = _gate_paged(gen, h, kv, d, quant)
+            row["what"] = what
+            rows.append(row)
+            torch.cuda.empty_cache()
+    for k, o, dtype, t in GATE_DQMM:
+        rows.append(_gate_dqmm(gen, k, o, dtype, t))
+        torch.cuda.empty_cache()
+    rows += _gate_quant(gen)
+    for row in rows:
+        log("kernel.jax_gate_shapes", **row)
     return rows
 
 
@@ -2065,6 +2375,216 @@ def phase_train_ckpt(train):
         torch.cuda.empty_cache()
 
 
+# train.remat: (cfg.remat_policy, Strategy.remat) of each run; policy
+# "none" runs with cfg.remat off, no checkpoint at all (under cfg.remat
+# the model checkpoints "none" as "full", as JAX's does)
+REMAT_RUNS = (("full", "none"), ("proj", "none"), ("proj_mlp", "none"),
+              ("none", "none"), (None, "full"))
+REMAT_STEPS = 4
+
+
+def _remat_run(policy, strategy_remat):
+    """REMAT_STEPS steps of the train phase's model, batch and AdamW
+    through `accelerate` with the model's per-layer policy `policy`
+    (None or "none": the model's remat off) and
+    `Strategy(remat=strategy_remat)` over the whole loss; the launch
+    counts set to 0 just before and read just after (flash forward
+    twice a pass where anything recomputes the layer's attention, every
+    launch on its wgmma variant), the
+    losses finite and falling. Before the steps, one microbatch's loss
+    body (the same policies) gives `saved_gb`, the memory its forward
+    leaves for the backward, and `fwd_bwd_peak_gb`, its forward and
+    backward's peak above what was allocated before. Returns the run's
+    numbers."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.parallel import remat
+    from dlrover_tpu_torch.parallel.accelerate import (
+        Strategy,
+        accelerate,
+        param_leaves,
+    )
+
+    layer_remat = policy not in (None, "none")
+    cfg = llama.LlamaConfig.llama3_8b(
+        n_layers=TRAIN_LAYERS, remat=layer_remat,
+        remat_policy=policy if layer_remat else "full")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (TRAIN_GLOBAL_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    accum = TRAIN_GLOBAL_BATCH // TRAIN_MICROBATCH
+    acc = accelerate(
+        lambda g: llama.init_params(cfg, g, dtype=cfg.param_dtype),
+        lambda p, b: llama.loss_fn(cfg, p, b), _adamw,
+        Strategy(grad_accum=accum, remat=strategy_remat))
+    state = acc.init(gen)
+    body = remat.apply_remat(lambda p, b: llama.loss_fn(cfg, p, b),
+                             strategy_remat)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = body(state["params"], {"tokens": tokens[:TRAIN_MICROBATCH]})
+    saved = torch.cuda.memory_allocated() - base
+    grads = torch.autograd.grad(loss, param_leaves(state["params"]))
+    torch.cuda.synchronize()
+    fwd_bwd_peak = torch.cuda.max_memory_allocated() - base
+    del loss, grads
+    batch = {"tokens": tokens.reshape(accum, TRAIN_MICROBATCH, -1)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, steps_s = [], []
+    for _ in range(REMAT_STEPS):
+        t0 = time.perf_counter()
+        state, m = acc.train_step(state, batch)
+        losses.append(m["loss"].item())    # synchronises
+        steps_s.append(time.perf_counter() - t0)
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    name = (f"policy={policy}" if policy is not None
+            else f"Strategy(remat={strategy_remat!r})")
+    per_pass = cfg.n_layers * accum * REMAT_STEPS
+    fwd = 1 if policy in ("none",) and strategy_remat == "none" else 2
+    want = dict(flash_fwd=fwd * per_pass, flash_bwd_dq=per_pass,
+                flash_bwd_dkv=per_pass)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"train.remat {name}: launches {launches}, "
+                             f"want {want}")
+    _check_wgmma(f"train.remat {name}", launches,
+                 ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train.remat {name}: losses {losses}")
+    step_s = float(np.median(steps_s[1:]))
+    tokens_per_step = TRAIN_GLOBAL_BATCH * TRAIN_SEQ
+    flops_tok = llama.flops_per_token(cfg, TRAIN_SEQ, causal=True)
+    out = dict(run=name, policy=policy, strategy_remat=strategy_remat,
+               losses=losses, step_s=steps_s, median_step_s=step_s,
+               tokens_per_s=tokens_per_step / step_s,
+               mfu=flops_tok * tokens_per_step / step_s / PEAK_BF16_FLOPS,
+               peak_mem_gb=peak, saved_gb=saved / 2**30,
+               fwd_bwd_peak_gb=fwd_bwd_peak / 2**30,
+               launches={k: launches[k] for k in want})
+    del state, acc, batch, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_remat():
+    """train.remat: the train phase's model (Llama-3-8B at full width, 4
+    layers, f32 params, bf16 compute, 2 microbatches of 2 x 2048, AdamW)
+    under the model's remat policies "full", "proj", "proj_mlp" and
+    "none", and once with the model's remat off under
+    `Strategy(remat="full")` (the whole loss recomputed), REMAT_STEPS
+    steps each: median step, tokens/s, MFU (remat not credited), peak
+    memory, and one microbatch's saved activations and forward + backward
+    peak; peaks must order none >= proj_mlp >= proj >= full, and the
+    saved activations strictly so (the step's peak may fall in the
+    optimizer step, where the policies hold the same tensors)."""
+    runs = [_remat_run(p, s) for p, s in REMAT_RUNS]
+    for r in runs:
+        log("train.remat", **r)
+    for key, strict in (("peak_mem_gb", False), ("saved_gb", True)):
+        v = [next(r[key] for r in runs if r["policy"] == p)
+             for p in ("none", "proj_mlp", "proj", "full")]
+        if not all(a > b if strict else a >= b for a, b in zip(v, v[1:])):
+            raise AssertionError(f"train.remat: {key} of none, proj_mlp, "
+                                 f"proj, full {v} out of order")
+    return runs
+
+
+FP8_SHAPE = (4096, 4096, 14336)    # x [M, K], w [K, N]: w_gate's
+FP8_STEPS = 4
+FP8_REL_TOL = 2 ** -7
+FP8_TOL_REASON = (
+    "2^-7 of the largest |value| of y, dx and dw: the same fp8 operands "
+    "and scales on both sides, whose products are exact in f32, but the "
+    "fp8 tensor cores keep fewer bits than f32 in the sums they hand to "
+    "f32 (on an H100, dx, summed over 14336 products, came 2^-8.3 of "
+    "its largest |value| from the f32 product of the upcast operands)")
+
+
+def _fp8_plain(x, w, sx, sw, g):
+    """fp8_dot's forward and backward with every product on the fp8
+    values upcast to f32 (the CPU route, here on the card)."""
+    from dlrover_tpu_torch.parallel import amp
+
+    qx = amp._quant(x, sx, torch.float8_e4m3fn, amp.E4M3_MAX).float()
+    qw = amp._quant(w, sw, torch.float8_e4m3fn, amp.E4M3_MAX).float()
+    y = (qx @ qw) / (sx * sw)
+    gmax = g.abs().max().float()
+    sg = torch.where(gmax > 0, amp.E5M2_MAX / gmax, torch.ones_like(gmax))
+    qg = amp._quant(g, sg, torch.float8_e5m2, amp.E5M2_MAX).float()
+    return y, (qg @ qw.t()) / (sg * sw), (qx.t() @ qg) / (sx * sg)
+
+
+def phase_fp8_dot(gen):
+    """matmul.fp8_dot: one w_gate-shaped product (x [4096, 4096] and w
+    [4096, 14336], bf16) forward and backward through `fp8_dot` for
+    FP8_STEPS steps from a zero state: each step's y, dx and dw against
+    the plain version on the same scales (FP8_REL_TOL), the histories
+    after each step, and the time of a forward and a forward + backward
+    beside the bf16 product's."""
+    from dlrover_tpu_torch.parallel import amp
+
+    m, k, n = FP8_SHAPE
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).bfloat16()
+    g = torch.randn((m, n), generator=gen, device="cuda")
+    state = amp.init_fp8_state()
+    steps = []
+    for step in range(FP8_STEPS):
+        sx = amp._scale_from_history(state.amax_x, amp.E4M3_MAX)
+        sw = amp._scale_from_history(state.amax_w, amp.E4M3_MAX)
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        y, state = amp.fp8_dot(xl, wl, state)
+        dx, dw = torch.autograd.grad(y, (xl, wl), g)
+        want = _fp8_plain(x, w, sx, sw, g)
+        errs, rel = {}, {}
+        for name, a, b in zip(("y", "dx", "dw"), (y, dx, dw), want):
+            err = (a.float() - b).abs().max().item()
+            tol = FP8_REL_TOL * b.abs().max().item()
+            errs[name], rel[name] = err, err / b.abs().max().item()
+            if not (torch.isfinite(a).all() and err <= tol):
+                raise AssertionError(f"fp8_dot step {step}: {name} err "
+                                     f"{err} (tol {tol})")
+        steps.append(dict(step=step, sx=sx.item(), sw=sw.item(), errs=errs,
+                          rel_errs=rel,
+                          amax_x=state.amax_x[:FP8_STEPS].tolist(),
+                          amax_w=state.amax_w[:FP8_STEPS].tolist(),
+                          amax_g=state.amax_g[:FP8_STEPS].tolist()))
+        del y, dx, dw, want
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+
+    def fp8_fwd():
+        return amp.fp8_dot(x, w, state)
+
+    def fp8_fwd_bwd():
+        y, _ = amp.fp8_dot(xl, wl, state)
+        return torch.autograd.grad(y, (xl, wl), g)
+
+    gb = g.bfloat16()
+
+    def bf16_fwd_bwd():
+        return torch.autograd.grad(xl @ wl, (xl, wl), gb)
+
+    out = dict(
+        shape=dict(x=[m, k], w=[k, n]), dtype="bfloat16", steps=steps,
+        tol=FP8_REL_TOL, tol_reason=FP8_TOL_REASON,
+        fwd_ms=time_ms(fp8_fwd, 10), fwd_bwd_ms=time_ms(fp8_fwd_bwd, 10),
+        bf16_fwd_ms=time_ms(lambda: x @ w, 10),
+        bf16_fwd_bwd_ms=time_ms(bf16_fwd_bwd, 10),
+        bound_fwd_ms=bound_ms(2.0 * m * k * n,
+                              2 * (m * k + k * n) + 4 * m * n,
+                              2 * PEAK_BF16_FLOPS)[0],
+    )
+    log("matmul.fp8_dot", **out)
+    del x, w, g, gb, xl, wl
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_profile(params, cfg, weight_quant="none"):
     """`--profile`: where the time of one admission wave (8 prefills +
     one 8-step chunk) and of one pure decode chunk goes, by CUDA kernel
@@ -2165,6 +2685,9 @@ def main():
     smi = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if "--jax-gate-shapes" in args:
+        phase_jax_gate_shapes(gen)
+        return 0
     if "--dqmm" in args or "--decode-kernels" in args:
         import dlrover_tpu_torch
 
@@ -2192,6 +2715,7 @@ def main():
     phase_opt_int8()
     dqmm_rows = phase_dqmm(gen)
     torch.cuda.empty_cache()
+    gate_rows = phase_jax_gate_shapes(gen)
 
     cfg = llama.LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -2212,20 +2736,27 @@ def main():
     train = phase_train()
     ckpt = phase_train_ckpt(train)
     train_int8 = phase_train_int8(train)
+    remat_runs = phase_train_remat()
+    phase_fp8_dot(gen)
 
     main_flash = next(r for r in flash_rows if (r["B"], r["S"]) == (1, 512))
     main_bwd = next(r for r in bwd_rows if (r["B"], r["S"]) == (2, 2048))
     serve_paths = {"serve": e2e, "serve.int8": e2e_int8,
                    "serve.prefix_pressure": e2e_pressure,
                    "serve.prefill_chunk": e2e_chunked}
+    remat_paths = {f"train.remat {r['run']}": r for r in remat_runs}
     flash_by_path = {**{path: run["launches"]["flash_fwd"]
                         for path, run in serve_paths.items()},
                      "train": train["launches"]["flash_fwd"],
                      "train.ckpt": ckpt["launches"]["flash_fwd"],
-                     "train.int8_adam": train_int8["launches"]["flash_fwd"]}
+                     "train.int8_adam": train_int8["launches"]["flash_fwd"],
+                     **{path: r["launches"]["flash_fwd"]
+                        for path, r in remat_paths.items()}}
     bwd_by_path = {name: {"train": train["launches"][name],
                           "train.ckpt": ckpt["launches"][name],
-                          "train.int8_adam": train_int8["launches"][name]}
+                          "train.int8_adam": train_int8["launches"][name],
+                          **{path: r["launches"][name]
+                             for path, r in remat_paths.items()}}
                    for name in ("flash_bwd_dq", "flash_bwd_dkv")}
     paged_by_path = {path: run["launches"]["paged_attention"]
                      for path, run in serve_paths.items()}
@@ -2240,6 +2771,12 @@ def main():
                    if (r["T"], r["K"], r["O"]) == (1024, 4096, 14336))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+
+    def gate(name):
+        # kernel.jax_gate_shapes' rows of this kernel (launches there are
+        # the comparison's, not a main path's)
+        return [r for r in gate_rows if r["kernel"] == name]
+
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_fwd.cu",
@@ -2251,7 +2788,7 @@ def main():
              shape="B=1 S=512 H=32 KV=8 D=128 bf16 causal (the train "
                    "path's B=2 S=2048 in per_shape; mma_ms: the mma.sync "
                    "variant on the same inputs)",
-             per_shape=flash_rows),
+             per_shape=flash_rows, jax_gate_shapes=gate("flash_fwd")),
         dict(name="flash_bwd_dq", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:276",
@@ -2266,7 +2803,7 @@ def main():
                    "path's microbatch (plain_ms and library_ms: the whole "
                    "backward; mma_ms: the mma.sync kernel on the same "
                    "inputs)",
-             per_shape=bwd_rows),
+             per_shape=bwd_rows, jax_gate_shapes=gate("flash_bwd_dq")),
         dict(name="flash_bwd_dkv", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:328",
@@ -2281,7 +2818,7 @@ def main():
              shape="B=2 S=2048 H=32 KV=8 D=128 bf16 causal, the train "
                    "path's microbatch (plain_ms and library_ms: the whole "
                    "backward; mma_ms: the mma.sync kernel on the same "
-                   "inputs)"),
+                   "inputs)", jax_gate_shapes=gate("flash_bwd_dkv")),
         dict(name="paged_attention", route="cuda",
              source="dlrover_tpu_torch/csrc/paged_attention.cu",
              replaces="dlrover_tpu/ops/paged_attention.py:160",
@@ -2295,7 +2832,8 @@ def main():
                    "cells (ms: cold, the pool cycled through copies that "
                    "overflow L2; warm_ms: one pool; old_*: the split "
                    "kernel it replaced; the int8 pool in per_variant)",
-             per_variant=paged_rows),
+             per_variant=paged_rows,
+             jax_gate_shapes=gate("paged_attention")),
         dict(name="quantize_int8", route="cuda",
              source="dlrover_tpu_torch/csrc/quant_int8.cu",
              replaces="dlrover_tpu/ops/quantization.py:44",
@@ -2305,7 +2843,7 @@ def main():
              shape="[14336, 4096] bf16 -> int8, block 256 (one w_gate "
                    "layer, output-major; the embedding's f32 moment as "
                    "[1, 525336576] in per_input)",
-             per_input=quant_rows),
+             per_input=quant_rows, jax_gate_shapes=gate("quantize_int8")),
         dict(name="dequantize_int8", route="cuda",
              source="dlrover_tpu_torch/csrc/dequant_int8.cu",
              replaces="dlrover_tpu/ops/quantization.py:55",
@@ -2315,7 +2853,8 @@ def main():
              **{k: main_dequant[k] for k in keys},
              shape="[1, 525336576] int8 -> f32, block 256 (the embedding's "
                    "moment as the int8 AdamW holds it)",
-             per_shape=dequant_rows),
+             per_shape=dequant_rows,
+             jax_gate_shapes=gate("dequantize_int8")),
         dict(name="dqmm", route="cuda",
              source="dlrover_tpu_torch/csrc/dqmm.cu",
              replaces="dlrover_tpu/ops/quantization.py:306",
@@ -2330,7 +2869,7 @@ def main():
                    "decode kernel; old_ms: the mma.sync decode kernel it "
                    "replaced) bf16 x int8, block 256; prefill_*: the same "
                    "weight at T=1024 on the prefill kernel (dqmm_ws)",
-             per_shape=dqmm_rows),
+             per_shape=dqmm_rows, jax_gate_shapes=gate("dqmm")),
     ]
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(smi, flush=True)

@@ -27,6 +27,12 @@
 // 128 k blocks, so the 132 SMs stay full. Offsets are 64-bit
 // throughout: that output is past 2^31 bytes.
 //
+// Blocks that are not a power of two of 8 or more (JAX's kernel takes
+// any block that divides the row): `dequant_int8_any_kernel`, one value
+// a thread, its scale found by a division. A power of two above 256
+// (the int8 AdamW's `block=512`) keeps the kernel above: 4 consecutive
+// values still share a scale.
+//
 // Bytes: the product is one IEEE f32 multiply (a lone product, which
 // nvcc does not contract into anything), and bf16 output rounds it to
 // nearest even with __float2bfloat16_rn, as torch's .to(bfloat16) does;
@@ -84,12 +90,32 @@ dequant_int8_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
   }
 }
 
+__device__ inline void store1(float* x, float v) { *x = v; }
+__device__ inline void store1(__nv_bfloat16* x, float v) {
+  *x = __float2bfloat16_rn(v);
+}
+
+// any block: one value a thread
+template <typename T>
+__global__ void __launch_bounds__(NT)
+dequant_int8_any_kernel(const int8_t* __restrict__ q,
+                        const float* __restrict__ s, T* __restrict__ x,
+                        int64_t values, int block) {
+  const int64_t i = (int64_t)blockIdx.x * NT + threadIdx.x;
+  if (i < values) store1(x + i, (float)q[i] * __ldg(s + i / block));
+}
+
 template <typename T>
 int launch(const void* q, const void* s, void* x, long long rows, int block,
            cudaStream_t stream) {
-  if (block < 8 || block > 256 || (block & (block - 1)))
-    return (int)cudaErrorInvalidValue;
+  if (block < 1) return (int)cudaErrorInvalidValue;
   const long long values = rows * block;
+  if (block < 8 || (block & (block - 1))) {
+    dequant_int8_any_kernel<T><<<(unsigned)((values + NT - 1) / NT), NT, 0,
+                                 stream>>>(
+        (const int8_t*)q, (const float*)s, (T*)x, values, block);
+    return (int)cudaGetLastError();
+  }
   dequant_int8_kernel<T><<<(unsigned)((values + TILE - 1) / TILE), NT, 0,
                            stream>>>(
       (const int8_t*)q, (const float*)s, (T*)x, values,
@@ -101,7 +127,7 @@ int launch(const void* q, const void* s, void* x, long long rows, int block,
 
 // q: [rows, block] int8; s: [rows] f32; x: [rows, block] f32
 // (out_bf16 = 0) or bf16 (1); all contiguous and 16-byte aligned;
-// block a power of two from 8 to 256.
+// any block >= 1.
 extern "C" int dequant_int8(int out_bf16, const void* q, const void* s,
                             void* x, long long rows, int block,
                             void* stream) {

@@ -151,6 +151,20 @@
 // warps with the loads issued by a consumer thread; separate activation
 // and weight rings of different depths; 64 to 136 producer registers;
 // shifts or I2F in place of the byte permute.
+//
+// General (what the three kernels above do not take, all inside JAX's
+// gate, which takes every shape: f32 x, blocks that are not a power of
+// two of 16 or more, K not a multiple of 64): `dqmm_general_kernel`, a
+// plain shared-memory tiled product on the CUDA cores. A block of 256
+// threads owns 64 tokens x 64 outputs, 4 x 4 a thread; per 32-value K
+// step it stages the activations (widened to f32) and the weight tile,
+// each weight dequantized in f32 with its own block's scale (any block
+// that divides K) and rounded to x's dtype, as the JAX body does; f32
+// FMA accumulates (no TF32: f32 x stays within the plain version's
+// tolerance), and the output is rounded once to x's dtype. Loads are
+// scalar, so any K and any row alignment work. Bound: bf16 x as the
+// other variants; f32 x by 2*T*K*O operations against the CUDA cores'
+// 67 TFLOP/s, or at T <= 16 the weight bytes.
 
 #include <stdint.h>
 
@@ -866,7 +880,111 @@ int launch_dec_tma(const void* x, const void* q8, const float* s8q,
   return (int)cudaGetLastError();
 }
 
+// ---- the general variant: any block dividing K, any K, bf16 or f32 x --
+
+constexpr int GN_BT = 64;    // tokens a block
+constexpr int GN_BO = 64;    // outputs a block
+constexpr int GN_BK = 32;    // K values a step
+constexpr int GN_NT = 256;   // 16 x 16 threads, 4 x 4 outputs each
+
+__device__ inline float gn_widen(float v) { return v; }
+__device__ inline float gn_widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+// the dequantized weight rounded to x's dtype (kept in f32)
+__device__ inline float gn_round(float v, const float*) { return v; }
+__device__ inline float gn_round(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ inline void gn_store(float* p, float v) { *p = v; }
+__device__ inline void gn_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(GN_NT)
+dqmm_general_kernel(const T* __restrict__ x, const int8_t* __restrict__ q8,
+                    const float* __restrict__ s8, T* __restrict__ y, int nt,
+                    int K, int O, int block) {
+  __shared__ float sx[GN_BK][GN_BT + 4];   // [k][token]
+  __shared__ float sw[GN_BK][GN_BO + 4];   // [k][output]
+  const int o0 = blockIdx.x * GN_BO;
+  const int t0 = blockIdx.y * GN_BT;
+  const int tx = threadIdx.x % 16;         // outputs tx*4 .. +3
+  const int ty = threadIdx.x / 16;         // tokens ty*4 .. +3
+  const int nb = K / block;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += GN_BK) {
+    // neighbouring threads take neighbouring K values of a row
+    for (int i = threadIdx.x; i < GN_BT * GN_BK; i += GN_NT) {
+      const int r = i / GN_BK, c = i % GN_BK;
+      const int t = t0 + r, k = k0 + c;
+      sx[c][r] = (t < nt && k < K) ? gn_widen(x[(int64_t)t * K + k]) : 0.f;
+    }
+    for (int i = threadIdx.x; i < GN_BO * GN_BK; i += GN_NT) {
+      const int r = i / GN_BK, c = i % GN_BK;
+      const int o = o0 + r, k = k0 + c;
+      float w = 0.f;
+      if (o < O && k < K)
+        w = gn_round((float)q8[(int64_t)o * K + k] *
+                         s8[(int64_t)o * nb + k / block],
+                     x);
+      sw[c][r] = w;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < GN_BK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = sx[kk][ty * 4 + i];
+        b[i] = sw[kk][tx * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty * 4 + i;
+    if (t >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = o0 + tx * 4 + j;
+      if (o < O) gn_store(y + (int64_t)t * O + o, acc[i][j]);
+    }
+  }
+}
+
 }  // namespace
+
+// The general variant: x [T, K] f32 (is_f32 = 1) or bf16 (0), q8 [O, K]
+// int8, s8 [O, K / block] f32, y [T, O] in x's dtype, all contiguous;
+// any block that divides K.
+extern "C" int dqmm_general(int is_f32, const void* x, const void* q8,
+                            const void* s8, void* y, int T, int K, int O,
+                            int block, void* stream) {
+  if (T < 1 || O < 1 || K < 1 || block < 1 || K % block != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((O + GN_BO - 1) / GN_BO, (T + GN_BT - 1) / GN_BT);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_f32)
+    dqmm_general_kernel<float><<<grid, GN_NT, 0, st>>>(
+        (const float*)x, (const int8_t*)q8, (const float*)s8, (float*)y, T,
+        K, O, block);
+  else
+    dqmm_general_kernel<__nv_bfloat16><<<grid, GN_NT, 0, st>>>(
+        (const __nv_bfloat16*)x, (const int8_t*)q8, (const float*)s8,
+        (__nv_bfloat16*)y, T, K, O, block);
+  return (int)cudaGetLastError();
+}
 
 // The decode kernel on a TMA ring (T <= 16): x [T, K] bf16, q8 [O, K]
 // int8, s8q [O, K / block padded to 4] f32 (the prefill kernel's

@@ -65,9 +65,12 @@
 //   serialized its wgmma: PERF.md, findings).
 //
 // flash_bwd_dq_kernel / flash_bwd_dkv_kernel (`flash_bwd_{dq,dkv}_bf16`;
-// every other shape: head_dim any multiple of 8 up to 256, q_len !=
+// every other shape: head_dim any multiple of 8 up to 512, q_len !=
 // k_len). mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps a block,
-// tiles double-buffered with cp.async.
+// tiles double-buffered with cp.async (above head_dim 256: streamed
+// tiles of 32 rows, single-buffered, so the resident pair of 64-row
+// tiles and the streamed pair fit in 195 KB of shared memory, opted in
+// past 48 KB).
 // - dq kernel: one block per (64-row q tile, q head, batch row, 128-
 //   column half of head_dim); each warp owns 16 q rows. Its Q and dO
 //   tiles stay in shared memory while it walks the K/V tiles (64 keys
@@ -83,7 +86,7 @@
 //   and delta double-buffered) and sums dK and dV for the whole group
 //   in f32 registers before one rounding. Per 32 q rows: S^T = K Q^T,
 //   P^T, dV += P^T dO, dP^T = V dO^T, dS^T, dK += dS^T Q.
-// head_dim above 128 splits the outputs' columns over two blocks, each
+// head_dim above 128 splits the outputs' columns over blocks of 128, each
 // recomputing S and dP over the full head_dim from shared memory, so a
 // block holds 128 output columns in registers whatever D is. Keys past
 // S_k and q rows past S_q contribute nothing; head_dim columns past D
@@ -106,14 +109,15 @@ constexpr int OC = 128;      // output columns a block holds in registers
 constexpr int NO = OC / 8;   // 8-wide output column tiles
 constexpr float LOG2E = 1.4426950408889634f;
 
-// rows [r0, r0 + 64) of a [*, seq, heads, d] tensor at `head` into a
+// rows [r0, r0 + ROWS) of a [*, seq, heads, d] tensor at `head` into a
 // shared tile (leading dim ldh), asynchronously; rows past `seq` and
 // columns past d are zero-filled
+template <int ROWS = 64>
 __device__ __forceinline__ void load_tile_async(
     __nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int seq,
     int heads, int head, int d, int dp, int ldh, int64_t batch_off) {
   const int vec = dp / 8;
-  for (int idx = threadIdx.x; idx < 64 * vec; idx += NT) {
+  for (int idx = threadIdx.x; idx < ROWS * vec; idx += NT) {
     const int r = idx / vec;
     const int c = (idx % vec) * 8;
     const int row = r0 + r;
@@ -219,9 +223,11 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, float (*acc)[4],
   }
 }
 
-// DC: largest padded head_dim this instantiation contracts over (128 or
-// 256); blockIdx.x = q tile (reversed) x column halves
-template <int DC>
+// DC: largest padded head_dim this instantiation contracts over (128,
+// 256 or 512); TK keys a K/V tile, STAGES K/V buffers (2: the next tile
+// loads during this one's math; 1: after it); blockIdx.x = q tile
+// (reversed) x column blocks
+template <int DC, int TK, int STAGES>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -236,9 +242,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int ldh = dp + 8;           // bf16 elements; breaks bank conflicts
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sO = sQ + BQ * ldh;   // dO
-  __nv_bfloat16* sK[2] = {sO + BQ * ldh, sO + (BQ + BK) * ldh};
-  __nv_bfloat16* sV[2] = {sO + (BQ + 2 * BK) * ldh,
-                          sO + (BQ + 3 * BK) * ldh};
+  __nv_bfloat16* sK[2] = {sO + BQ * ldh, sO + (BQ + (STAGES - 1) * TK) * ldh};
+  __nv_bfloat16* sV[2] = {sO + (BQ + STAGES * TK) * ldh,
+                          sO + (BQ + (2 * STAGES - 1) * TK) * ldh};
 
   const int nh = (dp + OC - 1) / OC;  // column halves
   const int c0 = (blockIdx.x % nh) * OC;
@@ -257,13 +263,13 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 
   load_tile_async(sQ, q, q0, sq, h, head, d, dp, ldh, qoff);
   load_tile_async(sO, dout, q0, sq, h, head, d, dp, ldh, qoff);
-  int n_tiles = (sk + BK - 1) / BK;
+  int n_tiles = (sk + TK - 1) / TK;
   if (causal) {
     const int last_row = min(q0 + BQ, sq) - 1;
-    n_tiles = min(n_tiles, last_row / BK + 1);
+    n_tiles = min(n_tiles, last_row / TK + 1);
   }
-  load_tile_async(sK[0], k, 0, sk, kvh, kv_head, d, dp, ldh, koff);
-  load_tile_async(sV[0], v, 0, sk, kvh, kv_head, d, dp, ldh, koff);
+  load_tile_async<TK>(sK[0], k, 0, sk, kvh, kv_head, d, dp, ldh, koff);
+  load_tile_async<TK>(sV[0], v, 0, sk, kvh, kv_head, d, dp, ldh, koff);
   cp_async_commit();
 
   const int row0 = q0 + warp * 16 + g;   // this lane's rows: row0, row0+8
@@ -284,29 +290,29 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* ow = sO + (warp * 16) * ldh;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int st = tile & 1;
-    if (tile + 1 < n_tiles) {
+    const int st = STAGES == 2 ? tile & 1 : 0;
+    if (STAGES == 2 && tile + 1 < n_tiles) {
       const int nxt = (tile + 1) & 1;
-      load_tile_async(sK[nxt], k, (tile + 1) * BK, sk, kvh, kv_head, d, dp,
-                      ldh, koff);
-      load_tile_async(sV[nxt], v, (tile + 1) * BK, sk, kvh, kv_head, d, dp,
-                      ldh, koff);
+      load_tile_async<TK>(sK[nxt], k, (tile + 1) * TK, sk, kvh, kv_head, d,
+                          dp, ldh, koff);
+      load_tile_async<TK>(sV[nxt], v, (tile + 1) * TK, sk, kvh, kv_head, d,
+                          dp, ldh, koff);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int k0 = tile * BK;
+    const int k0 = tile * TK;
 
     // P = exp(scale Q K^T - LSE), masked: element e of tile j is row
     // row0 + 8*(e/2), key k0 + 8j + 2t + (e%2)
-    float s[8][4];
-    rows_dot<DC>(s, 8, qw, sK[st], ldh, dp, g, t);
+    float s[TK / 8][4];
+    rows_dot<DC>(s, TK / 8, qw, sK[st], ldh, dp, g, t);
     const bool need_mask =
-        k0 + BK > sk || (causal && k0 + BK - 1 > q0 + warp * 16);
+        k0 + TK > sk || (causal && k0 + TK - 1 > q0 + warp * 16);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < TK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = ex2(s[j][e] * sl2 - lse2[e / 2]);
@@ -319,23 +325,31 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     // dS = P (dO V^T - delta) scale, in place
-    float dpv[8][4];
-    rows_dot<DC>(dpv, 8, ow, sV[st], ldh, dp, g, t);
+    float dpv[TK / 8][4];
+    rows_dot<DC>(dpv, TK / 8, ow, sV[st], ldh, dp, g, t);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < TK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         s[j][e] = s[j][e] * (dpv[j][e] - dl[e / 2]) * scale;
     }
     // dQ += dS K, this block's columns
-    acc_product(acc, s, 4, sK[st] + c0, ldh, dpo, lane);
+    acc_product(acc, s, TK / 16, sK[st] + c0, ldh, dpo, lane);
     __syncthreads();  // this stage is refilled two tiles from now
+    if (STAGES == 1 && tile + 1 < n_tiles) {   // (one: the next tile)
+      load_tile_async<TK>(sK[0], k, (tile + 1) * TK, sk, kvh, kv_head, d,
+                          dp, ldh, koff);
+      load_tile_async<TK>(sV[0], v, (tile + 1) * TK, sk, kvh, kv_head, d,
+                          dp, ldh, koff);
+      cp_async_commit();
+    }
   }
   store_rows(dq, acc, row0, sq, h, head, d, c0, qoff, t);
 }
 
-// blockIdx.x = key tile x column halves
-template <int DC>
+// TQ q rows a streamed Q/dO tile, STAGES its buffers (as in the dq
+// kernel); blockIdx.x = key tile x column blocks
+template <int DC, int TQ, int STAGES>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -351,11 +365,12 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   const int ldh = dp + 8;
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sV = sK + BK * ldh;
-  __nv_bfloat16* sQ[2] = {sV + BK * ldh, sV + (BK + BQ) * ldh};
-  __nv_bfloat16* sO[2] = {sV + (BK + 2 * BQ) * ldh,
-                          sV + (BK + 3 * BQ) * ldh};   // dO
-  float* sL = reinterpret_cast<float*>(sV + (BK + 4 * BQ) * ldh);  // [2][BQ]
-  float* sD = sL + 2 * BQ;                                         // [2][BQ]
+  __nv_bfloat16* sQ[2] = {sV + BK * ldh, sV + (BK + (STAGES - 1) * TQ) * ldh};
+  __nv_bfloat16* sO[2] = {sV + (BK + STAGES * TQ) * ldh,
+                          sV + (BK + (2 * STAGES - 1) * TQ) * ldh};   // dO
+  // [STAGES][TQ] each
+  float* sL = reinterpret_cast<float*>(sV + (BK + 2 * STAGES * TQ) * ldh);
+  float* sD = sL + STAGES * TQ;
 
   const int nh = (dp + OC - 1) / OC;
   const int c0 = (blockIdx.x % nh) * OC;
@@ -373,22 +388,22 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 
   // the walk: every q head of the group x every q tile from the causal
   // diagonal on, flattened so one double buffer spans it
-  const int n_qt = (sq + BQ - 1) / BQ;
-  const int first = causal ? min(k0 / BQ, n_qt) : 0;
+  const int n_qt = (sq + TQ - 1) / TQ;
+  const int first = causal ? min(k0 / TQ, n_qt) : 0;
   const int per_head = n_qt - first;
   const int n_iter = n_rep * per_head;
 
   auto load_stage = [&](int it, int st) {
     const int head = kv_head * n_rep + it / per_head;
-    const int r0 = (first + it % per_head) * BQ;
-    load_tile_async(sQ[st], q, r0, sq, h, head, d, dp, ldh, qoff);
-    load_tile_async(sO[st], dout, r0, sq, h, head, d, dp, ldh, qoff);
-    for (int i = threadIdx.x; i < BQ; i += NT) {
+    const int r0 = (first + it % per_head) * TQ;
+    load_tile_async<TQ>(sQ[st], q, r0, sq, h, head, d, dp, ldh, qoff);
+    load_tile_async<TQ>(sO[st], dout, r0, sq, h, head, d, dp, ldh, qoff);
+    for (int i = threadIdx.x; i < TQ; i += NT) {
       const int row = r0 + i;
       const int64_t idx = ((int64_t)b * h + head) * sq + row;
       // a q row past sq gets LSE = +inf: its P is exp2(-inf) = 0
-      sL[st * BQ + i] = row < sq ? lse[idx] * LOG2E : INFINITY;
-      sD[st * BQ + i] = row < sq ? delta[idx] : 0.f;
+      sL[st * TQ + i] = row < sq ? lse[idx] * LOG2E : INFINITY;
+      sD[st * TQ + i] = row < sq ? delta[idx] : 0.f;
     }
   };
 
@@ -409,8 +424,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vw = sV + (warp * 16) * ldh;
 
   for (int it = 0; it < n_iter; ++it) {
-    const int st = it & 1;
-    if (it + 1 < n_iter) {
+    const int st = STAGES == 2 ? it & 1 : 0;
+    if (STAGES == 2 && it + 1 < n_iter) {
       load_stage(it + 1, st ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
@@ -418,12 +433,12 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int qbase = (first + it % per_head) * BQ;
-    const float* lt = sL + st * BQ;
-    const float* dt = sD + st * BQ;
+    const int qbase = (first + it % per_head) * TQ;
+    const float* lt = sL + st * TQ;
+    const float* dt = sD + st * TQ;
 
 #pragma unroll
-    for (int c = 0; c < BQ / 32; ++c) {
+    for (int c = 0; c < TQ / 32; ++c) {
       const int qc0 = qbase + c * 32;
       // every q row of this chunk is before every key of this warp
       if (causal && qc0 + 31 < kw0) continue;
@@ -460,6 +475,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       acc_product(dka, s, 2, qrows + c0, ldh, dpo, lane);
     }
     __syncthreads();  // this stage is refilled two steps from now
+    if (STAGES == 1 && it + 1 < n_iter) {   // (one: the next tile)
+      load_stage(it + 1, 0);
+      cp_async_commit();
+    }
   }
   store_rows(dk, dka, kw0 + g, sk, kvh, kv_head, d, c0, koff, t);
   store_rows(dv, dva, kw0 + g, sk, kvh, kv_head, d, c0, koff, t);
@@ -480,21 +499,23 @@ int ensure_smem(K kernel, int bytes, int* configured) {
 
 bool shapes_ok(int b, int sq, int sk, int h, int kvh, int d) {
   return b > 0 && sq > 0 && sk > 0 && kvh > 0 && h % kvh == 0 &&
-         d % 8 == 0 && d >= 8 && d <= 256;
+         d % 8 == 0 && d >= 8 && d <= 512;
 }
 
-template <int DC>
+template <int DC, int TK, int STAGES>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int b, int sq,
               int sk, int h, int kvh, int d, float scale, int causal,
               cudaStream_t stream) {
   const int dp = (d + 15) / 16 * 16;
-  const int smem = (2 * BQ + 4 * BK) * (dp + 8) * (int)sizeof(__nv_bfloat16);
+  const int smem = (2 * BQ + 2 * STAGES * TK) * (dp + 8) *
+                   (int)sizeof(__nv_bfloat16);
   static int configured = 0;
-  int err = ensure_smem(flash_bwd_dq_kernel<DC>, smem, &configured);
+  int err = ensure_smem(flash_bwd_dq_kernel<DC, TK, STAGES>, smem,
+                        &configured);
   if (err) return err;
   dim3 grid((sq + BQ - 1) / BQ * ((dp + OC - 1) / OC), h, b);
-  flash_bwd_dq_kernel<DC><<<grid, NT, smem, stream>>>(
+  flash_bwd_dq_kernel<DC, TK, STAGES><<<grid, NT, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float*)lse,
       (const float*)delta, (__nv_bfloat16*)dq, sq, sk, h, kvh, d, scale,
@@ -502,19 +523,21 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int DC>
+template <int DC, int TQ, int STAGES>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int b,
                int sq, int sk, int h, int kvh, int d, float scale, int causal,
                cudaStream_t stream) {
   const int dp = (d + 15) / 16 * 16;
-  const int smem = (2 * BK + 4 * BQ) * (dp + 8) * (int)sizeof(__nv_bfloat16) +
-                   4 * BQ * (int)sizeof(float);
+  const int smem = (2 * BK + 2 * STAGES * TQ) * (dp + 8) *
+                       (int)sizeof(__nv_bfloat16) +
+                   2 * STAGES * TQ * (int)sizeof(float);
   static int configured = 0;
-  int err = ensure_smem(flash_bwd_dkv_kernel<DC>, smem, &configured);
+  int err = ensure_smem(flash_bwd_dkv_kernel<DC, TQ, STAGES>, smem,
+                        &configured);
   if (err) return err;
   dim3 grid((sk + BK - 1) / BK * ((dp + OC - 1) / OC), kvh, b);
-  flash_bwd_dkv_kernel<DC><<<grid, NT, smem, stream>>>(
+  flash_bwd_dkv_kernel<DC, TQ, STAGES><<<grid, NT, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float*)lse,
       (const float*)delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, sq, sk, h,
@@ -1029,10 +1052,13 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (!shapes_ok(b, sq, sk, h, kvh, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (d <= 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, b, sq, sk, h, kvh,
-                          d, scale, causal, st);
-  return launch_dq<256>(q, k, v, dout, lse, delta, dq, b, sq, sk, h, kvh, d,
-                        scale, causal, st);
+    return launch_dq<128, BK, 2>(q, k, v, dout, lse, delta, dq, b, sq, sk, h,
+                                 kvh, d, scale, causal, st);
+  if (d <= 256)
+    return launch_dq<256, BK, 2>(q, k, v, dout, lse, delta, dq, b, sq, sk, h,
+                                 kvh, d, scale, causal, st);
+  return launch_dq<512, 32, 1>(q, k, v, dout, lse, delta, dq, b, sq, sk, h,
+                               kvh, d, scale, causal, st);
 }
 
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
@@ -1044,10 +1070,13 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
   if (!shapes_ok(b, sq, sk, h, kvh, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (d <= 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, h,
-                           kvh, d, scale, causal, st);
-  return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, h,
-                         kvh, d, scale, causal, st);
+    return launch_dkv<128, BQ, 2>(q, k, v, dout, lse, delta, dk, dv, b, sq,
+                                  sk, h, kvh, d, scale, causal, st);
+  if (d <= 256)
+    return launch_dkv<256, BQ, 2>(q, k, v, dout, lse, delta, dk, dv, b, sq,
+                                  sk, h, kvh, d, scale, causal, st);
+  return launch_dkv<512, 32, 1>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
+                                h, kvh, d, scale, causal, st);
 }
 
 // The Hopper-native variants: head_dim 64 or 128 and q_len == k_len; the

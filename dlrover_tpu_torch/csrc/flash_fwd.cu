@@ -39,9 +39,14 @@
 // the wgmma at D=128 for want of registers) and persistent blocks.
 //
 // flash_fwd_kernel (`flash_fwd_bf16`; every other shape: head_dim any
-// multiple of 8 up to 256, the single-query decode shape). One block
-// of 4 warps per (64-row q tile, q head, batch row); each warp owns 16
-// q rows. The TPU kernel carries its running max, sum and accumulator
+// multiple of 8 up to 512, the single-query decode shape). One block
+// of 4 warps per (64-row q tile, q head, batch row, 256-column slice
+// of O); each warp owns 16 q rows. Up to head_dim 256 a block owns all
+// of O's columns; above it (JAX's gate reaches 512) 64 rows x 512 f32
+// of O do not fit four warps' registers, so two blocks split O's
+// columns, each recomputing S over the full head_dim, and K/V are
+// single-buffered (Q, K and a 256-column V slice: 163 KB of shared
+// memory at head_dim 512, opted in past 48 KB). The TPU kernel carries its running max, sum and accumulator
 // across sequential grid steps in VMEM scratch; here they live in
 // registers for the whole walk over the K/V tiles (64 keys each, up to
 // the causal diagonal of the q tile). Both products run on the tensor
@@ -74,28 +79,32 @@ constexpr int BN = 64;       // keys per tile
 constexpr int NWARPS = 4;
 constexpr int NT = NWARPS * 32;
 
-// rows [r0, r0 + BN) of a [*, seq, heads, d] tensor at `head` into a
-// shared tile (leading dim ldh), asynchronously; rows past `seq` and
-// columns past d are zero-filled
+// columns [c0, c0 + dp) of rows [r0, r0 + BN) of a [*, seq, heads, d]
+// tensor at `head` into a shared tile (leading dim ldh),
+// asynchronously; rows past `seq` and columns past d are zero-filled
 __device__ inline void load_tile_async(__nv_bfloat16* dst,
                                        const __nv_bfloat16* src, int r0,
                                        int seq, int heads, int head, int d,
-                                       int dp, int ldh, int64_t batch_off) {
+                                       int dp, int ldh, int64_t batch_off,
+                                       int c0 = 0) {
   const int vec = dp / 8;
   for (int idx = threadIdx.x; idx < BN * vec; idx += NT) {
     const int r = idx / vec;
     const int c = (idx % vec) * 8;
     const int row = r0 + r;
-    const bool valid = row < seq && c < d;
+    const bool valid = row < seq && c0 + c < d;
     const __nv_bfloat16* p =
-        valid ? src + ((batch_off + row) * heads + head) * (int64_t)d + c
+        valid ? src + ((batch_off + row) * heads + head) * (int64_t)d + c0 + c
               : src;
     cp_async16(dst + r * ldh + c, p, valid);
   }
 }
 
-// DMAX: largest padded head_dim this instantiation holds in registers
-template <int DMAX>
+// DMAX: largest padded head_dim this instantiation contracts over; OC:
+// the most output columns a block holds in registers (O's columns are
+// split over blockIdx.y % ceil(dp / OC)); STAGES: K/V buffers (2:
+// the next tile loads during this one's math; 1: loaded after it)
+template <int DMAX, int OC, int STAGES>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -103,17 +112,21 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int sq, int sk, int h, int kvh, int d, float scale,
                  int causal) {
-  constexpr int NT_O = DMAX / 8;    // 8-wide output column tiles
+  constexpr int NT_O = OC / 8;      // 8-wide output column tiles
   extern __shared__ __align__(128) unsigned char smem[];
   const int dp = (d + 15) / 16 * 16;
   const int ldh = dp + 8;           // bf16 elements; breaks bank conflicts
+  const int n_split = (dp + OC - 1) / OC;
+  const int c0 = (blockIdx.y % n_split) * OC;   // this block's O columns
+  const int dpv = min(dp - c0, OC);
+  const int ldv = dpv + 8;
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK[2] = {sQ + BM * ldh, sQ + (BM + BN) * ldh};
-  __nv_bfloat16* sV[2] = {sQ + (BM + 2 * BN) * ldh,
-                          sQ + (BM + 3 * BN) * ldh};
+  __nv_bfloat16* sK[2] = {sQ + BM * ldh, sQ + (BM + (STAGES - 1) * BN) * ldh};
+  __nv_bfloat16* sV0 = sQ + (BM + STAGES * BN) * ldh;
+  __nv_bfloat16* sV[2] = {sV0, sV0 + (STAGES - 1) * BN * ldv};
 
   const int q0 = blockIdx.x * BM;
-  const int head = blockIdx.y;
+  const int head = blockIdx.y / n_split;
   const int b = blockIdx.z;
   const int kv_head = head / (h / kvh);
   const int warp = threadIdx.x / 32;
@@ -140,7 +153,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     n_tiles = min(n_tiles, last_row / BN + 1);
   }
   load_tile_async(sK[0], k, 0, sk, kvh, kv_head, d, dp, ldh, koff);
-  load_tile_async(sV[0], v, 0, sk, kvh, kv_head, d, dp, ldh, koff);
+  load_tile_async(sV[0], v, 0, sk, kvh, kv_head, d, dpv, ldv, koff, c0);
   cp_async_commit();
 
   const int row0 = q0 + warp * 16 + g;   // this lane's rows: row0, row0+8
@@ -153,13 +166,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qw = sQ + (warp * 16) * ldh;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int st = tile & 1;
-    if (tile + 1 < n_tiles) {
+    const int st = STAGES == 2 ? tile & 1 : 0;
+    if (STAGES == 2 && tile + 1 < n_tiles) {
       const int nxt = (tile + 1) & 1;
       load_tile_async(sK[nxt], k, (tile + 1) * BN, sk, kvh, kv_head, d, dp,
                       ldh, koff);
-      load_tile_async(sV[nxt], v, (tile + 1) * BN, sk, kvh, kv_head, d, dp,
-                      ldh, koff);
+      load_tile_async(sV[nxt], v, (tile + 1) * BN, sk, kvh, kv_head, d, dpv,
+                      ldv, koff, c0);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -258,21 +271,28 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       // of d-tile n, lanes 16-31 the same for d-tile n+1
       // the next pair's fragments load before this pair's products
       const __nv_bfloat16* vrow =
-          vt + (kk * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * ldh +
+          vt + (kk * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * ldv +
           (lane / 16) * 8;
       uint32_t bf[2][4];
       ldmatrix_x4_trans(bf[0], vrow);
 #pragma unroll
       for (int n = 0; n < NT_O; n += 2) {
-        if (n < dp / 8) {
+        if (n < dpv / 8) {
           const int cur = (n / 2) % 2;
-          if (n + 2 < dp / 8) ldmatrix_x4_trans(bf[cur ^ 1], vrow + (n + 2) * 8);
+          if (n + 2 < dpv / 8) ldmatrix_x4_trans(bf[cur ^ 1], vrow + (n + 2) * 8);
           mma_bf16(acc[n], a, bf[cur]);
           mma_bf16(acc[n + 1], a, bf[cur] + 2);
         }
       }
     }
     __syncthreads();  // this stage is refilled two tiles from now
+    if (STAGES == 1 && tile + 1 < n_tiles) {   // (one: the next tile)
+      load_tile_async(sK[0], k, (tile + 1) * BN, sk, kvh, kv_head, d, dp,
+                      ldh, koff);
+      load_tile_async(sV[0], v, (tile + 1) * BN, sk, kvh, kv_head, d, dpv,
+                      ldv, koff, c0);
+      cp_async_commit();
+    }
   }
 
   // finalize: full row sums over the quad, O / l, LSE = m + log(l)
@@ -286,40 +306,43 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= sq) continue;
-    __nv_bfloat16* dst = o + ((qoff + row) * h + head) * (int64_t)d;
+    __nv_bfloat16* dst = o + ((qoff + row) * h + head) * (int64_t)d + c0;
 #pragma unroll
     for (int n = 0; n < NT_O; ++n) {
       const int col = n * 8 + 2 * t;
-      if (n * 8 < d) {
+      if (c0 + n * 8 < d) {
         const float inv = l_r[i];
         *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
             acc[n][2 * i] / inv, acc[n][2 * i + 1] / inv);
       }
     }
-    if (t == 0)   // m_r is in base 2
+    if (t == 0 && c0 == 0)   // m_r is in base 2
       lse[((int64_t)b * h + head) * sq + row] =
           m_r[i] * 0.6931471805599453f + logf(l_r[i]);
   }
 }
 
-template <int DMAX>
+template <int DMAX, int OC, int STAGES>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int sq, int sk, int h, int kvh, int d, float scale,
            int causal, cudaStream_t stream) {
   const int dp = (d + 15) / 16 * 16;
-  const int smem = (BM + 4 * BN) * (dp + 8) * (int)sizeof(__nv_bfloat16);
+  const int n_split = (dp + OC - 1) / OC;
+  const int smem = ((BM + STAGES * BN) * (dp + 8) +
+                    STAGES * BN * ((dp < OC ? dp : OC) + 8)) *
+                   (int)sizeof(__nv_bfloat16);
   // raise the dynamic shared-memory cap once per size (not per launch:
   // the attribute call is host work, and launches may be graph-captured)
   static int configured = 0;
   if (smem > configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        flash_fwd_kernel<DMAX, OC, STAGES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     configured = smem;
   }
-  dim3 grid((sq + BM - 1) / BM, h, b);
-  flash_fwd_kernel<DMAX><<<grid, NT, smem, stream>>>(
+  dim3 grid((sq + BM - 1) / BM, h * n_split, b);
+  flash_fwd_kernel<DMAX, OC, STAGES><<<grid, NT, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse, sq, sk, h,
       kvh, d, scale, causal);
@@ -575,12 +598,15 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               int h, int kvh, int d, float scale, int causal,
                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (d % 8 != 0 || d < 8 || d > 256) return (int)cudaErrorInvalidValue;
+  if (d % 8 != 0 || d < 8 || d > 512) return (int)cudaErrorInvalidValue;
   if (d <= 128)
-    return launch<128>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal,
-                       st);
-  return launch<256>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal,
-                     st);
+    return launch<128, 128, 2>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale,
+                               causal, st);
+  if (d <= 256)
+    return launch<256, 256, 2>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale,
+                               causal, st);
+  return launch<512, 256, 1>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale,
+                             causal, st);
 }
 
 // The Hopper-native variant: head_dim 64 or 128 and q_len == k_len;

@@ -67,9 +67,15 @@
 // warp's conversion unit bound the kernel).
 //
 // `paged_partial_kernel` + `paged_combine_kernel` (f32 queries, other
-// pages and head dims): the TPU kernel walks the page axis in order on
-// one core; here the cells of a row are split so that every SM streams:
-//  * over blocks: grid (KV head, batch row, split); each block takes 128
+// pages, head dims and GQA groups: every shape JAX's gate takes, head_dim
+// a multiple of 8 in [32, 512] and any whole group): the TPU kernel walks
+// the page axis in order on one core; here the cells of a row are split
+// so that every SM streams:
+//  * over blocks: grid (KV head x group slice, batch row, split); a
+//    block holds NREP query heads of its KV head's group (1, 2, 4 or 8:
+//    the group rounded up, the extra rows masked; a group above 8 walks
+//    in slices of 8) and a head_dim padded to HD (64, 128, 256 or 512;
+//    loads and stores past the head_dim masked); each block takes 128
 //    consecutive cells of the row (splits past a row's length exit at
 //    once, and a second small kernel merges the splits' partial softmax
 //    states by log-sum-exp);
@@ -154,7 +160,26 @@ __device__ inline float warp_max(float x) {
   return x;
 }
 
-// T: query/output type; PT: page element type (T, or int8 with scales)
+// one lane's EPL consecutive elements of a row of `hd` (a multiple of
+// 8), in vector loads of up to 8 elements; those past hd read as 0
+template <typename PT, int EPL>
+__device__ inline void load_vec_masked(const PT* p, int col, int hd,
+                                       float* out) {
+  constexpr int SUB = EPL < 8 ? EPL : 8;
+#pragma unroll
+  for (int s = 0; s < EPL; s += SUB) {
+    if (col + s < hd) {
+      load_vec<PT, SUB>(p + s, out + s);
+    } else {
+#pragma unroll
+      for (int j = 0; j < SUB; ++j) out[s + j] = 0.f;
+    }
+  }
+}
+
+// T: query/output type; PT: page element type (T, or int8 with scales);
+// NREP query heads a block (n_rep of a group, in n_slices slices); HD
+// the padded head_dim, hd the real one (a multiple of 8)
 template <typename T, typename PT, bool QUANT, int NREP, int HD>
 __global__ void __launch_bounds__(NT)
 paged_partial_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
@@ -165,10 +190,12 @@ paged_partial_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
                      const int* __restrict__ lengths,
                      float* __restrict__ part_ml,   // [B, H, S, 2]
                      float* __restrict__ part_acc,  // [B, H, S, hd]
-                     int n_table, int ps, int kvh, int splits,
-                     int chunks_per_split, float scale) {
+                     int n_table, int ps, int kvh, int n_rep, int n_slices,
+                     int hd, int splits, int chunks_per_split, float scale) {
   constexpr int EPL = HD / 32;                  // P V: lane's columns
-  constexpr int PER16 = 16 / (int)sizeof(PT);   // elements per 16 B
+  // K row loads: 8 elements (8 bytes of int8, 16 of bf16), 4 of f32:
+  // a row of a multiple of 8 elements keeps each load aligned
+  constexpr int PERV = sizeof(PT) == 4 ? 4 : 8;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;                             // [NREP, HD]
   float* sP = sQ + NREP * HD;                   // [NWARPS, NREP, 32]
@@ -176,10 +203,13 @@ paged_partial_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
   float* sL = sM + NWARPS * NREP;               // [NWARPS, NREP]
   float* sAcc = sL + NWARPS * NREP;             // [NWARPS, NREP, HD]
 
-  const int g = blockIdx.x;
+  const int g = blockIdx.x / n_slices;          // KV head
+  const int r0 = (blockIdx.x % n_slices) * NREP;  // first head of the slice
+  const int nr = min(NREP, n_rep - r0);           // its live heads
   const int b = blockIdx.y;
   const int split = blockIdx.z;
-  const int h = kvh * NREP;
+  const int h = kvh * n_rep;
+  const int64_t head0 = (int64_t)b * h + g * n_rep + r0;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int length = max(lengths[b], 0);
@@ -188,8 +218,10 @@ paged_partial_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
   const int c_end = min(n_chunks, c_begin + chunks_per_split);
   if (c_begin >= c_end) return;  // the combine reads only used splits
 
-  for (int idx = threadIdx.x; idx < NREP * HD; idx += NT)
-    sQ[idx] = to_f(q[((int64_t)b * h + g * NREP) * HD + idx]);
+  for (int idx = threadIdx.x; idx < NREP * HD; idx += NT) {
+    const int r = idx / HD, c = idx % HD;
+    sQ[idx] = (r < nr && c < hd) ? to_f(q[(head0 + r) * hd + c]) : 0.f;
+  }
   __syncthreads();
 
   float m[NREP], l[NREP], acc[NREP][EPL];
@@ -215,15 +247,16 @@ paged_partial_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
       const int cell = cell0 + lane;
       const int64_t page = table[(int64_t)b * n_table + cell / ps];
       cidx = (page * ps + cell % ps) * kvh + g;
-      const PT* krow = kp + cidx * HD;
+      const PT* krow = kp + cidx * hd;
 #pragma unroll
-      for (int i = 0; i < HD; i += PER16) {
-        float kf[PER16];
-        load_vec<PT, PER16>(krow + i, kf);
+      for (int i = 0; i < HD; i += PERV) {
+        if (i >= hd) break;
+        float kf[PERV];
+        load_vec<PT, PERV>(krow + i, kf);
 #pragma unroll
         for (int r = 0; r < NREP; ++r) {
 #pragma unroll
-          for (int j = 0; j < PER16; j += 4) {
+          for (int j = 0; j < PERV; j += 4) {
             const float4 qv =
                 *reinterpret_cast<const float4*>(sQ + r * HD + i + j);
             sc[r] += qv.x * kf[j] + qv.y * kf[j + 1] + qv.z * kf[j + 2] +
@@ -258,7 +291,8 @@ paged_partial_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
       if (c < n_valid) {
         const int64_t ci = __shfl_sync(0xffffffffu, cidx, c);
         float vf[EPL];
-        load_vec<PT, EPL>(vp + ci * HD + lane * EPL, vf);
+        load_vec_masked<PT, EPL>(vp + ci * hd + lane * EPL, lane * EPL, hd,
+                                 vf);
         const float vsc = QUANT ? __bfloat162float(vs[ci]) : 1.f;
 #pragma unroll
         for (int r = 0; r < NREP; ++r) {
@@ -285,6 +319,7 @@ paged_partial_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
   __syncthreads();
   for (int idx = threadIdx.x; idx < NREP * HD; idx += NT) {
     const int r = idx / HD, d = idx % HD;
+    if (r >= nr || d >= hd) continue;   // padded heads and columns
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, sM[w * NREP + r]);
@@ -297,8 +332,8 @@ paged_partial_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
         a += f * sAcc[(w * NREP + r) * HD + d];
       }
     }
-    const int64_t row = ((int64_t)b * h + g * NREP + r) * splits + split;
-    part_acc[row * HD + d] = a;
+    const int64_t row = (head0 + r) * splits + split;
+    part_acc[row * hd + d] = a;
     if (d == 0) {
       part_ml[row * 2] = mx;
       part_ml[row * 2 + 1] = lsum;
@@ -339,7 +374,7 @@ template <typename T, typename PT, bool QUANT, int NREP, int HD>
 int launch_one(const void* q, const void* k, const void* v, const void* ks,
                const void* vs, const void* table, const void* lengths,
                void* out, float* part_ml, float* part_acc, int b,
-               int n_table, int ps, int kvh, int splits,
+               int n_table, int ps, int kvh, int n_rep, int hd, int splits,
                int chunks_per_split, float scale, cudaStream_t stream) {
   auto kern = paged_partial_kernel<T, PT, QUANT, NREP, HD>;
   const int smem = (int)sizeof(float) *
@@ -351,56 +386,61 @@ int launch_one(const void* q, const void* k, const void* v, const void* ks,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  dim3 grid(kvh, b, splits);
+  const int n_slices = (n_rep + NREP - 1) / NREP;
+  dim3 grid(kvh * n_slices, b, splits);
   kern<<<grid, NT, smem, stream>>>(
       (const T*)q, (const PT*)k, (const PT*)v, (const __nv_bfloat16*)ks,
       (const __nv_bfloat16*)vs, (const int*)table, (const int*)lengths,
-      part_ml, part_acc, n_table, ps, kvh, splits, chunks_per_split, scale);
+      part_ml, part_acc, n_table, ps, kvh, n_rep, n_slices, hd, splits,
+      chunks_per_split, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_combine_kernel<T><<<b * kvh * NREP, 128, 0, stream>>>(
-      part_ml, part_acc, (const int*)lengths, (T*)out, kvh * NREP, splits,
-      chunks_per_split, HD);
+  paged_combine_kernel<T><<<b * kvh * n_rep, 128, 0, stream>>>(
+      part_ml, part_acc, (const int*)lengths, (T*)out, kvh * n_rep, splits,
+      chunks_per_split, hd);
   return (int)cudaGetLastError();
 }
 
+// the padded head_dim HD: 64, 128, 256 or 512, the least that holds hd
 template <typename T, typename PT, bool QUANT, int NREP>
-int by_epl(int epl, const void* q, const void* k, const void* v,
-           const void* ks, const void* vs, const void* table,
-           const void* lengths, void* out, float* ml, float* acc, int b,
-           int n_table, int ps, int kvh, int splits, int cps, float scale,
-           cudaStream_t st) {
-  switch (epl) {
-    case 2: return launch_one<T, PT, QUANT, NREP, 64>(
-        q, k, v, ks, vs, table, lengths, out, ml, acc, b, n_table, ps, kvh,
-        splits, cps, scale, st);
-    case 4: return launch_one<T, PT, QUANT, NREP, 128>(
-        q, k, v, ks, vs, table, lengths, out, ml, acc, b, n_table, ps, kvh,
-        splits, cps, scale, st);
-    case 8: return launch_one<T, PT, QUANT, NREP, 256>(
-        q, k, v, ks, vs, table, lengths, out, ml, acc, b, n_table, ps, kvh,
-        splits, cps, scale, st);
-  }
-  return (int)cudaErrorInvalidValue;
+int by_hd(int hd, const void* q, const void* k, const void* v,
+          const void* ks, const void* vs, const void* table,
+          const void* lengths, void* out, float* ml, float* acc, int b,
+          int n_table, int ps, int kvh, int n_rep, int splits, int cps,
+          float scale, cudaStream_t st) {
+  if (hd <= 64) return launch_one<T, PT, QUANT, NREP, 64>(
+      q, k, v, ks, vs, table, lengths, out, ml, acc, b, n_table, ps, kvh,
+      n_rep, hd, splits, cps, scale, st);
+  if (hd <= 128) return launch_one<T, PT, QUANT, NREP, 128>(
+      q, k, v, ks, vs, table, lengths, out, ml, acc, b, n_table, ps, kvh,
+      n_rep, hd, splits, cps, scale, st);
+  if (hd <= 256) return launch_one<T, PT, QUANT, NREP, 256>(
+      q, k, v, ks, vs, table, lengths, out, ml, acc, b, n_table, ps, kvh,
+      n_rep, hd, splits, cps, scale, st);
+  return launch_one<T, PT, QUANT, NREP, 512>(
+      q, k, v, ks, vs, table, lengths, out, ml, acc, b, n_table, ps, kvh,
+      n_rep, hd, splits, cps, scale, st);
 }
 
+// NREP: the group rounded up to 1, 2, 4 or 8 (a larger group walks in
+// slices of 8)
 template <typename T, typename PT, bool QUANT>
-int by_rep(int n_rep, int epl, const void* q, const void* k, const void* v,
+int by_rep(int n_rep, int hd, const void* q, const void* k, const void* v,
            const void* ks, const void* vs, const void* table,
            const void* lengths, void* out, float* ml, float* acc, int b,
            int n_table, int ps, int kvh, int splits, int cps, float scale,
            cudaStream_t st) {
-  switch (n_rep) {
-    case 1: return by_epl<T, PT, QUANT, 1>(epl, q, k, v, ks, vs, table,
-        lengths, out, ml, acc, b, n_table, ps, kvh, splits, cps, scale, st);
-    case 2: return by_epl<T, PT, QUANT, 2>(epl, q, k, v, ks, vs, table,
-        lengths, out, ml, acc, b, n_table, ps, kvh, splits, cps, scale, st);
-    case 4: return by_epl<T, PT, QUANT, 4>(epl, q, k, v, ks, vs, table,
-        lengths, out, ml, acc, b, n_table, ps, kvh, splits, cps, scale, st);
-    case 8: return by_epl<T, PT, QUANT, 8>(epl, q, k, v, ks, vs, table,
-        lengths, out, ml, acc, b, n_table, ps, kvh, splits, cps, scale, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (n_rep == 1) return by_hd<T, PT, QUANT, 1>(hd, q, k, v, ks, vs, table,
+      lengths, out, ml, acc, b, n_table, ps, kvh, n_rep, splits, cps, scale,
+      st);
+  if (n_rep == 2) return by_hd<T, PT, QUANT, 2>(hd, q, k, v, ks, vs, table,
+      lengths, out, ml, acc, b, n_table, ps, kvh, n_rep, splits, cps, scale,
+      st);
+  if (n_rep <= 4) return by_hd<T, PT, QUANT, 4>(hd, q, k, v, ks, vs, table,
+      lengths, out, ml, acc, b, n_table, ps, kvh, n_rep, splits, cps, scale,
+      st);
+  return by_hd<T, PT, QUANT, 8>(hd, q, k, v, ks, vs, table, lengths, out,
+      ml, acc, b, n_table, ps, kvh, n_rep, splits, cps, scale, st);
 }
 
 // ---- the TMA-ring kernel: even shares of the live pages ---------------
@@ -1024,7 +1064,7 @@ extern "C" int paged_attention_tma_launch(
 // q dtype, 1 = int8 pages with bf16 per-cell scales (ks, vs).
 // part_ml [B, H, splits, 2] and part_acc [B, H, splits, hd] are f32
 // scratch the caller allocates; each split covers chunks_per_split
-// chunks of 32 cells. n_rep in {1, 2, 4, 8}; hd in {64, 128, 256}.
+// chunks of 32 cells. Any n_rep >= 1; hd a multiple of 8 in [32, 512].
 extern "C" int paged_attention_launch(
     int dtype, int quant, const void* q, const void* k, const void* v,
     const void* ks, const void* vs, const void* table, const void* lengths,
@@ -1032,25 +1072,25 @@ extern "C" int paged_attention_launch(
     int kvh, int n_rep, int hd, int splits, int chunks_per_split,
     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (hd % 32 != 0 || ps < 1 || splits < 1)
+  if (hd % 8 != 0 || hd < 32 || hd > 512 || n_rep < 1 || ps < 1 ||
+      splits < 1)
     return (int)cudaErrorInvalidValue;
-  const int epl = hd / 32;
   float* ml = (float*)part_ml;
   float* acc = (float*)part_acc;
   if (dtype == 0 && quant == 0)
-    return by_rep<float, float, false>(n_rep, epl, q, k, v, ks, vs, table,
+    return by_rep<float, float, false>(n_rep, hd, q, k, v, ks, vs, table,
         lengths, out, ml, acc, b, n_table, ps, kvh, splits,
         chunks_per_split, scale, st);
   if (dtype == 0 && quant == 1)
-    return by_rep<float, int8_t, true>(n_rep, epl, q, k, v, ks, vs, table,
+    return by_rep<float, int8_t, true>(n_rep, hd, q, k, v, ks, vs, table,
         lengths, out, ml, acc, b, n_table, ps, kvh, splits,
         chunks_per_split, scale, st);
   if (dtype == 1 && quant == 0)
-    return by_rep<__nv_bfloat16, __nv_bfloat16, false>(n_rep, epl, q, k, v,
+    return by_rep<__nv_bfloat16, __nv_bfloat16, false>(n_rep, hd, q, k, v,
         ks, vs, table, lengths, out, ml, acc, b, n_table, ps, kvh, splits,
         chunks_per_split, scale, st);
   if (dtype == 1 && quant == 1)
-    return by_rep<__nv_bfloat16, int8_t, true>(n_rep, epl, q, k, v, ks, vs,
+    return by_rep<__nv_bfloat16, int8_t, true>(n_rep, hd, q, k, v, ks, vs,
         table, lengths, out, ml, acc, b, n_table, ps, kvh, splits,
         chunks_per_split, scale, st);
   return (int)cudaErrorInvalidValue;

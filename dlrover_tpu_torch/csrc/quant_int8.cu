@@ -17,6 +17,13 @@
 // lanes with xor shuffles; each lane then writes its 8 int8 as one
 // 8-byte store and the row's first lane writes the scale.
 //
+// Any other block that divides the row (JAX's kernel takes every one;
+// the int8 AdamW's `block=512` among them): `quant_int8_any_kernel`,
+// one warp a quant row. Its lanes stride over the row for the amax
+// (coalesced scalar loads), reduce it over the warp with xor shuffles,
+// and read the row again (from L1 or L2) to write the int8 values with
+// the same scale and rounding; lane 0 writes the scale.
+//
 // Bytes: the output must equal the plain version's and the JAX
 // kernel's. The JAX division by the constant 127 is compiled by XLA
 // into a product with the f32 reciprocal, so the scale is amax *
@@ -92,6 +99,32 @@ quant_int8_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   if (col == 0) s[row] = scale;
 }
 
+__device__ inline float widen(float v) { return v; }
+__device__ inline float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// one warp a quant row of any length `block`
+template <typename T>
+__global__ void __launch_bounds__(NT)
+quant_int8_any_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                      float* __restrict__ s, int64_t rows, int block) {
+  const int64_t row = ((int64_t)blockIdx.x * NT + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;   // a whole warp: rows are warp-uniform
+  const T* xr = x + row * block;
+  float amax = 0.f;
+  for (int i = lane; i < block; i += 32) amax = fmaxf(amax, fabsf(widen(xr[i])));
+#pragma unroll
+  for (int off = 16; off >= 1; off /= 2)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float scale = amax > 0.f ? amax * (1.0f / 127.0f) : 1.0f;
+  int8_t* qr = q + row * block;
+  for (int i = lane; i < block; i += 32) {
+    const float r = rintf(widen(xr[i]) / scale);
+    qr[i] = (int8_t)(int)fminf(fmaxf(r, -127.f), 127.f);
+  }
+  if (lane == 0) s[row] = scale;
+}
+
 // G = block / 8 lanes a row
 template <typename T, int G>
 int launch_rows(const void* x, void* q, void* s, long long rows,
@@ -113,14 +146,19 @@ int launch(const void* x, void* q, void* s, long long rows, int block,
     case 64: return launch_rows<T, 8>(x, q, s, rows, stream);
     case 128: return launch_rows<T, 16>(x, q, s, rows, stream);
     case 256: return launch_rows<T, 32>(x, q, s, rows, stream);
-    default: return (int)cudaErrorInvalidValue;
   }
+  if (block < 1) return (int)cudaErrorInvalidValue;
+  const long long threads = rows * 32;
+  quant_int8_any_kernel<T><<<(unsigned)((threads + NT - 1) / NT), NT, 0,
+                             stream>>>((const T*)x, (int8_t*)q, (float*)s,
+                                       rows, block);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x: [rows, block] f32 (is_bf16 = 0) or bf16 (1), contiguous and
-// 16-byte aligned; q: [rows, block] int8; s: [rows] f32.
+// 16-byte aligned; q: [rows, block] int8; s: [rows] f32; any block >= 1.
 extern "C" int quant_int8(int is_bf16, const void* x, void* q, void* s,
                           long long rows, int block, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

@@ -13,7 +13,11 @@ what training stores) gets f32 gradients. Serving stores the compute
 dtype by default, which computes the same and saves the per-step casts.
 Every matmul goes through `matmul_any`, so a weight the serving engine
 quantized (`QuantizedWeight`, weight_quant="int8") runs the fused
-dequant kernel.
+dequant kernel. The layer's products and its attention output carry the
+JAX model's `checkpoint_name` tags (`qkv_proj`, `attn_out`,
+`attn_proj`, `mlp_gate`, `mlp_up`, `mlp_down`) where autograd records,
+so every policy of parallel/remat.py (`cfg.remat_policy`) acts on the
+tensors JAX's does.
 """
 
 import dataclasses
@@ -29,7 +33,11 @@ from dlrover_tpu_torch._device import DeviceLike, resolve_device
 from dlrover_tpu_torch.ops.attention import dot_product_attention
 from dlrover_tpu_torch.ops.fused_ce import fused_cross_entropy
 from dlrover_tpu_torch.ops.quantization import QuantizedWeight, matmul_any
-from dlrover_tpu_torch.parallel.remat import apply_remat
+from dlrover_tpu_torch.parallel.remat import (
+    apply_remat,
+    checkpoint_name,
+    tagged_matmul,
+)
 
 Params = Dict[str, Any]
 
@@ -53,7 +61,9 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16   # compute dtype
     param_dtype: torch.dtype = torch.float32  # training storage dtype
     remat: bool = True                    # checkpoint each layer in apply
-    # parallel/remat.py policy name: "full" recomputes everything
+    # parallel/remat.py policy name: "full" recomputes everything, "proj"
+    # saves the projections, ... (every name of JAX's resolve_policy;
+    # "none" under remat checkpoints as "full", as JAX's model does)
     remat_policy: str = "full"
     attn_impl: str = "auto"               # auto | flash | reference
     # chunked fused cross-entropy (ops/fused_ce.py): the [B, S, vocab]
@@ -241,9 +251,9 @@ def _attn_qkv(cfg: LlamaConfig, h, lp, positions, rope=None):
     `rope`: the forward's precomputed `_rope_tables`."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = h.shape
-    q = matmul_any(h, lp["wq"]).reshape(b, s, H, hd)
-    k = matmul_any(h, lp["wk"]).reshape(b, s, KV, hd)
-    v = matmul_any(h, lp["wv"]).reshape(b, s, KV, hd)
+    q = tagged_matmul(h, lp["wq"], "qkv_proj").reshape(b, s, H, hd)
+    k = tagged_matmul(h, lp["wk"], "qkv_proj").reshape(b, s, KV, hd)
+    v = tagged_matmul(h, lp["wv"], "qkv_proj").reshape(b, s, KV, hd)
     q = _rope(q, positions, cfg.rope_theta, rope)
     k = _rope(k, positions, cfg.rope_theta, rope)
     return q, k, v
@@ -252,17 +262,18 @@ def _attn_qkv(cfg: LlamaConfig, h, lp, positions, rope=None):
 def _attn_residual(cfg: LlamaConfig, x, attn, lp):
     """Output projection + residual."""
     b, s, _ = x.shape
-    attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + matmul_any(attn, lp["wo"])
+    attn = checkpoint_name(attn.reshape(b, s, cfg.n_heads * cfg.head_dim),
+                           "attn_out")
+    return x + tagged_matmul(attn, lp["wo"], "attn_proj")
 
 
 def _mlp_residual(cfg: LlamaConfig, x, layer_params, lp):
     """Dense SwiGLU feed-forward + residual."""
     _check_dense(cfg)
     h = _rms_norm(x, layer_params["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(matmul_any(h, lp["w_gate"]))
-    up = matmul_any(h, lp["w_up"])
-    return x + matmul_any(gate * up, lp["w_down"])
+    gate = F.silu(tagged_matmul(h, lp["w_gate"], "mlp_gate"))
+    up = tagged_matmul(h, lp["w_up"], "mlp_up")
+    return x + tagged_matmul(gate * up, lp["w_down"], "mlp_down")
 
 
 def _head_matrix(cfg: LlamaConfig, params: Params):
@@ -312,7 +323,10 @@ def apply(
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     body = partial(_layer, cfg)
     if cfg.remat:
-        body = apply_remat(body, cfg.remat_policy)
+        # JAX checkpoints the layer under every name: "none" resolves to
+        # policy=None there, which saves nothing, as "full" does here
+        body = apply_remat(body, cfg.remat_policy
+                           if cfg.remat_policy != "none" else "full")
     for i in range(cfg.n_layers):
         x = body(x, layer_params(params, i), positions, rope)
     x = _rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)

@@ -48,7 +48,9 @@ LAUNCHES = {"flash_fwd": ("flash_fwd", "flash_fwd_wgmma"),
             "flash_bwd": ("flash_bwd_dq", "flash_bwd_dq_wgmma",
                           "flash_bwd_dkv", "flash_bwd_dkv_wgmma"),
             "paged_attention": ("paged_attention", "paged_attention_tma"),
-            "dqmm": ("dqmm", "dqmm_ws", "dqmm_decode_tma")}
+            "quant_int8": ("quant_int8", "quant_int8_any"),
+            "dequant_int8": ("dequant_int8", "dequant_int8_any"),
+            "dqmm": ("dqmm", "dqmm_ws", "dqmm_decode_tma", "dqmm_general")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

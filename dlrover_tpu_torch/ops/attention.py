@@ -62,7 +62,7 @@ def takes_flash(q_shape, k_shape, segment_ids, device) -> bool:
     """impl="auto"'s choice (JAX `dot_product_attention`): the flash
     kernels for tensors on the card where `flash_attention.supports`
     passes, the reference everywhere else (CPU tensors, `segment_ids`,
-    q_len != k_len unless q_len == 1, head_dims the kernels refuse)."""
+    q_len != k_len unless q_len == 1, head_dims outside JAX's gate)."""
     if torch.device(device).type != "cuda":
         return False
     from dlrover_tpu_torch.ops import flash_attention as fa

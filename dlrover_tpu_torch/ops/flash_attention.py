@@ -32,9 +32,10 @@ _BWD = "flash_bwd"
 
 
 def heads_ok(h: int, kv: int, d: int) -> bool:
-    """The head gate the flash and paged kernels share: head_dim a
-    multiple of 8 in [32, 256] and whole GQA groups."""
-    return d % 8 == 0 and 32 <= d <= 256 and h % kv == 0
+    """The head gate the flash and paged kernels share, JAX's
+    (`flash_attention.supports`, `paged_attention.supports`): head_dim a
+    multiple of 8 in [32, 512] and whole GQA groups."""
+    return d % 8 == 0 and 32 <= d <= 512 and h % kv == 0
 
 
 def supports_shapes(q_shape, k_shape, segment_ids=None) -> bool:
@@ -101,7 +102,7 @@ def _fwd_variant(b: int, s_q: int, s_k: int, h: int, kv: int, d: int,
 # the backward kernels split the shapes as the forward's do: its wgmma
 # variants (`flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel`)
 # take head_dim 64 or 128 with q_len == k_len, the mma.sync kernels
-# everything else up to head_dim 256
+# everything else up to head_dim 512
 _bwd_variant = _fwd_variant
 
 
@@ -228,7 +229,7 @@ def _bwd_cuda(q, k, v, o, lse, do, causal: bool, scale: float):
     if not heads_ok(h, kvh, d):
         raise ValueError(
             f"flash backward kernels do not take q{tuple(q.shape)} "
-            f"k{tuple(k.shape)} (head_dim a multiple of 8 in [32, 256], "
+            f"k{tuple(k.shape)} (head_dim a multiple of 8 in [32, 512], "
             "whole GQA groups)"
         )
     delta = _delta(o, do)

@@ -18,8 +18,9 @@ TABLE `[P]` of physical page ids covering logical positions
   (`kernel_variant`): the TMA-ring kernel (one launch over even shares
   of the live pages; counted under "paged_attention" and
   "paged_attention_tma") for bf16 queries, pages of 16 cells, head_dim
-  64 or 128, and the split kernel with its log-sum-exp combine for the
-  rest (f32 queries, other pages and head dims).
+  64 or 128, GQA groups of 1, 2, 4 or 8, and the split kernel with its
+  log-sum-exp combine for the rest (f32 queries, other pages, head dims
+  and groups: every shape JAX's gate takes).
 - `impl="auto"`: the kernel where the JAX package takes its kernel
   (`takes_kernel`: CUDA tensors within JAX's gate), else the reference.
 """
@@ -34,19 +35,18 @@ from dlrover_tpu_torch.ops import flash_attention as fa
 
 _NAME = "paged_attention"
 _NAME_TMA = "paged_attention_tma"
-# what csrc/paged_attention.cu instantiates
-_KERNEL_REPS = (1, 2, 4, 8)
-_KERNEL_HEAD_DIMS = (64, 128, 256)
 _CHUNK = 32                # cells per warp step in the kernel (a lane each)
 # 128 cells per block split: one chunk for each of the kernel's 4 warps
 _CHUNKS_PER_SPLIT = 4
 # the TMA-ring kernel: pages of 16 cells (a box of 16 rows, one k16
-# step), head dims 64 and 128, at most 1024 rows (it scans their page
-# counts in shared memory) and 32 KV heads for int8 pages (one bulk copy
-# of a page's scales); two blocks an SM, the grid fixed by the table's
-# capacity (B x KV x table pages), not by the lengths
+# step), head dims 64 and 128, GQA groups of 1, 2, 4 or 8, at most 1024
+# rows (it scans their page counts in shared memory) and 32 KV heads for
+# int8 pages (one bulk copy of a page's scales); two blocks an SM, the
+# grid fixed by the table's capacity (B x KV x table pages), not by the
+# lengths
 _TMA_PAGE = 16
 _TMA_HEAD_DIMS = (64, 128)
+_TMA_REPS = (1, 2, 4, 8)
 _TMA_MAX_ROWS = 1024
 _TMA_MAX_KV_INT8 = 32
 _TMA_BLOCKS_PER_SM = 2
@@ -56,21 +56,15 @@ _TMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
 
 
 def supports(q, pages: Dict, table) -> bool:
-    """Whether the kernel handles these shapes. `q` is the [B, H, hd]
-    single-token query, `pages` the per-layer pool dict, `table` the
-    [B, P] page table. The head_dim / GQA gate is flash's; the kernel
-    is instantiated for GQA groups of 1, 2, 4 or 8 query heads and
-    head_dim 64, 128 or 256; pages hold at least 8 cells, as in the
-    JAX package's gate."""
+    """Whether the kernels take these shapes: the JAX package's gate.
+    `q` is the [B, H, hd] single-token query, `pages` the per-layer pool
+    dict, `table` the [B, P] page table. The head_dim / GQA gate is
+    flash's (head_dim a multiple of 8 in [32, 512], whole groups), pages
+    hold at least 8 cells, and the table has a row per query."""
     b, h, d = q.shape
     _, page_size, kv, _ = pages["k"].shape
-    if not fa.heads_ok(h, kv, d):
-        return False
-    if h // kv not in _KERNEL_REPS or d not in _KERNEL_HEAD_DIMS:
-        return False
-    if page_size < 8:
-        return False
-    return table.ndim == 2 and table.shape[0] == b
+    return (fa.heads_ok(h, kv, d) and page_size >= 8
+            and table.ndim == 2 and table.shape[0] == b)
 
 
 def takes_kernel(q_shape, pages_shape, table_shape, device) -> bool:
@@ -78,10 +72,8 @@ def takes_kernel(q_shape, pages_shape, table_shape, device) -> bool:
     (its `supports` on the device). The kernel for a query on the card
     with head_dim a multiple of 8 in [32, 512], whole GQA groups, pages
     of at least 8 cells and a [B, P] table; the reference elsewhere,
-    as JAX serves those shapes through its reference. Inside this gate
-    the kernel is instantiated for fewer shapes (`supports`); on the
-    others it raises (GQA groups 3 or 7, head_dim 96 or above 256:
-    ROADMAP queue 2)."""
+    as JAX serves those shapes through its reference. On the card this
+    equals `supports`: the kernels take every shape inside the gate."""
     if torch.device(device).type != "cuda":
         return False
     b, h, d = q_shape
@@ -136,14 +128,16 @@ def _reference(q, pages, table, lengths, scale):
 
 def kernel_variant(q_dtype, page_size: int, kv: int, hd: int, b: int,
                    quant: bool, n_table: int = 1,
-                   sms: int = _build.H100_SMS) -> str:
+                   sms: int = _build.H100_SMS, n_rep: int = 1) -> str:
     """Which CUDA kernel takes a decode step of these shapes: "tma" (the
     TMA-ring kernel) for bf16 queries over pages of 16 cells at head_dim
-    64 or 128 (at most 1024 rows; int8 pages at most 32 KV heads; the
-    table's capacity times the grid within the kernel's 32-bit share
-    arithmetic), else "split" (the split kernel and its combine)."""
+    64 or 128 and GQA groups (`n_rep`) of 1, 2, 4 or 8 (at most 1024
+    rows; int8 pages at most 32 KV heads; the table's capacity times the
+    grid within the kernel's 32-bit share arithmetic), else "split" (the
+    split kernel and its combine)."""
     if (q_dtype == torch.bfloat16 and page_size == _TMA_PAGE
-            and hd in _TMA_HEAD_DIMS and b <= _TMA_MAX_ROWS
+            and hd in _TMA_HEAD_DIMS and n_rep in _TMA_REPS
+            and b <= _TMA_MAX_ROWS
             and (not quant or kv <= _TMA_MAX_KV_INT8)
             and b * kv * n_table * (tma_grid(b, kv, n_table, sms) + 1)
             < 2 ** 32):
@@ -193,7 +187,7 @@ def _kernel(q, pages, table, lengths, scale, variant: str = "auto"):
         raise ValueError("k/v pages must be [n_pages, page_size, KV, hd]")
     if quant and pages["k_scale"].shape != (n_pages, page_size, kv, 1):
         raise ValueError("int8 pages need [n_pages, page_size, KV, 1] scales")
-    if h % kv or not supports(q, pages, table):
+    if not supports(q, pages, table):
         raise ValueError(
             f"paged kernel does not take q{tuple(q.shape)} "
             f"pages{tuple(pages['k'].shape)} table{tuple(table.shape)}"
@@ -202,7 +196,7 @@ def _kernel(q, pages, table, lengths, scale, variant: str = "auto"):
         raise ValueError(f"lengths must be [{b}], got {tuple(lengths.shape)}")
     if (variant == "auto" and kernel_variant(
             q.dtype, page_size, kv, hd, b, quant, table.shape[1],
-            _build.sm_count(q.get_device())) == "tma"):
+            _build.sm_count(q.get_device()), h // kv) == "tma"):
         return _kernel_tma(q, pages, table, lengths, scale, quant)
     # the split over blocks covers a row's table capacity (lengths stay
     # on the device); splits past a row's length exit at once
@@ -280,9 +274,9 @@ def paged_attention(
 ) -> torch.Tensor:
     """Single-query attention over paged KV. impl: "reference" (the
     dense-bank formulation over a gathered view), "kernel" (the CUDA
-    kernel; its plain version on CPU tensors; raises on CUDA tensors of
-    shapes it does not take), or "auto" (kernel when `use_kernel`
-    passes, else reference)."""
+    kernels; their plain version on CPU tensors; raises on CUDA tensors
+    outside JAX's gate, `supports`), or "auto" (kernel when
+    `use_kernel` passes, else reference)."""
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if impl == "reference":

@@ -17,8 +17,10 @@ contract over K is stored OUTPUT-MAJOR as q8 int8 [O, K] plus s8 f32
 [O, K/block], one symmetric scale per contiguous K-block of one output
 row; stacked layers add leading dims.
 
-Each wrapper runs its kernel for CUDA tensors (and raises on what the
-kernel does not take) and its plain version for CPU tensors.
+Each wrapper runs its kernel for CUDA tensors and its plain version for
+CPU tensors. The kernels take every shape the JAX kernels take: any
+block that divides the row (quantize, dequantize, dqmm), any K and
+bf16 or f32 activations (dqmm).
 """
 
 import ctypes
@@ -43,6 +45,11 @@ _DEQUANT = "dequant_int8"
 _DQMM = "dqmm"
 _DQMM_WS = "dqmm_ws"     # the prefill kernel's launches (T > 16)
 _DQMM_DEC_TMA = "dqmm_decode_tma"   # the TMA-ring decode kernel's
+_DQMM_GENERAL = "dqmm_general"      # the general variant's
+# the quantize and dequantize kernels' launches at blocks outside their
+# fast paths (each also counts under its kernel's name)
+_QUANT_ANY = "quant_int8_any"
+_DEQUANT_ANY = "dequant_int8_any"
 # the C signatures of csrc/quant_int8.cu `quant_int8` and
 # csrc/dequant_int8.cu `dequant_int8` (one and the same) and of
 # csrc/dqmm.cu `dqmm_bf16` (pointers and the stream as void*)
@@ -52,9 +59,12 @@ _DQMM_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8 + (
     ctypes.c_void_p,)
 _DQMM_DEC_TMA_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
     ctypes.c_void_p,)
-# what csrc/quant_int8.cu instantiates: 8 values a lane, block/8 lanes
-# a row, so any power-of-two block from 8 to 256; csrc/dequant_int8.cu
-# takes the same blocks (16 values a lane sharing one scale, 8 at block 8)
+_DQMM_GENERAL_ARGTYPES = (ctypes.c_int,) + (ctypes.c_void_p,) * 4 + (
+    ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+# csrc/quant_int8.cu's lane-per-8-values kernel: block/8 lanes a row, so
+# any power-of-two block from 8 to 256 (other blocks: its warp-per-row
+# kernel); csrc/dequant_int8.cu's 4-values-a-thread kernel takes any
+# power of two from 8 on (other blocks: its value-per-thread kernel)
 _QUANT_BLOCKS = (8, 16, 32, 64, 128, 256)
 _DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
 # csrc/dqmm.cu walks K in 64-wide chunks and gives each lane 16
@@ -127,10 +137,6 @@ def _quantize_plain(
 def _quantize_cuda(x: torch.Tensor, block: int):
     dev = x.get_device()
     _check_cuda("x", x, (torch.float32, torch.bfloat16), dev)
-    if block not in _QUANT_BLOCKS:
-        raise ValueError(
-            f"quant kernel takes blocks {_QUANT_BLOCKS}, got {block}"
-        )
     m, n = x.shape
     rows = m * (n // block)
     q = torch.empty((m, n), dtype=torch.int8, device=x.device)
@@ -144,6 +150,8 @@ def _quantize_cuda(x: torch.Tensor, block: int):
         s.data_ptr(), rows, block, _build.current_stream(dev),
     )
     _build.count_launch(_QUANT)
+    if block not in _QUANT_BLOCKS:
+        _build.count_launch(_QUANT_ANY)
     _build.check(err, _QUANT, f"x{tuple(x.shape)} block {block}")
     return q, s
 
@@ -181,6 +189,13 @@ def _dequantize_plain(
     return (q.float() * s.repeat_interleave(block, dim=1)).to(out_dtype)
 
 
+def _dequant_fast(block: int) -> bool:
+    """Whether csrc/dequant_int8.cu's 4-values-a-thread kernel takes
+    `block` (a power of two, 8 or more: 4 consecutive values share a
+    scale, found by a shift)."""
+    return block >= 8 and block & (block - 1) == 0
+
+
 def _dequantize_cuda(q: torch.Tensor, s: torch.Tensor, out_dtype):
     dev = q.get_device()
     _check_cuda("q", q, (torch.int8,), dev)
@@ -191,10 +206,6 @@ def _dequantize_cuda(q: torch.Tensor, s: torch.Tensor, out_dtype):
         )
     m, n = q.shape
     block = n // s.shape[1]
-    if block not in _QUANT_BLOCKS:
-        raise ValueError(
-            f"dequant kernel takes blocks {_QUANT_BLOCKS}, got {block}"
-        )
     x = torch.empty((m, n), dtype=out_dtype, device=q.device)
     rows = m * s.shape[1]
     if rows == 0:
@@ -205,6 +216,8 @@ def _dequantize_cuda(q: torch.Tensor, s: torch.Tensor, out_dtype):
         x.data_ptr(), rows, block, _build.current_stream(dev),
     )
     _build.count_launch(_DEQUANT)
+    if not _dequant_fast(block):
+        _build.count_launch(_DEQUANT_ANY)
     _build.check(err, _DEQUANT, f"q{tuple(q.shape)} block {block}")
     return x
 
@@ -215,8 +228,8 @@ def dequantize_int8(
     """Inverse of `quantize_int8`: q int8 [m, n] and scales f32
     [m, n/block] -> `out_dtype` [m, n], each value q * its block's
     scale taken in f32. The kernel for CUDA tensors (f32 or bf16 out,
-    the blocks of `quantize_int8`), its plain version for CPU tensors;
-    both give the JAX kernel's bits."""
+    any block that divides n), its plain version for CPU tensors; both
+    give the JAX kernel's bits."""
     if (q.ndim != 2 or scales.ndim != 2 or scales.shape[0] != q.shape[0]
             or scales.shape[1] == 0 or q.shape[1] % scales.shape[1]):
         raise ValueError(
@@ -332,16 +345,19 @@ def quantized_matmul_reference(x: torch.Tensor, w: QuantizedWeight):
 
 
 def dqmm_supports(t: int, k: int, o: int, block: int) -> bool:
-    """Whether the dqmm kernel takes x [t, k] against a weight [o, k]
-    quantized at `block`: K a multiple of the 64-wide chunk and of the
-    block, the block a power of two >= 16 (a lane's 16 values share
-    one scale). Any T and O: the ragged edges are masked."""
-    return (
-        t >= 1 and o >= 1 and k >= _DQMM_CHUNK
-        and k % _DQMM_CHUNK == 0
-        and block >= _DQMM_MIN_BLOCK and block & (block - 1) == 0
-        and k % block == 0
-    )
+    """Whether the dqmm kernels take x [t, k] against a weight [o, k]
+    quantized at `block`: JAX's gate, every T, K and O of at least 1
+    and any block that divides K."""
+    return t >= 1 and o >= 1 and k >= 1 and block >= 1 and k % block == 0
+
+
+def _dqmm_fast(k: int, block: int) -> bool:
+    """Whether the decode and prefill kernels take this weight (with bf16
+    x): K a multiple of the 64-wide chunk, the block a power of two
+    >= 16 (a lane's 16 values share one scale). Other weights, and f32
+    x, take the general variant."""
+    return (k % _DQMM_CHUNK == 0 and block >= _DQMM_MIN_BLOCK
+            and block & (block - 1) == 0)
 
 
 def _dec_tma_work(k: int, o: int) -> Tuple[int, int]:
@@ -418,7 +434,7 @@ def _dqmm_mma_plan(t: int, k: int, o: int):
 def _check_dqmm_weight(w: QuantizedWeight, dev: int) -> None:
     """The kernel's checks of a weight, made once per weight and device:
     q8 int8 [O, K] and s8 f32 [O, K/block], contiguous and aligned on
-    device `dev`, at a block and K the kernel takes."""
+    device `dev`, with a block that divides K."""
     _check_cuda("q8", w.q8, (torch.int8,), dev)
     _check_cuda("s8", w.s8, (torch.float32,), dev)
     if w.q8.ndim != 2:
@@ -432,13 +448,32 @@ def _check_dqmm_weight(w: QuantizedWeight, dev: int) -> None:
     w._checked_on = dev
 
 
+def _dqmm_general(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
+    """The general variant on checked operands: any block dividing K,
+    any K, bf16 or f32 x; counted under "dqmm" and "dqmm_general"."""
+    t, k = x.shape
+    o = w.q8.shape[0]
+    dev = x.get_device()
+    y = x.new_empty((t, o))
+    fn = _build.function(_DQMM, "dqmm_general", _DQMM_GENERAL_ARGTYPES)
+    err = fn(int(x.dtype == torch.float32), x.data_ptr(), w.q8.data_ptr(),
+             w.s8.data_ptr(), y.data_ptr(), t, k, o, w.block,
+             _build.current_stream(dev))
+    _build.count_launch(_DQMM)
+    _build.count_launch(_DQMM_GENERAL)
+    _build.check(err, _DQMM, f"x{tuple(x.shape)} q8{tuple(w.q8.shape)} "
+                 f"block {w.block}")
+    return y
+
+
 def _dqmm_cuda(x: torch.Tensor, w: QuantizedWeight,
                decode: str = "auto") -> torch.Tensor:
-    """The kernel the plan picks; decode="mma" asks for the mma.sync
+    """The kernel the plan picks (the general variant for f32 x and the
+    weights `_dqmm_fast` refuses); decode="mma" asks for the mma.sync
     decode kernel where the plan picks the TMA-ring one (T <= 16), to
     time the two on the same inputs."""
     dev = x.get_device()
-    _check_cuda("x", x, (torch.bfloat16,), dev)
+    _check_cuda("x", x, (torch.bfloat16, torch.float32), dev)
     if w._checked_on != dev:
         _check_dqmm_weight(w, dev)
     t, k = x.shape
@@ -449,6 +484,8 @@ def _dqmm_cuda(x: torch.Tensor, w: QuantizedWeight,
         )
     if decode not in ("auto", "mma"):
         raise ValueError(f"unknown decode kernel {decode!r}")
+    if x.dtype == torch.float32 or not _dqmm_fast(k, w.block):
+        return _dqmm_general(x, w)
     variant, splits, per_split, grid = _dqmm_plan(
         t, k, o, _build.sm_count(dev), w.block)
     if variant == _DQMM_DECODE_TMA and decode == "mma":

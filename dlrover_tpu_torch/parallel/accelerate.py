@@ -7,11 +7,11 @@ the step runs eagerly. What stays the same: the precision policy casts
 the params before the loss, grad accumulation walks a leading microbatch axis and weights each
 microbatch's gradients by its valid-token count (f32 sums of grad x
 weight, divided by the summed weight), `grad_norm` is the global norm
-of the gradients the optimizer sees, and with loss scaling a step whose
-gradients are not finite changes neither params nor optimizer state.
-Activation checkpointing is the model's (`LlamaConfig.remat`, per
-layer); the JAX Strategy's whole-loss `remat` / `remat_save_names`
-are not ported.
+of the gradients the optimizer sees, with loss scaling a step whose
+gradients are not finite changes neither params nor optimizer state,
+and `Strategy.remat` wraps the whole loss body in the named remat
+policy (`remat_save_names` for "save_names" / "offload_names"), over
+the model's own per-layer checkpoint (`LlamaConfig.remat`).
 
 The train state is `{"params": tree, "opt_state": the optimizer,
 "step": int[, "loss_scale"]}`, updated in place by each step (the
@@ -32,7 +32,7 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from dlrover_tpu_torch._device import DeviceLike, resolve_device
-from dlrover_tpu_torch.parallel import amp
+from dlrover_tpu_torch.parallel import amp, remat
 
 TrainState = Dict[str, Any]
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -44,13 +44,15 @@ class Strategy:
     """Declarative acceleration strategy (the auto_accelerate analogue).
 
     grad_accum > 1 keeps the global batch fixed: the step walks a
-    leading microbatch axis of the batch. precision / loss_scale as in
-    the JAX package; `device` (default: the card) takes the place of
-    its mesh and batch spec."""
+    leading microbatch axis of the batch. precision / remat /
+    loss_scale as in the JAX package; `device` (default: the card)
+    takes the place of its mesh and batch spec."""
 
     device: DeviceLike = None
     grad_accum: int = 1
     precision: str = "f32"       # "f32" | "bf16" | "half" (amp.get_policy)
+    remat: str = "none"          # remat.resolve_policy names
+    remat_save_names: Tuple = ()
     loss_scale: bool = False
 
 
@@ -102,6 +104,11 @@ def accelerate(
 
     def _loss_body(params, batch):
         return loss_fn(policy.cast_to_compute(params), batch)
+
+    if strategy.remat != "none":
+        _loss_body = remat.apply_remat(
+            _loss_body, strategy.remat, strategy.remat_save_names
+        )
 
     def _init(generator: torch.Generator) -> TrainState:
         params = init_params(generator)

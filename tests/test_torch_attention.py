@@ -141,11 +141,11 @@ def _shape(*dims):
     return types.SimpleNamespace(shape=dims)
 
 
-@pytest.mark.parametrize("d", [*range(8, 257, 8), 12, 36, 100])
+@pytest.mark.parametrize("d", [*range(8, 513, 8), 12, 36, 100])
 def test_auto_choice_matches_jax_gate(d):
     """impl="auto"'s choice on the card (`takes_flash`) is the JAX
     dispatcher's `fa.supports(...)` shape for shape over the port's
-    range: head_dim up to 256, lengths the JAX kernels tile (multiples
+    range: head_dim up to 512, lengths the JAX kernels tile (multiples
     of 128) and the single query, GQA groups whole or not, with and
     without segment_ids. On CPU tensors "auto" is always the
     reference."""
@@ -166,17 +166,16 @@ def test_auto_choice_matches_jax_gate(d):
 
 def test_auto_choice_differs_from_jax_only_where_documented():
     """Outside that range the port's choice differs from the JAX gate
-    in two known ways: its kernels take any length (they mask the
-    ragged tile; JAX needs a block of >= 128 dividing S), and it sends
-    head_dim 264-512 to the reference (JAX's kernels take them; queued
-    in ROADMAP)."""
+    in one known way: its kernels take any length (they mask the ragged
+    tile; JAX needs a block of >= 128 dividing S). At head_dim 264-512
+    both take their kernels."""
     for s in (48, 77, 200):
         qs, ks = (1, s, 4, 64), (1, s, 2, 64)
         assert tattn.takes_flash(qs, ks, None, "cuda")
         assert not jfa.supports(_shape(*qs), _shape(*ks))
     for d in (264, 384, 512):
         qs, ks = (1, 128, 4, d), (1, 128, 2, d)
-        assert not tattn.takes_flash(qs, ks, None, "cuda")
+        assert tattn.takes_flash(qs, ks, None, "cuda")
         assert jfa.supports(_shape(*qs), _shape(*ks))
 
 
@@ -187,7 +186,8 @@ def test_supports_gate():
         )
 
     assert sup(32) and sup(128) and sup(256) and sup(40)
-    assert not sup(16) and not sup(264) and not sup(36)
+    assert sup(264) and sup(512)
+    assert not sup(16) and not sup(520) and not sup(36)
     assert sup(64, s_q=1, s_k=77)
     assert not sup(64, s_q=8, s_k=16)
     assert not sup(64, h=6, kv=4)

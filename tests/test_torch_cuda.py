@@ -29,6 +29,8 @@ before the backward's products on the fused side only (2^-9 relative).
 The flash checkpoint's staging and restore on card tensors are held to
 bit equality."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -335,10 +337,10 @@ def test_dequant_kernel_bits_equal_plain(gen, block, rows, out):
 
 def test_dequant_kernel_refuses_what_it_cannot_take(gen):
     q = torch.zeros((2, 512), dtype=torch.int8, device="cuda")
-    with pytest.raises(ValueError, match="blocks"):
-        tq.dequantize_int8(q, torch.ones((2, 1), device="cuda"))   # 512
-    with pytest.raises(ValueError, match="blocks"):
-        tq.dequantize_int8(q, torch.ones((2, 128), device="cuda"))  # 4
+    with pytest.raises(ValueError, match="takes"):
+        tq.dequantize_int8(q, torch.ones((2, 3), device="cuda"))  # no block
+    with pytest.raises(ValueError, match="takes"):
+        tq.dequantize_int8(q, torch.ones((3, 2), device="cuda"))  # rows
     with pytest.raises(ValueError, match="writes"):
         tq.dequantize_int8(q, torch.ones((2, 2), device="cuda"),
                            torch.float16)
@@ -427,6 +429,22 @@ def test_trainer_with_int8_adam_on_the_card(gen, tmp_path, monkeypatch):
     loss, and the dequant and quant kernels each launched exactly twice
     a param leaf and step (both moments of every leaf, the zero state of
     step 1 included, as in JAX)."""
+    _int8_adam_trainer(gen, tmp_path, monkeypatch, 256)
+
+
+def test_trainer_with_int8_adam_block_512_on_the_card(gen, tmp_path,
+                                                      monkeypatch):
+    """The same with int8_adam(block=512), which JAX trains with: every
+    quantize launch on the warp-a-row kernel, every dequantize on the
+    power-of-two kernel."""
+    counts = _int8_adam_trainer(gen, tmp_path, monkeypatch, 512)
+    assert counts["quant_int8_any"] == counts["quant_int8"]
+    assert counts["dequant_int8_any"] == 0
+
+
+def _int8_adam_trainer(gen, tmp_path, monkeypatch, block):
+    """Three Trainer steps with int8_adam at `block`, checked as the
+    tests above say; returns the launch counts."""
     from dlrover_tpu_torch.models import llama as tllama
     from dlrover_tpu_torch.optim import int8_adam
     from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
@@ -446,7 +464,7 @@ def test_trainer_with_int8_adam_on_the_card(gen, tmp_path, monkeypatch):
     et = ElasticTrainer(
         lambda g: tllama.init_params(cfg, g, dtype=torch.float32),
         lambda p, b: tllama.loss_fn(cfg, p, b),
-        int8_adam(1e-3, weight_decay=1e-4),
+        int8_adam(1e-3, weight_decay=1e-4, block=block),
         global_batch_size=4, max_per_replica_batch=2,
     )
     tokens = torch.randint(0, cfg.vocab_size, (4, 129), generator=gen,
@@ -470,6 +488,7 @@ def test_trainer_with_int8_adam_on_the_card(gen, tmp_path, monkeypatch):
     assert counts["dequant_int8"] == counts["quant_int8"] == 2 * leaves * 3
     assert counts["flash_fwd"] == 2 * cfg.n_layers * 2 * 3
     assert len(losses) == 3 and losses[-1] < losses[0]
+    return counts
 
 
 @pytest.mark.parametrize(
@@ -628,12 +647,14 @@ def test_dqmm_kernel_refuses_what_it_cannot_take(gen):
     w = torch.randn((64, 96), generator=gen, device="cuda")
     q8, s8 = tq.quantize_int8(w, 32)
     x = torch.randn((4, 96), generator=gen, device="cuda").bfloat16()
+    # scales of another block than the weight says
     with pytest.raises(ValueError, match="does not take"):
-        tq.quantized_matmul(x, tq.QuantizedWeight(q8, s8, 32))
+        tq.quantized_matmul(x, tq.QuantizedWeight(q8, s8[:, :1].contiguous(),
+                                                  32))
     w = torch.randn((64, 128), generator=gen, device="cuda")
     q8, s8 = tq.quantize_int8(w, 64)
     with pytest.raises(ValueError, match="dtype"):
-        tq.quantized_matmul(torch.zeros((4, 128), device="cuda"),
+        tq.quantized_matmul(torch.zeros((4, 128), device="cuda").half(),
                             tq.QuantizedWeight(q8, s8, 64))
 
 
@@ -743,11 +764,10 @@ def test_flash_bwd_refuses_what_it_cannot_take(gen):
     lse = torch.zeros((1, 4, 16), device="cuda")
     with pytest.raises(ValueError, match="bfloat16"):
         tfa._bwd(q, q, q, q, lse, q, True, 0.125)
-    # head_dim 264: above the kernels' 256 (the JAX kernels take up to
-    # 512, queued)
-    qb = torch.randn((1, 16, 4, 264), generator=gen, device="cuda").bfloat16()
+    # head_dim 520: above the kernels' (and JAX's) 512
+    qb = torch.randn((1, 16, 4, 520), generator=gen, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="do not take"):
-        tfa._bwd(qb, qb, qb, qb, lse, qb, True, 264 ** -0.5)
+        tfa._bwd(qb, qb, qb, qb, lse, qb, True, 520 ** -0.5)
 
 
 def _check_bwd(gen, b, s_q, s_k, h, kv, d, causal, variant):
@@ -818,6 +838,29 @@ def test_flash_bwd_mma_matches_plain(gen, b, s_q, s_k, h, kv, d, causal):
     _check_bwd(gen, b, s_q, s_k, h, kv, d, causal, "mma")
 
 
+@pytest.mark.parametrize("d", [264, 384, 512])
+def test_flash_fwd_bwd_mma_at_head_dim_above_256(gen, d):
+    """head_dim 264-512 (JAX's gate reaches 512): the forward on the
+    mma.sync kernel with O's columns split over blocks of 256 and K/V
+    single-buffered, the backward's dq and dk/dv kernels with 32-row
+    streamed tiles; held to the plain versions (forward within TOL and
+    LSE 1e-3, backward within BWD_REL), causal and not, B=1, S=1024 (and
+    a ragged 200), H=8, KV=2."""
+    for s, causal in ((1024, True), (200, False)):
+        q, k, v = _flash_case(gen, 1, s, 8, 2, d)
+        assert tfa.supports(q, k)
+        before = _build.launch_counts()
+        o, lse = tfa._fwd(q, k, v, causal, d ** -0.5)
+        after = _build.launch_counts()
+        o_ref, lse_ref = tfa._fwd_plain(q, k, v, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        assert after["flash_fwd"] == before["flash_fwd"] + 1
+        assert after["flash_fwd_wgmma"] == before["flash_fwd_wgmma"]
+        assert (o.float() - o_ref.float()).abs().max().item() < TOL
+        assert (lse - lse_ref).abs().max().item() < 1e-3
+        _check_bwd(gen, 1, s, s, 8, 2, d, causal, "mma")
+
+
 def test_flash_attention_trains_at_head_dim_256(gen):
     """`flash_attention` at head_dim 256 (q/k/v [1, 128, 4, 256], the
     shape of ROADMAP's fault F3): the backward runs through the
@@ -846,7 +889,7 @@ def test_auto_attention_takes_the_reference_where_flash_refuses(gen):
     """impl="auto" on CUDA tensors returns `reference_attention` (bit for
     bit, no kernel launched) for what the flash kernels refuse:
     segment_ids, q_len != k_len with q_len > 1, head_dim below 32 or
-    above 256; impl="flash" raises for each."""
+    above 512; impl="flash" raises for each."""
     from dlrover_tpu_torch.ops import attention as tattn
 
     def rand(*shape):
@@ -857,7 +900,7 @@ def test_auto_attention_takes_the_reference_where_flash_refuses(gen):
         (rand(1, 16, 4, 64), rand(1, 16, 2, 64), seg),
         (rand(1, 8, 4, 64), rand(1, 16, 2, 64), None),
         (rand(1, 16, 4, 16), rand(1, 16, 2, 16), None),
-        (rand(1, 16, 4, 264), rand(1, 16, 2, 264), None),
+        (rand(1, 16, 4, 520), rand(1, 16, 2, 520), None),
     ]
     for q, k, seg_ids in cases:
         _build.reset_launch_counts()
@@ -1071,18 +1114,24 @@ def test_restore_onto_card_tensors_keeps_the_optimizer_bound(
 # inside JAX's paged gate but outside the kernel's instantiations: auto
 # takes the kernel, as JAX does, and the kernel raises (ROADMAP queue 2)
 F5_PAGED_KERNEL = [(12, 4, 64, 16), (28, 4, 128, 16), (32, 32, 96, 16),
-                   (8, 2, 512, 16)]
+                   (8, 2, 512, 16), (32, 32, 40, 16), (8, 2, 384, 16),
+                   (32, 2, 64, 8)]
 # outside JAX's gate (pages under 8 cells, head_dim past 512): the
 # reference, as JAX serves them
 F5_PAGED_REFERENCE = [(8, 2, 64, 4), (8, 2, 520, 16)]
 
 
-def _f5_paged_inputs(gen, h, kv, d, ps):
+def _f5_paged_inputs(gen, h, kv, d, ps, quant=False):
     b, n_pages, per_row = 2, 12, 4
     q = torch.randn((b, h, d), generator=gen, device="cuda").bfloat16()
     pages = {name: torch.randn((n_pages, ps, kv, d), generator=gen,
                                device="cuda").bfloat16()
              for name in ("k", "v")}
+    if quant:
+        kq, ks = tdec._kv_quantize(pages["k"].float())
+        vq, vs = tdec._kv_quantize(pages["v"].float())
+        pages = {"k": kq, "v": vq, "k_scale": ks.bfloat16(),
+                 "v_scale": vs.bfloat16()}
     table = torch.arange(1, 1 + b * per_row, dtype=torch.int32,
                          device="cuda").reshape(b, per_row) % n_pages
     lens = torch.tensor([3, per_row * ps], dtype=torch.int32, device="cuda")
@@ -1108,57 +1157,88 @@ def test_f5_paged_shapes_outside_the_jax_gate_take_the_reference(
         tpa.paged_attention(q, pages, table, lens, impl="kernel")
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("h,kv,d,ps", F5_PAGED_KERNEL,
                          ids=[f"h{h}-kv{kv}-d{d}-ps{ps}"
                               for h, kv, d, ps in F5_PAGED_KERNEL])
 def test_f5_paged_shapes_inside_the_jax_gate_take_the_kernel(
-        gen, h, kv, d, ps):
+        gen, h, kv, d, ps, quant):
     """A paged decode JAX takes its kernel for takes the kernel under
-    impl="auto" too, which raises on the shapes it is not instantiated
-    for instead of running the reference on the card."""
-    q, pages, table, lens = _f5_paged_inputs(gen, h, kv, d, ps)
+    impl="auto" too (GQA groups 3, 7 and 16, head_dim 40, 96, 384 and
+    512; bf16 and int8 pools): one launch of the split kernel, held to
+    the reference within TOL."""
+    q, pages, table, lens = _f5_paged_inputs(gen, h, kv, d, ps, quant)
     assert tpa.use_kernel(q, pages, table)
-    assert not tpa.supports(q, pages, table)
-    for impl in ("auto", "kernel"):
-        with pytest.raises(ValueError, match="does not take"):
-            tpa.paged_attention(q, pages, table, lens, impl=impl)
+    assert tpa.supports(q, pages, table)
+    assert tpa.kernel_variant(q.dtype, ps, kv, d, q.shape[0], quant,
+                              table.shape[1], n_rep=h // kv) == "split"
+    before = _build.launch_counts()
+    got = tpa.paged_attention(q, pages, table, lens, impl="auto")
+    after = _build.launch_counts()
+    ref = tpa.paged_attention(q, pages, table, lens, impl="reference")
+    torch.cuda.synchronize()
+    assert after["paged_attention"] == before["paged_attention"] + 1
+    assert after["paged_attention_tma"] == before["paged_attention_tma"]
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err < TOL, err
 
 
 @pytest.mark.parametrize("k", [24, 96, 160, 1000])
 def test_f5_dqmm_shapes_take_the_kernel(gen, k):
     """JAX takes its dequant-matmul kernel for every shape; so does the
-    port, whose kernel raises at a K whose `weight_quant_block` it does
-    not take (block 8 or 32, or K not a multiple of 64) and for f32
-    activations (ROADMAP queue 2), with no launch."""
+    port: at a K whose `weight_quant_block` the decode and prefill
+    kernels do not take (block 8 or 32, or K not a multiple of 64), and
+    for f32 activations at any K, the general variant launches once
+    (counted under "dqmm" and "dqmm_general") and agrees with the plain
+    version: within DQMM_TOL of the largest |output| for bf16 x, 1e-5
+    for f32 x (f32 FMA, only the order of the sums differs)."""
     block = tq.weight_quant_block(k)
     w = torch.randn((48, k), generator=gen, device="cuda")
     qw = tq.QuantizedWeight(*tq.quantize_int8(w, block), block)
-    x = torch.randn((5, k), generator=gen, device="cuda").bfloat16()
-    before = _build.launch_counts()["dqmm"]
-    with pytest.raises(ValueError, match="does not take"):
-        tq.quantized_matmul(x, qw)
-    w = torch.randn((48, 256), generator=gen, device="cuda")
-    qw = tq.QuantizedWeight(*tq.quantize_int8(w, 64), 64)
-    with pytest.raises(ValueError, match="dtype"):
-        tq.quantized_matmul(torch.randn((5, 256), generator=gen,
-                                        device="cuda"), qw)
-    assert _build.launch_counts()["dqmm"] == before
+    for dtype, tol in ((torch.bfloat16, DQMM_TOL), (torch.float32, 1e-5)):
+        for t in (5, 77):
+            x = torch.randn((t, k), generator=gen, device="cuda").to(dtype)
+            before = _build.launch_counts()
+            y = tq.quantized_matmul(x, qw)
+            after = _build.launch_counts()
+            ref = tq.quantized_matmul_reference(x, qw)
+            torch.cuda.synchronize()
+            assert after["dqmm"] == before["dqmm"] + 1
+            assert after["dqmm_general"] == before["dqmm_general"] + 1
+            assert y.dtype == dtype and y.shape == (t, 48)
+            err = (y.float() - ref.float()).abs().max().item()
+            assert err <= tol * ref.float().abs().max().item(), (dtype, t)
 
 
 def test_f5_quant_block_512_takes_the_kernel(gen):
     """JAX quantizes and dequantizes at any block that divides the row
-    with its kernels; the port's kernels raise at block 512
-    (int8_adam(block=512); ROADMAP queue 2), with no launch."""
-    x = torch.randn((3, 1024), generator=gen, device="cuda")
-    before = _build.launch_counts()
-    with pytest.raises(ValueError, match="blocks"):
-        tq.quantize_int8(x, 512)
-    q = torch.zeros((3, 1024), dtype=torch.int8, device="cuda")
-    with pytest.raises(ValueError, match="blocks"):
-        tq.dequantize_int8(q, torch.ones((3, 2), device="cuda"))
-    after = _build.launch_counts()
-    assert after["quant_int8"] == before["quant_int8"]
-    assert after["dequant_int8"] == before["dequant_int8"]
+    with its kernels; so do the port's: block 512 (int8_adam(block=512))
+    and blocks 24 and 6 each launch once and give the plain versions'
+    bytes (quantize, f32 and bf16 input) and bits (dequantize, f32 and
+    bf16 output)."""
+    for block in (512, 24, 6):
+        n = 1024 if 1024 % block == 0 else 40 * block
+        x = torch.randn((3, n), generator=gen, device="cuda") * 3
+        for xin in (x, x.bfloat16()):
+            before = _build.launch_counts()
+            q, s = tq.quantize_int8(xin, block)
+            after = _build.launch_counts()
+            rq, rs = tq.quantize_int8(xin.cpu(), block)
+            assert after["quant_int8"] == before["quant_int8"] + 1
+            assert after["quant_int8_any"] == before["quant_int8_any"] + 1
+            assert torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
+        for out in (torch.float32, torch.bfloat16):
+            before = _build.launch_counts()
+            y = tq.dequantize_int8(q, s, out)
+            after = _build.launch_counts()
+            assert after["dequant_int8"] == before["dequant_int8"] + 1
+            fast = block == 512
+            assert after["dequant_int8_any"] == (
+                before["dequant_int8_any"] + (0 if fast else 1))
+            ref = tq.dequantize_int8(q.cpu(), s.cpu(), out)
+            bits = torch.int16 if out == torch.bfloat16 else torch.int32
+            assert torch.equal(y.cpu().view(bits), ref.view(bits))
 
 
 def test_f5_engine_at_page_size_4_on_the_card(gen):
@@ -1214,3 +1294,56 @@ def test_engine_pressure_prefix_and_chunks_on_the_card(gen):
         if pc:
             assert eng.prefill_stats()["prefill_chunks_total"] >= 1
             assert counts["flash_fwd"] == 0
+
+
+def test_offload_names_keeps_the_tagged_activations_off_the_card(gen):
+    """`apply_remat(loss, "offload_names", names)` over a small Llama's
+    whole loss on the card (the policy `Strategy(remat=...)` applies):
+    the loss and gradients of "full" (f32, the same products; the
+    offloaded tensors come back bit for bit), and the memory the forward
+    leaves on the card for the backward is "full"'s, while
+    "save_names" with the same names leaves at least the tagged
+    tensors' bytes more."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.parallel import remat
+    from dlrover_tpu_torch.parallel.accelerate import param_leaves
+
+    cfg = tllama.LlamaConfig.tiny(dim=512, n_heads=8, n_kv_heads=4,
+                                  mlp_dim=1536, max_seq_len=256,
+                                  dtype=torch.float32)
+    b, s = 4, 256
+    params = tllama.init_params(cfg, gen, device="cuda",
+                                dtype=torch.float32)
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                           device="cuda")
+    names = ("qkv_proj", "mlp_gate")
+    # q, k, v and the gate product of each layer, f32
+    tagged = 4 * b * s * cfg.n_layers * (
+        (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim + cfg.mlp_dim)
+
+    def run(policy):
+        body = remat.apply_remat(lambda p, bt: tllama.loss_fn(cfg, p, bt),
+                                 policy, names)
+        # free earlier tests' cyclic garbage now, not inside the forward
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        loss, _ = body(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        saved = torch.cuda.memory_allocated() - base
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.detach(), grads, saved
+
+    want_loss, want, saved_full = run("full")
+    _, _, saved_names = run("save_names")
+    loss, grads, saved_off = run("offload_names")
+    torch.testing.assert_close(loss, want_loss, rtol=0, atol=0)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert saved_off == saved_full, (saved_off, saved_full)
+    assert saved_names - saved_off >= tagged, (saved_names, saved_off,
+                                               tagged)

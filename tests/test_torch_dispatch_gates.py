@@ -7,14 +7,13 @@ form that takes a device type (`paged_attention.takes_kernel`), against
 the JAX gates on the same shapes:
 - paged attention: JAX `supports`. Where JAX refuses (pages under 8
   cells, head_dim past 512) both take the reference; where JAX takes
-  its kernel the port takes its own, which is instantiated for fewer
-  shapes (GQA groups 1/2/4/8, head_dim 64/128/256: `supports`) and
-  raises on the others (ROADMAP queue 2 widens it);
+  its kernel the port takes its own, whose gate (`supports`) is JAX's:
+  any whole GQA group, head_dim a multiple of 8 in [32, 512];
 - the int8 matmul, quantize and dequantize: JAX takes its kernels for
   every shape, so the port's wrappers take theirs for every CUDA
-  tensor; the kernels refuse f32 activations, blocks under 16 and K
-  not a multiple of 64 (the matmul) and blocks outside 8..256
-  (quantize / dequantize), which stay open in ROADMAP queue 2.
+  tensor, and the kernels take every block that divides the row, any
+  K and f32 or bf16 activations (the matmul's general variant, the
+  quantizer's warp-a-row and the dequantizer's value-a-thread paths).
 At those shapes the plain versions (the wrappers' CPU route) are held
 to JAX's outputs (bytes for the quantizer, bits for the dequantizer, a
 tolerance for the matmul). A paged engine at one config F5 refused on
@@ -50,17 +49,17 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-# (H, KV, D, page size, JAX gate, port kernel's gate): the four shapes
-# of ROADMAP queue 3 that F5 named, page size 4, and shapes both take
+# (H, KV, D, page size, JAX gate, port kernel's gate): the shapes F5
+# named, page size 4, and shapes both take; the two gates are one
 PAGED = [
     (32, 8, 128, 16, True, True),
     (8, 2, 64, 8, True, True),
     (16, 16, 256, 16, True, True),
-    (12, 4, 64, 16, True, False),    # GQA group 3
-    (28, 4, 128, 16, True, False),   # group 7
-    (32, 32, 96, 16, True, False),   # head_dim 96
-    (8, 2, 512, 16, True, False),    # head_dim 512
-    (8, 2, 40, 16, True, False),     # head_dim 40
+    (12, 4, 64, 16, True, True),     # GQA group 3
+    (28, 4, 128, 16, True, True),    # group 7
+    (32, 32, 96, 16, True, True),    # head_dim 96
+    (8, 2, 512, 16, True, True),     # head_dim 512
+    (8, 2, 40, 16, True, True),      # head_dim 40
     (8, 2, 64, 4, False, False),     # pages of 4 cells
     (8, 2, 520, 16, False, False),   # head_dim past both gates
 ]
@@ -87,22 +86,21 @@ def test_paged_choice_against_jax_gate(h, kv, d, ps, jax_gate, kernel_gate):
     tpages = {"k": torch.zeros(shapes[1], dtype=torch.bfloat16)}
     ttable = torch.zeros(shapes[2], dtype=torch.int32)
     assert not tpa.use_kernel(tq_, tpages, ttable)
-    # the kernel's own gate: it never takes a shape JAX refuses
-    assert tpa.supports(tq_, tpages, ttable) == kernel_gate
-    assert not kernel_gate or got_jax
+    # the kernels' own gate is JAX's
+    assert tpa.supports(tq_, tpages, ttable) == kernel_gate == got_jax
 
 
 @pytest.mark.parametrize("k", [24, 96, 160, 1000, 256, 4096])
 def test_dqmm_choice_and_plain_output(k):
-    """The block the engine quantizes a K at is JAX's; the port's kernel
-    takes it only at K % 64 == 0 with block >= 16 (bf16 activations;
-    the rest is ROADMAP queue 2); the plain version matches the JAX
-    dequant-matmul on the same int8 weight (the JAX reference on the
-    CPU)."""
+    """The block the engine quantizes a K at is JAX's; the port's kernels
+    take every such weight (the decode and prefill kernels at K % 64 ==
+    0 with block >= 16, the general variant the rest); the plain version
+    matches the JAX dequant-matmul on the same int8 weight (the JAX
+    reference on the CPU)."""
     block = tq.weight_quant_block(k)
     assert block == jq.weight_quant_block(k)
-    assert tq.dqmm_supports(8, k, 48, block) == (k % 64 == 0
-                                                 and block >= 16)
+    assert tq.dqmm_supports(8, k, 48, block)
+    assert tq._dqmm_fast(k, block) == (k % 64 == 0 and block >= 16)
     rng = np.random.default_rng(k)
     w = rng.standard_normal((48, k)).astype(np.float32)
     x = rng.standard_normal((5, k)).astype(np.float32)
@@ -117,14 +115,20 @@ def test_dqmm_choice_and_plain_output(k):
                                atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("block", [8, 256, 512])
+@pytest.mark.parametrize("block", [8, 256, 512, 24, 6])
 def test_quant_choice_and_bytes_at_block(block):
-    """The kernels take blocks 8..256; block 512 (`int8_adam(block=512)`)
-    is ROADMAP queue 2. The plain versions' bytes and bits are the JAX
-    kernels' (interpret mode) at every block."""
-    assert (block in tq._QUANT_BLOCKS) == (block <= 256)
+    """The kernels take every block that divides the row: the quantizer's
+    lane kernel blocks 8..256 (powers of two) and its warp-a-row kernel
+    the rest, `int8_adam(block=512)` among them; the dequantizer's
+    4-values-a-thread kernel every power of two from 8 and its
+    value-a-thread kernel the rest. The plain versions' bytes and bits
+    are the JAX kernels' (interpret mode) at every block."""
+    assert (block in tq._QUANT_BLOCKS) == (block <= 256 and block % 8 == 0
+                                           and block & (block - 1) == 0)
+    assert tq._dequant_fast(block) == (block in (8, 256, 512))
     rng = np.random.default_rng(block)
-    x = (rng.standard_normal((3, 1024)) * 3).astype(np.float32)
+    n = 1024 if 1024 % block == 0 else 40 * block
+    x = (rng.standard_normal((3, n)) * 3).astype(np.float32)
     jqv, jsv = jq.quantize_int8(jnp.asarray(x), block)
     q, s = tq.quantize_int8(torch.from_numpy(x), block)
     np.testing.assert_array_equal(q.numpy(), np.asarray(jqv))

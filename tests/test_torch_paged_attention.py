@@ -135,7 +135,9 @@ def test_supports_gate():
     table = torch.zeros((3, 4), dtype=torch.int32)
     assert tpa.supports(torch.empty((3, 8, 64)), pages, table)
     assert not tpa.supports(torch.empty((3, 8, 16)), {"k": torch.empty((9, 16, 2, 16))}, table)
-    assert not tpa.supports(torch.empty((3, 32, 64)), pages, table)  # n_rep 16
+    assert tpa.supports(torch.empty((3, 32, 64)), pages, table)  # n_rep 16
+    assert tpa.supports(torch.empty((3, 6, 64)), pages, table)  # n_rep 3
+    assert not tpa.supports(torch.empty((3, 7, 64)), pages, table)  # 3.5
     assert not tpa.supports(torch.empty((3, 8, 64)), {"k": torch.empty((9, 4, 2, 64))}, table)
     assert not tpa.supports(torch.empty((2, 8, 64)), pages, table)
     assert not tpa.use_kernel(torch.empty((3, 8, 64)), pages, table)

@@ -209,11 +209,18 @@ def test_cpu_tensors_never_count_a_launch():
 @pytest.mark.parametrize(
     "t,k,o,block,ok",
     [(8, 4096, 1024, 256, True), (77, 14336, 4096, 256, True),
-     (1, 64, 3, 64, True), (8, 96, 16, 32, False), (8, 128, 16, 8, False),
-     (8, 192, 16, 128, False)],
+     (1, 64, 3, 64, True), (8, 96, 16, 32, True), (8, 128, 16, 8, True),
+     (8, 192, 16, 128, False), (8, 100, 16, 64, False),
+     (8, 64, 0, 64, False)],
 )
 def test_dqmm_gate(t, k, o, block, ok):
+    """JAX's gate: every T, K and O of at least 1, any block dividing K
+    (K % 64 != 0, blocks under 16 and f32 x take the general variant);
+    `_dqmm_fast` names the weights the decode and prefill kernels take."""
     assert tq.dqmm_supports(t, k, o, block) is ok
+    if ok:
+        assert tq._dqmm_fast(k, block) == (k % 64 == 0 and block >= 16
+                                           and block & (block - 1) == 0)
 
 
 @pytest.mark.parametrize(
