@@ -22,8 +22,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      to the plain version), dequantize_int8 (the training path's
      flattened leaves, bits equal to the plain version), one Int8AdamW
      step on the card against the same step on the CPU (opt.int8_adam),
-     and dqmm (the five weight shapes at T = 8 and 77 and at the
-     serving prompt buckets 128, 256, 512 and 1024, with the dense bf16
+     and dqmm (the five weight shapes at T = 8, at a verify's 40, at 77
+     and at the serving prompt buckets 128, 256, 512 and 1024, with the dense bf16
      matmul's time and the variant that ran beside it; at T = 8 the
      TMA-ring decode kernel, with the mma.sync decode kernel it replaced
      timed on the same inputs);
@@ -47,7 +47,28 @@ Phases, one line each (any failure exits non-zero before the last line):
      bytes must be <= 0.55x the bf16 engine's, and
      the first-decode-step logits must match the same decode functions
      on a dense bf16 tree of exactly the dequantized weights;
-  6. serve.prefix_pressure: the paged engine with the prefix cache
+  6. serve.spec: the paged engine with spec_draft_len=4 and max_len 2044
+     (a 2048-cell bank in pages of 16), bf16 weights, greedy-serving 12
+     requests of 64-token segments tiled to 256-1024 tokens, max_new 64:
+     every request finishes, verify dispatches ran, every flash forward
+     on its wgmma variant, every paged launch on the TMA-ring kernel and
+     in a chunk step (none inside a verify); TTFT, TPOT, tokens/s,
+     spec.stats() and step_stats beside the same engine with
+     spec_draft_len=0 (max_len 2048) on the same prompts, and the greedy
+     agreement of the two (reported);
+  7. serve.spec.verify: one verify of 8 rows at the serving shapes
+     against the same tokens stepped one at a time through
+     paged_decode_step: the logits at each of the K+1 positions within
+     5% of the largest logit; the verify's device time beside its
+     gathered views', the attention over them and one decode step's;
+  8. serve.spec.int8: serve.spec's traffic with weight_quant="int8":
+     every verify product on `dqmm_ws` (T = 40), every chunk-step
+     product on the TMA-ring decode kernel, launches by variant;
+  9. serve.async: the serve phase's traffic at async_depth=1: the
+     streams byte-equal to serve's (depth 0); then depth 0, 0 and 1
+     again in turns, each byte-equal to serve's, for TPOT and
+     step_stats of both depths in one phase;
+  10. serve.prefix_pressure: the paged engine with the prefix cache
      (4 rows, blocks of 256) on a pool of 129 pages (the least that
      backs one maximal request; the dense-equivalent is 1025), greedy-
      serving 16 requests of one shared 512-token system prompt plus
@@ -64,12 +85,12 @@ Phases, one line each (any failure exits non-zero before the last line):
      timed run, with copy-on-write of the frontier page), must match
      the same prompt admitted cold; greedy agreement with the same prompts on the dense-equivalent
      pool with no knob is reported;
-  7. serve.prefill_chunk: the same engine with prefill_chunk=256:
+  11. serve.prefill_chunk: the same engine with prefill_chunk=256:
      every request finishes, interleaved chunks ran, no flash launch
      (chunked admissions prefill through the cached-attention path),
      the paged checks as above, and the first chunked admission's
      first-decode logits must match the same prompt admitted cold;
-  8. train: Trainer(ElasticTrainer(...)) over accelerate over
+  12. train: Trainer(ElasticTrainer(...)) over accelerate over
      llama.loss_fn on Llama-3-8B at full width, 4 layers (f32 params,
      bf16 compute, remat "full", AdamW), 8 steps of a global batch of
      4 x 2048 tokens in microbatches of 2; the losses must be finite and
@@ -78,7 +99,7 @@ Phases, one line each (any failure exits non-zero before the last line):
      them, and the first
      microbatch's loss and gradients must match the same model with
      plain attention;
-  9. train.ckpt: the train workload with fused_ce=True through flash
+  13. train.ckpt: the train workload with fused_ce=True through flash
      checkpoint: fused against unfused loss and gradients on one
      microbatch (each loss's time and peak memory); the snapshot
      buffers and the page-locked shm segment prepared, then 8 Trainer
@@ -90,21 +111,21 @@ Phases, one line each (any failure exits non-zero before the last line):
      unlinked, bit-equal again: the losses of steps 9 and 10 must equal
      the uninterrupted run's bit for bit. The segment and the
      checkpoint directory are removed whatever happens;
-  10. train.int8_adam: the same workload from the same params and
+  14. train.int8_adam: the same workload from the same params and
      tokens with int8_adam (int8 block-quantized moments) in place of
      AdamW; the losses must be finite and fall, step 1's loss must
      equal train's, the dequantize and quantize kernels must have run
      exactly twice a param leaf and step, the moments must take at most
      0.254x of AdamW's bytes and the peak memory must stay below
      train's;
-  11. train.remat: the train workload (4 steps each) under the model's
+  15. train.remat: the train workload (4 steps each) under the model's
      remat policies "full", "proj", "proj_mlp" and "none" (the model's
      remat off), and with the model's remat off under
      Strategy(remat="full"): median step,
      tokens/s, MFU and peak memory of each; losses finite and falling,
      exact flash launch counts (all wgmma), peaks none >= proj_mlp >=
      proj >= full;
-  12. matmul.fp8_dot: fp8_dot on a w_gate-shaped product (x [4096,
+  16. matmul.fp8_dot: fp8_dot on a w_gate-shaped product (x [4096,
      4096], w [4096, 14336], bf16) forward and backward for 4 steps from
      a zero state: y, dx and dw against the same products on the fp8
      values upcast to f32, the amax histories, and its time beside the
@@ -132,7 +153,9 @@ neither prints a result line. `python3 chip_smoke.py --dqmm
 the `dlrover_tpu_torch` found under DIR (another checkout, such as a
 parent commit unpacked by `git archive`) where one is given: the A/B
 of two versions of kernel 7 in one call; it prints no result line
-either. `python3 chip_smoke.py --decode-kernels [--package-root DIR]`
+either. `python3 chip_smoke.py --spec` runs the card, build and serve phases and
+phases 6-9 (the speculative and async serving), no result line.
+`python3 chip_smoke.py --decode-kernels [--package-root DIR]`
 runs the card, build and paged-attention phases and the dqmm rows at
 T = 1, 8 and 16 of the five weight shapes: the A/B of the two decode
 kernels (kernel 4 and kernel 7's decode variant) in one call, no result
@@ -172,15 +195,22 @@ LOGITS_REL_TOL = 0.05
 PRESSURE_SYSTEM = 512
 PRESSURE_REQUESTS = 16
 PRESSURE_PAGES = 2048 // 16 + 1
+# the speculative phases: draft width K = 4 and max_len 2044, so the bank
+# (max_len + K) is 2048 cells in pages of 16; 12 requests of 64 tokens
+SPEC_K = 4
+SPEC_MAX_LEN = 2048 - SPEC_K
+SPEC_MAX_NEW = 64
+SPEC_REQUESTS = 12
 # the Llama-3-8B matmul weights as (K, O), with their names
 DQMM_SHAPES = (
     ((4096, 4096), "wq, wo"), ((4096, 1024), "wk, wv"),
     ((4096, 14336), "w_gate, w_up"), ((14336, 4096), "w_down"),
     ((4096, 128256), "lm_head"),
 )
-# decode (8 slots), a ragged prefill, and the prompt buckets of the
-# serving traffic (`_prompts`: 128 x1, 256 x1, 512 x3, 1024 x7)
-DQMM_TOKENS = (8, 77, 128, 256, 512, 1024)
+# decode (8 slots), a verify (8 slots x K+1 = 5 positions), a ragged
+# prefill, and the prompt buckets of the serving traffic (`_prompts`:
+# 128 x1, 256 x1, 512 x3, 1024 x7)
+DQMM_TOKENS = (8, 40, 77, 128, 256, 512, 1024)
 # `--decode-kernels`: one slot, the serving batch, the decode kernels' most
 DECODE_TOKENS = (1, 8, 16)
 BWD_REL_TOL = 2 ** -6
@@ -1335,7 +1365,7 @@ def phase_serve(params, cfg):
         requests=len(prompts), prompt_lens=[len(p) for p in prompts],
         max_new=max_new, n_slots=n_slots, admissions=engine.admissions,
         decode_steps=engine.decode_steps, launches=launches,
-        **_timings(tm, lens),
+        step_stats=engine.step_stats(), **_timings(tm, lens),
     )
     weight_bytes = engine.weight_bytes_device()
     del engine
@@ -1555,6 +1585,335 @@ def phase_serve_int8(params, cfg, bf16):
         "in another order, each rounded to bf16, carried through 32 "
         "layers",
     )
+    return e2e
+
+
+def _spec_prompts(cfg, n=SPEC_REQUESTS):
+    """The speculative phases' traffic: n greedy requests, each a
+    64-token segment (seed SEED + 5) tiled to 256-1024 tokens, so the
+    n-gram drafter proposes from the first step."""
+    rng = np.random.default_rng(SEED + 5)
+    out = []
+    for m in rng.integers(256, 1025, size=n):
+        seg = rng.integers(1, cfg.vocab_size, size=64).tolist()
+        out.append((seg * 16)[: int(m)])
+    return out
+
+
+def _watch_dispatches(engine):
+    """Record, for every dispatch of a run, the launch counts it added
+    and its span on the card (CUDA events recorded before and after its
+    enqueue; host launch gaps included): ("spec", deltas, span event
+    pair) for a verify, ("chunk", deltas, events, steps) for a chunk.
+    The engine's `_dispatch_spec` and `_dispatch_chunk` are wrapped on
+    the instance; the cost is two counter snapshots and two events a
+    dispatch."""
+    from dlrover_tpu_torch.ops import _build
+
+    seen = []
+    spec, chunk = engine._dispatch_spec, engine._dispatch_chunk
+
+    def watched(kind, run, *args, **kw):
+        before, steps = _build.launch_counts(), engine.decode_steps
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        run(*args, **kw)
+        end.record()
+        after = _build.launch_counts()
+        seen.append((kind, {k: after[k] - before[k] for k in after},
+                     (start, end), engine.decode_steps - steps))
+
+    engine._dispatch_spec = lambda *a, **kw: watched("spec", spec, *a, **kw)
+    engine._dispatch_chunk = lambda *a, **kw: watched("chunk", chunk, *a,
+                                                      **kw)
+    return seen
+
+
+def _dispatch_report(seen, per_forward=None):
+    """Failed checks and span means of a `_watch_dispatches` record:
+    no paged launch inside a verify; with `per_forward` (int8 weights)
+    every verify product on `dqmm_ws` and every chunk-step product on
+    the TMA-ring decode kernel."""
+    failed = []
+    spans = {"spec": [], "chunk": []}
+    for kind, d, (start, end), steps in seen:
+        ms = start.elapsed_time(end)
+        spans[kind].append(ms / max(steps, 1) if kind == "chunk" else ms)
+        if kind == "spec" and d["paged_attention"]:
+            failed.append("a paged launch inside a verify")
+        if per_forward is None:
+            continue
+        if kind == "spec":
+            want = dict(dqmm=per_forward, dqmm_ws=per_forward,
+                        dqmm_decode_tma=0)
+        else:
+            want = dict(dqmm=steps * per_forward, dqmm_ws=0,
+                        dqmm_decode_tma=steps * per_forward)
+        if any(d[k] != v for k, v in want.items()):
+            failed.append(f"{kind} dispatch launched "
+                          f"{ {k: d[k] for k in want} }, want {want}")
+    return sorted(set(failed)), {
+        "verify_span_ms_mean": float(np.mean(spans["spec"]))
+        if spans["spec"] else None,
+        "chunk_step_span_ms_mean": float(np.mean(spans["chunk"]))
+        if spans["chunk"] else None,
+    }
+
+
+def phase_serve_spec(params, cfg, weight_quant="none"):
+    """serve.spec (bf16 weights) or serve.spec.int8: the paged engine
+    with spec_draft_len=4 and max_len 2044 (a 2048-cell bank in pages of
+    16) greedy-serving the SPEC_REQUESTS prompts of `_spec_prompts`, the
+    launch counts set to 0 just before the engine is built (the int8
+    install counts) and read after the drain. bf16 also runs the same
+    prompts through the same engine with spec_draft_len=0 (max_len 2048:
+    at 2044 with no draft the auto page would be 4 cells, which the
+    paged kernel refuses, as JAX's gate does), for its numbers and the
+    greedy agreement (reported: a verify attends through the gathered
+    view where a step takes the paged kernel)."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    phase = "serve.spec" if weight_quant == "none" else "serve.spec.int8"
+    prompts = _spec_prompts(cfg)
+    kw = dict(n_slots=8, max_len=SPEC_MAX_LEN, max_new_tokens=SPEC_MAX_NEW,
+              chunk=8, kv_layout="paged", spec_draft_len=SPEC_K,
+              weight_quant=weight_quant)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    engine = ContinuousBatcher(cfg, params, **kw)
+    seen = _watch_dispatches(engine)
+    outs, tm = _serve(engine, prompts, SPEC_MAX_NEW)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    lens = [len(o) for o in outs]
+    toks = np.concatenate(outs)
+    per_forward = (None if weight_quant == "none" else
+                   7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1))
+    failed, spans = _dispatch_report(seen, per_forward)
+    checks = {
+        "page_size == 16": engine.page_size == 16,
+        "every request finished": lens == [SPEC_MAX_NEW] * len(prompts),
+        "tokens in the vocabulary": bool(
+            toks.min() >= 0 and toks.max() < cfg.vocab_size),
+        "verify_steps >= 1": engine.verify_steps >= 1,
+        "flash_fwd == admissions x layers": (
+            launches["flash_fwd"] == engine.admissions * cfg.n_layers),
+        "paged == decode_steps x layers": (
+            launches["paged_attention"]
+            == engine.decode_steps * cfg.n_layers),
+    }
+    checks.update({name: False for name in failed})
+    by_variant = None
+    if per_forward is not None:
+        forwards = engine.admissions + engine.verify_steps
+        by_variant = dict(
+            ws=launches["dqmm_ws"], decode_tma=launches["dqmm_decode_tma"],
+            decode_mma=(launches["dqmm"] - launches["dqmm_ws"]
+                        - launches["dqmm_decode_tma"]))
+        want_variant = dict(ws=forwards * per_forward,
+                            decode_tma=engine.decode_steps * per_forward,
+                            decode_mma=0)
+        checks["dqmm launches by variant"] = by_variant == want_variant
+        checks["quant_int8 >= one a layer slice"] = (
+            launches["quant_int8"] >= per_forward)
+    _check_wgmma(phase, launches)
+    _check_paged_tma(phase, launches)
+    e2e = dict(
+        requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+        max_new=SPEC_MAX_NEW, max_len=SPEC_MAX_LEN, spec_draft_len=SPEC_K,
+        weight_quant=weight_quant, admissions=engine.admissions,
+        verify_steps=engine.verify_steps, decode_steps=engine.decode_steps,
+        launches=launches, dqmm_launches_by_variant=by_variant,
+        spec_stats=engine.spec.stats(), step_stats=engine.step_stats(),
+        **spans, **_timings(tm, lens), checks=checks,
+    )
+    del engine
+    torch.cuda.empty_cache()
+    if weight_quant == "none":
+        base = ContinuousBatcher(cfg, params, **dict(
+            kw, spec_draft_len=0, max_len=SPEC_MAX_LEN + SPEC_K))
+        base_outs, base_tm = _serve(base, prompts, SPEC_MAX_NEW)
+        e2e["no_spec"] = dict(
+            max_len=base.max_len, decode_steps=base.decode_steps,
+            step_stats=base.step_stats(),
+            **_timings(base_tm, [len(o) for o in base_outs]))
+        e2e.update(
+            greedy_streams_identical=sum(
+                int(np.array_equal(a, b)) for a, b in zip(outs, base_outs)),
+            greedy_token_agreement=float(np.mean(
+                np.concatenate(outs) == np.concatenate(base_outs))))
+        del base
+        torch.cuda.empty_cache()
+    log(phase, **e2e)
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{phase}: failed {bad}")
+    return e2e
+
+
+def phase_verify(params, cfg):
+    """serve.spec.verify: one paged verify of 8 rows at the serving
+    shapes (each a spec prompt of 256-1024 tokens prefilled into a
+    2048-cell page run; the carry token and the 4 tokens the tiled
+    segment continues with) against the same tokens stepped one at a
+    time through paged_decode_step from the same pool: the logits at
+    each of the K+1 positions within LOGITS_REL_TOL of the largest
+    logit, and no paged launch inside the verify. Then the device time
+    (CUDA-graph replayed) of that verify, of its 32 layers' gathered
+    views alone, of the attention over them alone, and of one paged
+    decode step of the same rows."""
+    from dlrover_tpu_torch.models import decode as dec
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import paged_attention as pa
+    from dlrover_tpu_torch.serving.engine import _pad_bucket
+
+    b, s, ps = 8, SPEC_K + 1, 16
+    per_slot = (SPEC_MAX_LEN + SPEC_K) // ps
+    rows = _spec_prompts(cfg)[:b]
+    table = (1 + torch.arange(b * per_slot, dtype=torch.int32,
+                              device="cuda")).reshape(b, per_slot)
+    pool = dec.init_page_pool(cfg, 1 + b * per_slot, ps)
+    for r, p in enumerate(rows):
+        bucket = min(_pad_bucket(len(p)), SPEC_MAX_LEN)
+        toks = torch.zeros(bucket, dtype=torch.long, device="cuda")
+        toks[: len(p)] = torch.tensor(p, device="cuda")
+        row = dec.prefill_exact_row(cfg, params, toks, SPEC_MAX_LEN)
+        dec.paged_install_row(pool, row, table[r], 0, bucket)
+        del row
+    pos = torch.tensor([len(p) - 1 for p in rows], device="cuda")
+    # the tiled segment's period is 64: the token at m + j is m + j - 64's
+    tokens = torch.tensor(
+        [[p[-1]] + [p[len(p) - 64 + j] for j in range(SPEC_K)]
+         for p in rows], device="cuda")
+    stepped = {n: a.clone() for n, a in pool.items()}
+    before = _build.launch_counts()
+    vl, _ = dec.paged_verify_step(cfg, params, tokens, pool, table, pos)
+    torch.cuda.synchronize()
+    paged_in_verify = _launched(before, _build.launch_counts(),
+                                "paged_attention")
+    errs, tols = [], []
+    for j in range(s):
+        sl, _ = dec.paged_decode_step(cfg, params, tokens[:, j], stepped,
+                                      table, pos + j)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(vl[:, j]).all() and torch.isfinite(sl).all()):
+            raise AssertionError(f"serve.spec.verify: non-finite logits {j}")
+        errs.append((vl[:, j] - sl).abs().max().item())
+        tols.append(LOGITS_REL_TOL * sl.abs().max().item())
+    del stepped, vl, sl
+    torch.cuda.empty_cache()
+    layer0 = {n: a[0] for n, a in pool.items()}
+    view = pa.gather_pages(layer0, table)
+    q = torch.randn((b, s, cfg.n_heads, cfg.head_dim), device="cuda",
+                    dtype=cfg.dtype)
+    positions = pos[:, None] + torch.arange(s, device="cuda")[None]
+    scale = cfg.head_dim ** -0.5
+
+    def gathers():
+        for _ in range(cfg.n_layers):
+            pa.gather_pages(layer0, table)
+
+    def attends():
+        for _ in range(cfg.n_layers):
+            dec._cached_attention(q, view, positions, scale)
+
+    timing = dict(
+        verify_ms=device_ms(lambda: dec.paged_verify_step(
+            cfg, params, tokens, pool, table, pos), calls=3, replays=5),
+        gathers_ms=device_ms(gathers, calls=3, replays=5),
+        attention_over_views_ms=device_ms(attends, calls=3, replays=5),
+        decode_step_ms=device_ms(lambda: dec.paged_decode_step(
+            cfg, params, tokens[:, 0], pool, table, pos), calls=3,
+            replays=5),
+        view_bytes_per_layer=sum(v.numel() * v.element_size()
+                                 for v in view.values()),
+    )
+    del pool, view, q
+    torch.cuda.empty_cache()
+    ok = paged_in_verify == 0 and all(e <= t for e, t in zip(errs, tols))
+    log("serve.spec.verify", rows=b, positions=s,
+        cells=[len(p) for p in rows], max_abs_err=errs, tol=tols,
+        tol_reason="5% of the largest logit of each position: the verify "
+        "attends through the gathered view with f32 scores, the stepped "
+        "decode through the paged kernel; bf16 roundings carried through "
+        "32 layers", paged_launches_in_verify=paged_in_verify, **timing)
+    if not ok:
+        raise AssertionError(
+            f"serve.spec.verify: errors {errs} (tols {tols}), "
+            f"{paged_in_verify} paged launches inside the verify")
+    return timing
+
+
+def phase_serve_async(params, cfg, sync):
+    """serve.async: the serve phase's traffic and engine at
+    async_depth=1, the launch counts set to 0 just before that run and
+    read after: every request finishes, the kernels ran as in serve, and
+    the streams equal serve's (depth 0) byte for byte: both depths run
+    the same dispatches. Then depth 0, depth 0 and depth 1 again in
+    turns (ABBA), for TPOT and step_stats of both depths in one phase;
+    every run's streams must equal serve's too (a depth-0 run that
+    differs from serve's would be a kernel that does not repeat
+    itself)."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    max_new = 32
+    prompts = _prompts(cfg)
+    kw = dict(n_slots=8, max_len=2048, max_new_tokens=max_new, chunk=8,
+              kv_layout="paged")
+    runs = []
+    for depth in (1, 0, 0, 1):
+        engine = ContinuousBatcher(cfg, params, async_depth=depth, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        outs, tm = _serve(engine, prompts, max_new)
+        torch.cuda.synchronize()
+        runs.append(dict(
+            depth=depth, launches=_build.launch_counts(),
+            admissions=engine.admissions, decode_steps=engine.decode_steps,
+            step_stats=engine.step_stats(), outs=outs,
+            **_timings(tm, [len(o) for o in outs])))
+        del engine
+    torch.cuda.empty_cache()
+    first = runs[0]
+    launches = first["launches"]
+    checks = {
+        "every request finished": all(
+            [len(o) for o in r["outs"]] == [max_new] * len(prompts)
+            for r in runs),
+        "flash_fwd == admissions x layers": (
+            launches["flash_fwd"] == first["admissions"] * cfg.n_layers),
+        "paged == decode_steps x layers": (
+            launches["paged_attention"]
+            == first["decode_steps"] * cfg.n_layers),
+    }
+    for i, r in enumerate(runs):
+        checks[f"run {i} (depth {r['depth']}) streams equal serve's"] = all(
+            np.array_equal(a, b) for a, b in zip(r["outs"], sync["outs"]))
+    _check_wgmma("serve.async", launches)
+    _check_paged_tma("serve.async", launches)
+    keys = ("step_stats", "wall_s", "ttft_ms_mean", "tpot_ms_mean",
+            "tokens_per_s")
+    e2e = dict(
+        requests=len(prompts), max_new=max_new, order="1 0 0 1",
+        admissions=first["admissions"], decode_steps=first["decode_steps"],
+        launches=launches, **{k: first[k] for k in keys},
+        runs=[{k: r[k] for k in ("depth",) + keys} for r in runs],
+        tpot_ms_mean_by_depth={d: float(np.mean(
+            [r["tpot_ms_mean"] for r in runs if r["depth"] == d]))
+            for d in (0, 1)},
+        serve_step_stats=sync["step_stats"],
+        serve_tpot_ms_mean=sync["tpot_ms_mean"],
+        peak_mem_gb=first["peak_mem_gb"], checks=checks,
+    )
+    log("serve.async", **e2e)
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"serve.async: failed {bad}")
     return e2e
 
 
@@ -2707,6 +3066,15 @@ def main():
         phase_profile(llama.init_params(cfg, gen), cfg,
                       "int8" if "--int8" in sys.argv[1:] else "none")
         return 0
+    if "--spec" in args:
+        cfg = llama.LlamaConfig.llama3_8b()
+        params = llama.init_params(cfg, gen)
+        e2e = phase_serve(params, cfg)
+        phase_serve_spec(params, cfg)
+        phase_verify(params, cfg)
+        phase_serve_spec(params, cfg, "int8")
+        phase_serve_async(params, cfg, e2e)
+        return 0
     flash_rows = phase_flash(gen)
     bwd_rows = phase_flash_bwd(gen)
     paged_rows = phase_paged(gen)
@@ -2725,6 +3093,10 @@ def main():
         dtype=str(cfg.dtype), init_s=time.perf_counter() - t0)
     e2e = phase_serve(params, cfg)
     e2e_int8 = phase_serve_int8(params, cfg, e2e)
+    e2e_spec = phase_serve_spec(params, cfg)
+    phase_verify(params, cfg)
+    e2e_spec_int8 = phase_serve_spec(params, cfg, "int8")
+    e2e_async = phase_serve_async(params, cfg, e2e)
     pressure_prompts = _pressure_prompts(cfg)
     pressure_ref = _pressure_reference(params, cfg, pressure_prompts)
     e2e_pressure = phase_serve_pressure(params, cfg, pressure_prompts,
@@ -2742,6 +3114,8 @@ def main():
     main_flash = next(r for r in flash_rows if (r["B"], r["S"]) == (1, 512))
     main_bwd = next(r for r in bwd_rows if (r["B"], r["S"]) == (2, 2048))
     serve_paths = {"serve": e2e, "serve.int8": e2e_int8,
+                   "serve.spec": e2e_spec, "serve.spec.int8": e2e_spec_int8,
+                   "serve.async": e2e_async,
                    "serve.prefix_pressure": e2e_pressure,
                    "serve.prefill_chunk": e2e_chunked}
     remat_paths = {f"train.remat {r['run']}": r for r in remat_runs}
@@ -2763,12 +3137,17 @@ def main():
     main_paged = paged_rows[0]
     main_quant = next(r for r in quant_rows if r["input"] == "bfloat16")
     quant_by_path = {"serve.int8": e2e_int8["launches"]["quant_int8"],
+                     "serve.spec.int8": e2e_spec_int8["launches"][
+                         "quant_int8"],
                      "train.int8_adam": train_int8["launches"]["quant_int8"]}
+    dqmm_paths = {"serve.int8": e2e_int8, "serve.spec.int8": e2e_spec_int8}
     main_dequant = dequant_rows[0]
     main_dqmm = next(r for r in dqmm_rows
                      if (r["T"], r["K"], r["O"]) == (8, 4096, 14336))
     main_ws = next(r for r in dqmm_rows
                    if (r["T"], r["K"], r["O"]) == (1024, 4096, 14336))
+    verify_dqmm = next(r for r in dqmm_rows
+                       if (r["T"], r["K"], r["O"]) == (40, 4096, 14336))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -2858,17 +3237,29 @@ def main():
         dict(name="dqmm", route="cuda",
              source="dlrover_tpu_torch/csrc/dqmm.cu",
              replaces="dlrover_tpu/ops/quantization.py:306",
-             launches=e2e_int8["launches"]["dqmm"],
-             launches_by_variant=e2e_int8["dqmm_launches_by_variant"],
+             launches=sum(r["launches"]["dqmm"] for r in dqmm_paths.values()),
+             launches_by_path={path: r["launches"]["dqmm"]
+                               for path, r in dqmm_paths.items()},
+             launches_by_variant={
+                 path: r["dqmm_launches_by_variant"]
+                 for path, r in dqmm_paths.items()},
              **{k: main_dqmm[k] for k in keys},
              variant=main_dqmm["variant"], old_ms=main_dqmm["old_ms"],
              dense_ms=main_dqmm["dense_ms"],
              prefill_ms=main_ws["ms"], prefill_bound_ms=main_ws["bound_ms"],
              prefill_dense_ms=main_ws["dense_ms"],
+             verify_ms=verify_dqmm["ms"],
+             verify_plain_ms=verify_dqmm["plain_ms"],
+             verify_dense_ms=verify_dqmm["dense_ms"],
+             verify_bound_ms=verify_dqmm["bound_ms"],
+             verify_bound_by=verify_dqmm["bound_by"],
+             verify_max_abs_err=verify_dqmm["max_abs_err"],
              shape="T=8 K=4096 O=14336 (w_gate decode, the TMA-ring "
                    "decode kernel; old_ms: the mma.sync decode kernel it "
                    "replaced) bf16 x int8, block 256; prefill_*: the same "
-                   "weight at T=1024 on the prefill kernel (dqmm_ws)",
+                   "weight at T=1024 on the prefill kernel (dqmm_ws); "
+                   "verify_*: at T=40, a verify of 8 slots x 5 positions "
+                   "(dqmm_ws)",
              per_shape=dqmm_rows, jax_gate_shapes=gate("dqmm")),
     ]
     print(json.dumps({"kernels": kernels}, default=float), flush=True)

@@ -217,6 +217,27 @@ def decode_step(cfg, params, token, cache, pos):
     return logits[:, 0], cache
 
 
+def _verify_positions(tokens, pos):
+    """[B, S] positions pos[b] + [0, S) of a verify's tokens."""
+    pos = torch.as_tensor(pos, dtype=torch.long, device=tokens.device)
+    return pos[:, None] + torch.arange(tokens.shape[1],
+                                       device=tokens.device)[None, :]
+
+
+def verify_step(cfg, params, tokens, cache, pos):
+    """Batched speculative verify: tokens [B, S] (the carry token and
+    S-1 drafts) at positions pos[b] + [0, S) in ONE forward -> (logits
+    [B, S, V], cache). Each row's K/V is written first, then every
+    query attends the whole buffer under the position mask, so draft j
+    sees the carry and drafts 1..j exactly as stepped decoding would:
+    logits[:, j] is the target distribution of the token after
+    tokens[:, j]. The caller keeps pos + S within the buffer (the
+    engine over-allocates its bank by the draft width)."""
+    positions = _verify_positions(tokens, pos)
+    return _forward_cached(cfg, params, tokens, cache, positions,
+                           positions[:, 0])
+
+
 def prefill_into_slot(cfg, params, prompt, cache, slot: int):
     """Run a single-sequence prefill of `prompt` [P] (a pad tail is
     fine: the decode mask hides cells past the slot's position) and
@@ -294,13 +315,17 @@ def install_exact_row(cache: Cache, row: Cache, slot: int) -> Cache:
     bank, in place, quantizing on the way in when the bank is int8 (the
     cold write path's per-vector scheme on the same exact values). A
     whole-row write: cells past the valid prefix are hidden by the
-    decode position mask until generation overwrites them."""
+    decode position mask until generation overwrites them. A row
+    shorter than the bank (a bank over-allocated by the draft width)
+    fills its leading cells, as the JAX package's dynamic_update_slice
+    does."""
     if "k_scale" in cache:
         kq, ks = _kv_quantize(row["k"])
         vq, vs = _kv_quantize(row["v"])
         row = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     for name, arr in cache.items():
-        arr[:, slot] = row[name][:, 0].to(arr.dtype)
+        src = row[name][:, 0]
+        arr[:, slot, :src.shape[1]] = src.to(arr.dtype)
     return cache
 
 
@@ -431,6 +456,16 @@ def paged_decode_step(cfg, params, token, pool, table, pos):
     return logits[:, 0], pool
 
 
+def paged_verify_step(cfg, params, tokens, pool, table, pos):
+    """The paged twin of `verify_step`: the K/V of tokens [B, S] goes
+    straight into the rows' pages, and the queries attend through the
+    gathered view (S > 1 never takes the paged-attention kernel). The
+    engine sizes each request's page run for limit - 1 + draft_len
+    cells, so the window lands in owned (or trash) pages."""
+    return _forward_paged(cfg, params, tokens, pool, table,
+                          _verify_positions(tokens, pos))
+
+
 def paged_install_row(pool: Cache, row_cache: Cache, table_row, start: int,
                       length: int) -> Cache:
     """Install cells [start, start+length) of an exact cache row into
@@ -501,3 +536,63 @@ def _mask_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
         dim=-1, keepdim=True
     )
     return torch.where(logits < kth, float("-inf"), logits)
+
+
+def categorical(probs: torch.Tensor, generator=None) -> torch.Tensor:
+    """One draw per row of `probs` [..., V] (any nonnegative weights, a
+    row need not sum to 1): torch.multinomial(probs, 1)'s own algorithm
+    for one sample, argmax(p / E) with E ~ Exp(1) from `generator`, so
+    the draws equal multinomial's on the same generator state, without
+    its host-side validity checks (two reads of device values that
+    would stall the card's stream). A zero-weight entry is never drawn
+    while its row has any weight."""
+    e = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / e, dim=-1)
+
+
+def spec_accept_greedy(logits, drafts, draft_len):
+    """Greedy acceptance: draft j survives while it equals the target
+    argmax at its position (and every earlier draft survived). logits
+    [B, K+1, V], drafts [B, K], draft_len [B] -> (m, extra) [B]: m
+    accepted drafts per row and the target's own token at the first
+    divergence (the bonus token when all K were accepted), so the
+    emitted prefix is exactly the target's greedy continuation."""
+    k = drafts.shape[1]
+    tgt = torch.argmax(logits, dim=-1)                    # [B, K+1]
+    cols = torch.arange(k, device=drafts.device)[None, :]
+    ok = (drafts == tgt[:, :k]) & (cols < draft_len[:, None])
+    m = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+    extra = torch.gather(tgt, 1, m[:, None])[:, 0]
+    return m, extra
+
+
+def spec_accept_sampled(probs, drafts, draft_len, generator=None):
+    """Speculative rejection sampling for a deterministic drafter (the
+    n-gram lookup proposes a point mass q): draft d_j is accepted with
+    probability min(1, p_j(d_j) / q_j(d_j)) = p_j(d_j), drawing u in
+    [0, 1)^K; on the first rejection the replacement is drawn from the
+    residual norm(max(p_j - q_j, 0)), p_j with d_j's mass removed; when
+    every draft survives the bonus is drawn from p_{K+1}. The emitted
+    marginal at each position is exactly p_j. probs [B, K+1, V] (warped
+    target probabilities), drafts [B, K], draft_len [B]; every draw
+    comes from `generator` -> (m, extra) [B]. A rejected row always has
+    residual mass (u >= p(d) with u < 1 means p(d) < 1), and
+    `categorical` never draws a zero-mass token."""
+    b, kp1, v = probs.shape
+    k = kp1 - 1
+    dev = probs.device
+    u = torch.rand((b, k), generator=generator, device=dev)
+    d = drafts.long()
+    p_draft = torch.gather(probs[:, :k], 2, d[..., None])[..., 0]
+    cols = torch.arange(k, device=dev)[None, :]
+    ok = (u < p_draft) & (cols < draft_len[:, None])
+    m = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+    pm = probs[torch.arange(b, device=dev), m]            # [B, V]
+    # the draft at the rejection index (the pad column keeps the gather
+    # in bounds at m == K, where `rejected` is False)
+    d_pad = torch.cat([d, torch.zeros_like(d[:, :1])], dim=1)
+    d_at_m = torch.gather(d_pad, 1, m[:, None])
+    rejected = m < draft_len
+    vocab = torch.arange(v, device=dev)[None, :]
+    resid = torch.where(rejected[:, None] & (vocab == d_at_m), 0.0, pm)
+    return m, categorical(resid, generator)

@@ -42,14 +42,29 @@ serves colocated dense and paged traffic synchronously.
   kernel on the card), and every projection, MLP and untied lm_head
   product of prefill and decode then runs the fused W8A16
   dequant-matmul kernel (the plain version on the CPU).
+- spec_draft_len = K > 0: speculative decoding. The host n-gram
+  drafter (serving/speculative.py) proposes up to K tokens per live
+  slot; one verify forward prices the carry token and the drafts of
+  every slot at once (`verify_step` / `paged_verify_step`) and
+  acceptance runs on the device (`_accept`), under the same eos /
+  limit / done rules as a chunk, so spec and chunk dispatches
+  interleave freely. The bank over-allocates K cells per slot (the
+  verify window may reach K past the last valid cell). A dispatch with
+  a slot mid-prefill, or with no draft at all, runs the plain chunk.
 
 The host keeps the slot state (tok/pos/done/limit) as numpy mirrors;
-each dispatch uploads it, runs its steps on the device, and fetches
-the emitted tokens and the new state once.
+each dispatch uploads it (page-locked staging on the card), runs its
+steps on the device, and fetches the emitted tokens and the new state
+with one copy into a page-locked buffer the engine keeps, behind an
+event. async_depth=0 waits for that copy in the same step();
+async_depth=1 returns at once and harvests the dispatch at the start of
+the next step(), before admitting and drafting from the refreshed
+mirrors, so the dispatches (and the streams) are the same at either
+depth and only the call on which events surface moves.
 
-Not ported yet (later slices): speculative decoding, async_depth=1,
-adapters, weight_quant="int8_stochastic", tp / mesh, resize / weight
-refresh, KV tier, handoff / replica_role, health, chaos.
+Not ported yet (later slices): adapters, weight_quant=
+"int8_stochastic", tp / mesh, resize / weight refresh, KV tier, handoff
+/ replica_role, health, chaos.
 """
 
 import dataclasses
@@ -64,6 +79,7 @@ from dlrover_tpu_torch._device import DeviceLike, resolve_device
 from dlrover_tpu_torch.models.decode import (
     _mask_top_k,
     _mask_top_p,
+    categorical,
     decode_step,
     init_kv_cache,
     init_page_pool,
@@ -71,6 +87,7 @@ from dlrover_tpu_torch.models.decode import (
     paged_decode_step,
     paged_install_row,
     paged_prefill_chunk,
+    paged_verify_step,
     pool_copy_page,
     pool_put_row,
     pool_take_row,
@@ -78,6 +95,9 @@ from dlrover_tpu_torch.models.decode import (
     prefill_exact_row,
     prefill_into_slot,
     prefill_suffix_row,
+    spec_accept_greedy,
+    spec_accept_sampled,
+    verify_step,
 )
 from dlrover_tpu_torch.ops.quantization import (
     QuantizedWeight,
@@ -90,6 +110,7 @@ from dlrover_tpu_torch.serving.paged_kv import (
     PageAllocator,
 )
 from dlrover_tpu_torch.serving.prefix_cache import RadixPrefixCache
+from dlrover_tpu_torch.serving.speculative import SpeculativeDecoder
 
 # The large matmul weights weight_quant="int8" re-stores as per-block
 # int8 (ops/quantization.QuantizedWeight), by name on the stacked layer
@@ -131,6 +152,26 @@ class _Request:
 StepEvent = Tuple[int, List[int], bool]
 
 
+@dataclasses.dataclass
+class _Inflight:
+    """One dispatched-but-not-harvested device step: where its outputs
+    land on the host and the host context that turns them into
+    events."""
+
+    kind: str                     # "chunk" | "spec"
+    old_pos: Optional[np.ndarray] = None    # chunk: pos at dispatch
+    dlens: Optional[np.ndarray] = None      # spec: drafted lengths
+    was_live: Optional[np.ndarray] = None   # spec: live at dispatch
+    # interleaved chunk: the slots MID-PREFILL when it was built; their
+    # fetched done=True is the freeze, not a finish
+    pf_mask: Optional[np.ndarray] = None
+    # set at enqueue: the fetched outputs' shapes in pack order, the
+    # event recorded after their copy (None on the CPU), perf_counter
+    shapes: List[Tuple[int, ...]] = dataclasses.field(default_factory=list)
+    event: Optional["torch.cuda.Event"] = None
+    dispatched_at: float = 0.0
+
+
 class ContinuousBatcher:
     """Greedy/sampling generation over a slot bank.
 
@@ -161,12 +202,32 @@ class ContinuousBatcher:
         prefill_chunk: int = 0,  # tokens of prefill per interleaved
                                  # dispatch (0 = blocking admission)
         weight_quant: str = "none",  # | "int8": per-block int8 weights
+        spec_draft_len: int = 0,     # speculative draft width K (0 = off)
+        spec_ngram_max: int = 3,     # longest suffix n-gram the drafter tries
+        spec_ngram_min: int = 1,     # shortest n-gram fallback
+        spec_accept_threshold: float = 0.5,  # EMA acceptance to keep drafting
+        spec_probe_interval: int = 32,  # rounds between disabled-slot probes
+        async_depth: int = 0,        # 1 = one-deep pipelined dispatch
         device: DeviceLike = None,
     ):
         if eos_id is not None and eos_id == pad_id:
             raise ValueError(
                 "eos_id and pad_id must differ: the pad emitted by "
                 "finished slots would re-trigger EOS detection"
+            )
+        if spec_draft_len < 0:
+            raise ValueError(
+                f"spec_draft_len must be >= 0, got {spec_draft_len}"
+            )
+        if spec_draft_len >= max_len:
+            raise ValueError(
+                f"spec_draft_len {spec_draft_len} must be < max_len "
+                f"{max_len}"
+            )
+        if async_depth not in (0, 1):
+            raise ValueError(
+                f"async_depth must be 0 (sync) or 1 (one-deep "
+                f"pipeline), got {async_depth}"
             )
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
@@ -207,22 +268,27 @@ class ContinuousBatcher:
         self.chunk = chunk
         self.kv_layout = kv_layout
         self._paged = kv_layout == "paged"
+        # the bank over-allocates by the draft width: a verify writes
+        # K+1 cells at [pos, pos+K], and a slot near its cap (pos up to
+        # max_len-2) must find them inside its row; the cells past
+        # max_len-1 are dead by the position mask
+        bank_len = max_len + spec_draft_len
         if self._paged:
             # auto page size: the largest power of two <= 16 dividing
-            # max_len (and the prefix block, so a matched prefix is
-            # always a whole number of pages)
+            # the bank length (and the prefix block, so a matched prefix
+            # is always a whole number of pages)
             if page_size <= 0:
                 page_size = 16
                 while page_size > 1 and (
-                    max_len % page_size
+                    bank_len % page_size
                     or (prefix_cache_rows > 0 and prefix_block % page_size)
                 ):
                     page_size //= 2
-            if max_len % page_size:
+            if bank_len % page_size:
                 raise ValueError(
-                    f"page_size {page_size} must divide max_len = "
-                    f"{max_len}: a slot's logical cells must map onto "
-                    "whole pages"
+                    f"page_size {page_size} must divide max_len + "
+                    f"spec_draft_len = {bank_len}: a slot's logical "
+                    "cells must map onto whole pages"
                 )
             if prefix_cache_rows > 0 and prefix_block % page_size:
                 raise ValueError(
@@ -230,7 +296,7 @@ class ContinuousBatcher:
                     f"{prefix_block}: shared prefixes must cover whole "
                     "pages or sharing cannot be copy-free"
                 )
-            per_slot = max_len // page_size
+            per_slot = bank_len // page_size
             if n_pages <= 0:
                 # dense-equivalent capacity (+ the trash page);
                 # oversubscription comes from setting n_pages lower
@@ -262,7 +328,7 @@ class ContinuousBatcher:
             self.cache = None
         else:
             self.cache = init_kv_cache(
-                cfg, n_slots, max_len, quant=kv_quant, device=self.device
+                cfg, n_slots, bank_len, quant=kv_quant, device=self.device
             )
         # interleaved chunked prefill: a slot mid-prefill is occupied on
         # the host (done False) and frozen in the dispatches (done True)
@@ -303,9 +369,35 @@ class ContinuousBatcher:
         self._requests: Dict[int, _Request] = {}
         self._pending: Dict[int, None] = {}
         self._next_idx = 0
+        # speculative decoding: host drafter + adaptive controller
+        self.spec: Optional[SpeculativeDecoder] = None
+        if spec_draft_len > 0:
+            self.spec = SpeculativeDecoder(
+                n_slots, spec_draft_len, ngram_max=spec_ngram_max,
+                ngram_min=spec_ngram_min, threshold=spec_accept_threshold,
+                probe_interval=spec_probe_interval,
+            )
+        self.spec_draft_len = spec_draft_len
+        # the dispatch pipeline: the one dispatch not yet harvested, and
+        # the page-locked buffer its outputs are copied into (one buffer
+        # serves every dispatch: a dispatch's copy is enqueued only
+        # after the one before it was harvested, or orphaned, and stream
+        # order puts an orphan's copy first)
+        self.async_depth = async_depth
+        self._inflight: Optional[_Inflight] = None
+        self._fetch_buf: Optional[torch.Tensor] = None
+        # step-latency stats (step_stats): host work, time blocked on
+        # the device, and the device span the host work hid
+        self._stat_host_ms = 0.0
+        self._stat_wait_ms = 0.0
+        self._stat_span_ms = 0.0
+        self._stat_overlap_ms = 0.0
+        self._stat_dispatches = 0
+        self._wait_this_step = 0.0
         # counters chip_smoke.py and the tests read
         self.admissions = 0
-        self.decode_steps = 0
+        self.decode_steps = 0     # chunk steps
+        self.verify_steps = 0     # spec dispatches (one verify each)
 
     # -- weight quantization -----------------------------------------------
 
@@ -431,10 +523,21 @@ class ContinuousBatcher:
         self._queue.append(req)
         return req.idx
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On the card it goes
+        through a page-locked copy and a non-blocking transfer, so the
+        stream is not synchronized; the page-locked block returns to
+        torch's host allocator, which reuses it only after the event
+        of the transfer that reads it has completed."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _pad_to(self, toks: np.ndarray, bucket: int) -> torch.Tensor:
         padded = np.full(bucket, self.pad_id, np.int64)
         padded[: len(toks)] = toks
-        return torch.from_numpy(padded).to(self.device)
+        return self._upload(padded)
 
     def _admit(self, slot: int, req: _Request):
         p = len(req.prompt)
@@ -475,6 +578,8 @@ class ContinuousBatcher:
             )
         self.done[slot] = False
         self.slot_req[slot] = req
+        if self.spec is not None:
+            self.spec.begin_slot(slot, req.prompt)
         if pf_start is None:
             self._slot_gen[slot] = self._make_gen(req)
         else:
@@ -637,15 +742,16 @@ class ContinuousBatcher:
     def _request_pages(self, req: _Request) -> int:
         """Exact page need: the request's OWN limit (prompt plus its
         budget, capped at max_len). The highest cell ever written is
-        limit-1 (a frozen done slot rewrites its last cell)."""
+        limit-1+K (a frozen done slot rewrites its last cell; a verify
+        window extends K past it)."""
         p = len(req.prompt)
         limit = min(p + (req.max_new or self.max_new), self.max_len)
-        return (limit - 1) // self.page_size + 1
+        return (limit - 1 + self.spec_draft_len) // self.page_size + 1
 
     def _table_row(self, run: List[int]) -> torch.Tensor:
         vals = np.full(self._pages_per_slot, TRASH_PAGE, np.int32)
         vals[: len(run)] = run
-        return torch.from_numpy(vals).to(self.device)
+        return self._upload(vals)
 
     def _admit_paged(self, slot: int, req: _Request, p: int):
         """Paged admission: size the page run off the request's OWN
@@ -871,8 +977,11 @@ class ContinuousBatcher:
     # -- the loop ----------------------------------------------------------
 
     def has_work(self) -> bool:
-        """True while any slot is live or the queue holds requests."""
-        return bool(self._queue) or not self.done.all()
+        """True while any slot is live, the queue holds requests, or a
+        dispatch is in flight (async_depth=1: its events have not
+        surfaced yet, so one more step() is owed)."""
+        return (bool(self._queue) or not self.done.all()
+                or self._inflight is not None)
 
     def queue_len(self) -> int:
         """Requests waiting for a slot (excludes live slots)."""
@@ -884,6 +993,28 @@ class ContinuousBatcher:
 
     def free_slots(self) -> int:
         return self.n_slots - self.active_count()
+
+    def drain_inflight(self) -> None:
+        """Abandon the dispatched-but-unharvested step, if any: its
+        events never surface, and the host mirrors stay at the last
+        harvested dispatch, from which the next dispatch runs again
+        (rewriting the same cells)."""
+        self._inflight = None
+
+    def step_stats(self) -> Dict[str, float]:
+        """Cumulative step-latency stats: host_ms (host work inside
+        step(), waits excluded), device_wait_ms (time blocked on a
+        dispatch's results), dispatches, and overlap_ratio = the device
+        span the host hid / the whole span from enqueue to harvest
+        (~0 at depth 0)."""
+        ratio = (self._stat_overlap_ms / self._stat_span_ms
+                 if self._stat_span_ms > 0 else 0.0)
+        return {
+            "host_ms": self._stat_host_ms,
+            "device_wait_ms": self._stat_wait_ms,
+            "dispatches": float(self._stat_dispatches),
+            "overlap_ratio": ratio,
+        }
 
     def _next_chunk_len(self) -> int:
         """Dispatch size: `chunk` steps, shortened only when EVERY
@@ -915,30 +1046,69 @@ class ContinuousBatcher:
         return k
 
     def step(self) -> List[StepEvent]:
-        """One engine iteration: admit from the queue into free slots,
-        run ONE dispatch, harvest it, return its events ([] when there
-        is no work)."""
-        for slot in range(self.n_slots):
-            if self.done[slot] and self._queue:
-                req = self._queue.popleft()
-                try:
-                    self._admit(slot, req)
-                except OutOfPages:
-                    # chunked admission only: a preempted readmission
-                    # has no swap rights, so a dry pool means wait at the
-                    # front of the queue while the live slots drain.
-                    # Nothing live to wait on still raises.
-                    if self._prefill_chunk == 0 or not any(
-                        r is not None for r in self.slot_req
-                    ):
-                        raise
-                    self._queue.appendleft(req)
-                    break
-        if self.done.all():
-            return []
-        if self._prefill_chunk > 0 and self._prefilling.any():
-            return self._harvest(*self._dispatch_interleaved())
-        return self._harvest(*self._dispatch_chunk())
+        """One engine iteration. async_depth=0: admit from the queue
+        into free slots, run ONE dispatch, harvest it, return its
+        events. async_depth=1: harvest the PREVIOUS dispatch first,
+        admit and draft from the refreshed mirrors, enqueue the next
+        dispatch without waiting for it, and return the harvested
+        events. Both depths run the same dispatches on the same state;
+        only the call on which events surface moves. [] when there is
+        no work."""
+        t0 = time.perf_counter()
+        self._wait_this_step = 0.0
+        try:
+            events = self._harvest()
+            for slot in range(self.n_slots):
+                if self.done[slot] and self._queue:
+                    req = self._queue.popleft()
+                    try:
+                        self._admit(slot, req)
+                    except OutOfPages:
+                        # chunked admission only: a preempted
+                        # readmission has no swap rights, so a dry pool
+                        # means wait at the front of the queue while
+                        # the live slots drain. Nothing live to wait on
+                        # still raises.
+                        if self._prefill_chunk == 0 or not any(
+                            r is not None for r in self.slot_req
+                        ):
+                            raise
+                        self._queue.appendleft(req)
+                        break
+            if not self.done.all():
+                if self._prefilling.any():
+                    # a verify carries no prefill half: drafting
+                    # resumes once no slot is mid-prefill
+                    self._dispatch_interleaved()
+                elif self.spec is not None:
+                    drafts, dlens = self._collect_drafts()
+                    if int(dlens.max()) > 0:
+                        self._dispatch_spec(drafts, dlens)
+                    else:
+                        # no live slot drafted: the plain chunk
+                        self._dispatch_chunk()
+                else:
+                    self._dispatch_chunk()
+                if self.async_depth == 0:
+                    events = self._harvest()
+        except Exception:
+            # a raising step orphans its in-flight dispatch: its events
+            # must never surface later
+            self._inflight = None
+            raise
+        self._stat_host_ms += (
+            (time.perf_counter() - t0) * 1e3 - self._wait_this_step
+        )
+        return events
+
+    def _warp(self, logits: torch.Tensor) -> torch.Tensor:
+        """Temperature, then top-k and top-p masks, over the last axis."""
+        warped = logits / self.temperature
+        if 0 < self.top_k < warped.shape[-1]:
+            warped = _mask_top_k(warped, self.top_k)
+        if self.top_p < 1.0:
+            warped = _mask_top_p(warped, self.top_p)
+        return warped
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """Next token per row: argmax when greedy; else a draw from the
@@ -946,12 +1116,7 @@ class ContinuousBatcher:
         mid-prefill slots take argmax: their token is discarded)."""
         if self.temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
-        warped = logits / self.temperature
-        if 0 < self.top_k < warped.shape[-1]:
-            warped = _mask_top_k(warped, self.top_k)
-        if self.top_p < 1.0:
-            warped = _mask_top_p(warped, self.top_p)
-        probs = torch.softmax(warped.float(), dim=-1)
+        probs = torch.softmax(self._warp(logits).float(), dim=-1)
         return _draw_rows(probs, self._slot_gen)
 
     def _advance(self, logits, tok, pos, done, limit):
@@ -970,22 +1135,27 @@ class ContinuousBatcher:
         tok = torch.where(done, tok, nxt)
         return tok, pos, new_done, nxt
 
-    def _dispatch_chunk(self):
-        """Run k decode steps for every slot on the device; returns the
-        fetched (tok, pos, done, emitted [B, k]), the entry pos and no
-        prefill mask. Mid-prefill slots ride along frozen (done)."""
-        k = self._next_chunk_len()
-        dev = self.device
-        old_pos = self.pos.copy()
-        tok = torch.from_numpy(self.tok).to(dev)
-        pos = torch.from_numpy(self.pos).to(dev)
-        done = torch.from_numpy(self.done | self._prefilling).to(dev)
-        limit = torch.from_numpy(self.limit).to(dev)
+    def _dispatch_state(self):
+        """The slot state on the device: tok, pos, done (mid-prefill
+        slots ride frozen, as done) and limit, and the page table with
+        done-at-entry rows routed to the trash page (None when dense).
+        Rows finishing MID-dispatch still own their pages: the host
+        frees them only after harvesting it."""
+        tok = self._upload(self.tok)
+        pos = self._upload(self.pos)
+        done = self._upload(self.done | self._prefilling)
+        limit = self._upload(self.limit)
+        table = None
         if self._paged:
-            # done-at-entry rows read and write the trash page; rows
-            # finishing MID-chunk still own their pages (the host frees
-            # them only after harvesting this dispatch)
             table = torch.where(done[:, None], TRASH_PAGE, self._table)
+        return tok, pos, done, limit, table
+
+    def _dispatch_chunk(self, pf_mask: Optional[np.ndarray] = None):
+        """Enqueue k decode steps for every slot and the fetch of the
+        new (tok, pos, done) and the emitted tokens [B, k]. `pf_mask`:
+        the slots mid-prefill in an interleaved dispatch."""
+        k = self._next_chunk_len()
+        tok, pos, done, limit, table = self._dispatch_state()
         emitted = []
         for _ in range(k):
             if self._paged:
@@ -999,11 +1169,10 @@ class ContinuousBatcher:
             tok, pos, done, nxt = self._advance(logits, tok, pos, done, limit)
             emitted.append(nxt)
         self.decode_steps += k
-        host = [
-            t.cpu().numpy()
-            for t in (tok, pos, done, torch.stack(emitted, dim=1))
-        ]
-        return host, old_pos, None
+        self._enqueue_fetch(
+            _Inflight("chunk", old_pos=self.pos.copy(), pf_mask=pf_mask),
+            (tok, pos, done, torch.stack(emitted, dim=1)),
+        )
 
     def _dispatch_interleaved(self):
         """One interleaved dispatch: up to prefill_chunk prompt tokens
@@ -1020,8 +1189,7 @@ class ContinuousBatcher:
         p = len(req.prompt)
         start = int(self._frontier[slot])
         plen = self._pf_chunk_len(p - start)
-        ptoks = torch.from_numpy(req.prompt[start:start + plen]).to(
-            self.device)
+        ptoks = self._upload(req.prompt[start:start + plen])
         if self._paged:
             paged_prefill_chunk(self.cfg, self.params, ptoks, self.page_pool,
                                 self._table[slot], start)
@@ -1030,13 +1198,11 @@ class ContinuousBatcher:
                                     slot, start)
         # the slots mid-prefill DURING this dispatch, captured before the
         # flip: harvest must read their fetched done as the freeze
-        pf = self._prefilling.copy()
-        host, old_pos, _ = self._dispatch_chunk()
+        self._dispatch_chunk(pf_mask=self._prefilling.copy())
         self._frontier[slot] = start + plen
         self._prefill_chunks_total += 1
         if start + plen >= p:
             self._flip_to_decode(slot)
-        return host, old_pos, pf
 
     def _flip_to_decode(self, slot: int) -> None:
         """The frontier reached the prompt end: the slot decodes from
@@ -1049,20 +1215,146 @@ class ContinuousBatcher:
         self._prefilling[slot] = False
         self._frontier[slot] = 0
 
-    def _harvest(self, host, old_pos, pf_mask=None) -> List[StepEvent]:
-        """Refresh the host mirrors from a dispatch's fetched outputs
-        and turn them into events. Live steps form a prefix of the
-        chunk (done is sticky) and pos advances once per live step, so
-        the first (new_pos - old_pos) emitted entries are the tokens."""
-        tok, pos, done, emitted = host
+    def _collect_drafts(self):
+        """Padded drafts [n_slots, K] and their lengths [n_slots] of
+        every live slot (speculative.py's batched drafting pass)."""
+        return self.spec.draft_batch(self.done)
+
+    def _dispatch_spec(self, drafts: np.ndarray, dlens: np.ndarray):
+        """Enqueue one verify of the carry token and the drafts of every
+        slot (K+1 positions a row), acceptance on the device, and the
+        fetch of the new (tok, pos, done), the emitted tokens [B, K+1],
+        n_emit and accepted. Rows that drafted nothing degenerate to
+        one plain step inside the same verify."""
+        tok, pos, done, limit, table = self._dispatch_state()
+        d = self._upload(drafts).long()
+        dl = self._upload(dlens).long()
+        tokens = torch.cat([tok[:, None], d], dim=1)
+        if self._paged:
+            logits, _ = paged_verify_step(self.cfg, self.params, tokens,
+                                          self.page_pool, table, pos)
+        else:
+            logits, _ = verify_step(self.cfg, self.params, tokens,
+                                    self.cache, pos)
+        self.verify_steps += 1
+        self._enqueue_fetch(
+            _Inflight("spec", dlens=dlens, was_live=~self.done),
+            self._accept(logits, tok, pos, done, limit, d, dl),
+        )
+
+    def _accept(self, logits, tok, pos, done, limit, drafts, dlens):
+        """Acceptance and the chunk's eos / limit / done rules over one
+        verify: -> (tok, pos, done, emitted [B, K+1], n_emit, accepted).
+        emitted holds the m accepted drafts, then the extra token (the
+        correction on a rejection, the bonus on full acceptance), pad
+        beyond; n_emit says how much is real, capped so a live slot
+        emits positions pos+1..limit-1 only and cut after an eos.
+        `accepted` counts the drafts that shipped. Sampled rows draw
+        from their slot's generator; rows without one (free or done)
+        emit nothing."""
+        k = drafts.shape[1]
+        if self.temperature <= 0.0:
+            m, extra = spec_accept_greedy(logits, drafts, dlens)
+        else:
+            probs = torch.softmax(self._warp(logits).float(), dim=-1)
+            m = torch.zeros_like(tok)
+            extra = torch.zeros_like(tok)
+            for row, gen in enumerate(self._slot_gen):
+                if gen is not None:
+                    mm, ee = spec_accept_sampled(
+                        probs[row:row + 1], drafts[row:row + 1],
+                        dlens[row:row + 1], gen,
+                    )
+                    m[row] = mm[0]
+                    extra[row] = ee[0]
+        idx = torch.arange(k + 1, device=drafts.device)[None, :]
+        drafts_p = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], 1)
+        emitted = torch.where(
+            idx < m[:, None], drafts_p,
+            torch.where(idx == m[:, None], extra[:, None], self.pad_id),
+        )
+        n_emit = torch.minimum(m + 1, (limit - 1 - pos).clamp_min(0))
+        if self.eos_id is not None:
+            eos_mask = (emitted == self.eos_id) & (idx < n_emit[:, None])
+            has_eos = eos_mask.any(dim=1)
+            n_emit = torch.where(
+                has_eos, torch.argmax(eos_mask.int(), dim=1) + 1, n_emit)
+        else:
+            has_eos = torch.zeros_like(done)
+        n_emit = torch.where(done, 0, n_emit)
+        emitted = torch.where(idx < n_emit[:, None], emitted, self.pad_id)
+        last = torch.gather(emitted, 1, (n_emit - 1).clamp_min(0)[:, None])
+        new_tok = torch.where(n_emit > 0, last[:, 0], tok)
+        new_pos = pos + n_emit
+        new_done = done | has_eos | (new_pos >= limit - 1)
+        accepted = torch.minimum(m, (n_emit - 1).clamp_min(0))
+        return new_tok, new_pos, new_done, emitted, n_emit, accepted
+
+    def _enqueue_fetch(self, pend: _Inflight, outs) -> None:
+        """Start the copy of a dispatch's outputs, packed into one int64
+        vector, into the engine's page-locked buffer (non-blocking on
+        the card, with an event recorded after it; immediate on the
+        CPU), and hold the dispatch as in flight."""
+        pend.shapes = [tuple(t.shape) for t in outs]
+        packed = torch.cat([t.reshape(-1).long() for t in outs])
+        n = packed.numel()
+        cuda = packed.is_cuda
+        if self._fetch_buf is None or self._fetch_buf.numel() < n:
+            self._fetch_buf = torch.empty(n, dtype=torch.long,
+                                          pin_memory=cuda)
+        self._fetch_buf[:n].copy_(packed, non_blocking=cuda)
+        if cuda:
+            pend.event = torch.cuda.Event()
+            pend.event.record()
+        pend.dispatched_at = time.perf_counter()
+        self._inflight = pend
+
+    def _harvest(self) -> List[StepEvent]:
+        """Wait for the in-flight dispatch's copy, refresh the host
+        mirrors from it and turn it into events ([] when nothing is in
+        flight). The wait is the step's bubble: device time the host
+        had nothing to overlap with."""
+        pend = self._inflight
+        self._inflight = None
+        if pend is None:
+            return []
+        w0 = time.perf_counter()
+        if pend.event is not None:
+            pend.event.synchronize()
+        w1 = time.perf_counter()
+        wait_ms = (w1 - w0) * 1e3
+        span_ms = (w1 - pend.dispatched_at) * 1e3
+        self._wait_this_step += wait_ms
+        self._stat_wait_ms += wait_ms
+        self._stat_span_ms += span_ms
+        self._stat_overlap_ms += max(span_ms - wait_ms, 0.0)
+        self._stat_dispatches += 1
+        flat = self._fetch_buf.numpy()
+        host, at = [], 0
+        for shape in pend.shapes:
+            n = int(np.prod(shape))
+            host.append(flat[at:at + n].reshape(shape).copy())
+            at += n
+        tok, pos, done, emitted = host[:4]
+        done = done.astype(bool)
+        if pend.kind == "chunk":
+            counts = pos - pend.old_pos
+        else:
+            n_emit, accepted = host[4:]
+            counts = n_emit
+            for slot in range(self.n_slots):
+                if pend.was_live[slot]:
+                    self.spec.record(slot, int(pend.dlens[slot]),
+                                     int(accepted[slot]), int(n_emit[slot]))
         self.tok, self.pos = tok, pos
-        return self._emit_events(emitted, pos - old_pos, done, pf_mask)
+        return self._emit_events(emitted, counts, done, pend.pf_mask)
 
     def _emit_events(self, emitted, counts, new_done,
                      pf_mask=None) -> List[StepEvent]:
-        """`pf_mask` marks the slots that were mid-prefill in the
-        dispatch: their fetched done=True is the freeze, not a finish,
-        so they neither emit nor release."""
+        """`counts[slot]` leading entries of `emitted[slot]` are the
+        slot's new tokens. `pf_mask` marks the slots that were
+        mid-prefill in the dispatch: their fetched done=True is the
+        freeze, not a finish, so they neither emit nor release."""
         events: List[StepEvent] = []
         for slot in range(self.n_slots):
             req = self.slot_req[slot]
@@ -1072,6 +1364,10 @@ class ContinuousBatcher:
                 continue
             new_toks = [int(t) for t in emitted[slot][: int(counts[slot])]]
             req.out.extend(new_toks)
+            if self.spec is not None and new_toks:
+                # whichever path emitted them, the drafter's context
+                # must see every token
+                self.spec.extend(slot, new_toks)
             finished = bool(new_done[slot])
             if finished:
                 req.done = True
@@ -1085,6 +1381,8 @@ class ContinuousBatcher:
             if new_toks or finished:
                 events.append((req.idx, new_toks, finished))
         self.done = new_done.copy()
+        # a slot released while the dispatch was in flight (cancel,
+        # retire) must stay free, whatever the dispatch's older done
         for slot in range(self.n_slots):
             if self.slot_req[slot] is None:
                 self.done[slot] = True
@@ -1154,9 +1452,10 @@ class ContinuousBatcher:
 
 def _draw_rows(probs: torch.Tensor, gens: List[Optional[torch.Generator]]):
     """One categorical draw per row of `probs` [B, V], row b from
-    generator gens[b] (argmax where gens[b] is None)."""
+    generator gens[b] (argmax where gens[b] is None): `categorical`,
+    torch.multinomial's draw without its device reads."""
     out = torch.argmax(probs, dim=-1)
     for row, gen in enumerate(gens):
         if gen is not None:
-            out[row] = torch.multinomial(probs[row], 1, generator=gen)[0]
+            out[row] = categorical(probs[row], gen)
     return out

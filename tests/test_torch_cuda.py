@@ -1347,3 +1347,135 @@ def test_offload_names_keeps_the_tagged_activations_off_the_card(gen):
     assert saved_off == saved_full, (saved_off, saved_full)
     assert saved_names - saved_off >= tagged, (saved_names, saved_off,
                                                tagged)
+
+
+def _serving_model(gen):
+    """A small Llama whose shapes every serving kernel takes (head_dim
+    64, GQA 2), bf16, random weights on the card."""
+    from dlrover_tpu_torch.models import llama as tllama
+
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                  mlp_dim=512, attn_impl="auto")
+    return cfg, tllama.init_params(cfg, gen)
+
+
+def test_paged_verify_matches_stepped_decode_on_the_card(gen):
+    """One paged verify of K+1 = 5 tokens a row against the same tokens
+    stepped one at a time through paged_decode_step (the paged kernel)
+    from the same pool: the logits at every position within 5% of the
+    largest logit (bf16 roundings: the verify attends through the
+    gathered view with f32 scores, the step through the kernel), and
+    no paged-kernel launch inside the verify."""
+    cfg, params = _serving_model(gen)
+    ps, per_slot, s = 16, 8, 5
+    lens = (37, 70)
+    table = torch.tensor([[1 + r * per_slot + i for i in range(per_slot)]
+                          for r in range(len(lens))], dtype=torch.int32,
+                         device="cuda")
+    pool = tdec.init_page_pool(cfg, 1 + per_slot * len(lens), ps)
+    prompts = []
+    for r, n in enumerate(lens):
+        p = torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                          device="cuda")
+        row = tdec.prefill_exact_row(cfg, params, p, per_slot * ps)
+        tdec.paged_install_row(pool, row, table[r], 0, n)
+        prompts.append(p)
+    pos = torch.tensor([n - 1 for n in lens], device="cuda")
+    tokens = torch.stack([
+        torch.cat([p[-1:], torch.randint(1, cfg.vocab_size, (s - 1,),
+                                         generator=gen, device="cuda")])
+        for p in prompts])
+    stepped = {n: a.clone() for n, a in pool.items()}
+    before = _build.launch_counts()["paged_attention"]
+    vl, _ = tdec.paged_verify_step(cfg, params, tokens, pool, table, pos)
+    assert _build.launch_counts()["paged_attention"] == before
+    for j in range(s):
+        sl, _ = tdec.paged_decode_step(cfg, params, tokens[:, j], stepped,
+                                       table, pos + j)
+        torch.cuda.synchronize()
+        err = (vl[:, j] - sl).abs().max().item()
+        assert err <= 0.05 * sl.abs().max().item(), (j, err)
+    assert (_build.launch_counts()["paged_attention"]
+            == before + s * cfg.n_layers)
+
+
+def test_dqmm_at_the_verify_shape(gen):
+    """w_gate (K 4096, O 14336, block 256) at T = 8 slots x 5 verify
+    positions = 40: one launch of the prefill kernel, within DQMM_TOL
+    of its plain version."""
+    k, o, t = 4096, 14336, 40
+    w = torch.randn((o, k), generator=gen, device="cuda") * k ** -0.5
+    qw = tq.QuantizedWeight(*tq.quantize_int8(w, 256), 256)
+    x = torch.randn((t, k), generator=gen, device="cuda").bfloat16()
+    before = _build.launch_counts()
+    y = tq.quantized_matmul(x, qw)
+    after = _build.launch_counts()
+    ref = tq.quantized_matmul_reference(x, qw)
+    torch.cuda.synchronize()
+    assert after["dqmm"] == before["dqmm"] + 1
+    assert after["dqmm_ws"] == before["dqmm_ws"] + 1
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= DQMM_TOL * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "kw", [{}, dict(temperature=0.8, top_k=20, seed=3),
+           dict(weight_quant="int8")],
+    ids=["greedy", "sampled", "int8"])
+def test_depth_1_dispatch_never_waits_on_the_card(gen, kw):
+    """At async_depth=1 building and enqueueing a chunk dispatch and a
+    spec dispatch (uploads, steps or verify, acceptance, the fetch into
+    the page-locked buffer) runs under
+    torch.cuda.set_sync_debug_mode("error"): nothing in it synchronizes
+    the stream. The harvests wait on their events outside it."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg, params = _serving_model(gen)
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=60,
+                            max_new_tokens=24, kv_layout="paged",
+                            spec_draft_len=4, async_depth=1, **kw)
+    pat = [5, 17, 99, 3]
+    for p in (pat * 6, [7, 8, 9] * 5):
+        eng.submit(p)
+    eng.step()                      # admissions, dispatch 1 in flight
+    eng._harvest()
+    verifies = eng.verify_steps
+    drafts = np.full((2, 4), 17, np.int32)
+    dlens = np.full(2, 4, np.int32)
+    for dispatch in (eng._dispatch_chunk,
+                     lambda: eng._dispatch_spec(drafts, dlens)):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert eng._inflight is not None
+        eng._harvest()
+    assert eng.verify_steps == verifies + 1
+    outs = eng.generate_all([])
+    assert all(0 < len(o) <= 24 for o in outs)
+
+
+def test_async_spec_engine_on_the_card(gen):
+    """The paged engine with speculation on the card: streams and
+    spec.stats() identical at both depths, drafts verified, every paged
+    launch in a chunk step (none inside a verify), a flash forward per
+    layer and admission."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg, params = _serving_model(gen)
+    pat = [5, 17, 99, 3, 40, 41]
+    prompts = [pat * 5, [7, 8, 9] * 9, pat[:4] * 3, list(range(1, 30))]
+    runs = []
+    for depth in (0, 1):
+        _build.reset_launch_counts()
+        eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=60,
+                                max_new_tokens=20, kv_layout="paged",
+                                spec_draft_len=4, async_depth=depth)
+        outs = [o.tolist() for o in eng.generate_all(prompts)]
+        counts = _build.launch_counts()
+        assert eng.verify_steps >= 1 and eng.spec.proposed > 0
+        assert counts["paged_attention"] == eng.decode_steps * cfg.n_layers
+        assert counts["flash_fwd"] == eng.admissions * cfg.n_layers
+        runs.append((outs, eng.spec.stats()))
+    assert runs[0] == runs[1]
