@@ -68,7 +68,37 @@ Phases, one line each (any failure exits non-zero before the last line):
      streams byte-equal to serve's (depth 0); then depth 0, 0 and 1
      again in turns, each byte-equal to serve's, for TPOT and
      step_stats of both depths in one phase;
-  10. serve.prefix_pressure: the paged engine with the prefix cache
+  10. serve.adapters: serve's engine with six random LoRA adapters on
+     wq/wk/wv/wo (ranks 8 / 16, alpha 2r, the delta 5% of the base wq
+     projection's RMS) registered, a bank of 4 slots + the zero slot:
+     wave 1 serve's 12 prompts under ad0, ad1, None, ad2, ad3, None,
+     wave 2 six of them under ad4, ad5, None; every request finishes,
+     the kernels ran as in serve, 6 uploads and 2 evictions, wave 1's
+     base rows equal serve's streams byte for byte, and the engine's
+     first-decode logits of the first ad0 and ad1 requests are within 5%
+     of the largest logit of the same prompt on lora.merge's tree; TTFT,
+     TPOT and tokens/s beside serve's, the bank's bytes, one decode
+     step's device time with and without the LoRA operand;
+  11. serve.adapters.base: serve's traffic, all base requests, through
+     an adapter engine: the streams equal serve's byte for byte;
+  12. serve.adapters.int8: wave 1 with weight_quant="int8": the quantize
+     kernel at install, every base product on the dequant-matmul kernel
+     (prefill dqmm_ws, decode dqmm_decode_tma) with the delta after it,
+     every request finishes, the ad0 first-decode logits within 5% of a
+     dense tree of the dequantized weights with the same adapter (their
+     distance to the bf16 adapter engine's reported beside the int8
+     weights' own, without an adapter);
+  13. serve.refresh: a live update_params to tree B (init seed 1) with 8
+     slots decoding: every request finishes, 8 replays, version 1, the
+     commit's wall time, and 4 prompts served after the drain equal a
+     fresh engine's streams on B byte for byte; then "defer" (staged,
+     version 0 to the drain, committed at the idle fence, a later request
+     at version 1), "raise" (refused mid-drain) and a poisoned tree (one
+     leaf's shape changed: raises, version 0 keeps serving, rolled back);
+  14. serve.refresh.int8: the live case with int8 weights: 225 quantize
+     launches at the commit, the streams after it equal a fresh int8
+     engine's on B;
+  15. serve.prefix_pressure: the paged engine with the prefix cache
      (4 rows, blocks of 256) on a pool of 129 pages (the least that
      backs one maximal request; the dense-equivalent is 1025), greedy-
      serving 16 requests of one shared 512-token system prompt plus
@@ -85,12 +115,12 @@ Phases, one line each (any failure exits non-zero before the last line):
      timed run, with copy-on-write of the frontier page), must match
      the same prompt admitted cold; greedy agreement with the same prompts on the dense-equivalent
      pool with no knob is reported;
-  11. serve.prefill_chunk: the same engine with prefill_chunk=256:
+  16. serve.prefill_chunk: the same engine with prefill_chunk=256:
      every request finishes, interleaved chunks ran, no flash launch
      (chunked admissions prefill through the cached-attention path),
      the paged checks as above, and the first chunked admission's
      first-decode logits must match the same prompt admitted cold;
-  12. train: Trainer(ElasticTrainer(...)) over accelerate over
+  17. train: Trainer(ElasticTrainer(...)) over accelerate over
      llama.loss_fn on Llama-3-8B at full width, 4 layers (f32 params,
      bf16 compute, remat "full", AdamW), 8 steps of a global batch of
      4 x 2048 tokens in microbatches of 2; the losses must be finite and
@@ -99,7 +129,7 @@ Phases, one line each (any failure exits non-zero before the last line):
      them, and the first
      microbatch's loss and gradients must match the same model with
      plain attention;
-  13. train.ckpt: the train workload with fused_ce=True through flash
+  18. train.ckpt: the train workload with fused_ce=True through flash
      checkpoint: fused against unfused loss and gradients on one
      microbatch (each loss's time and peak memory); the snapshot
      buffers and the page-locked shm segment prepared, then 8 Trainer
@@ -111,21 +141,21 @@ Phases, one line each (any failure exits non-zero before the last line):
      unlinked, bit-equal again: the losses of steps 9 and 10 must equal
      the uninterrupted run's bit for bit. The segment and the
      checkpoint directory are removed whatever happens;
-  14. train.int8_adam: the same workload from the same params and
+  19. train.int8_adam: the same workload from the same params and
      tokens with int8_adam (int8 block-quantized moments) in place of
      AdamW; the losses must be finite and fall, step 1's loss must
      equal train's, the dequantize and quantize kernels must have run
      exactly twice a param leaf and step, the moments must take at most
      0.254x of AdamW's bytes and the peak memory must stay below
      train's;
-  15. train.remat: the train workload (4 steps each) under the model's
+  20. train.remat: the train workload (4 steps each) under the model's
      remat policies "full", "proj", "proj_mlp" and "none" (the model's
      remat off), and with the model's remat off under
      Strategy(remat="full"): median step,
      tokens/s, MFU and peak memory of each; losses finite and falling,
      exact flash launch counts (all wgmma), peaks none >= proj_mlp >=
      proj >= full;
-  16. matmul.fp8_dot: fp8_dot on a w_gate-shaped product (x [4096,
+  21. matmul.fp8_dot: fp8_dot on a w_gate-shaped product (x [4096,
      4096], w [4096, 14336], bf16) forward and backward for 4 steps from
      a zero state: y, dx and dw against the same products on the fp8
      values upcast to f32, the amax histories, and its time beside the
@@ -154,7 +184,9 @@ the `dlrover_tpu_torch` found under DIR (another checkout, such as a
 parent commit unpacked by `git archive`) where one is given: the A/B
 of two versions of kernel 7 in one call; it prints no result line
 either. `python3 chip_smoke.py --spec` runs the card, build and serve phases and
-phases 6-9 (the speculative and async serving), no result line.
+phases 6-9 (the speculative and async serving), no result line;
+`python3 chip_smoke.py --adapters` the card, build and serve phases and
+phases 10-14 (adapters and weight refresh), no result line.
 `python3 chip_smoke.py --decode-kernels [--package-root DIR]`
 runs the card, build and paged-attention phases and the dqmm rows at
 T = 1, 8 and 16 of the five weight shapes: the A/B of the two decode
@@ -201,6 +233,23 @@ SPEC_K = 4
 SPEC_MAX_LEN = 2048 - SPEC_K
 SPEC_MAX_NEW = 64
 SPEC_REQUESTS = 12
+# the adapter phases: six LoRA adapters on wq/wk/wv/wo (numpy seed 7),
+# ranks alternating 8 and 16 with alpha = 2 x rank, in a bank of 4 slots
+# (+ the zero slot) at max_rank 16; B scaled so that ad0's wq delta on the
+# first prompt is ADAPTER_DELTA_RMS of the base projection (RMS). Wave 1
+# cycles ad0, ad1, None, ad2, ad3, None over serve's 12 prompts; wave 2
+# serves 6 of them under ad4, ad5, None: two evictions
+ADAPTER_IDS = tuple(f"ad{i}" for i in range(6))
+ADAPTER_MAX_RANK = 16
+ADAPTER_SLOTS = 4
+ADAPTER_SEED = 7
+ADAPTER_DELTA_RMS = 0.05
+WAVE1_IDS = ("ad0", "ad1", None, "ad2", "ad3", None)
+WAVE2_IDS = ("ad4", "ad5", None)
+# serve.refresh: tree B is init_params from this seed (the same
+# structure, shapes and dtypes as the served tree A, seed SEED)
+REFRESH_SEED = 1
+REFRESH_AFTER = 4   # prompts submitted after the commit
 # the Llama-3-8B matmul weights as (K, O), with their names
 DQMM_SHAPES = (
     ((4096, 4096), "wq, wo"), ((4096, 1024), "wk, wv"),
@@ -1291,10 +1340,13 @@ def _prompts(cfg, n=12):
             for m in lengths]
 
 
-def _serve(engine, prompts, max_new):
-    """Submit everything, step to completion; per-request timings."""
+def _serve(engine, prompts, max_new, adapter_ids=None):
+    """Submit everything (each request under its adapter id, where
+    given), step to completion; per-request timings."""
     t0 = time.perf_counter()
-    ids = [engine.submit(p, max_new=max_new) for p in prompts]
+    adapter_ids = adapter_ids or [None] * len(prompts)
+    ids = [engine.submit(p, max_new=max_new, adapter_id=a)
+           for p, a in zip(prompts, adapter_ids)]
     first, last, count = {}, {}, {i: 0 for i in ids}
     while engine.has_work():
         events = engine.step()
@@ -1397,10 +1449,11 @@ def phase_serve(params, cfg):
     return e2e
 
 
-def _first_decode_logits(cfg, params, p, max_len):
+def _first_decode_logits(cfg, params, p, max_len, adapters=None):
     """Logits of the first decode step after prefilling prompt `p`
     (padded to its 1024 bucket) into a fresh exact row installed into
-    a page pool: the engine's paged admission and decode, one slot."""
+    a page pool: the engine's paged admission and decode, one slot
+    (`adapters`: a one-row LoRA operand for both)."""
     from dlrover_tpu_torch.models import decode as dec
 
     bucket = 1024
@@ -1410,12 +1463,13 @@ def _first_decode_logits(cfg, params, p, max_len):
     table = torch.arange(1, per_slot + 1, dtype=torch.int32,
                          device="cuda")[None]
     pool = dec.init_page_pool(cfg, per_slot + 1, 16)
-    row = dec.prefill_exact_row(cfg, params, prompt, max_len)
+    row = dec.prefill_exact_row(cfg, params, prompt, max_len,
+                                adapters=adapters)
     dec.paged_install_row(pool, row, table[0], 0, bucket)
     del row
     logits, _ = dec.paged_decode_step(
         cfg, params, torch.tensor([p[-1]], device="cuda"), pool, table,
-        torch.tensor([len(p) - 1], device="cuda"),
+        torch.tensor([len(p) - 1], device="cuda"), adapters=adapters,
     )
     return logits
 
@@ -1915,6 +1969,523 @@ def phase_serve_async(params, cfg, sync):
     if bad:
         raise AssertionError(f"serve.async: failed {bad}")
     return e2e
+
+
+# -- multi-adapter LoRA serving and weight refresh ---------------------------
+
+
+def _adapter_trees(cfg, params, prompt):
+    """The six adapters (numpy, seed ADAPTER_SEED): A ~ N(0, 1/r),
+    B ~ N(0, 1) times one scale chosen so that ad0's wq delta on the
+    layer-0 input of `prompt` has ADAPTER_DELTA_RMS of the base wq
+    projection's RMS. -> ({id: (layers, alpha)}, scale, {id: ratio})."""
+    from dlrover_tpu_torch.models.llama import _rms_norm
+    from dlrover_tpu_torch.serving.adapters import _target_dims
+
+    rng = np.random.default_rng(ADAPTER_SEED)
+    trees = {}
+    for i, aid in enumerate(ADAPTER_IDS):
+        r = 8 if i % 2 == 0 else 16
+        layers = {}
+        for t, (d_in, d_out) in _target_dims(cfg).items():
+            layers[t + "_lora_a"] = rng.standard_normal(
+                (cfg.n_layers, d_in, r), dtype=np.float32) / np.float32(
+                    np.sqrt(r))
+            layers[t + "_lora_b"] = rng.standard_normal(
+                (cfg.n_layers, r, d_out), dtype=np.float32)
+        trees[aid] = (layers, 2.0 * r)
+    tok = torch.tensor(prompt, device="cuda")
+    x = params["embed"]["weight"][tok].to(cfg.dtype)
+    h = _rms_norm(x, params["layers"]["attn_norm"][0], cfg.norm_eps).float()
+    base_rms = (h @ params["layers"]["wq"][0].float()).pow(2).mean().sqrt()
+
+    def ratio(aid):
+        layers, alpha = trees[aid]
+        a = torch.from_numpy(layers["wq_lora_a"][0]).cuda()
+        b = torch.from_numpy(layers["wq_lora_b"][0]).cuda()
+        d = (alpha / a.shape[-1]) * (h @ a) @ b
+        return float(d.pow(2).mean().sqrt() / base_rms)
+
+    scale = ADAPTER_DELTA_RMS / ratio("ad0")
+    for layers, _ in trees.values():
+        for k in layers:
+            if k.endswith("_lora_b"):
+                layers[k] *= np.float32(scale)
+    ratios = {aid: ratio(aid) for aid in ADAPTER_IDS}
+    if not all(0.01 <= v <= 0.10 for v in ratios.values()):
+        raise AssertionError(f"adapter delta / base RMS {ratios} outside "
+                             "1-10%")
+    return trees, scale, ratios
+
+
+def _watch_adapter_first_decodes(engine, ids):
+    """Record the engine's own first-decode logits (the step that
+    samples a request's first token) of the first request admitted
+    under each adapter id in `ids`: `_admit` and `_advance` wrapped on
+    the instance. Returns {id: (prompt, logits [V])}."""
+    seen, pending = {}, {}
+    admit, advance = engine._admit, engine._advance
+
+    def watch_admit(slot, req):
+        admit(slot, req)
+        aid = req.adapter_id
+        if aid in ids and aid not in seen and aid not in (
+                a for a, _ in pending.values()):
+            pending[slot] = (aid, req)
+
+    def watch_advance(logits, tok, pos, done, limit):
+        for slot, (aid, req) in pending.items():
+            if engine.slot_req[slot] is req:
+                seen[aid] = (req.prompt.tolist(),
+                             logits[slot].float().clone())
+        pending.clear()
+        return advance(logits, tok, pos, done, limit)
+
+    engine._admit = watch_admit
+    engine._advance = watch_advance
+    return seen
+
+
+def _decode_step_ms(cfg, params, bank):
+    """Device time (CUDA-graph replayed) of one paged decode step of 8
+    rows at serve's first 8 prompt lengths, without and with the LoRA
+    operand (rows on bank slots 1, 2, 0, 3, 4, 0, 1, 2), in the order
+    without, with, with, without."""
+    from dlrover_tpu_torch.models import decode as dec
+    from dlrover_tpu_torch.serving.engine import _lora_operand
+
+    b, ps, per_slot = 8, 16, 2048 // 16
+    table = (1 + torch.arange(b * per_slot, dtype=torch.int32,
+                              device="cuda")).reshape(b, per_slot)
+    pool = dec.init_page_pool(cfg, 1 + b * per_slot, ps)
+    pos = torch.tensor([len(p) - 1 for p in _prompts(cfg)[:b]],
+                       device="cuda")
+    tok = torch.ones(b, dtype=torch.long, device="cuda")
+    ad = _lora_operand(bank, torch.tensor([1, 2, 0, 3, 4, 0, 1, 2],
+                                          device="cuda"))
+    times = {"without": [], "with": []}
+    for which in ("without", "with", "with", "without"):
+        op = ad if which == "with" else None
+        times[which].append(device_ms(lambda: dec.paged_decode_step(
+            cfg, params, tok, pool, table, pos, adapters=op), calls=3,
+            replays=5))
+    del pool
+    torch.cuda.empty_cache()
+    return {f"decode_step_ms_{k}_adapters": v for k, v in times.items()}
+
+
+def _wave_ids(ids, n):
+    return [ids[i % len(ids)] for i in range(n)]
+
+
+def _check_path(phase, engine, launches, cfg, weight_quant="none"):
+    """The kernels of a serving run: a flash forward (wgmma) a layer and
+    admission, a paged launch (TMA ring) a layer and decode step; int8:
+    the dqmm kernel on every product, prefill ones on `dqmm_ws`, decode
+    ones on `dqmm_decode_tma`. -> (checks, dqmm launches by variant)."""
+    checks = {
+        "flash_fwd == admissions x layers": (
+            launches["flash_fwd"] == engine.admissions * cfg.n_layers),
+        "paged == decode_steps x layers": (
+            launches["paged_attention"]
+            == engine.decode_steps * cfg.n_layers),
+    }
+    _check_wgmma(phase, launches)
+    _check_paged_tma(phase, launches)
+    by_variant = None
+    if weight_quant != "none":
+        per_forward = 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+        by_variant = dict(
+            ws=launches["dqmm_ws"], decode_tma=launches["dqmm_decode_tma"],
+            decode_mma=(launches["dqmm"] - launches["dqmm_ws"]
+                        - launches["dqmm_decode_tma"]))
+        checks["dqmm by variant"] = by_variant == dict(
+            ws=engine.admissions * per_forward,
+            decode_tma=engine.decode_steps * per_forward, decode_mma=0)
+    return checks, by_variant
+
+
+def _raise_failed(phase, checks):
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{phase}: failed {bad}")
+
+
+def phase_serve_adapters(params, cfg, serve):
+    """serve.adapters: serve's engine with the six adapters registered
+    and a bank of ADAPTER_SLOTS; wave 1 (serve's 12 prompts under
+    WAVE1_IDS), then after it retires wave 2 (6 prompts under
+    WAVE2_IDS, two evictions), the launch counts set to 0 just before
+    the engine is built and read after wave 2. Every request finishes,
+    the kernels ran as in serve, 6 uploads and 2 evictions, the base
+    rows of wave 1 equal serve's streams byte for byte, and the engine's
+    first-decode logits of the first ad0 and ad1 requests are within
+    LOGITS_REL_TOL of the same prompt on `lora.merge`'s tree. Then one
+    decode step's device time with and without adapters, and the bank's
+    bytes. -> (e2e, registry, trees, the ad0 logits)."""
+    from dlrover_tpu_torch.models import lora
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.adapters import AdapterRegistry
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    max_new = 32
+    prompts = _prompts(cfg)
+    trees, b_scale, ratios = _adapter_trees(cfg, params, prompts[0])
+    reg = AdapterRegistry(cfg, max_rank=ADAPTER_MAX_RANK)
+    for aid, (layers, alpha) in trees.items():
+        reg.register(aid, {"layers": layers}, alpha=alpha)
+    kw = dict(n_slots=8, max_len=2048, max_new_tokens=max_new, chunk=8,
+              kv_layout="paged", adapter_registry=reg,
+              adapter_cache_slots=ADAPTER_SLOTS)
+    wave1 = _wave_ids(WAVE1_IDS, len(prompts))
+    wave2 = _wave_ids(WAVE2_IDS, 6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    engine = ContinuousBatcher(cfg, params, **kw)
+    seen = _watch_adapter_first_decodes(engine, ("ad0", "ad1"))
+    outs1, tm1 = _serve(engine, prompts, max_new, wave1)
+    torch.cuda.synchronize()
+    stats1 = engine.adapter_stats()
+    outs2, tm2 = _serve(engine, prompts[:6], max_new, wave2)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    stats = engine.adapter_stats()
+    lens = [len(o) for o in outs1 + outs2]
+    toks = np.concatenate(outs1 + outs2)
+    base = [i for i, a in enumerate(wave1) if a is None]
+    adapted = [i for i, a in enumerate(wave1) if a is not None]
+    checks, _ = _check_path("serve.adapters", engine, launches, cfg)
+    checks.update({
+        "every request finished": lens == [max_new] * len(lens),
+        "tokens in the vocabulary": bool(
+            toks.min() >= 0 and toks.max() < cfg.vocab_size),
+        "uploads == 6": stats["uploads"] == 6.0,
+        "evictions == 2": stats["evictions"] == 2.0,
+        "no pin left after the drains": stats["pinned"] == 0.0,
+        "wave-1 base rows equal serve's": all(
+            np.array_equal(outs1[i], serve["outs"][i]) for i in base),
+    })
+    e2e = dict(
+        requests=len(lens), wave1_ids=wave1, wave2_ids=wave2,
+        admissions=engine.admissions, decode_steps=engine.decode_steps,
+        launches=launches, adapter_stats_wave1=stats1, adapter_stats=stats,
+        residency=engine.adapter_residency(),
+        bank_bytes=engine._adapter_cache.bank_bytes(),
+        bank_slots=ADAPTER_SLOTS + 1, b_scale=b_scale,
+        delta_rms_ratio=ratios,
+        adapted_streams_equal_serve=sum(
+            int(np.array_equal(outs1[i], serve["outs"][i])) for i in adapted),
+        wave1=_timings(tm1, [len(o) for o in outs1]),
+        wave2=_timings(tm2, [len(o) for o in outs2]),
+        serve_ttft_ms_mean=serve["ttft_ms_mean"],
+        serve_tpot_ms_mean=serve["tpot_ms_mean"],
+        serve_tokens_per_s=serve["tokens_per_s"],
+        step_stats=engine.step_stats(), checks=checks,
+    )
+    bank = engine._adapter_cache.bank
+    e2e.update(_decode_step_ms(cfg, params, bank))
+    log("serve.adapters", **e2e)
+    _raise_failed("serve.adapters", checks)
+    del engine, bank
+    torch.cuda.empty_cache()
+    # the engine's first-decode logits of the first ad0 / ad1 request
+    # against the same prompt's cold first decode on the merged tree
+    for aid in ("ad0", "ad1"):
+        if aid not in seen:
+            raise AssertionError(f"serve.adapters: no {aid} admission seen")
+        prompt, got = seen[aid]
+        layers, alpha = trees[aid]
+        sd = {"layers": {k: torch.from_numpy(v).cuda()
+                         for k, v in layers.items()}}
+        merged = lora.merge(dataclasses.replace(cfg, lora_alpha=alpha),
+                            lora.load_adapters(params, sd))
+        want = _first_decode_logits(cfg, merged, prompt, 2048)[0]
+        del merged, sd
+        torch.cuda.empty_cache()
+        _check_first_decode(
+            f"serve.adapters.{aid}_first_decode_logits", got, want,
+            "5% of the largest logit: the engine adds the rank-r delta to "
+            "each bf16 projection, the merged side rounds W + (alpha/r) "
+            "A@B to bf16 once; bf16 roundings carried through 32 layers",
+        )
+    return e2e, reg, trees, seen["ad0"]
+
+
+def phase_serve_adapters_base(params, cfg, serve, reg):
+    """serve.adapters.base: serve's 12 prompts, all adapter_id=None,
+    through an adapter engine: the streams equal serve's byte for byte
+    (every row adds an exact zero from bank slot 0)."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    max_new = 32
+    prompts = _prompts(cfg)
+    _build.reset_launch_counts()
+    engine = ContinuousBatcher(
+        cfg, params, n_slots=8, max_len=2048, max_new_tokens=max_new,
+        chunk=8, kv_layout="paged", adapter_registry=reg,
+        adapter_cache_slots=ADAPTER_SLOTS)
+    outs, tm = _serve(engine, prompts, max_new)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    checks, _ = _check_path("serve.adapters.base", engine, launches, cfg)
+    checks["streams equal serve's byte for byte"] = all(
+        np.array_equal(a, b) for a, b in zip(outs, serve["outs"]))
+    checks["no upload"] = engine.adapter_stats()["uploads"] == 0.0
+    e2e = dict(requests=len(prompts), admissions=engine.admissions,
+               decode_steps=engine.decode_steps, launches=launches,
+               checks=checks, **_timings(tm, [len(o) for o in outs]))
+    log("serve.adapters.base", **e2e)
+    _raise_failed("serve.adapters.base", checks)
+    del engine
+    torch.cuda.empty_cache()
+    return e2e
+
+
+def phase_serve_adapters_int8(params, cfg, reg, bf16_ad0):
+    """serve.adapters.int8: wave 1 at weight_quant="int8" (the counts set
+    to 0 before the install): the install runs the quantize kernel once
+    a layer slice, every base product runs the dequant-matmul kernel
+    (prefill on dqmm_ws, decode on dqmm_decode_tma) with the delta added
+    after it, every request finishes, and the engine's first-decode
+    logits of the ad0 request are within LOGITS_REL_TOL of the same
+    decode functions on a dense bf16 tree of exactly the dequantized
+    weights with the same adapter (serve.int8's oracle). Their distance
+    to the bf16 adapter engine's is reported beside the same distance
+    without an adapter (the int8 weights' own noise): not asserted."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import (
+        ContinuousBatcher,
+        _lora_operand,
+    )
+
+    max_new = 32
+    prompts = _prompts(cfg)
+    per_forward = 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    engine = ContinuousBatcher(
+        cfg, params, n_slots=8, max_len=2048, max_new_tokens=max_new,
+        chunk=8, kv_layout="paged", weight_quant="int8",
+        adapter_registry=reg, adapter_cache_slots=ADAPTER_SLOTS)
+    torch.cuda.synchronize()
+    install = _build.launch_counts()["quant_int8"]
+    seen = _watch_adapter_first_decodes(engine, ("ad0",))
+    outs, tm = _serve(engine, prompts, max_new,
+                      _wave_ids(WAVE1_IDS, len(prompts)))
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    checks, by_variant = _check_path("serve.adapters.int8", engine,
+                                     launches, cfg, "int8")
+    checks.update({
+        "every request finished": [len(o) for o in outs] == [max_new] * len(
+            prompts),
+        "quant_int8 at install == 225": install == per_forward,
+        "weight_quant_path int8:kernel": (
+            engine.weight_quant_path == "int8:kernel"),
+    })
+    e2e = dict(requests=len(prompts), admissions=engine.admissions,
+               decode_steps=engine.decode_steps, launches=launches,
+               dqmm_launches_by_variant=by_variant,
+               quant_launches_at_install=install,
+               adapter_stats=engine.adapter_stats(), checks=checks,
+               **_timings(tm, [len(o) for o in outs]))
+    qparams = engine.params
+    ad = _lora_operand(engine._adapter_cache.bank, torch.tensor(
+        [engine._adapter_cache.slot_of("ad0")], device="cuda"))
+    del engine
+    torch.cuda.empty_cache()
+    prompt, got = seen["ad0"]
+    if prompt != bf16_ad0[0]:
+        raise AssertionError("serve.adapters.int8: another ad0 prompt")
+    dense = _dequantized_tree(qparams)
+    want = _first_decode_logits(cfg, dense, prompt, 2048, adapters=ad)[0]
+    del dense
+    torch.cuda.empty_cache()
+    # the int8 weights' own distance from bf16, without an adapter
+    base_q = _first_decode_logits(cfg, qparams, prompt, 2048)[0]
+    base_b = _first_decode_logits(cfg, params, prompt, 2048)[0]
+    e2e.update(
+        ad0_vs_bf16_adapter_engine=(got - bf16_ad0[1]).abs().max().item(),
+        base_int8_vs_bf16=(base_q - base_b).abs().max().item(),
+        bf16_max_abs_logit=bf16_ad0[1].abs().max().item())
+    log("serve.adapters.int8", **e2e)
+    _raise_failed("serve.adapters.int8", checks)
+    del qparams, ad, base_q, base_b
+    torch.cuda.empty_cache()
+    _check_first_decode(
+        "serve.adapters.int8.ad0_first_decode_logits", got, want,
+        "5% of the largest logit (serve.int8.first_decode_logits'): the "
+        "same dequantized bf16 weights and the same bf16 delta on both "
+        "sides; the f32 sums of 225 products a forward in another order, "
+        "each rounded to bf16, carried through 32 layers",
+    )
+    return e2e
+
+
+def _drain(engine):
+    while engine.has_work():
+        engine.step()
+
+
+def phase_serve_refresh(params, cfg, tree_b, weight_quant="none"):
+    """serve.refresh (bf16) or serve.refresh.int8: a live refresh with
+    replay. serve's 12 prompts are submitted and stepped once; then
+    update_params(B) commits at once (its wall time reported; int8: the
+    quantize kernel once a layer slice of B), every live slot replays;
+    every request finishes, the replays equal the live slots at the
+    refresh, weight_version is 1, and REFRESH_AFTER prompts submitted
+    after the drain give a fresh engine's streams on B byte for byte.
+    The launch counts are set to 0 before the engine is built and read
+    before the fresh engine runs. bf16 also runs the defer, raise and
+    poisoned cases on small drains."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    phase = "serve.refresh" + ("" if weight_quant == "none" else ".int8")
+    max_new = 32
+    prompts = _prompts(cfg)
+    after = prompts[-REFRESH_AFTER:]
+    per_forward = 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    kw = dict(n_slots=8, max_len=2048, max_new_tokens=max_new, chunk=8,
+              kv_layout="paged", weight_quant=weight_quant)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    engine = ContinuousBatcher(cfg, params, weight_refresh_mode="live", **kw)
+    for p in prompts:
+        engine.submit(p, max_new=max_new)
+    engine.step()
+    live = sum(1 for s in range(engine.n_slots)
+               if engine.slot_req[s] is not None and not engine.done[s])
+    torch.cuda.synchronize()
+    before = _build.launch_counts()["quant_int8"]
+    t0 = time.perf_counter()
+    engine.update_params(tree_b)
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    commit_quant = _build.launch_counts()["quant_int8"] - before
+    _drain(engine)
+    versions = [sorted(engine._requests[i].versions)
+                for i in range(len(prompts))]
+    outs = engine.generate_all([])
+    outs_after = engine.generate_all(after)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    stats = engine.elastic_stats()
+    checks, by_variant = _check_path(phase, engine, launches, cfg,
+                                     weight_quant)
+    del engine
+    torch.cuda.empty_cache()
+    fresh = ContinuousBatcher(cfg, tree_b, **kw)
+    fresh_outs = fresh.generate_all(after)
+    del fresh
+    torch.cuda.empty_cache()
+    checks.update({
+        "every request finished": [len(o) for o in outs + outs_after]
+        == [max_new] * (len(prompts) + len(after)),
+        "replays == live slots at the refresh": (
+            stats["replayed_requests"] == float(live) and live > 0),
+        "weight_version == 1": stats["weight_version"] == 1.0,
+        "one commit": stats["refresh_committed"] == 1.0,
+        "streams after the commit equal a fresh engine's on B": all(
+            np.array_equal(a, b) for a, b in zip(outs_after, fresh_outs)),
+        "quantize launches at the commit": commit_quant == (
+            0 if weight_quant == "none" else per_forward),
+    })
+    e2e = dict(requests=len(prompts) + len(after), live_at_refresh=live,
+               commit_s=commit_s, commit_quant_launches=commit_quant,
+               versions=versions, elastic_stats=stats, launches=launches,
+               dqmm_launches_by_variant=by_variant,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+               checks=checks)
+    if weight_quant == "none":
+        e2e.update(_refresh_fences(cfg, params, tree_b, kw, prompts))
+        checks.update(e2e.pop("fence_checks"))
+    log(phase, **e2e)
+    _raise_failed(phase, checks)
+    return e2e
+
+
+def _refresh_fences(cfg, params, tree_b, kw, prompts):
+    """serve.refresh's other modes, each on 4 requests: defer (staged,
+    the requests keep version 0, the commit lands at the idle fence and
+    a later request has version 1), raise (RuntimeError mid-drain) and a
+    poisoned tree (one leaf's shape changed: raises, version 0 keeps
+    serving, rolled_back 1)."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    checks = {}
+    eng = ContinuousBatcher(cfg, params, weight_refresh_mode="defer", **kw)
+    idx = [eng.submit(p) for p in prompts[:4]]
+    eng.step()
+    eng.update_params(tree_b)
+    checks["defer: staged at version 0"] = eng.weight_version == 0
+    _drain(eng)
+    checks["defer: the drained requests ran at version 0"] = all(
+        eng._requests[i].versions == {0} for i in idx)
+    eng.step()   # the idle fence
+    checks["defer: committed at the idle fence"] = eng.weight_version == 1
+    later = eng.submit(prompts[4])
+    _drain(eng)
+    checks["defer: a later request ran at version 1"] = (
+        eng._requests[later].versions == {1})
+    defer_stats = eng.elastic_stats()
+    del eng
+    eng = ContinuousBatcher(cfg, params, weight_refresh_mode="raise", **kw)
+    eng.submit(prompts[0])
+    eng.step()
+    try:
+        eng.update_params(tree_b)
+        checks["raise: refused mid-drain"] = False
+    except RuntimeError:
+        checks["raise: refused mid-drain"] = True
+    del eng
+    bad = dict(tree_b)
+    bad["final_norm"] = {"scale": torch.ones(cfg.dim + 1, device="cuda",
+                                             dtype=cfg.dtype)}
+    eng = ContinuousBatcher(cfg, params, weight_refresh_mode="live", **kw)
+    eng.submit(prompts[0])
+    eng.step()
+    try:
+        eng.update_params(bad)
+        checks["poisoned: raised"] = False
+    except ValueError:
+        checks["poisoned: raised"] = True
+    checks["poisoned: version 0 serving, rolled back 1"] = (
+        eng.weight_version == 0
+        and eng.elastic_stats()["refresh_rolled_back"] == 1.0
+        and eng.params is params)
+    out = eng.generate_all([])
+    checks["poisoned: the request finished"] = len(out[0]) == kw[
+        "max_new_tokens"]
+    del eng
+    torch.cuda.empty_cache()
+    return dict(defer_elastic_stats=defer_stats, fence_checks=checks)
+
+
+def phase_adapters_and_refresh(params, cfg, serve):
+    """The adapter and refresh phases in order; tree B lives only for
+    the two refresh phases. -> {path: e2e}."""
+    runs = {}
+    runs["serve.adapters"], reg, _, ad0 = phase_serve_adapters(params, cfg,
+                                                               serve)
+    runs["serve.adapters.base"] = phase_serve_adapters_base(params, cfg,
+                                                            serve, reg)
+    runs["serve.adapters.int8"] = phase_serve_adapters_int8(params, cfg, reg,
+                                                            ad0)
+    del reg
+    from dlrover_tpu_torch.models import llama
+
+    tree_b = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(REFRESH_SEED))
+    runs["serve.refresh"] = phase_serve_refresh(params, cfg, tree_b)
+    runs["serve.refresh.int8"] = phase_serve_refresh(params, cfg, tree_b,
+                                                     "int8")
+    del tree_b
+    torch.cuda.empty_cache()
+    return runs
 
 
 def _pressure_prompts(cfg):
@@ -3075,6 +3646,12 @@ def main():
         phase_serve_spec(params, cfg, "int8")
         phase_serve_async(params, cfg, e2e)
         return 0
+    if "--adapters" in args:
+        cfg = llama.LlamaConfig.llama3_8b()
+        params = llama.init_params(cfg, gen)
+        e2e = phase_serve(params, cfg)
+        phase_adapters_and_refresh(params, cfg, e2e)
+        return 0
     flash_rows = phase_flash(gen)
     bwd_rows = phase_flash_bwd(gen)
     paged_rows = phase_paged(gen)
@@ -3097,6 +3674,7 @@ def main():
     phase_verify(params, cfg)
     e2e_spec_int8 = phase_serve_spec(params, cfg, "int8")
     e2e_async = phase_serve_async(params, cfg, e2e)
+    adapter_runs = phase_adapters_and_refresh(params, cfg, e2e)
     pressure_prompts = _pressure_prompts(cfg)
     pressure_ref = _pressure_reference(params, cfg, pressure_prompts)
     e2e_pressure = phase_serve_pressure(params, cfg, pressure_prompts,
@@ -3115,7 +3693,7 @@ def main():
     main_bwd = next(r for r in bwd_rows if (r["B"], r["S"]) == (2, 2048))
     serve_paths = {"serve": e2e, "serve.int8": e2e_int8,
                    "serve.spec": e2e_spec, "serve.spec.int8": e2e_spec_int8,
-                   "serve.async": e2e_async,
+                   "serve.async": e2e_async, **adapter_runs,
                    "serve.prefix_pressure": e2e_pressure,
                    "serve.prefill_chunk": e2e_chunked}
     remat_paths = {f"train.remat {r['run']}": r for r in remat_runs}
@@ -3139,8 +3717,13 @@ def main():
     quant_by_path = {"serve.int8": e2e_int8["launches"]["quant_int8"],
                      "serve.spec.int8": e2e_spec_int8["launches"][
                          "quant_int8"],
+                     **{path: adapter_runs[path]["launches"]["quant_int8"]
+                        for path in ("serve.adapters.int8",
+                                     "serve.refresh.int8")},
                      "train.int8_adam": train_int8["launches"]["quant_int8"]}
-    dqmm_paths = {"serve.int8": e2e_int8, "serve.spec.int8": e2e_spec_int8}
+    dqmm_paths = {"serve.int8": e2e_int8, "serve.spec.int8": e2e_spec_int8,
+                  "serve.adapters.int8": adapter_runs["serve.adapters.int8"],
+                  "serve.refresh.int8": adapter_runs["serve.refresh.int8"]}
     main_dequant = dequant_rows[0]
     main_dqmm = next(r for r in dqmm_rows
                      if (r["T"], r["K"], r["O"]) == (8, 4096, 14336))

@@ -14,6 +14,14 @@ card); warm (suffix) and chunked prefills and decode attend over the
 whole buffer under the position mask (the dense bank), or over the
 page pool (decode through the paged-attention kernel on the card, the
 gathered dense view otherwise).
+
+Multi-adapter LoRA serving (serving/adapters.py): every forward below
+that JAX's takes `adapters` on takes an optional `adapters` operand,
+{"bank": {"<t>_a": [L, S, in, r], "<t>_b": [L, S, r, out]}, "idx": [B]
+int (each row's bank slot), "scale": [S] f32}. Each layer takes its own
+[S, ...] slices and adds each row's delta inside the projections
+(`llama._slot_lora_delta`). With adapters=None every function computes
+exactly what it computes without the operand.
 """
 
 from typing import Dict, Tuple
@@ -156,17 +164,18 @@ def _write_cache_and_attend(
 
 
 def _block(cfg: LlamaConfig, x, layer_params, layer_cache, positions,
-           start, plain_causal: bool = False, rope=None):
+           start, plain_causal: bool = False, rope=None, lora=None):
     """One decoder block writing its K/V into the cache. `rope` is the
-    forward's precomputed `_rope_tables` (computed here when None)."""
+    forward's precomputed `_rope_tables` (computed here when None);
+    `lora` is (this layer's bank slices, idx, scale) or None."""
     lp = _compute_weights(cfg, layer_params)
     h = _rms_norm(x, layer_params["attn_norm"], cfg.norm_eps)
-    q, k, v = _attn_qkv(cfg, h, lp, positions, rope)
+    q, k, v = _attn_qkv(cfg, h, lp, positions, rope, lora=lora)
     attn, layer_cache = _write_cache_and_attend(
         q, k, v, layer_cache, positions, start, cfg.head_dim,
         attn_impl=cfg.attn_impl, plain_causal=plain_causal,
     )
-    x = _attn_residual(cfg, x, attn, lp)
+    x = _attn_residual(cfg, x, attn, lp, lora=lora)
     x = _mlp_residual(cfg, x, layer_params, lp)
     return x, layer_cache
 
@@ -176,10 +185,27 @@ def _logits(cfg, params, x):
     return matmul_any(x, _head_matrix(cfg, params)).float()
 
 
+def _check_adapters(cfg, adapters) -> None:
+    """JAX refuses adapters on its GPT family (a fused wqkv has no
+    per-target bank). The port has no GPT family yet (ROADMAP queue 1
+    item 13, `gpt.py`): every config it serves takes adapters, so there
+    is nothing to refuse until that lands."""
+
+
+def _layer_lora(adapters, layer: int):
+    """One layer's (bank slices [S, ...], idx, scale), or None."""
+    if adapters is None:
+        return None
+    bank = {name: arr[layer] for name, arr in adapters["bank"].items()}
+    return bank, adapters["idx"], adapters["scale"]
+
+
 def _forward_cached(cfg, params, tokens, cache, positions, start,
-                    plain_causal: bool = False):
+                    plain_causal: bool = False, adapters=None):
     """tokens [B,S] -> logits [B,S,V], writing the cache at
-    [start, start+S)."""
+    [start, start+S); `adapters` (module docstring) adds each row's
+    LoRA delta."""
+    _check_adapters(cfg, adapters)
     x = params["embed"]["weight"].to(cfg.dtype)[tokens]
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for layer in range(cfg.n_layers):
@@ -187,22 +213,24 @@ def _forward_cached(cfg, params, tokens, cache, positions, start,
         x, _ = _block(
             cfg, x, _layer_params(params, layer), layer_cache, positions,
             start, plain_causal=plain_causal, rope=rope,
+            lora=_layer_lora(adapters, layer),
         )
     return _logits(cfg, params, x), cache
 
 
-def prefill(cfg, params, tokens, cache):
+def prefill(cfg, params, tokens, cache, adapters=None):
     """Fill the cache from a prompt [B, P]; returns (last-token logits,
     cache)."""
     b, p = tokens.shape
     positions = torch.arange(p, device=tokens.device).expand(b, p)
     logits, cache = _forward_cached(
         cfg, params, tokens, cache, positions, 0, plain_causal=p > 1,
+        adapters=adapters,
     )
     return logits[:, -1], cache
 
 
-def decode_step(cfg, params, token, cache, pos):
+def decode_step(cfg, params, token, cache, pos, adapters=None):
     """One cached step -> (next-token logits [B,V], cache). `pos` is a
     scalar (all rows) or a [B] vector (each row at its own position)."""
     b = token.shape[0]
@@ -213,6 +241,7 @@ def decode_step(cfg, params, token, cache, pos):
         positions = pos.reshape(1, 1).expand(b, 1)
     logits, cache = _forward_cached(
         cfg, params, token[:, None], cache, positions, pos,
+        adapters=adapters,
     )
     return logits[:, 0], cache
 
@@ -224,7 +253,7 @@ def _verify_positions(tokens, pos):
                                        device=tokens.device)[None, :]
 
 
-def verify_step(cfg, params, tokens, cache, pos):
+def verify_step(cfg, params, tokens, cache, pos, adapters=None):
     """Batched speculative verify: tokens [B, S] (the carry token and
     S-1 drafts) at positions pos[b] + [0, S) in ONE forward -> (logits
     [B, S, V], cache). Each row's K/V is written first, then every
@@ -235,13 +264,15 @@ def verify_step(cfg, params, tokens, cache, pos):
     engine over-allocates its bank by the draft width)."""
     positions = _verify_positions(tokens, pos)
     return _forward_cached(cfg, params, tokens, cache, positions,
-                           positions[:, 0])
+                           positions[:, 0], adapters=adapters)
 
 
-def prefill_into_slot(cfg, params, prompt, cache, slot: int):
+def prefill_into_slot(cfg, params, prompt, cache, slot: int, adapters=None):
     """Run a single-sequence prefill of `prompt` [P] (a pad tail is
     fine: the decode mask hides cells past the slot's position) and
-    install its K/V into row `slot` of a multi-slot cache."""
+    install its K/V into row `slot` of a multi-slot cache. `adapters`
+    carries a 1-row idx (the admitted request's bank slot): an adapted
+    request's prompt K/V comes from the adapted projections."""
     p = prompt.shape[0]
     if cache["k"].shape[2] < p:
         raise ValueError(
@@ -250,7 +281,7 @@ def prefill_into_slot(cfg, params, prompt, cache, slot: int):
     mini = init_kv_cache(
         cfg, 1, p, quant="k_scale" in cache, device=prompt.device
     )
-    _, mini = prefill(cfg, params, prompt[None], mini)
+    _, mini = prefill(cfg, params, prompt[None], mini, adapters=adapters)
     for name, arr in cache.items():
         arr[:, slot, :p] = mini[name][:, 0].to(arr.dtype)
     return cache
@@ -273,10 +304,14 @@ def exact_row_cache(cfg, max_len: int, device: DeviceLike = None) -> Cache:
     return init_kv_cache(cfg, 1, max_len, quant=False, device=device)
 
 
-def prefill_exact_row(cfg, params, prompt, max_len: int) -> Cache:
-    """Cold-admission prefill of `prompt` [P] into a fresh exact row."""
+def prefill_exact_row(cfg, params, prompt, max_len: int,
+                      adapters=None) -> Cache:
+    """Cold-admission prefill of `prompt` [P] into a fresh exact row.
+    `adapters` (a 1-row idx) serves the paged cold admission of an
+    adapted request; rows bound for the shared prefix pool pass None
+    (published prefixes are base-model K/V by contract)."""
     row = exact_row_cache(cfg, max_len, device=prompt.device)
-    _, row = prefill(cfg, params, prompt[None], row)
+    _, row = prefill(cfg, params, prompt[None], row, adapters=adapters)
     return row
 
 
@@ -297,16 +332,18 @@ def prefill_suffix_row(cfg, params, suffix, row: Cache, start: int) -> Cache:
 
 
 def prefill_chunk_into_slot(cfg, params, chunk, cache: Cache, slot: int,
-                            start: int) -> Cache:
+                            start: int, adapters=None) -> Cache:
     """Resume slot `slot`'s prefill at its write frontier: run `chunk`
     [C] (real tokens only, no pad tail) at positions [start, start+C),
     writing K/V straight into that row of the multi-slot bank, in place:
     `prefill_suffix_row` on a view of the row (for exact banks the K/V
     one blocking prefill writes; an int8 bank attends the dequantized
-    earlier chunks)."""
-    prefill_suffix_row(cfg, params, chunk,
-                       {name: arr[:, slot:slot + 1]
-                        for name, arr in cache.items()}, start)
+    earlier chunks). `adapters` carries the slot's 1-row idx."""
+    positions = _chunk_positions(start, chunk.shape[0], chunk.device)
+    _forward_cached(cfg, params, chunk[None],
+                    {name: arr[:, slot:slot + 1]
+                     for name, arr in cache.items()},
+                    positions, start, adapters=adapters)
     return cache
 
 
@@ -416,24 +453,28 @@ def _write_pages_and_attend(
 
 
 def _block_paged(cfg, x, layer_params, layer_pool, table, positions,
-                 rope=None, slots=None):
+                 rope=None, slots=None, lora=None):
     """Llama block over paged KV — identical projections/residuals to
-    `_block`; only the cache write + attention differ."""
+    `_block` (the per-slot `lora` deltas included); only the cache
+    write + attention differ."""
     lp = _compute_weights(cfg, layer_params)
     h = _rms_norm(x, layer_params["attn_norm"], cfg.norm_eps)
-    q, k, v = _attn_qkv(cfg, h, lp, positions, rope)
+    q, k, v = _attn_qkv(cfg, h, lp, positions, rope, lora=lora)
     attn, layer_pool = _write_pages_and_attend(
         q, k, v, layer_pool, table, positions, cfg.head_dim,
         attn_impl=cfg.attn_impl, slots=slots,
     )
-    x = _attn_residual(cfg, x, attn, lp)
+    x = _attn_residual(cfg, x, attn, lp, lora=lora)
     x = _mlp_residual(cfg, x, layer_params, lp)
     return x, layer_pool
 
 
-def _forward_paged(cfg, params, tokens, pool, table, positions):
+def _forward_paged(cfg, params, tokens, pool, table, positions,
+                   adapters=None):
     """tokens [B, S] -> logits [B, S, V] over the paged pool; the table
-    is shared by every layer."""
+    is shared by every layer, and so is the optional `adapters`
+    operand's idx."""
+    _check_adapters(cfg, adapters)
     x = params["embed"]["weight"].to(cfg.dtype)[tokens]
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     slots = _page_slots(table, positions, pool["k"].shape[2])
@@ -442,28 +483,30 @@ def _forward_paged(cfg, params, tokens, pool, table, positions):
         x, _ = _block_paged(
             cfg, x, _layer_params(params, layer), layer_pool, table,
             positions, rope=rope, slots=slots,
+            lora=_layer_lora(adapters, layer),
         )
     return _logits(cfg, params, x), pool
 
 
-def paged_decode_step(cfg, params, token, pool, table, pos):
+def paged_decode_step(cfg, params, token, pool, table, pos, adapters=None):
     """One cached step over paged KV -> (logits [B, V], pool); `pos` is
     the [B] per-slot position vector."""
     pos = torch.as_tensor(pos, dtype=torch.long, device=token.device)
     logits, pool = _forward_paged(
         cfg, params, token[:, None], pool, table, pos[:, None],
+        adapters=adapters,
     )
     return logits[:, 0], pool
 
 
-def paged_verify_step(cfg, params, tokens, pool, table, pos):
+def paged_verify_step(cfg, params, tokens, pool, table, pos, adapters=None):
     """The paged twin of `verify_step`: the K/V of tokens [B, S] goes
     straight into the rows' pages, and the queries attend through the
     gathered view (S > 1 never takes the paged-attention kernel). The
     engine sizes each request's page run for limit - 1 + draft_len
     cells, so the window lands in owned (or trash) pages."""
     return _forward_paged(cfg, params, tokens, pool, table,
-                          _verify_positions(tokens, pos))
+                          _verify_positions(tokens, pos), adapters=adapters)
 
 
 def paged_install_row(pool: Cache, row_cache: Cache, table_row, start: int,
@@ -492,16 +535,17 @@ def paged_install_row(pool: Cache, row_cache: Cache, table_row, start: int,
 
 
 def paged_prefill_chunk(cfg, params, chunk, pool: Cache, table_row,
-                        start: int) -> Cache:
+                        start: int, adapters=None) -> Cache:
     """Paged twin of `prefill_chunk_into_slot`: run `chunk` [C] at
     positions [start, start+C), scattering its K/V through `table_row`
     [P], the slot's REAL page ids (never the trash-routed table a decode
     dispatch sees: a mid-prefill slot rides the decode half as a done
     row). The engine allocates the slot's whole page run at admission,
-    so every chunk position maps to an owned page."""
+    so every chunk position maps to an owned page. `adapters` carries
+    the slot's 1-row idx."""
     positions = _chunk_positions(start, chunk.shape[0], chunk.device)
     _forward_paged(cfg, params, chunk[None], pool, table_row[None],
-                   positions)
+                   positions, adapters=adapters)
     return pool
 
 

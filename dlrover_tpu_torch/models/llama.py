@@ -71,6 +71,9 @@ class LlamaConfig:
     fused_ce: bool = False
     tie_embeddings: bool = False
     n_experts: int = 0                    # MoE is not ported; must be 0
+    # LoRA delta scale (alpha; the rank comes from the adapter's shape),
+    # read only where adapter leaves are present (models/lora.py)
+    lora_alpha: float = 16.0
 
     @property
     def head_dim(self) -> int:
@@ -186,7 +189,8 @@ def params_from_numpy(
         raise ValueError(f"param tree lacks layers/{missing}")
     params = {
         "embed": {"weight": conv(tree["embed"]["weight"])},
-        "layers": {k: conv(layers[k]) for k in _LAYER_KEYS},
+        "layers": {k: conv(layers[k]) for k in _LAYER_KEYS
+                   + tuple(sorted(k for k in layers if "_lora_" in k))},
         "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
     }
     if not cfg.tie_embeddings:
@@ -238,33 +242,84 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def _compute_weights(cfg: LlamaConfig, layer_params) -> Dict:
     """Matmul weights in the compute dtype (norms skipped: _rms_norm
     casts its own). A QuantizedWeight passes through untouched: its
-    dequant fuses into the matmul (`matmul_any`). No LoRA merge yet."""
-    return {
-        k: v if isinstance(v, QuantizedWeight) else v.to(cfg.dtype)
-        for k, v in layer_params.items()
-        if not k.endswith("_norm")
-    }
+    dequant fuses into the matmul (`matmul_any`); serving LoRA on it is
+    the per-slot delta added after the product (`_slot_lora_delta`).
+
+    The LoRA merge site (models/lora.py): where `{k}_lora_a/b` leaves
+    are present the effective weight W + (alpha/r) A@B is formed here,
+    in the compute dtype, per layer, and the adapter leaves are
+    skipped. The casts stay differentiable."""
+    out = {}
+    for k, v in layer_params.items():
+        if k.endswith("_norm") or "_lora_" in k:
+            continue
+        if isinstance(v, QuantizedWeight):
+            out[k] = v
+            continue
+        w = v.to(cfg.dtype)
+        a = layer_params.get(k + "_lora_a")
+        if a is not None:
+            b = layer_params[k + "_lora_b"]
+            # the scale rounded to the compute dtype first, as JAX's
+            # jnp.asarray(alpha / r, cfg.dtype); the product of two
+            # values of that dtype then rounds once, as there
+            scale = float(torch.tensor(cfg.lora_alpha / a.shape[-1],
+                                       dtype=cfg.dtype))
+            w = w + scale * (a.to(cfg.dtype) @ b.to(cfg.dtype))
+        out[k] = w
+    return out
 
 
-def _attn_qkv(cfg: LlamaConfig, h, lp, positions, rope=None):
+def _slot_lora_delta(h, a, b, idx, scale):
+    """Per-row LoRA delta gathered from a stacked adapter bank (the BGMV
+    form of multi-adapter serving, serving/adapters.py): row i of `h`
+    [B, S, in] uses bank slot idx[i], so the delta is
+    scale[idx] * (h @ A[idx]) @ B[idx] with A [slots, in, r] and
+    B [slots, r, out]. The gathered slices and the scale are cast to
+    h's dtype first and each product rounds to it, where JAX's two
+    einsums round. Slot 0 holds the all-zero adapter with scale 0, so
+    an adapterless row adds an exact zero."""
+    hr = torch.bmm(h, a[idx].to(h.dtype))
+    d = torch.bmm(hr, b[idx].to(h.dtype))
+    return scale[idx].to(h.dtype)[:, None, None] * d
+
+
+def _attn_qkv(cfg: LlamaConfig, h, lp, positions, rope=None, lora=None):
     """Projections + RoPE of one block: q [B,S,H,hd], k/v [B,S,KV,hd].
-    `rope`: the forward's precomputed `_rope_tables`."""
+    `rope`: the forward's precomputed `_rope_tables`. `lora` (serving
+    only): a (bank, idx, scale) triple of one layer's stacked adapter
+    slices; each row's delta is added to the raw projections before
+    RoPE (RoPE is linear, so that equals rotating the merged-weight
+    projection)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = h.shape
-    q = tagged_matmul(h, lp["wq"], "qkv_proj").reshape(b, s, H, hd)
-    k = tagged_matmul(h, lp["wk"], "qkv_proj").reshape(b, s, KV, hd)
-    v = tagged_matmul(h, lp["wv"], "qkv_proj").reshape(b, s, KV, hd)
+    hq = tagged_matmul(h, lp["wq"], "qkv_proj")
+    hk = tagged_matmul(h, lp["wk"], "qkv_proj")
+    hv = tagged_matmul(h, lp["wv"], "qkv_proj")
+    if lora is not None:
+        bank, idx, scale = lora
+        hq = hq + _slot_lora_delta(h, bank["wq_a"], bank["wq_b"], idx, scale)
+        hk = hk + _slot_lora_delta(h, bank["wk_a"], bank["wk_b"], idx, scale)
+        hv = hv + _slot_lora_delta(h, bank["wv_a"], bank["wv_b"], idx, scale)
+    q = hq.reshape(b, s, H, hd)
+    k = hk.reshape(b, s, KV, hd)
+    v = hv.reshape(b, s, KV, hd)
     q = _rope(q, positions, cfg.rope_theta, rope)
     k = _rope(k, positions, cfg.rope_theta, rope)
     return q, k, v
 
 
-def _attn_residual(cfg: LlamaConfig, x, attn, lp):
-    """Output projection + residual."""
+def _attn_residual(cfg: LlamaConfig, x, attn, lp, lora=None):
+    """Output projection + residual; `lora` adds each row's wo delta to
+    the projection (the triple of `_attn_qkv`)."""
     b, s, _ = x.shape
     attn = checkpoint_name(attn.reshape(b, s, cfg.n_heads * cfg.head_dim),
                            "attn_out")
-    return x + tagged_matmul(attn, lp["wo"], "attn_proj")
+    o = tagged_matmul(attn, lp["wo"], "attn_proj")
+    if lora is not None:
+        bank, idx, scale = lora
+        o = o + _slot_lora_delta(attn, bank["wo_a"], bank["wo_b"], idx, scale)
+    return x + o
 
 
 def _mlp_residual(cfg: LlamaConfig, x, layer_params, lp):

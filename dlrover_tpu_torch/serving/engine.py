@@ -52,6 +52,24 @@ serves colocated dense and paged traffic synchronously.
   verify window may reach K past the last valid cell). A dispatch with
   a slot mid-prefill, or with no draft at all, runs the plain chunk.
 
+- adapter_registry: multi-adapter LoRA serving (serving/adapters.py).
+  One stacked device bank whose slot 0 is the permanent zero adapter;
+  `submit(adapter_id=...)` pins the adapter into a bank slot for the
+  request's ledger life (an upload on a miss), every dispatch gathers
+  each row's A/B slices by the per-slot index mirror `adapt`, and an
+  adapted admission prefills through the adapted projections and
+  bypasses the prefix cache both ways (published prefixes are base-model
+  K/V). adapter_id=None rows add an exact zero: byte-identical to the
+  adapterless engine.
+- update_params: a versioned swap of the served weights (an RL
+  trainer's policy, a promoted checkpoint). weight_refresh_mode
+  "defer" stages it and commits at the next idle boundary, "raise"
+  refuses it while work is in flight, "live" commits at once (the
+  in-flight dispatch abandoned, int8 weights re-quantized behind the
+  fence) and, with weight_refresh_replay, replays every live slot under
+  the new version. A tree whose structure, shapes or dtypes differ from
+  the constructed one raises with the old weights still serving.
+
 The host keeps the slot state (tok/pos/done/limit) as numpy mirrors;
 each dispatch uploads it (page-locked staging on the card), runs its
 steps on the device, and fetches the emitted tokens and the new state
@@ -62,9 +80,8 @@ the next step(), before admitting and drafting from the refreshed
 mirrors, so the dispatches (and the streams) are the same at either
 depth and only the call on which events surface moves.
 
-Not ported yet (later slices): adapters, weight_quant=
-"int8_stochastic", tp / mesh, resize / weight refresh, KV tier, handoff
-/ replica_role, health, chaos.
+Not ported yet (later slices): weight_quant="int8_stochastic", tp /
+mesh, resize, KV tier, handoff / replica_role, health, chaos.
 """
 
 import dataclasses
@@ -104,6 +121,7 @@ from dlrover_tpu_torch.ops.quantization import (
     quantize_int8,
     weight_quant_block,
 )
+from dlrover_tpu_torch.serving.adapters import DeviceAdapterCache
 from dlrover_tpu_torch.serving.paged_kv import (
     TRASH_PAGE,
     OutOfPages,
@@ -130,6 +148,43 @@ def _pad_bucket(n: int, lo: int = 16) -> int:
     return b
 
 
+def _lora_operand(bank: Dict[str, torch.Tensor], idx: torch.Tensor):
+    """The `adapters` operand of models/decode.py from the stacked
+    device bank and a per-row bank-slot vector."""
+    return {
+        "bank": {k: v for k, v in bank.items() if k != "scale"},
+        "idx": idx,
+        "scale": bank["scale"],
+    }
+
+
+def _seed_of(prng_key) -> int:
+    """A request's sampling seed from `submit(prng_key=...)`: an int, or
+    an array of 32-bit words (a JAX PRNGKey's two) folded high word
+    first. The draws are torch's; the key only seeds them."""
+    if isinstance(prng_key, (int, np.integer)):
+        if prng_key < 0:
+            raise ValueError(f"prng_key must be >= 0, got {prng_key}")
+        return int(prng_key)
+    seed = 0
+    for word in np.asarray(prng_key).ravel():
+        seed = (seed << 32) | (int(word) & 0xFFFFFFFF)
+    return seed % 2**64
+
+
+def _tree_signature(tree, path=()) -> List[Tuple[Tuple[str, ...], tuple]]:
+    """(path, (shape, dtype)) of every leaf of a nested-dict param tree,
+    keys sorted (the order JAX's tree_flatten walks a dict in); a leaf
+    without a dtype (a QuantizedWeight) is typed by its class."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(_tree_signature(tree[k], path + (k,)))
+        return out
+    return [(path, (tuple(getattr(tree, "shape", ())),
+                    getattr(tree, "dtype", type(tree).__name__)))]
+
+
 @dataclasses.dataclass
 class _Request:
     idx: int                 # submission order
@@ -146,6 +201,15 @@ class _Request:
     # the sampling generator's state when a decoding slot was preempted:
     # the replay continues it instead of seeding afresh
     gen_state: Optional[torch.Tensor] = None
+    # weight versions whose dispatches emitted this request's tokens (one
+    # under the deferred fence; a second only across a live swap)
+    versions: set = dataclasses.field(default_factory=set)
+    # multi-adapter serving: the registry id this request decodes under
+    # (None = base model) and its bank slot, PINNED from submit to
+    # retire / cancel (a preemption keeps it: the replay lands on the
+    # same slot)
+    adapter_id: Optional[str] = None
+    adapter_slot: int = 0
 
 
 # one step() event: (request idx, tokens emitted this chunk, finished)
@@ -170,6 +234,10 @@ class _Inflight:
     shapes: List[Tuple[int, ...]] = dataclasses.field(default_factory=list)
     event: Optional["torch.cuda.Event"] = None
     dispatched_at: float = 0.0
+    version: int = 0                # weight version at dispatch
+    # sampled dispatches: (generator, state before its draws) per slot,
+    # so an abandoned dispatch's draws can be taken back
+    gens: Optional[list] = None
 
 
 class ContinuousBatcher:
@@ -208,6 +276,10 @@ class ContinuousBatcher:
         spec_accept_threshold: float = 0.5,  # EMA acceptance to keep drafting
         spec_probe_interval: int = 32,  # rounds between disabled-slot probes
         async_depth: int = 0,        # 1 = one-deep pipelined dispatch
+        weight_refresh_mode: str = "defer",  # | "live" | "raise"
+        weight_refresh_replay: bool = True,  # live mode: replay slots
+        adapter_registry=None,       # serving/adapters.AdapterRegistry
+        adapter_cache_slots: int = 8,  # device adapter bank slots (LRU)
         device: DeviceLike = None,
     ):
         if eos_id is not None and eos_id == pad_id:
@@ -252,10 +324,27 @@ class ContinuousBatcher:
                 f"weight_quant must be 'none' or 'int8', got "
                 f"{weight_quant!r}"
             )
+        if weight_refresh_mode not in ("live", "defer", "raise"):
+            raise ValueError(
+                f"weight_refresh_mode must be 'live', 'defer' or "
+                f"'raise', got {weight_refresh_mode!r}"
+            )
         self.device = resolve_device(device)
         self.cfg = cfg
+        # versioned weight refresh (update_params)
+        self.weight_refresh_mode = weight_refresh_mode
+        self.weight_refresh_replay = weight_refresh_replay
+        self._weight_version = 0
+        self._staged_params = None
+        self._elastic_refresh = {
+            "committed": 0, "deferred": 0, "rolled_back": 0,
+        }
+        self._elastic_replayed = 0
         self.weight_quant = weight_quant
         self._wq_stats = {"leaves": 0, "skipped": 0}
+        # refreshes arrive as DENSE trees: they validate against the
+        # tree the engine was constructed with, before quantization
+        self._refresh_skeleton = _tree_signature(params)
         self.params = self._quantize_params(params)
         self.n_slots = n_slots
         self.max_len = max_len
@@ -268,6 +357,7 @@ class ContinuousBatcher:
         self.chunk = chunk
         self.kv_layout = kv_layout
         self._paged = kv_layout == "paged"
+        self._kv_quant = kv_quant
         # the bank over-allocates by the draft width: a verify writes
         # K+1 cells at [pos, pos+K], and a slot near its cap (pos up to
         # max_len-2) must find them inside its row; the cells past
@@ -344,6 +434,8 @@ class ContinuousBatcher:
         # byte-identical to cold ones)
         self.prefix_cache: Optional[RadixPrefixCache] = None
         self.pool = None
+        self._prefix_rows = prefix_cache_rows
+        self._prefix_block = prefix_block
         # pool row pinned per slot while its request is in flight
         self._slot_row: List[Optional[int]] = [None] * n_slots
         if prefix_cache_rows > 0:
@@ -364,6 +456,9 @@ class ContinuousBatcher:
         self.pos = np.zeros(n_slots, np.int64)
         self.limit = np.zeros(n_slots, np.int64)
         self.done = np.ones(n_slots, bool)   # all free initially
+        # per-slot adapter-bank index (0 = the zero adapter), uploaded
+        # with each dispatch's state when adapters are on
+        self.adapt = np.zeros(n_slots, np.int64)
         self.slot_req: List[Optional[_Request]] = [None] * n_slots
         self._queue: deque = deque()
         self._requests: Dict[int, _Request] = {}
@@ -371,13 +466,20 @@ class ContinuousBatcher:
         self._next_idx = 0
         # speculative decoding: host drafter + adaptive controller
         self.spec: Optional[SpeculativeDecoder] = None
-        if spec_draft_len > 0:
-            self.spec = SpeculativeDecoder(
-                n_slots, spec_draft_len, ngram_max=spec_ngram_max,
-                ngram_min=spec_ngram_min, threshold=spec_accept_threshold,
-                probe_interval=spec_probe_interval,
-            )
         self.spec_draft_len = spec_draft_len
+        self._spec_knobs = (spec_ngram_max, spec_ngram_min,
+                            spec_accept_threshold, spec_probe_interval)
+        self._make_spec()
+        # multi-adapter LoRA serving: one stacked bank on the device;
+        # without a registry every structure and path is the
+        # adapterless engine's
+        self.adapter_registry = adapter_registry
+        self._adapter_cache: Optional[DeviceAdapterCache] = None
+        if adapter_registry is not None:
+            self._adapter_cache = DeviceAdapterCache(
+                cfg, adapter_registry, adapter_cache_slots,
+                device=self.device,
+            )
         # the dispatch pipeline: the one dispatch not yet harvested, and
         # the page-locked buffer its outputs are copied into (one buffer
         # serves every dispatch: a dispatch's copy is enqueued only
@@ -398,6 +500,28 @@ class ContinuousBatcher:
         self.admissions = 0
         self.decode_steps = 0     # chunk steps
         self.verify_steps = 0     # spec dispatches (one verify each)
+
+    def _make_spec(self) -> None:
+        """The host drafter and controller, fresh (None at K = 0)."""
+        if self.spec_draft_len > 0:
+            ng_max, ng_min, thresh, probe = self._spec_knobs
+            self.spec = SpeculativeDecoder(
+                self.n_slots, self.spec_draft_len, ngram_max=ng_max,
+                ngram_min=ng_min, threshold=thresh, probe_interval=probe,
+            )
+
+    # The JAX engine keys its compiled programs on the adapter bank's
+    # shape (`_adapter_tag`) and on the weight version; the port compiles
+    # no programs, so neither has a counterpart here.
+
+    def _adapter_args(self, rows: Optional[List[int]] = None):
+        """The `adapters` operand of a forward: the bank and the index
+        mirror of every slot (or of the slots `rows` only), uploaded
+        now; None when multi-adapter serving is off."""
+        if self._adapter_cache is None:
+            return None
+        idx = self.adapt if rows is None else self.adapt[rows]
+        return _lora_operand(self._adapter_cache.bank, self._upload(idx))
 
     # -- weight quantization -----------------------------------------------
 
@@ -495,12 +619,151 @@ class ContinuousBatcher:
             "weight_quant_skipped": float(self._wq_stats["skipped"]),
         }
 
+    # -- weight refresh ----------------------------------------------------
+
+    @property
+    def weight_version(self) -> int:
+        """Monotonic version of the served weights; requests record the
+        versions their tokens were produced under."""
+        return self._weight_version
+
+    def update_params(self, params, mode: Optional[str] = None) -> None:
+        """Swap the served weights, version-tagged. `mode` (default: the
+        engine's `weight_refresh_mode`) decides what happens when work
+        is in flight:
+
+        - "defer": stage the tree and commit at the next idle boundary,
+          so every in-flight request completes under the version it
+          started on (the fence). An idle engine commits at once.
+        - "raise": refuse a swap while work is in flight (RuntimeError).
+        - "live": commit now: the in-flight dispatch is abandoned, the
+          version bumps, and with `weight_refresh_replay` every live
+          slot is preempted and replayed under the new version;
+          otherwise live requests keep their old-version KV and finish
+          under the new weights. One dispatch carries one version.
+
+        A tree whose structure, leaf shapes or dtypes differ from the
+        constructed one raises with the old params and version still
+        serving, and counts as rolled_back in `elastic_stats()`."""
+        mode = mode or self.weight_refresh_mode
+        if mode not in ("live", "defer", "raise"):
+            raise ValueError(
+                f"update_params mode must be 'live', 'defer' or "
+                f"'raise', got {mode!r}"
+            )
+        busy = self.has_work()
+        if mode == "raise" and busy:
+            raise RuntimeError(
+                "update_params while requests are in flight would mix "
+                "policies mid-drain; finish the drain, or refresh "
+                "with mode='defer' (fence) or mode='live' (versioned "
+                "swap)"
+            )
+        if mode == "defer" and busy:
+            try:
+                self._check_refresh_tree(params)
+            except Exception:
+                self._elastic_refresh["rolled_back"] += 1
+                raise
+            self._staged_params = params
+            self._elastic_refresh["deferred"] += 1
+            return
+        self._commit_refresh(
+            params,
+            replay=mode == "live" and busy and self.weight_refresh_replay,
+        )
+
+    def _check_refresh_tree(self, params) -> None:
+        """Fail before any engine state changes unless `params` has the
+        constructed tree's structure, leaf shapes and dtypes (the dense
+        skeleton: int8 weights re-quantize behind the fence at
+        commit)."""
+        old = self._refresh_skeleton
+        new = _tree_signature(params)
+        if [p for p, _ in old] != [p for p, _ in new]:
+            raise ValueError(
+                "weight refresh rejected: parameter tree structure "
+                "does not match the served params"
+            )
+        for (path, o), (_, n) in zip(old, new):
+            if o != n:
+                raise ValueError(
+                    f"weight refresh rejected: leaf mismatch at "
+                    f"{'/'.join(path)}: {n[0]}/{n[1]} vs served "
+                    f"{o[0]}/{o[1]}"
+                )
+
+    def _commit_refresh(self, params, replay: bool = False) -> None:
+        """Apply a refresh now: validate, abandon any in-flight dispatch,
+        re-quantize (the quantize kernel on the card), bump the version.
+        Any failure restores the old params and version. With `replay`
+        every live slot is preempted, highest slot first, so the queue
+        front comes out in ascending slot order."""
+        old_params = self.params
+        old_version = self._weight_version
+        old_wq = self._wq_stats
+        try:
+            self._check_refresh_tree(params)
+            self.drain_inflight()
+            self.params = self._quantize_params(params)
+            self._weight_version = old_version + 1
+        except Exception:
+            self.params = old_params
+            self._weight_version = old_version
+            self._wq_stats = old_wq
+            self._elastic_refresh["rolled_back"] += 1
+            raise
+        if replay:
+            for slot in range(self.n_slots - 1, -1, -1):
+                if self.slot_req[slot] is not None and not self.done[slot]:
+                    self._preempt_slot(slot)
+                    self._elastic_replayed += 1
+        self._staged_params = None
+        self._elastic_refresh["committed"] += 1
+
+    def _maybe_commit_refresh(self) -> None:
+        """Commit a deferred refresh once the engine is idle (nothing
+        live, queued or in flight), so no request spans the swap.
+        Checked at submit() and step()."""
+        if self._staged_params is not None and not self.has_work():
+            self._commit_refresh(self._staged_params)
+
+    def elastic_stats(self) -> Dict[str, float]:
+        """The JAX engine's elastic counters: the refresh outcomes, the
+        replays and the version. Resize is not ported (no tp), so its
+        fields stay 0 and tp = full_tp = 1."""
+        return {
+            "resize_shrink": 0.0,
+            "resize_grow": 0.0,
+            "refresh_committed": float(self._elastic_refresh["committed"]),
+            "refresh_deferred": float(self._elastic_refresh["deferred"]),
+            "refresh_rolled_back": float(
+                self._elastic_refresh["rolled_back"]),
+            "resize_downtime_ms": 0.0,
+            "replayed_requests": float(self._elastic_replayed),
+            "weight_version": float(self._weight_version),
+            "tp": 1.0,
+            "full_tp": 1.0,
+        }
+
     # -- admission ---------------------------------------------------------
 
-    def submit(self, prompt: Sequence[int], max_new: Optional[int] = None) -> int:
+    def submit(
+        self,
+        prompt: Sequence[int],
+        max_new: Optional[int] = None,
+        prng_key=None,
+        adapter_id: Optional[str] = None,
+    ) -> int:
         """Queue one request; returns its index in the output list.
         `max_new` caps THIS request's generation; default is the
-        engine's."""
+        engine's. `prng_key` (an int, or a key's 32-bit words) seeds the
+        request's sampling generator; omitted, the engine draws a seed
+        at admission. `adapter_id` names a registered adapter to decode
+        under (None: the base model)."""
+        # a deferred refresh commits BEFORE the request enters the
+        # queue: it starts (and fences) on the new version
+        self._maybe_commit_refresh()
         arr = np.asarray(prompt, np.int64)
         if arr.ndim != 1 or arr.size == 0:
             raise ValueError("prompt must be a non-empty 1-D sequence")
@@ -514,8 +777,21 @@ class ContinuousBatcher:
                 f"prompt length {arr.size} leaves no room to generate "
                 f"(max_len {self.max_len})"
             )
+        if adapter_id is not None and self._adapter_cache is None:
+            raise ValueError(
+                "adapter_id requires an engine constructed with "
+                "adapter_registry=... (multi-adapter serving is off)"
+            )
+        seed = None if prng_key is None else _seed_of(prng_key)
+        aslot = 0
+        if adapter_id is not None:
+            # pin the bank slot for the request's whole ledger life.
+            # KeyError (unregistered id) and AdapterCacheFull (every
+            # slot pinned) come before the request enters the ledger
+            aslot = self._adapter_cache.acquire(adapter_id)
         req = _Request(
             idx=self._next_idx, prompt=arr, max_new=max_new or 0,
+            seed=seed, adapter_id=adapter_id, adapter_slot=aslot,
         )
         self._next_idx += 1
         self._requests[req.idx] = req
@@ -546,6 +822,8 @@ class ContinuousBatcher:
         # into the interleaved dispatches)
         t0 = time.perf_counter()
         pf_start: Optional[int] = None
+        # set before the prefill, which gathers this slot's adapter
+        self.adapt[slot] = req.adapter_slot
         if self._prefill_chunk > 0:
             # a preempted readmission that raises OutOfPages goes back
             # to the queue still marked (see _admit_chunked_paged)
@@ -558,6 +836,13 @@ class ContinuousBatcher:
                 req.preempted = False
                 self._swap_resumes += 1
             self._admit_paged(slot, req, p)
+        elif req.adapter_id is not None:
+            # adapted admission: the prompt K/V comes from the adapted
+            # projections, and never from or into the prefix pool
+            bucket = min(_pad_bucket(p), self.max_len)
+            prefill_into_slot(self.cfg, self.params,
+                              self._pad_to(req.prompt, bucket), self.cache,
+                              slot, adapters=self._adapter_args([slot]))
         elif self.prefix_cache is None:
             bucket = min(_pad_bucket(p), self.max_len)
             prefill_into_slot(self.cfg, self.params,
@@ -656,7 +941,8 @@ class ContinuousBatcher:
             return self._admit_chunked_paged(slot, req, p)
         pc = self.prefix_cache
         start = 0
-        if pc is not None:
+        # adapted requests bypass the prefix cache, as when blocking
+        if pc is not None and req.adapter_id is None:
             matched, row = pc.match(req.prompt)
             start = min(matched, p)
             if start > 0 and row is not None:
@@ -687,9 +973,10 @@ class ContinuousBatcher:
         readmission that cannot allocate waits in the queue (step()
         puts it back) until a live slot retires."""
         pc = self.prefix_cache
+        lora = req.adapter_id is not None
         n_need = self._request_pages(req)
         matched, row, start = 0, None, 0
-        if pc is not None:
+        if pc is not None and not lora:
             matched, row = pc.match(req.prompt)
             start = min(matched, p)
             if row is None or row not in self._row_pages:
@@ -717,7 +1004,7 @@ class ContinuousBatcher:
             # page: copy it before the table row is built
             self._cow_frontier(slot, p)
         self._table[slot] = self._table_row(run)
-        if pc is not None:
+        if pc is not None and not lora:
             pc.record_admission(start)
         if full_hit:
             return None
@@ -759,11 +1046,14 @@ class ContinuousBatcher:
         pages copy-free, allocate the rest, and install only the cells
         the shared pages do not hold. A dry pool is resolved inline:
         evict unreferenced prefix runs, then preempt the coldest live
-        request."""
+        request. An adapted request bypasses the prefix cache both ways:
+        a published prefix holds base-model K/V, and its own K/V must
+        never publish."""
         pc = self.prefix_cache
+        lora = req.adapter_id is not None
         n_need = self._request_pages(req)
         matched, row, start = 0, None, 0
-        if pc is not None:
+        if pc is not None and not lora:
             matched, row = pc.match(req.prompt)
             start = min(matched, p)
             while (start > 0
@@ -806,6 +1096,15 @@ class ContinuousBatcher:
             paged_install_row(self.page_pool, work, table_row, start,
                               suffix.shape[0])
             pc.record_admission(start)
+        elif lora:
+            bucket = min(_pad_bucket(p), self.max_len)
+            row_cache = prefill_exact_row(
+                self.cfg, self.params, self._pad_to(req.prompt, bucket),
+                self.max_len, adapters=self._adapter_args([slot]),
+            )
+            # `work` stays None: this row must never publish
+            paged_install_row(self.page_pool, row_cache, table_row, 0,
+                              bucket)
         else:
             bucket = min(_pad_bucket(p), self.max_len)
             work = prefill_exact_row(self.cfg, self.params,
@@ -963,6 +1262,35 @@ class ContinuousBatcher:
         s["swap_resumes"] = float(self._swap_resumes)
         return s
 
+    def adapter_stats(self) -> Dict[str, float]:
+        """Adapter-serving telemetry: registry size, bank residency,
+        hit / miss / eviction / upload counters and the ledger's
+        adapted requests. {} when multi-adapter serving is off."""
+        if self._adapter_cache is None:
+            return {}
+        s = {k: float(v) for k, v in self._adapter_cache.stats().items()}
+        s["registered"] = float(len(self.adapter_registry))
+        s["active_requests"] = float(sum(
+            1 for r in self._requests.values() if r.adapter_id is not None
+        ))
+        return s
+
+    def adapter_active(self) -> Dict[str, int]:
+        """Ledger-live (queued, in a slot, or finished and not retired)
+        request count per adapter id."""
+        out: Dict[str, int] = {}
+        for r in self._requests.values():
+            if r.adapter_id is not None:
+                out[r.adapter_id] = out.get(r.adapter_id, 0) + 1
+        return out
+
+    def adapter_residency(self) -> List[str]:
+        """Adapter ids resident in the bank (most recently used last);
+        [] when adapters are off."""
+        if self._adapter_cache is None:
+            return []
+        return self._adapter_cache.resident_ids()
+
     def prefill_stats(self) -> Dict[str, float]:
         """Chunked-prefill telemetry: the knob, the admission stall
         charged to the step loop, interleaved chunks dispatched, and the
@@ -998,8 +1326,22 @@ class ContinuousBatcher:
         """Abandon the dispatched-but-unharvested step, if any: its
         events never surface, and the host mirrors stay at the last
         harvested dispatch, from which the next dispatch runs again
-        (rewriting the same cells)."""
-        self._inflight = None
+        (rewriting the same cells). Each sampling generator goes back to
+        its state before the abandoned draws, so the re-run (or a
+        replay) draws what it drew, as JAX's key mirror does."""
+        pend, self._inflight = self._inflight, None
+        if pend is not None and pend.gens is not None:
+            for slot, snap in enumerate(pend.gens):
+                if snap is not None and self._slot_gen[slot] is snap[0]:
+                    snap[0].set_state(snap[1])
+
+    def _gen_snapshot(self) -> Optional[list]:
+        """The slot generators' states before a sampled dispatch draws
+        (host-side state: no device work); None when greedy."""
+        if self.temperature <= 0.0:
+            return None
+        return [None if g is None else (g, g.get_state())
+                for g in self._slot_gen]
 
     def step_stats(self) -> Dict[str, float]:
         """Cumulative step-latency stats: host_ms (host work inside
@@ -1056,6 +1398,7 @@ class ContinuousBatcher:
         no work."""
         t0 = time.perf_counter()
         self._wait_this_step = 0.0
+        self._maybe_commit_refresh()  # a deferred swap at the idle fence
         try:
             events = self._harvest()
             for slot in range(self.n_slots):
@@ -1156,21 +1499,25 @@ class ContinuousBatcher:
         the slots mid-prefill in an interleaved dispatch."""
         k = self._next_chunk_len()
         tok, pos, done, limit, table = self._dispatch_state()
+        ad = self._adapter_args()
+        gens = self._gen_snapshot()
         emitted = []
         for _ in range(k):
             if self._paged:
                 logits, _ = paged_decode_step(
-                    self.cfg, self.params, tok, self.page_pool, table, pos
+                    self.cfg, self.params, tok, self.page_pool, table, pos,
+                    adapters=ad,
                 )
             else:
                 logits, _ = decode_step(
-                    self.cfg, self.params, tok, self.cache, pos
+                    self.cfg, self.params, tok, self.cache, pos, adapters=ad
                 )
             tok, pos, done, nxt = self._advance(logits, tok, pos, done, limit)
             emitted.append(nxt)
         self.decode_steps += k
         self._enqueue_fetch(
-            _Inflight("chunk", old_pos=self.pos.copy(), pf_mask=pf_mask),
+            _Inflight("chunk", old_pos=self.pos.copy(), pf_mask=pf_mask,
+                      version=self._weight_version, gens=gens),
             (tok, pos, done, torch.stack(emitted, dim=1)),
         )
 
@@ -1190,12 +1537,14 @@ class ContinuousBatcher:
         start = int(self._frontier[slot])
         plen = self._pf_chunk_len(p - start)
         ptoks = self._upload(req.prompt[start:start + plen])
+        # the prefill half gathers only the prefilling slot's adapter
+        ad1 = self._adapter_args([slot])
         if self._paged:
             paged_prefill_chunk(self.cfg, self.params, ptoks, self.page_pool,
-                                self._table[slot], start)
+                                self._table[slot], start, adapters=ad1)
         else:
             prefill_chunk_into_slot(self.cfg, self.params, ptoks, self.cache,
-                                    slot, start)
+                                    slot, start, adapters=ad1)
         # the slots mid-prefill DURING this dispatch, captured before the
         # flip: harvest must read their fetched done as the freeze
         self._dispatch_chunk(pf_mask=self._prefilling.copy())
@@ -1227,18 +1576,24 @@ class ContinuousBatcher:
         n_emit and accepted. Rows that drafted nothing degenerate to
         one plain step inside the same verify."""
         tok, pos, done, limit, table = self._dispatch_state()
+        gens = self._gen_snapshot()
         d = self._upload(drafts).long()
         dl = self._upload(dlens).long()
         tokens = torch.cat([tok[:, None], d], dim=1)
+        # the adapted verify: each row's drafts are judged against the
+        # adapter its slot decodes under
+        ad = self._adapter_args()
         if self._paged:
             logits, _ = paged_verify_step(self.cfg, self.params, tokens,
-                                          self.page_pool, table, pos)
+                                          self.page_pool, table, pos,
+                                          adapters=ad)
         else:
             logits, _ = verify_step(self.cfg, self.params, tokens,
-                                    self.cache, pos)
+                                    self.cache, pos, adapters=ad)
         self.verify_steps += 1
         self._enqueue_fetch(
-            _Inflight("spec", dlens=dlens, was_live=~self.done),
+            _Inflight("spec", dlens=dlens, was_live=~self.done,
+                      version=self._weight_version, gens=gens),
             self._accept(logits, tok, pos, done, limit, d, dl),
         )
 
@@ -1347,9 +1702,10 @@ class ContinuousBatcher:
                     self.spec.record(slot, int(pend.dlens[slot]),
                                      int(accepted[slot]), int(n_emit[slot]))
         self.tok, self.pos = tok, pos
-        return self._emit_events(emitted, counts, done, pend.pf_mask)
+        return self._emit_events(emitted, counts, done, pend.version,
+                                 pend.pf_mask)
 
-    def _emit_events(self, emitted, counts, new_done,
+    def _emit_events(self, emitted, counts, new_done, version: int = 0,
                      pf_mask=None) -> List[StepEvent]:
         """`counts[slot]` leading entries of `emitted[slot]` are the
         slot's new tokens. `pf_mask` marks the slots that were
@@ -1364,6 +1720,9 @@ class ContinuousBatcher:
                 continue
             new_toks = [int(t) for t in emitted[slot][: int(counts[slot])]]
             req.out.extend(new_toks)
+            if new_toks:
+                # one dispatch carries one version
+                req.versions.add(version)
             if self.spec is not None and new_toks:
                 # whichever path emitted them, the drafter's context
                 # must see every token
@@ -1389,7 +1748,20 @@ class ContinuousBatcher:
             elif pf_mask is not None and pf_mask[slot]:
                 # still occupied: the fetched done was the freeze
                 self.done[slot] = False
+            if self.done[slot]:
+                self._park(slot)
         return events
+
+    def _park(self, slot: int) -> None:
+        """A free or finished slot's mirrors back to a fresh engine's
+        (pad token, position 0, limit 0). A done row still rides every
+        dispatch, and on the card its position sets how much work the
+        paged kernel's even shares split: a stale one would make a live
+        row's sums depend on what the slot served before, so an engine
+        after a drain would not compute what a fresh one computes."""
+        self.tok[slot] = self.pad_id
+        self.pos[slot] = 0
+        self.limit[slot] = 0
 
     def retire(self, idx: int) -> np.ndarray:
         """Drop a request from the ledger and return its continuation;
@@ -1401,6 +1773,9 @@ class ContinuousBatcher:
         for slot in range(self.n_slots):
             if self.slot_req[slot] is req:
                 self._release_slot(slot)
+        # unpin the adapter with the ledger entry: it stays resident
+        # and becomes evictable once nothing else references it
+        self._release_adapter(req)
         return np.asarray(req.out, np.int32)
 
     def cancel(self, idx: int) -> None:
@@ -1420,12 +1795,20 @@ class ContinuousBatcher:
             if self.slot_req[slot] is req:
                 self._release_slot(slot)
                 break
+        self._release_adapter(req)
+
+    def _release_adapter(self, req: _Request) -> None:
+        if req.adapter_id is not None:
+            self._adapter_cache.release(req.adapter_id)
 
     def _release_slot(self, slot: int) -> None:
         """Free a slot whatever its state: its pages, its pinned prefix
-        row and its mid-prefill state."""
+        row and its mid-prefill state. Not the request's adapter pin:
+        a preemption comes through here, and its replay must land on
+        the same bank slot."""
         self.slot_req[slot] = None
         self.done[slot] = True
+        self._park(slot)
         self._slot_gen[slot] = None
         if self._paged:
             self._release_slot_pages(slot)
@@ -1442,12 +1825,68 @@ class ContinuousBatcher:
             self.submit(pr)
         while self.has_work():
             self.step()
-        out = [
-            np.asarray(self._requests.pop(i).out, np.int32)
-            for i in self._pending
-        ]
+        out = []
+        for i in self._pending:
+            req = self._requests.pop(i)
+            self._release_adapter(req)
+            out.append(np.asarray(req.out, np.int32))
         self._pending = {}
         return out
+
+    def reset(self) -> None:
+        """Rebuild the device state from scratch after a failure: the KV
+        bank or page pool (with the allocator and tables), the prefix
+        cache and its pool, and the drafter are made anew; the queue,
+        the ledger and the in-flight dispatch are dropped; every ledger
+        pin is released and the adapter bank rebuilt from the registry.
+        Request indices stay monotonic, so a stale event can never name
+        a new request."""
+        if self._paged:
+            self.allocator = PageAllocator(self.n_pages, self.page_size)
+            self.page_pool = init_page_pool(
+                self.cfg, self.n_pages, self.page_size,
+                quant=self._kv_quant, device=self.device,
+            )
+            self._table = torch.zeros(
+                (self.n_slots, self._pages_per_slot), dtype=torch.int32,
+                device=self.device,
+            )
+            self._slot_pages = [[] for _ in range(self.n_slots)]
+            self._row_pages = {}
+        else:
+            self.cache = init_kv_cache(
+                self.cfg, self.n_slots, self.max_len + self.spec_draft_len,
+                quant=self._kv_quant, device=self.device,
+            )
+        self.tok[:] = self.pad_id
+        self.pos[:] = 0
+        self.limit[:] = 0
+        self.done[:] = True
+        self.adapt[:] = 0
+        self._slot_gen = [None] * self.n_slots
+        # mid-prefill state dies with the slots (the stall and chunk
+        # counters are cumulative telemetry and survive)
+        self._prefilling[:] = False
+        self._frontier[:] = 0
+        if self._adapter_cache is not None:
+            for req in self._requests.values():
+                self._release_adapter(req)
+            self._adapter_cache.rebuild()
+        self._inflight = None
+        self.slot_req = [None] * self.n_slots
+        self._slot_row = [None] * self.n_slots
+        self._queue.clear()
+        self._requests.clear()
+        self._pending.clear()
+        if self.prefix_cache is not None:
+            self.prefix_cache = RadixPrefixCache(
+                self._prefix_rows, block=self._prefix_block,
+                on_evict=self._on_prefix_evict if self._paged else None,
+            )
+            self.pool = init_kv_cache(
+                self.cfg, self._prefix_rows, self.max_len, device=self.device
+            )
+        self._make_spec()
 
 
 def _draw_rows(probs: torch.Tensor, gens: List[Optional[torch.Generator]]):

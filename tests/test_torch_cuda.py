@@ -1479,3 +1479,152 @@ def test_async_spec_engine_on_the_card(gen):
         assert counts["flash_fwd"] == eng.admissions * cfg.n_layers
         runs.append((outs, eng.spec.stats()))
     assert runs[0] == runs[1]
+
+
+def _random_adapters(cfg, n, max_rank=8, seed=7):
+    """A registry of `n` random adapters (ranks alternating 4 and 8,
+    alpha = 2 x rank) on wq/wk/wv/wo, numpy from a seed."""
+    from dlrover_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+        _target_dims,
+    )
+
+    rng = np.random.default_rng(seed)
+    reg = AdapterRegistry(cfg, max_rank=max_rank)
+    for i in range(n):
+        r = 4 if i % 2 == 0 else 8
+        layers = {}
+        for t, (d_in, d_out) in _target_dims(cfg).items():
+            layers[t + "_lora_a"] = (rng.standard_normal(
+                (cfg.n_layers, d_in, r)) / np.sqrt(r)).astype(np.float32)
+            layers[t + "_lora_b"] = (rng.standard_normal(
+                (cfg.n_layers, r, d_out)) * 0.02).astype(np.float32)
+        reg.register(f"ad{i}", {"layers": layers}, alpha=2.0 * r)
+    return reg
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_slot_lora_delta_on_the_card_matches_cpu(gen, dtype):
+    """The batched gather-matmul delta (`_slot_lora_delta`, two bmm) on
+    card tensors against the same call on the same values on the CPU:
+    within 2^-7 of the largest |delta| in bf16 (both round each product
+    to bf16; f32 sums in another order) and 1e-5 in f32 (TF32 off);
+    the zero slot gives an exact zero on both."""
+    from dlrover_tpu_torch.models import llama as tllama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h = torch.randn((8, 1, 4096), generator=gen, device="cuda").to(dtype)
+    a = torch.randn((5, 4096, 16), generator=gen, device="cuda") * 0.25
+    b = torch.randn((5, 16, 4096), generator=gen, device="cuda") * 0.02
+    a[0] = 0
+    b[0] = 0
+    idx = torch.tensor([1, 0, 2, 3, 4, 1, 0, 2], device="cuda")
+    scale = torch.tensor([0.0, 2.0, 2.0, 1.0, 2.0], device="cuda")
+    d = tllama._slot_lora_delta(h, a, b, idx, scale)
+    ref = tllama._slot_lora_delta(h.cpu(), a.cpu(), b.cpu(), idx.cpu(),
+                                  scale.cpu())
+    torch.cuda.synchronize()
+    assert d.dtype == dtype
+    err = (d.cpu().float() - ref.float()).abs().max().item()
+    tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * (
+        ref.float().abs().max().item())
+    assert err <= tol, (err, tol)
+    assert not d[1].any() and not d[6].any()
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_adapter_engine_base_rows_equal_adapterless(gen, layout):
+    """A bf16 adapter engine serving only adapter_id=None requests gives
+    the adapterless engine's streams byte for byte (each row adds an
+    exact zero from bank slot 0), the kernels launched as many times."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg, params = _serving_model(gen)
+    reg = _random_adapters(cfg, 2)
+    prompts = [list(range(3, 40)), [7, 8, 9] * 9, list(range(50, 62))]
+    runs = []
+    for registry in (None, reg):
+        _build.reset_launch_counts()
+        eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=64,
+                                max_new_tokens=16, kv_layout=layout,
+                                adapter_registry=registry,
+                                adapter_cache_slots=2)
+        runs.append(([o.tolist() for o in eng.generate_all(prompts)],
+                     _build.launch_counts()["flash_fwd"]))
+    assert runs[0] == runs[1]
+
+
+def test_adapter_upload_during_inflight_dispatch_never_waits(gen):
+    """At async_depth=1, a submit that uploads an adapter into the bank
+    while a dispatch is in flight, and the next chunk dispatch with the
+    adapter operand, run under torch.cuda.set_sync_debug_mode("error"):
+    the page-locked staging and the in-place slot write never
+    synchronize the stream. The adapted stream equals a depth-0 run's."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg, params = _serving_model(gen)
+    reg = _random_adapters(cfg, 2)
+    prompts = [list(range(3, 40)), [7, 8, 9] * 9]
+    outs = []
+    for depth in (1, 0):
+        eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=64,
+                                max_new_tokens=16, kv_layout="paged",
+                                adapter_registry=reg, adapter_cache_slots=2,
+                                async_depth=depth)
+        eng.submit(prompts[0], adapter_id="ad0")
+        eng.step()                  # admission, dispatch 1 in flight
+        if depth == 1:
+            assert eng._inflight is not None
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.submit(prompts[1], adapter_id="ad1")   # an upload
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert eng.adapter_stats()["uploads"] == 2.0
+            eng._harvest()
+            eng._admit(1, eng._queue.popleft())
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng._dispatch_chunk()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            eng.submit(prompts[1], adapter_id="ad1")
+        outs.append([o.tolist() for o in eng.generate_all([])])
+    assert outs[0] == outs[1]
+    assert all(len(o) == 16 for o in outs[0])
+
+
+def test_int8_live_refresh_requantizes_on_the_card(gen):
+    """weight_quant="int8", a live refresh with two requests decoding:
+    the commit re-quantizes every matmul weight on the card, 7 x 32 + 1
+    = 225 quant_int8 launches at 32 layers (Llama-3-8B's count, at a
+    narrow width), bumps the version and replays both requests; prompts
+    submitted after the drain give a fresh int8 engine's streams on the
+    new tree."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                  mlp_dim=512, n_layers=32,
+                                  attn_impl="auto")
+    a = tllama.init_params(cfg, gen)
+    b = tllama.init_params(cfg, gen)
+    kw = dict(n_slots=2, max_len=64, max_new_tokens=12, chunk=2,
+              kv_layout="paged", weight_quant="int8",
+              weight_refresh_mode="live")
+    prompts = [list(range(3, 30)), [7, 8, 9] * 6]
+    eng = ContinuousBatcher(cfg, a, **kw)
+    for p in prompts:
+        eng.submit(p)
+    eng.step()
+    _build.reset_launch_counts()
+    eng.update_params(b)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["quant_int8"] == 7 * 32 + 1
+    assert eng.weight_version == 1
+    assert eng.elastic_stats()["replayed_requests"] == 2.0
+    assert all(len(o) == 12 for o in eng.generate_all([]))
+    got = [o.tolist() for o in eng.generate_all(prompts)]
+    fresh = ContinuousBatcher(cfg, b, **kw)
+    assert got == [o.tolist() for o in fresh.generate_all(prompts)]
