@@ -120,7 +120,33 @@ Phases, one line each (any failure exits non-zero before the last line):
      (chunked admissions prefill through the cached-attention path),
      the paged checks as above, and the first chunked admission's
      first-decode logits must match the same prompt admitted cold;
-  17. train: Trainer(ElasticTrainer(...)) over accelerate over
+  17. serve.kv_tier: serve.prefix_pressure's engine and traffic with a
+     4 GiB host-DRAM KV tier: every request finishes, victims swap out
+     to page-locked host memory and every preempted request resumes, at
+     least one published prefix demotes and one promotes back, the first
+     swapped request's pages read back after its swap-in are
+     torch.equal to the pages copied before its swap-out, the first
+     decode after a swap-in and the first cold admission's within 5% of
+     the largest logit of the same prompt prefilled cold, every flash
+     forward on wgmma and every paged launch on the TMA-ring kernel;
+     bytes each way, the D2H / H2D rates and times at a 600-token
+     victim beside a re-prefill of one, the time completing demotion
+     copies waited, the admission stall beside serve.prefix_pressure's,
+     TTFT / TPOT / tokens/s and the greedy agreement with it (reported);
+  18. serve.kv_tier.int8kv: the same with kv_quant=True: the int8 pages
+     and their scales swap and promote, every paged launch on the TMA
+     kernel's int8-pool variant;
+  19. serve.handoff: two engines on the card sharing the weights,
+     replica_role "prefill" and "decode"; serve's 12 requests go
+     prefill -> take_prefilled -> export_run -> submit_adopted over the
+     "device" transport, then over "host" with kv_checksums=1 and one
+     package corrupted in transit (quarantined, the request replayed):
+     every request finishes, the decode engine launches no flash
+     forward and adopts pages, the prefill engine no paged attention,
+     the shipped bytes equal the installed pages, the first decode after
+     an adoption within 5% of the colocated path's; export / adopt ms
+     per request, kv_checksum ms per MB, TTFT and TPOT;
+  20. train: Trainer(ElasticTrainer(...)) over accelerate over
      llama.loss_fn on Llama-3-8B at full width, 4 layers (f32 params,
      bf16 compute, remat "full", AdamW), 8 steps of a global batch of
      4 x 2048 tokens in microbatches of 2; the losses must be finite and
@@ -129,7 +155,7 @@ Phases, one line each (any failure exits non-zero before the last line):
      them, and the first
      microbatch's loss and gradients must match the same model with
      plain attention;
-  18. train.ckpt: the train workload with fused_ce=True through flash
+  21. train.ckpt: the train workload with fused_ce=True through flash
      checkpoint: fused against unfused loss and gradients on one
      microbatch (each loss's time and peak memory); the snapshot
      buffers and the page-locked shm segment prepared, then 8 Trainer
@@ -141,21 +167,21 @@ Phases, one line each (any failure exits non-zero before the last line):
      unlinked, bit-equal again: the losses of steps 9 and 10 must equal
      the uninterrupted run's bit for bit. The segment and the
      checkpoint directory are removed whatever happens;
-  19. train.int8_adam: the same workload from the same params and
+  22. train.int8_adam: the same workload from the same params and
      tokens with int8_adam (int8 block-quantized moments) in place of
      AdamW; the losses must be finite and fall, step 1's loss must
      equal train's, the dequantize and quantize kernels must have run
      exactly twice a param leaf and step, the moments must take at most
      0.254x of AdamW's bytes and the peak memory must stay below
      train's;
-  20. train.remat: the train workload (4 steps each) under the model's
+  23. train.remat: the train workload (4 steps each) under the model's
      remat policies "full", "proj", "proj_mlp" and "none" (the model's
      remat off), and with the model's remat off under
      Strategy(remat="full"): median step,
      tokens/s, MFU and peak memory of each; losses finite and falling,
      exact flash launch counts (all wgmma), peaks none >= proj_mlp >=
      proj >= full;
-  21. matmul.fp8_dot: fp8_dot on a w_gate-shaped product (x [4096,
+  24. matmul.fp8_dot: fp8_dot on a w_gate-shaped product (x [4096,
      4096], w [4096, 14336], bf16) forward and backward for 4 steps from
      a zero state: y, dx and dw against the same products on the fp8
      values upcast to f32, the amax histories, and its time beside the
@@ -186,7 +212,10 @@ of two versions of kernel 7 in one call; it prints no result line
 either. `python3 chip_smoke.py --spec` runs the card, build and serve phases and
 phases 6-9 (the speculative and async serving), no result line;
 `python3 chip_smoke.py --adapters` the card, build and serve phases and
-phases 10-14 (adapters and weight refresh), no result line.
+phases 10-14 (adapters and weight refresh), no result line;
+`python3 chip_smoke.py --tier` the card, build, serve and
+serve.prefix_pressure phases and phases 17-19 (KV tier and handoff), no
+result line.
 `python3 chip_smoke.py --decode-kernels [--package-root DIR]`
 runs the card, build and paged-attention phases and the dqmm rows at
 T = 1, 8 and 16 of the five weight shapes: the A/B of the two decode
@@ -227,6 +256,12 @@ LOGITS_REL_TOL = 0.05
 PRESSURE_SYSTEM = 512
 PRESSURE_REQUESTS = 16
 PRESSURE_PAGES = 2048 // 16 + 1
+# the KV tier phases: the pressure traffic with a 4 GiB host tier; the
+# transfer rates at a 600-token victim (38 pages of 16, moved as the
+# tier's 64-page bucket), each way TIER_TRANSFER_REPS times
+TIER_BYTES = 4 << 30
+TIER_VICTIM_TOKENS = 600
+TIER_TRANSFER_REPS = 5
 # the speculative phases: draft width K = 4 and max_len 2044, so the bank
 # (max_len + K) is 2048 cells in pages of 16; 12 requests of 64 tokens
 SPEC_K = 4
@@ -2592,6 +2627,7 @@ def phase_serve_pressure(params, cfg, prompts, ref_outs, prefill_chunk):
             np.mean(np.concatenate(outs) == np.concatenate(ref_outs))),
     )
     log(phase, **e2e)
+    e2e["outs"] = outs
     if prefill_chunk:
         kinds = ["chunked"]
     else:
@@ -2712,6 +2748,423 @@ def _check_engine_first_decodes(phase, params, cfg, seen, want_kinds,
             "through 32 layers",
         )
     torch.cuda.empty_cache()
+
+
+def _watch_swaps(engine, seen):
+    """Wrap the engine's swap-out, swap-in and `_advance` on the
+    instance. The first swapped request's pages are copied (on the card)
+    just before its swap-out and just after its swap-in, for a byte
+    comparison after the run, and the first decode step after any
+    swap-in records its logits in `seen` as kind "swap_in" (the dict of
+    `_watch_first_decodes`). Returns the page record."""
+    swap_out, swap_in, advance = (engine._tier_swap_out_slot,
+                                  engine._tier_swap_in, engine._advance)
+    record, pending = {}, {}
+
+    def pages(slot, n):
+        run = engine._slot_pages[slot][:n]
+        return {k: a[:, run].clone() for k, a in engine.page_pool.items()}
+
+    def watch_out(slot, tokens):
+        first = "req" not in record
+        if first:
+            n = (len(tokens) - 1) // engine.page_size + 1
+            before = pages(slot, n)
+            outs = engine.kv_tier.swap_outs
+        swap_out(slot, tokens)
+        if first and engine.kv_tier.swap_outs > outs:
+            record.update(req=engine.slot_req[slot], n=n, before=before)
+
+    def watch_in(slot, req, p):
+        ok = swap_in(slot, req, p)
+        if ok and record.get("req") is req and "after" not in record:
+            record["after"] = pages(slot, record["n"])
+        if ok and "swap_in" not in seen:
+            pending[slot] = req
+        return ok
+
+    def watch_advance(logits, tok, pos, done, limit):
+        for slot, req in pending.items():
+            if engine.slot_req[slot] is req:
+                seen["swap_in"] = (req.prompt.tolist(),
+                                   logits[slot].float().clone())
+        pending.clear()
+        return advance(logits, tok, pos, done, limit)
+
+    engine._tier_swap_out_slot = watch_out
+    engine._tier_swap_in = watch_in
+    engine._advance = watch_advance
+    return record
+
+
+def _tier_transfers(engine, cfg, params):
+    """The tier's transfer functions at a TIER_VICTIM_TOKENS victim's
+    size on the engine's pool (pages 1..n, read and written back with
+    their own bytes): demotion (gather + copy into page-locked memory on
+    the side stream, completed) and swap-in (non-blocking upload +
+    scatter) wall times with the card synchronized around each, the
+    first call apart (it allocates the page-locked blocks), and one cold
+    re-prefill of a prompt of the same length (flash prefill of its
+    1024 bucket + install into the pages), the replay a swap replaces."""
+    from dlrover_tpu_torch.models import decode as dec
+    from dlrover_tpu_torch.serving import kv_tier as kvt
+
+    n = -(-TIER_VICTIM_TOKENS // engine.page_size)
+    ids = list(range(1, n + 1))
+    d2h, h2d = [], []
+    for _ in range(TIER_TRANSFER_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = kvt.snapshot_pages(engine.page_pool, ids)
+        data = {k: kvt._fetch(v) for k, v in staged.items()}
+        d2h.append((time.perf_counter() - t0) * 1e3)
+        moved = sum(v.nbytes for v in data.values())
+        ent = kvt.TierEntry(kind="swap", digest="", tokens=(), depth=0,
+                            data=data, nbytes=moved, n_pages=n,
+                            page_size=engine.page_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kvt.upload_pages(engine.page_pool, ent, ids)
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t0) * 1e3)
+        del staged, data, ent
+    victim = sum(a[:, :n].nbytes for a in engine.page_pool.values())
+    rng = np.random.default_rng(SEED + 4)
+    toks = np.zeros(1024, np.int64)
+    toks[:TIER_VICTIM_TOKENS] = rng.integers(1, cfg.vocab_size,
+                                             size=TIER_VICTIM_TOKENS)
+    toks = torch.from_numpy(toks).to(engine.device)
+    table = engine._table_row(ids)
+    replay = []
+    for _ in range(3):
+        saved = {k: a[:, :n + 1].clone() for k, a in engine.page_pool.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row = dec.prefill_exact_row(cfg, params, toks, 2048)
+        dec.paged_install_row(engine.page_pool, row, table, 0,
+                              TIER_VICTIM_TOKENS)
+        torch.cuda.synchronize()
+        replay.append((time.perf_counter() - t0) * 1e3)
+        del row
+        for k, a in engine.page_pool.items():
+            a[:, :n + 1] = saved[k]
+    steady_d2h = float(np.median(d2h[1:]))
+    steady_h2d = float(np.median(h2d[1:]))
+    return dict(
+        victim_tokens=TIER_VICTIM_TOKENS, victim_pages=n,
+        victim_mb=victim / 1e6, moved_pages=kvt._bucket(n),
+        moved_mb=moved / 1e6, d2h_first_ms=d2h[0], d2h_ms=steady_d2h,
+        h2d_first_ms=h2d[0], h2d_ms=steady_h2d,
+        d2h_gb_s=moved / steady_d2h / 1e6, h2d_gb_s=moved / steady_h2d / 1e6,
+        replay_prefill_ms=float(np.median(replay)),
+    )
+
+
+def phase_serve_kv_tier(params, cfg, prompts, pressure, kv_quant=False):
+    """serve.kv_tier (bf16 pages) or serve.kv_tier.int8kv (kv_quant):
+    serve.prefix_pressure's engine and traffic with a host-DRAM KV tier
+    of TIER_BYTES, the launch counts set to 0 just before the run and
+    read just after. Checks: every request finishes; victims swapped out
+    and every preempted request resumed; at least one prefix demotion
+    and one prefix promotion; the first swapped request's pages read
+    back after its swap-in are torch.equal to the pages copied before
+    its swap-out; the first decode after a swap-in, and the engine's
+    first cold admission's, within 5% of the largest logit of the same
+    prompt prefilled cold on a pool that never preempts; every flash
+    forward on the wgmma variant, every paged launch on the TMA-ring
+    kernel (.int8kv: on its int8-pool variant). Reports the bytes each
+    way, the transfer rates at a 600-token victim, the time completing
+    the demotion copies waited, the admission stall beside
+    serve.prefix_pressure's, TTFT / TPOT / tokens/s and the greedy
+    agreement with serve.prefix_pressure's streams."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    phase = "serve.kv_tier" + (".int8kv" if kv_quant else "")
+    max_new = 32
+    engine = ContinuousBatcher(
+        cfg, params, n_slots=8, max_len=2048, max_new_tokens=max_new,
+        chunk=8, kv_layout="paged", page_size=16, n_pages=PRESSURE_PAGES,
+        swap_headroom=1, prefix_cache_rows=4, prefix_block=256,
+        kv_quant=kv_quant, kv_tier_bytes=TIER_BYTES)
+    seen = _watch_first_decodes(engine)
+    record = _watch_swaps(engine, seen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    outs, tm = _serve(engine, prompts, max_new)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    lens = [len(o) for o in outs]
+    if lens != [max_new] * len(prompts):
+        raise AssertionError(f"{phase}: token counts {lens}, want {max_new}")
+    toks = np.concatenate(outs)
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{phase}: token id out of the vocabulary")
+    tier = engine.kv_tier_stats()
+    transfer = engine.kv_tier.transfer_stats()
+    paged = engine.paged_stats()
+    prefix = engine.prefix_cache.stats()
+    prefill = engine.prefill_stats()
+    engine.allocator.check()
+    round_trip = ("after" in record and all(
+        torch.equal(record["before"][k], record["after"][k])
+        for k in record["before"]))
+    want_flash = prefix["misses"] * cfg.n_layers
+    checks = {
+        "flash_fwd == misses x layers": launches["flash_fwd"] == want_flash,
+        "paged >= decode_steps x layers": (
+            launches["paged_attention"] >= engine.decode_steps * cfg.n_layers),
+        "swap_outs > 0": tier["swap_outs"] > 0,
+        "swap_resumes == swap_preemptions": (
+            paged["swap_resumes"] == paged["swap_preemptions"]),
+        "prefix demotions >= 1": tier["demotions"] - tier["swap_outs"] >= 1,
+        "prefix promotions >= 1": tier["promotions"] - tier["swap_ins"] >= 1,
+        "pages_promoted > 0": paged["pages_promoted"] > 0,
+        "swapped pages round-trip equal": round_trip,
+    }
+    if kv_quant:
+        checks["every paged launch on the int8-pool TMA variant"] = (
+            launches["paged_attention_tma_int8"]
+            == launches["paged_attention"])
+    _check_wgmma(phase, launches)
+    _check_paged_tma(phase, launches)
+    rates = _tier_transfers(engine, cfg, params)
+    ref = pressure["outs"]
+    e2e = dict(
+        requests=len(prompts), max_new=max_new, n_pages=PRESSURE_PAGES,
+        kv_quant=kv_quant, tier_bytes=TIER_BYTES,
+        admissions=engine.admissions, decode_steps=engine.decode_steps,
+        launches=launches, want_flash=want_flash, kv_tier_stats=tier,
+        transfer_stats=transfer, paged_stats=paged, prefix_stats=prefix,
+        admission_stall_ms=prefill["admission_stall_ms"],
+        pressure_admission_stall_ms=pressure["admission_stall_ms"],
+        swap_round_trip_mb=(sum(v.nbytes for v in record["before"].values())
+                            / 1e6 if "before" in record else 0.0),
+        transfers=rates, checks=checks, **_timings(tm, lens),
+        greedy_streams_identical=sum(
+            int(np.array_equal(a, b)) for a, b in zip(outs, ref)),
+        greedy_token_agreement=float(
+            np.mean(np.concatenate(outs) == np.concatenate(ref))),
+    )
+    log(phase, **e2e)
+    del engine, record
+    torch.cuda.empty_cache()
+    _check_engine_first_decodes(phase, params, cfg, seen,
+                                ["cold", "swap_in"])
+    _raise_failed(phase, checks)
+    return e2e
+
+
+def _watch_adoptions(dec, handoff, record):
+    """Wrap serving/handoff.adopt_into_slot (the engine looks it up at
+    each adoption) for the run: each adoption timed with the card
+    synchronized around it; the first one's installed pages compared
+    with the shipped cells, and the decode engine's first decode step
+    after it recorded. Returns the restore function."""
+    real, advance = handoff.adopt_into_slot, dec._advance
+    pending = {}
+
+    def adopt(engine, slot, pkg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(engine, slot, pkg)
+        torch.cuda.synchronize()
+        record["adopt_ms"].append((time.perf_counter() - t0) * 1e3)
+        if "pages_equal" not in record:
+            run = engine._slot_pages[slot][:pkg.n_ship]
+            record["pages_equal"] = all(
+                torch.equal(arr[:, run],
+                            pkg.data[name][:, :pkg.n_ship].to(arr.device))
+                for name, arr in engine.page_pool.items())
+            pending[slot] = pkg.prompt.tolist()
+
+    def watch_advance(logits, tok, pos, done, limit):
+        for slot, prompt in pending.items():
+            record["first_decode"] = (prompt, logits[slot].float().clone())
+        pending.clear()
+        return advance(logits, tok, pos, done, limit)
+
+    handoff.adopt_into_slot = adopt
+    dec._advance = watch_advance
+
+    def restore():
+        handoff.adopt_into_slot = real
+
+    return restore
+
+
+def _handoff_run(params, cfg, prompts, max_new, transport):
+    """One prefill + decode pair on the card over `transport`: the
+    prefill engine admits (and never decodes), each finished prefill is
+    exported, retired and adopted by the decode engine. Host transport:
+    kv_checksums=1 and a corrupt_kv plan flips a byte of the first
+    package; the loop's ingress check (the coordinator's) quarantines
+    it and the request replays on the prefill engine."""
+    from collections import Counter
+
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving import handoff
+    from dlrover_tpu_torch.serving.chaos import FaultInjector
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+    from dlrover_tpu_torch.serving.health import kv_checksum, verify_checksum
+
+    host = transport == "host"
+    fi = FaultInjector(seed=SEED)
+    if host:
+        fi.corrupt_kv("prefill", where="handoff", at_step=0)
+    kw = dict(n_slots=8, max_len=2048, max_new_tokens=max_new, chunk=8,
+              kv_layout="paged", kv_checksums=int(host), chaos=fi)
+    pre = ContinuousBatcher(cfg, params, replica_role="prefill",
+                            chaos_tag="prefill", **kw)
+    dec = ContinuousBatcher(cfg, params, replica_role="decode",
+                            chaos_tag="decode", **kw)
+    record = {"adopt_ms": []}
+    restore = _watch_adoptions(dec, handoff, record)
+    pre_l, dec_l = Counter(), Counter()
+
+    def stepped(engine, into):
+        before = _build.launch_counts()
+        events = engine.step()
+        for k, v in _build.launch_counts().items():
+            into[k] += v - before[k]
+        return events
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        owner = {pre.submit(p, max_new=max_new): i
+                 for i, p in enumerate(prompts)}
+        dec_owner, export_ms, shipped = {}, [], 0
+        quarantined, last_pkg = 0, None
+        first, last = {}, {}
+        count = {i: 0 for i in range(len(prompts))}
+        while pre.has_work() or dec.has_work():
+            stepped(pre, pre_l)
+            for req in pre.take_prefilled():
+                t1 = time.perf_counter()
+                pkg = handoff.export_run(pre, req.idx, transport=transport)
+                torch.cuda.synchronize()
+                export_ms.append((time.perf_counter() - t1) * 1e3)
+                pre.retire(req.idx)
+                who = owner.pop(req.idx)
+                if pkg.checksum and not verify_checksum(pkg.data,
+                                                        pkg.checksum):
+                    quarantined += 1
+                    owner[pre.submit(pkg.prompt, max_new=pkg.max_new,
+                                     prng_key=pkg.prng_key)] = who
+                    continue
+                dec_owner[dec.submit_adopted(pkg)] = who
+                shipped += pkg.nbytes
+                last_pkg = pkg
+            events = stepped(dec, dec_l)
+            now = time.perf_counter()
+            for idx, toks, _fin in events:
+                if toks:
+                    who = dec_owner[idx]
+                    first.setdefault(who, now)
+                    last[who] = now
+                    count[who] += len(toks)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    done = dec.generate_all([])
+    outs = [None] * len(prompts)
+    for idx, o in zip(sorted(dec_owner), done):
+        outs[dec_owner[idx]] = o
+    checksum_ms_per_mb = None
+    if host:
+        mb = last_pkg.nbytes / 1e6
+        reps = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            kv_checksum(last_pkg.data)
+            reps.append((time.perf_counter() - t1) * 1e3)
+        checksum_ms_per_mb = float(np.median(reps)) / mb
+    lens = [len(o) for o in outs]
+    tm = dict(first=first, last=last, count=count, wall=wall, t0=t0)
+    health = dec.health_stats()
+    checks = {
+        "decode engine: no flash launch": dec_l["flash_fwd"] == 0,
+        "decode engine: paged launches": dec_l["paged_attention"] > 0,
+        "decode engine: paged all TMA": (
+            dec_l["paged_attention_tma"] == dec_l["paged_attention"]),
+        "prefill engine: no paged launch": pre_l["paged_attention"] == 0,
+        "prefill engine: flash == admissions x layers": (
+            pre_l["flash_fwd"] == pre.admissions * cfg.n_layers),
+        "prefill engine: flash all wgmma": (
+            pre_l["flash_fwd_wgmma"] == pre_l["flash_fwd"]),
+        "pages_adopted > 0": dec.allocator.pages_adopted > 0,
+        "shipped pages equal installed": record.get("pages_equal") is True,
+        "allocators empty": (pre.allocator.used_pages == 0
+                             and dec.allocator.used_pages == 0),
+        "every request finished": lens == [max_new] * len(prompts),
+    }
+    if host:
+        checks["one package quarantined"] = quarantined == 1 and any(
+            f[0] == "corrupt" for f in fi.fired)
+        checks["decode ingress verified every package"] = (
+            health.get("integrity_checks") == len(prompts)
+            and health.get("integrity_quarantines") == 0)
+    e2e = dict(
+        transport=transport, requests=len(prompts), max_new=max_new,
+        prefill_admissions=pre.admissions, decode_admissions=dec.admissions,
+        decode_steps=dec.decode_steps, quarantined=quarantined,
+        replays=quarantined, pages_adopted=dec.allocator.pages_adopted,
+        shipped_mb=shipped / 1e6, export_ms_mean=float(np.mean(export_ms)),
+        export_ms_max=float(np.max(export_ms)),
+        adopt_ms_mean=float(np.mean(record["adopt_ms"])),
+        adopt_ms_max=float(np.max(record["adopt_ms"])),
+        kv_checksum_ms_per_mb=checksum_ms_per_mb,
+        prefill_launches=dict(pre_l), decode_launches=dict(dec_l),
+        launches={k: pre_l[k] + dec_l[k] for k in _build.launch_counts()},
+        decode_health=health, checks=checks, **_timings(tm, lens),
+    )
+    first_decode = record.get("first_decode")
+    del pre, dec, record
+    torch.cuda.empty_cache()
+    return e2e, outs, first_decode
+
+
+def phase_serve_handoff(params, cfg, serve):
+    """serve.handoff: two engines on one card sharing the served
+    weights, replica_role "prefill" and "decode"; serve's 12 requests go
+    prefill -> take_prefilled -> export_run -> submit_adopted, once over
+    the "device" transport and once over "host" with kv_checksums=1 and
+    one package corrupted in transit (quarantined, replayed). Each run
+    checks (`_handoff_run`) the phase split from the launch counts of
+    each engine's own steps, the adoption, the shipped bytes against the
+    installed pages, and the first decode after an adoption within 5% of
+    the largest logit of the colocated engine's path (a cold flash
+    prefill of the same prompt and one paged decode step). Reports
+    export and adopt ms per request, kv_checksum ms per MB, TTFT, TPOT
+    and the greedy agreement with serve's streams."""
+    max_new, prompts = 32, _prompts(cfg)
+    runs = {}
+    for transport in ("device", "host"):
+        phase = f"serve.handoff.{transport}"
+        torch.cuda.reset_peak_memory_stats()
+        e2e, outs, first_decode = _handoff_run(params, cfg, prompts,
+                                               max_new, transport)
+        e2e.update(
+            greedy_streams_identical=sum(
+                int(np.array_equal(a, b)) for a, b in zip(outs, serve["outs"])),
+            greedy_token_agreement=float(np.mean(
+                np.concatenate(outs) == np.concatenate(serve["outs"]))))
+        log(phase, **e2e)
+        if first_decode is None:
+            raise AssertionError(f"{phase}: no adoption was watched")
+        prompt, got = first_decode
+        _check_first_decode(
+            f"{phase}.first_decode_logits", got,
+            _first_decode_logits(cfg, params, prompt, 2048)[0],
+            "5% of the largest logit: the adopted cells come from the "
+            "prefill engine's flash prefill of the prompt's bucket, the "
+            "colocated side prefills its 1024 bucket; bf16 roundings "
+            "carried through 32 layers")
+        _raise_failed(phase, e2e["checks"])
+        runs[phase] = e2e
+    return runs
 
 
 def _layer0_grads(cfg, params, batch):
@@ -3652,6 +4105,19 @@ def main():
         e2e = phase_serve(params, cfg)
         phase_adapters_and_refresh(params, cfg, e2e)
         return 0
+    if "--tier" in args:
+        cfg = llama.LlamaConfig.llama3_8b()
+        params = llama.init_params(cfg, gen)
+        e2e = phase_serve(params, cfg)
+        pressure_prompts = _pressure_prompts(cfg)
+        pressure = phase_serve_pressure(
+            params, cfg, pressure_prompts,
+            _pressure_reference(params, cfg, pressure_prompts), 0)
+        phase_serve_kv_tier(params, cfg, pressure_prompts, pressure)
+        phase_serve_kv_tier(params, cfg, pressure_prompts, pressure,
+                            kv_quant=True)
+        phase_serve_handoff(params, cfg, e2e)
+        return 0
     flash_rows = phase_flash(gen)
     bwd_rows = phase_flash_bwd(gen)
     paged_rows = phase_paged(gen)
@@ -3681,6 +4147,11 @@ def main():
                                         pressure_ref, 0)
     e2e_chunked = phase_serve_pressure(params, cfg, pressure_prompts,
                                        pressure_ref, 256)
+    e2e_tier = phase_serve_kv_tier(params, cfg, pressure_prompts,
+                                   e2e_pressure)
+    e2e_tier_int8 = phase_serve_kv_tier(params, cfg, pressure_prompts,
+                                        e2e_pressure, kv_quant=True)
+    handoff_runs = phase_serve_handoff(params, cfg, e2e)
     del params
     torch.cuda.empty_cache()
     train = phase_train()
@@ -3695,7 +4166,9 @@ def main():
                    "serve.spec": e2e_spec, "serve.spec.int8": e2e_spec_int8,
                    "serve.async": e2e_async, **adapter_runs,
                    "serve.prefix_pressure": e2e_pressure,
-                   "serve.prefill_chunk": e2e_chunked}
+                   "serve.prefill_chunk": e2e_chunked,
+                   "serve.kv_tier": e2e_tier,
+                   "serve.kv_tier.int8kv": e2e_tier_int8, **handoff_runs}
     remat_paths = {f"train.remat {r['run']}": r for r in remat_runs}
     flash_by_path = {**{path: run["launches"]["flash_fwd"]
                         for path, run in serve_paths.items()},
@@ -3795,6 +4268,10 @@ def main():
                    "overflow L2; warm_ms: one pool; old_*: the split "
                    "kernel it replaced; the int8 pool in per_variant)",
              per_variant=paged_rows,
+             int8_pool_launches_by_path={
+                 path: run["launches"]["paged_attention_tma_int8"]
+                 for path, run in serve_paths.items()
+                 if run["launches"].get("paged_attention_tma_int8")},
              jax_gate_shapes=gate("paged_attention")),
         dict(name="quantize_int8", route="cuda",
              source="dlrover_tpu_torch/csrc/quant_int8.cu",

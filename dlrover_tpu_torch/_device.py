@@ -7,6 +7,7 @@ the CPU runs only when the caller names it (the tests do).
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -21,3 +22,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "PyTorch versions on the CPU"
         )
     return dev
+
+
+def upload(arr, device: torch.device) -> torch.Tensor:
+    """A host numpy array on `device`. On the card it goes through a
+    page-locked copy and a non-blocking transfer, so the stream is not
+    synchronized; the page-locked block returns to torch's host
+    allocator, which reuses it only after the event of the transfer
+    that reads it has completed."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

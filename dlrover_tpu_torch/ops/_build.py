@@ -47,7 +47,8 @@ KERNELS = ("flash_fwd", "flash_bwd", "paged_attention", "quant_int8",
 LAUNCHES = {"flash_fwd": ("flash_fwd", "flash_fwd_wgmma"),
             "flash_bwd": ("flash_bwd_dq", "flash_bwd_dq_wgmma",
                           "flash_bwd_dkv", "flash_bwd_dkv_wgmma"),
-            "paged_attention": ("paged_attention", "paged_attention_tma"),
+            "paged_attention": ("paged_attention", "paged_attention_tma",
+                                "paged_attention_tma_int8"),
             "quant_int8": ("quant_int8", "quant_int8_any"),
             "dequant_int8": ("dequant_int8", "dequant_int8_any"),
             "dqmm": ("dqmm", "dqmm_ws", "dqmm_decode_tma", "dqmm_general")}

@@ -35,6 +35,7 @@ from dlrover_tpu_torch.ops import flash_attention as fa
 
 _NAME = "paged_attention"
 _NAME_TMA = "paged_attention_tma"
+_NAME_TMA_INT8 = "paged_attention_tma_int8"   # the int8-pool variant
 _CHUNK = 32                # cells per warp step in the kernel (a lane each)
 # 128 cells per block split: one chunk for each of the kernel's 4 warps
 _CHUNKS_PER_SPLIT = 4
@@ -259,6 +260,8 @@ def _kernel_tma(q, pages, table, lengths, scale, quant):
     )
     _build.count_launch(_NAME)
     _build.count_launch(_NAME_TMA)
+    if quant:
+        _build.count_launch(_NAME_TMA_INT8)
     _build.check(err, _NAME_TMA,
                  f"q{tuple(q.shape)} pages{tuple(pages['k'].shape)}")
     return out

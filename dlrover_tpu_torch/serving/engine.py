@@ -80,8 +80,29 @@ the next step(), before admitting and drafting from the refreshed
 mirrors, so the dispatches (and the streams) are the same at either
 depth and only the call on which events surface moves.
 
-Not ported yet (later slices): weight_quant="int8_stochastic", tp /
-mesh, resize, KV tier, handoff / replica_role, health, chaos.
+- kv_tier_bytes > 0: a host-DRAM KV tier (serving/kv_tier.py). An
+  evicted published prefix demotes to page-locked host memory (a gather
+  on the engine's stream, then a non-blocking copy on a side stream,
+  completed by `drain()` at the top of the next step), and a later
+  admission that the tier holds deeper than the radix cache promotes it
+  back (upload, a fresh pool row, promoted pages). swap_to_host: a
+  preempted decoding slot's page run demotes too, and its readmission
+  scatters the stored pages back and resumes without a prefill;
+  replay stays the fallback. kv_tier_promote "swap_only" / "never"
+  limits promotion. kv_checksums=1 stamps and verifies a blake2b digest
+  over KV bytes in transit (tier entries, host handoff packages); a
+  mismatch quarantines the payload and the request replays.
+- chaos / chaos_tag: a serving/chaos.py FaultInjector consulted at the
+  top of every step() (and by the tier inside every demotion, tag
+  "<chaos_tag>#kvtier"); device_health() reports its lost chips.
+- replica_role="prefill": admissions are the prefill and the engine
+  never decodes; each finished prefill waits (its slot held frozen) for
+  `take_prefilled()` and serving/handoff.py `export_run`, and a
+  "decode" engine installs the package by `submit_adopted(pkg)` in
+  place of a prefill.
+
+Not ported yet (later slices): weight_quant="int8_stochastic" and
+mesh_spec (tp; `resize` at one card is the tp=1 no-op).
 """
 
 import dataclasses
@@ -92,7 +113,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dlrover_tpu_torch._device import DeviceLike, resolve_device
+from dlrover_tpu_torch._device import DeviceLike, resolve_device, upload
 from dlrover_tpu_torch.models.decode import (
     _mask_top_k,
     _mask_top_p,
@@ -121,6 +142,7 @@ from dlrover_tpu_torch.ops.quantization import (
     quantize_int8,
     weight_quant_block,
 )
+from dlrover_tpu_torch.serving import kv_tier as _kv_tier
 from dlrover_tpu_torch.serving.adapters import DeviceAdapterCache
 from dlrover_tpu_torch.serving.paged_kv import (
     TRASH_PAGE,
@@ -210,6 +232,9 @@ class _Request:
     # same slot)
     adapter_id: Optional[str] = None
     adapter_slot: int = 0
+    # a serving/handoff.py KVHandoff to install instead of a prefill
+    # (cleared at admission: a later replay prefills like any request)
+    adopted: Optional[object] = None
 
 
 # one step() event: (request idx, tokens emitted this chunk, finished)
@@ -280,6 +305,13 @@ class ContinuousBatcher:
         weight_refresh_replay: bool = True,  # live mode: replay slots
         adapter_registry=None,       # serving/adapters.AdapterRegistry
         adapter_cache_slots: int = 8,  # device adapter bank slots (LRU)
+        chaos=None,                  # serving/chaos.py FaultInjector
+        chaos_tag: str = "engine",   # this engine's tag in fault plans
+        replica_role: str = "colocated",  # | "prefill" | "decode"
+        kv_tier_bytes: int = 0,  # host-DRAM KV tier capacity (0 = off)
+        swap_to_host: bool = True,   # preempted runs demote, not drop
+        kv_tier_promote: str = "always",  # | "swap_only" | "never"
+        kv_checksums: int = 0,   # 1 = content-verify KV in transit
         device: DeviceLike = None,
     ):
         if eos_id is not None and eos_id == pad_id:
@@ -305,9 +337,28 @@ class ContinuousBatcher:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if replica_role not in ("colocated", "prefill", "decode"):
+            raise ValueError(
+                f"replica_role must be 'colocated', 'prefill' or "
+                f"'decode', got {replica_role!r}"
+            )
         if prefill_chunk < 0:
             raise ValueError(
                 f"prefill_chunk must be >= 0, got {prefill_chunk}"
+            )
+        if kv_tier_bytes < 0:
+            raise ValueError(
+                f"kv_tier_bytes must be >= 0, got {kv_tier_bytes}"
+            )
+        if kv_tier_promote not in ("always", "swap_only", "never"):
+            raise ValueError(
+                f"kv_tier_promote must be 'always', 'swap_only' or "
+                f"'never', got {kv_tier_promote!r}"
+            )
+        if kv_checksums not in (0, 1):
+            raise ValueError(
+                f"kv_checksums must be 0 (off) or 1 (verify KV in "
+                f"transit), got {kv_checksums}"
             )
         if kv_layout not in ("dense", "paged"):
             raise ValueError(
@@ -331,6 +382,25 @@ class ContinuousBatcher:
             )
         self.device = resolve_device(device)
         self.cfg = cfg
+        # one card, tp 1: the constructed tp is also the largest a
+        # resize may grow back to (serving/elastic.py)
+        self.mesh_tp = 1
+        self._full_tp = 1
+        # fault injection: on_engine_step(chaos_tag, n) at every step()
+        self.chaos = chaos
+        self.chaos_tag = chaos_tag
+        self._step_no = 0
+        # KV integrity (serving/health.py): checks and quarantines at
+        # the handoff ingress (the tier counts its own)
+        self.kv_checksums = int(kv_checksums)
+        self._integrity_checks = 0
+        self._integrity_quarantines = 0
+        # phase split: a "prefill" engine admits (the admission is the
+        # prefill) and never decodes; finished prefills queue here for
+        # export through serving/handoff.py. "decode" steps as
+        # colocated does
+        self.replica_role = replica_role
+        self._prefill_ready: List[_Request] = []
         # versioned weight refresh (update_params)
         self.weight_refresh_mode = weight_refresh_mode
         self.weight_refresh_replay = weight_refresh_replay
@@ -426,6 +496,11 @@ class ContinuousBatcher:
         self._prefill_chunk = prefill_chunk
         self._prefilling = np.zeros(n_slots, bool)
         self._frontier = np.zeros(n_slots, np.int64)
+        # prefill role with prefill_chunk > 0: slots whose prefill is
+        # complete and wait for export. The interleaved dispatches keep
+        # running for the other slots, so these ride them frozen (as
+        # done) and harvest leaves them occupied with their pages
+        self._export_hold = np.zeros(n_slots, bool)
         self._admission_stall_ms = 0.0   # time _admit blocked the loop
         self._prefill_chunks_total = 0   # interleaved chunks dispatched
         # the prefix cache: a radix tree over block-aligned prefixes and
@@ -438,12 +513,19 @@ class ContinuousBatcher:
         self._prefix_block = prefix_block
         # pool row pinned per slot while its request is in flight
         self._slot_row: List[Optional[int]] = [None] * n_slots
-        if prefix_cache_rows > 0:
-            self.prefix_cache = RadixPrefixCache(
-                prefix_cache_rows, block=prefix_block,
-                # paged: an evicted prefix drops its page run's refs
-                on_evict=self._on_prefix_evict if self._paged else None,
+        # the host-DRAM KV tier: none at kv_tier_bytes=0, and then no
+        # path below changes
+        self.kv_tier: Optional[_kv_tier.HostKVTier] = None
+        self._tier_swap = bool(swap_to_host)
+        self._tier_promote = kv_tier_promote
+        if kv_tier_bytes > 0:
+            self.kv_tier = _kv_tier.HostKVTier(
+                kv_tier_bytes, block=prefix_block, chaos=chaos,
+                chaos_tag=f"{chaos_tag}#kvtier",
+                checksums=bool(kv_checksums),
             )
+        if prefix_cache_rows > 0:
+            self.prefix_cache = self._make_prefix_cache()
             self.pool = init_kv_cache(
                 cfg, prefix_cache_rows, max_len, device=self.device
             )
@@ -500,6 +582,16 @@ class ContinuousBatcher:
         self.admissions = 0
         self.decode_steps = 0     # chunk steps
         self.verify_steps = 0     # spec dispatches (one verify each)
+
+    def _make_prefix_cache(self) -> RadixPrefixCache:
+        """A fresh radix tree. Its eviction callback drops a paged
+        prefix's page run and, with the tier on, demotes the row."""
+        return RadixPrefixCache(
+            self._prefix_rows, block=self._prefix_block,
+            on_evict=(self._on_prefix_evict
+                      if (self._paged or self.kv_tier is not None)
+                      else None),
+        )
 
     def _make_spec(self) -> None:
         """The host drafter and controller, fresh (None at K = 0)."""
@@ -728,10 +820,39 @@ class ContinuousBatcher:
         if self._staged_params is not None and not self.has_work():
             self._commit_refresh(self._staged_params)
 
+    # -- elastic resize ----------------------------------------------------
+
+    def device_health(self) -> Dict[str, int]:
+        """The device set of this replica's slice: the injector's
+        lose_chip plans supply the deficit (the JAX engine's own
+        source)."""
+        lost = 0
+        if self.chaos is not None:
+            lost = int(self.chaos.chips_lost(self.chaos_tag))
+        total = int(self._full_tp)
+        return {
+            "chips_total": total,
+            "chips_lost": min(lost, total),
+            "chips_up": max(total - lost, 0),
+        }
+
+    def surviving_chips(self) -> int:
+        return self.device_health()["chips_up"]
+
+    def resize(self, n_chips: Optional[int] = None):
+        """Re-form at the largest valid tp <= `n_chips` (default: what
+        device_health reports), serving/elastic.py. On one card the
+        target clamps to tp 1: a reported no-op."""
+        from dlrover_tpu_torch.serving import elastic
+
+        if n_chips is None:
+            n_chips = self.surviving_chips()
+        return elastic.resize(self, n_chips)
+
     def elastic_stats(self) -> Dict[str, float]:
         """The JAX engine's elastic counters: the refresh outcomes, the
-        replays and the version. Resize is not ported (no tp), so its
-        fields stay 0 and tp = full_tp = 1."""
+        replays and the version. A resize at one card never re-forms,
+        so its fields stay 0 and tp = full_tp = 1."""
         return {
             "resize_shrink": 0.0,
             "resize_grow": 0.0,
@@ -742,8 +863,8 @@ class ContinuousBatcher:
             "resize_downtime_ms": 0.0,
             "replayed_requests": float(self._elastic_replayed),
             "weight_version": float(self._weight_version),
-            "tp": 1.0,
-            "full_tp": 1.0,
+            "tp": float(self.mesh_tp),
+            "full_tp": float(self._full_tp),
         }
 
     # -- admission ---------------------------------------------------------
@@ -799,16 +920,20 @@ class ContinuousBatcher:
         self._queue.append(req)
         return req.idx
 
+    def submit_adopted(self, pkg) -> int:
+        """Queue a request whose prompt KV was prefilled on another
+        engine (a serving/handoff.py KVHandoff): its admission installs
+        the shipped cells instead of running the prefill, and decodes
+        under the package's seed as the colocated engine would."""
+        idx = self.submit(pkg.prompt, max_new=pkg.max_new,
+                          prng_key=pkg.prng_key)
+        self._requests[idx].adopted = pkg
+        return idx
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device. On the card it goes
-        through a page-locked copy and a non-blocking transfer, so the
-        stream is not synchronized; the page-locked block returns to
-        torch's host allocator, which reuses it only after the event
-        of the transfer that reads it has completed."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        """A host array on the engine's device, without synchronizing
+        the stream (`_device.upload`)."""
+        return upload(arr, self.device)
 
     def _pad_to(self, toks: np.ndarray, bucket: int) -> torch.Tensor:
         padded = np.full(bucket, self.pad_id, np.int64)
@@ -824,7 +949,14 @@ class ContinuousBatcher:
         pf_start: Optional[int] = None
         # set before the prefill, which gathers this slot's adapter
         self.adapt[slot] = req.adapter_slot
-        if self._prefill_chunk > 0:
+        if req.adopted is not None:
+            # handoff: install the shipped KV and skip the prefill. The
+            # package is single use: a later preemption replays
+            from dlrover_tpu_torch.serving import handoff
+
+            pkg, req.adopted = req.adopted, None
+            handoff.adopt_into_slot(self, slot, pkg)
+        elif self._prefill_chunk > 0:
             # a preempted readmission that raises OutOfPages goes back
             # to the queue still marked (see _admit_chunked_paged)
             pf_start = self._admit_chunked(slot, req, p)
@@ -873,6 +1005,15 @@ class ContinuousBatcher:
             self._prefilling[slot] = True
             self._frontier[slot] = pf_start
             self._slot_gen[slot] = None
+        if self.replica_role == "prefill" and pf_start is None:
+            # the prompt's KV is resident: the prefill is done. The
+            # request waits for export; this role never decodes (a
+            # chunked admission waits from _flip_to_decode instead)
+            self._prefill_ready.append(req)
+            if self._prefill_chunk > 0:
+                # interleaved dispatches run on for the other slots:
+                # hold this one frozen in them
+                self._export_hold[slot] = True
         self._admission_stall_ms += (time.perf_counter() - t0) * 1e3
 
     def _make_gen(self, req: _Request) -> torch.Generator:
@@ -889,6 +1030,8 @@ class ContinuousBatcher:
         block-aligned prefix, prefill only the suffix bucket, publish the
         request's own aligned prefix for the next arrival."""
         pc = self.prefix_cache
+        if self.kv_tier is not None:
+            self._tier_promote_prefix(req)
         matched, row = pc.match(req.prompt)
         # a matched depth whose suffix bucket would overrun max_len
         # retreats block by block (the pool row stays valid for any
@@ -943,6 +1086,8 @@ class ContinuousBatcher:
         start = 0
         # adapted requests bypass the prefix cache, as when blocking
         if pc is not None and req.adapter_id is None:
+            if self.kv_tier is not None:
+                self._tier_promote_prefix(req)
             matched, row = pc.match(req.prompt)
             start = min(matched, p)
             if start > 0 and row is not None:
@@ -974,9 +1119,15 @@ class ContinuousBatcher:
         puts it back) until a live slot retires."""
         pc = self.prefix_cache
         lora = req.adapter_id is not None
+        if self.kv_tier is not None and self._tier_swap_in(slot, req, p):
+            # a full swap-in: the run is resident and exclusively owned,
+            # the slot admits live (the full-hit semantics)
+            return None
         n_need = self._request_pages(req)
         matched, row, start = 0, None, 0
         if pc is not None and not lora:
+            if self.kv_tier is not None:
+                self._tier_promote_prefix(req)
             matched, row = pc.match(req.prompt)
             start = min(matched, p)
             if row is None or row not in self._row_pages:
@@ -1018,13 +1169,180 @@ class ContinuousBatcher:
             self.prefix_cache.release(row)
             self._slot_row[slot] = None
 
-    def _on_prefix_evict(self, row: int) -> None:
-        """Radix eviction callback (paged): the published prefix's page
-        run drops its reference; pages nobody else holds go back to
-        the free list (no device work: the bytes just become dead)."""
-        run = self._row_pages.pop(row, None)
+    def _on_prefix_evict(self, row: int, blocks=()) -> None:
+        """Radix eviction callback: a paged prefix's page run drops its
+        reference (pages nobody else holds go back to the free list).
+        With the tier on, the eviction demotes the row first: its exact
+        bytes are gathered and their host copy started before the run
+        is released."""
+        run = self._row_pages.pop(row, None) if self._paged else None
+        if self.kv_tier is not None and blocks:
+            self._tier_demote_row(row, blocks)
         if run:
             self.allocator.free(run)
+
+    # -- host-DRAM KV tier (serving/kv_tier.py) ----------------------------
+
+    def _tier_demote_row(self, row: int, blocks) -> None:
+        """Demote an evicted published prefix: gather its exact pool row
+        (a pow2-bucket width) and hand the in-flight copies to the tier.
+        Never raises into the eviction: a failed demotion (tier full, a
+        fault mid-demotion) lets the prefix die as it would without the
+        tier, and readmission prefills cold."""
+        tokens = [t for blk in blocks for t in blk]
+        depth = len(tokens)
+        if depth <= 0 or self.pool is None:
+            return
+        w = min(_pad_bucket(depth), self.max_len)
+        try:
+            staged = _kv_tier.snapshot_row(self.pool, row, w)
+            self.kv_tier.put_prefix(tokens, staged, depth)
+        except Exception:  # the eviction must complete regardless
+            self.kv_tier.note_demote_failure()
+
+    def _tier_alloc(self, n: int, swap_ok: bool = True) -> List[int]:
+        """_alloc_pages' promotion twin: the same reclaim loop, with the
+        pages counted by allocator.promote()."""
+        while True:
+            try:
+                return self.allocator.promote(n)
+            except OutOfPages:
+                if not self._reclaim_pages(swap_ok):
+                    raise
+
+    def _tier_promote_prefix(self, req: _Request) -> None:
+        """Before an admission's match: when the tier holds a prefix of
+        the prompt strictly deeper than the radix cache's, upload it into
+        a fresh pool row (paged: and into promoted pages through
+        paged_install_row) and re-publish it, so the match that follows
+        hits it through the usual warm / full-hit paths."""
+        tier, pc = self.kv_tier, self.prefix_cache
+        if tier is None or pc is None or self._tier_promote != "always":
+            return
+        matched, _ = pc.match(req.prompt)
+        ent = tier.match_prefix(req.prompt, min_depth=matched)
+        if ent is None:
+            return
+        tier.acquire(ent)
+        try:
+            pages = None
+            if self._paged:
+                try:
+                    pages = self._tier_alloc(ent.depth // self.page_size,
+                                             swap_ok=not req.preempted)
+                except OutOfPages:
+                    return  # pool dry: the admission proceeds cold
+            row, is_new = pc.insert(list(ent.tokens))
+            if row is None or not is_new:
+                # every row pinned, or the prefix is there already
+                if pages:
+                    self.allocator.free(pages)
+                return
+            dev_row = _kv_tier.upload_row(self.pool, ent, row)
+            if pages is not None:
+                w = next(iter(ent.data.values())).shape[2]
+                _kv_tier.install_row_pages(self.page_pool, dev_row,
+                                           self._table_row(pages), w)
+                self._row_pages[row] = pages
+            tier.note_promoted(ent)
+        finally:
+            tier.release(ent)
+
+    def _tier_swap_in(self, slot: int, req: _Request, p: int) -> bool:
+        """Swap-to-host readmission: when the tier holds this exact
+        folded sequence's page run, promote fresh pages, scatter the
+        stored bytes onto them and point the slot's table at them; the
+        prefill is skipped and the admission tail resumes from the
+        folded position. False: the caller admits by replay."""
+        tier = self.kv_tier
+        if tier is None or not self._tier_swap or self._tier_promote == "never":
+            return False
+        ent = tier.peek_swap(req.prompt, salt=req.adapter_id or "")
+        if ent is None:
+            return False
+        n_need = self._request_pages(req)
+        if ent.n_pages > n_need or ent.page_size != self.page_size:
+            return False
+        tier.acquire(ent)
+        try:
+            try:
+                pages = self._tier_alloc(n_need, swap_ok=not req.preempted)
+            except OutOfPages:
+                return False  # the replay path may still fit by sharing
+            self._slot_pages[slot] = pages
+            _kv_tier.upload_pages(self.page_pool, ent, pages[:ent.n_pages])
+            self._table[slot] = self._table_row(pages)
+        finally:
+            tier.release(ent)
+        tier.consume(ent)
+        return True
+
+    def _tier_swap_out_slot(self, slot: int, tokens) -> None:
+        """Swap-to-host demotion of a preempted victim: gather the pages
+        covering its valid cells [0, len(tokens)) and start their host
+        copies before the run is freed. Only a cleanly decoding slot
+        qualifies (a mid-prefill one replays cheaply); any failure
+        leaves replay as the fallback."""
+        tier = self.kv_tier
+        if (tier is None or not self._tier_swap or not self._paged
+                or self._prefilling[slot] or self._export_hold[slot]):
+            return
+        p = len(tokens)
+        if p <= 0 or int(self.pos[slot]) + 1 != p:
+            return
+        run = self._slot_pages[slot]
+        n_keep = (p - 1) // self.page_size + 1
+        if n_keep > len(run):
+            return
+        req = self.slot_req[slot]
+        salt = (req.adapter_id or "") if req is not None else ""
+        try:
+            staged = _kv_tier.snapshot_pages(self.page_pool, run[:n_keep])
+            tier.put_swap(tokens, staged, n_keep, self.page_size, salt=salt)
+        except Exception:  # the preemption must complete regardless
+            tier.note_demote_failure()
+
+    def swap_out(self, idx: int) -> None:
+        """cancel() with demotion (a scheduler's admission preemption):
+        the victim's live page run swaps to host, and its readmission
+        promotes it back instead of replaying the prefill. Exactly
+        cancel() when the tier is off or the slot does not qualify."""
+        req = self._requests.get(idx)
+        if (req is not None and self.kv_tier is not None
+                and self._tier_swap and self._paged):
+            for slot in range(self.n_slots):
+                if self.slot_req[slot] is req and not self.done[slot]:
+                    tokens = list(req.prompt) + [
+                        int(t) for t in req.out[req.folded:]
+                    ]
+                    self._tier_swap_out_slot(slot, tokens)
+                    break
+        self.cancel(idx)
+
+    def kv_tier_stats(self) -> Dict[str, float]:
+        """Host-tier telemetry (bytes, entries, demotion / promotion /
+        swap / eviction counters, promote hit rate); {} when off."""
+        if self.kv_tier is None:
+            return {}
+        return self.kv_tier.stats()
+
+    def health_stats(self) -> Dict[str, float]:
+        """KV-integrity telemetry: verifications and quarantines across
+        every checksum site of this engine (tier ingress, handoff
+        adopt); {} with the knob off and nothing ever verified."""
+        checks = float(self._integrity_checks)
+        quarantines = float(self._integrity_quarantines)
+        if self.kv_tier is not None:
+            ts = self.kv_tier.stats()
+            checks += ts["integrity_checks"]
+            quarantines += ts["quarantines"]
+        if not self.kv_checksums and checks == 0 and quarantines == 0:
+            return {}
+        return {
+            "kv_checksums": float(self.kv_checksums),
+            "integrity_checks": checks,
+            "integrity_quarantines": quarantines,
+        }
 
     def _request_pages(self, req: _Request) -> int:
         """Exact page need: the request's OWN limit (prompt plus its
@@ -1051,9 +1369,15 @@ class ContinuousBatcher:
         never publish."""
         pc = self.prefix_cache
         lora = req.adapter_id is not None
+        if self.kv_tier is not None and self._tier_swap_in(slot, req, p):
+            # a full swap-in: the resumed run is resident and owned; the
+            # admission tail restores carry / pos / limit / generator
+            return
         n_need = self._request_pages(req)
         matched, row, start = 0, None, 0
         if pc is not None and not lora:
+            if self.kv_tier is not None:
+                self._tier_promote_prefix(req)
             matched, row = pc.match(req.prompt)
             start = min(matched, p)
             while (start > 0
@@ -1224,7 +1548,14 @@ class ContinuousBatcher:
         if self._slot_gen[slot] is not None:
             req.gen_state = self._slot_gen[slot].get_state()
         req.preempted = True
+        if self.kv_tier is not None:
+            # swap-to-host: the victim's valid cells demote before its
+            # run is freed (replay stays the fallback)
+            self._tier_swap_out_slot(slot, req.prompt)
         self._release_slot(slot)
+        # a preempted prefill's KV is gone: it prefills again, it does
+        # not export a dead page run
+        self._unready(req)
         self._queue.appendleft(req)
         if self._paged:
             self._swap_preemptions += 1
@@ -1365,7 +1696,7 @@ class ContinuousBatcher:
         where each distinct length is its own compiled program).
         Mid-prefill slots do not count; with only those occupied the
         decode half is one vacuous step."""
-        live = ~self.done & ~self._prefilling
+        live = ~self.done & ~self._prefilling & ~self._export_hold
         if not live.any():
             return 1
         rem = int((self.limit - self.pos - 1)[live].max())
@@ -1400,6 +1731,16 @@ class ContinuousBatcher:
         self._wait_this_step = 0.0
         self._maybe_commit_refresh()  # a deferred swap at the idle fence
         try:
+            if self.chaos is not None:
+                # before any admission or dispatch: an injected fault
+                # leaves the queue, ledger and caches as they were
+                step_no = self._step_no
+                self._step_no += 1
+                self.chaos.on_engine_step(self.chaos_tag, step_no)
+            if self.kv_tier is not None:
+                # complete the demotion copies started since the last
+                # step (a whole dispatch ago: a completion, not a stall)
+                self.kv_tier.drain()
             events = self._harvest()
             for slot in range(self.n_slots):
                 if self.done[slot] and self._queue:
@@ -1418,10 +1759,15 @@ class ContinuousBatcher:
                             raise
                         self._queue.appendleft(req)
                         break
-            if not self.done.all():
-                if self._prefilling.any():
+            can_decode = (not self.done.all()
+                          and self.replica_role != "prefill")
+            pf_pending = bool(self._prefilling.any())
+            if can_decode or pf_pending:
+                if pf_pending:
                     # a verify carries no prefill half: drafting
-                    # resumes once no slot is mid-prefill
+                    # resumes once no slot is mid-prefill. A prefill
+                    # engine dispatches these too (its chunked prefills
+                    # advance only here; the decode half is vacuous)
                     self._dispatch_interleaved()
                 elif self.spec is not None:
                     drafts, dlens = self._collect_drafts()
@@ -1486,7 +1832,7 @@ class ContinuousBatcher:
         frees them only after harvesting it."""
         tok = self._upload(self.tok)
         pos = self._upload(self.pos)
-        done = self._upload(self.done | self._prefilling)
+        done = self._upload(self.done | self._prefilling | self._export_hold)
         limit = self._upload(self.limit)
         table = None
         if self._paged:
@@ -1556,12 +1902,18 @@ class ContinuousBatcher:
     def _flip_to_decode(self, slot: int) -> None:
         """The frontier reached the prompt end: the slot decodes from
         the next dispatch on, with its generator installed now (it drew
-        nothing while frozen)."""
+        nothing while frozen). A prefill engine instead holds the slot
+        frozen and queues the request for export."""
         self._prefilling[slot] = False
-        self._slot_gen[slot] = self._make_gen(self.slot_req[slot])
+        if self.replica_role != "prefill":
+            self._slot_gen[slot] = self._make_gen(self.slot_req[slot])
+        else:
+            self._export_hold[slot] = True
+            self._prefill_ready.append(self.slot_req[slot])
 
     def _clear_prefill(self, slot: int) -> None:
         self._prefilling[slot] = False
+        self._export_hold[slot] = False
         self._frontier[slot] = 0
 
     def _collect_drafts(self):
@@ -1718,6 +2070,10 @@ class ContinuousBatcher:
                 continue
             if pf_mask is not None and pf_mask[slot]:
                 continue
+            if self._export_hold[slot]:
+                # prefill role: the fetched done is the hold, not a
+                # finish; the pages must survive until export
+                continue
             new_toks = [int(t) for t in emitted[slot][: int(counts[slot])]]
             req.out.extend(new_toks)
             if new_toks:
@@ -1745,7 +2101,8 @@ class ContinuousBatcher:
         for slot in range(self.n_slots):
             if self.slot_req[slot] is None:
                 self.done[slot] = True
-            elif pf_mask is not None and pf_mask[slot]:
+            elif ((pf_mask is not None and pf_mask[slot])
+                  or self._export_hold[slot]):
                 # still occupied: the fetched done was the freeze
                 self.done[slot] = False
             if self.done[slot]:
@@ -1773,10 +2130,51 @@ class ContinuousBatcher:
         for slot in range(self.n_slots):
             if self.slot_req[slot] is req:
                 self._release_slot(slot)
+        self._unready(req)
         # unpin the adapter with the ledger entry: it stays resident
         # and becomes evictable once nothing else references it
         self._release_adapter(req)
         return np.asarray(req.out, np.int32)
+
+    def _unready(self, req: _Request) -> None:
+        """Take a request off the prefill role's export queue, if it is
+        there."""
+        try:
+            self._prefill_ready.remove(req)
+        except ValueError:
+            pass
+
+    def take_prefilled(self) -> List[_Request]:
+        """Drain the prefill role's completion queue: requests whose
+        prompt KV is resident and exportable. Each is still live in its
+        slot: the caller exports it (serving/handoff.py) and then
+        retire()s it, before the slot's pages can be reused."""
+        out, self._prefill_ready = self._prefill_ready, []
+        return out
+
+    def request_progress(self, idx: int) -> Optional[int]:
+        """Preemption coldness of a live request (the `_slot_progress`
+        that `_pick_preempt_slot` orders by): pos mid-decode, negative
+        mid-prefill; None when the request holds no slot."""
+        for slot in range(self.n_slots):
+            req = self.slot_req[slot]
+            if req is not None and not self.done[slot] and req.idx == idx:
+                return self._slot_progress(slot)
+        return None
+
+    def live_request_keys(self) -> Dict[int, torch.Tensor]:
+        """idx -> the sampling generator state of every live request,
+        from which a re-admission continues the same stream (a slot
+        that has not started decoding reports its admission state)."""
+        out: Dict[int, torch.Tensor] = {}
+        for slot in range(self.n_slots):
+            req = self.slot_req[slot]
+            if req is not None and not req.done:
+                gen = self._slot_gen[slot]
+                if gen is None:
+                    gen = self._make_gen(req)
+                out[req.idx] = gen.get_state()
+        return out
 
     def cancel(self, idx: int) -> None:
         """Abort a request wherever it is — queued, mid-prefill or
@@ -1790,6 +2188,7 @@ class ContinuousBatcher:
             self._queue.remove(req)
         except ValueError:
             pass
+        self._unready(req)
         req.done = True
         for slot in range(self.n_slots):
             if self.slot_req[slot] is req:
@@ -1837,8 +2236,9 @@ class ContinuousBatcher:
         """Rebuild the device state from scratch after a failure: the KV
         bank or page pool (with the allocator and tables), the prefix
         cache and its pool, and the drafter are made anew; the queue,
-        the ledger and the in-flight dispatch are dropped; every ledger
-        pin is released and the adapter bank rebuilt from the registry.
+        the ledger, the export queue, the host tier's entries and the
+        in-flight dispatch are dropped; every ledger pin is released and
+        the adapter bank rebuilt from the registry.
         Request indices stay monotonic, so a stale event can never name
         a new request."""
         if self._paged:
@@ -1867,22 +2267,26 @@ class ContinuousBatcher:
         # mid-prefill state dies with the slots (the stall and chunk
         # counters are cumulative telemetry and survive)
         self._prefilling[:] = False
+        self._export_hold[:] = False
         self._frontier[:] = 0
         if self._adapter_cache is not None:
             for req in self._requests.values():
                 self._release_adapter(req)
             self._adapter_cache.rebuild()
         self._inflight = None
+        if self.kv_tier is not None:
+            # a fault mid-demotion may have left copies whose source
+            # died with the engine: drop every entry
+            self.kv_tier.clear()
+        self._prefill_ready = []
+        self._step_no = 0
         self.slot_req = [None] * self.n_slots
         self._slot_row = [None] * self.n_slots
         self._queue.clear()
         self._requests.clear()
         self._pending.clear()
         if self.prefix_cache is not None:
-            self.prefix_cache = RadixPrefixCache(
-                self._prefix_rows, block=self._prefix_block,
-                on_evict=self._on_prefix_evict if self._paged else None,
-            )
+            self.prefix_cache = self._make_prefix_cache()
             self.pool = init_kv_cache(
                 self.cfg, self._prefix_rows, self.max_len, device=self.device
             )

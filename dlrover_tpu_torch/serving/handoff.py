@@ -1,0 +1,231 @@
+"""Cross-replica KV handoff for phase-split serving — the port's
+counterpart of dlrover_tpu/serving/handoff.py (the package, the export
+and the adoption; the coordinator that routes packages between replicas
+belongs to the replica pool, not ported yet).
+
+A prefill-role engine's admission IS the prefill: right after it the
+slot holds exactly what a colocated engine holds before its first
+decode step (zero tokens emitted, carry token at cell p-1, the
+request's sampling seed drawn). `export_run` packages that state:
+
+- paged: gather the slot's occupied pages out of the page pool — the
+  shipped tensor is [L, n_ship (bucket-padded), page_size, KV, hd] per
+  pool entry — plus the prompt, the remaining budget and the seed;
+- dense: slice the slot's bank row up to the prompt's pow2 bucket.
+
+`adopt_into_slot` is the decode-side inverse: fresh pages through
+`PageAllocator.adopt`, the shipped cells scattered onto them and the
+slot's table row written (adopted pages arrive at refcount 1, nothing
+to copy on write).
+
+Transports on one card: "device" keeps the gathered tensors on the card
+(a gather and a scatter); "host" bounces them through page-locked host
+memory (`_host_bounce`, the one D2H site), is stamped with
+`kv_checksum` when the engine has kv_checksums=1 and passes through the
+fault injector's `maybe_corrupt`. Adoption verifies a stamped package
+and raises KVIntegrityError on a mismatch; the caller then replays.
+"""
+
+import dataclasses
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from dlrover_tpu_torch._device import upload
+from dlrover_tpu_torch.serving.engine import _pad_bucket
+from dlrover_tpu_torch.serving.health import (
+    KVIntegrityError,
+    kv_checksum,
+    verify_checksum,
+)
+from dlrover_tpu_torch.serving.paged_kv import TRASH_PAGE, OutOfPages
+
+
+def _host_bounce(arr: torch.Tensor) -> torch.Tensor:
+    """THE host transport's D2H point: a non-blocking copy into
+    page-locked memory and a wait on its event (the package must be on
+    the host before it is stamped). The CPU engine's gather already is
+    the host copy."""
+    if arr.device.type != "cuda":
+        return arr
+    host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
+    host.copy_(arr, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return host
+
+
+# ---- the package ---------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVHandoff:
+    """One prefilled request, packaged for adoption elsewhere."""
+
+    prompt: np.ndarray            # [p] the original prompt
+    max_new: int                  # remaining token budget
+    prng_key: int                 # the request's sampling seed
+    kv_layout: str                # "dense" | "paged"
+    transport: str                # "device" | "host"
+    n_cells: int                  # prompt cells resident (== p)
+    data: Dict[str, Any]          # pool entry name -> shipped cells
+    page_size: int = 0            # paged only
+    n_ship: int = 0               # occupied pages shipped (paged)
+    src: str = ""                 # source engine's chaos tag
+    checksum: str = ""            # content digest (host transport)
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(v.nbytes for v in self.data.values()))
+
+
+def export_run(engine, idx: int, transport: str = "device") -> KVHandoff:
+    """Package request `idx`'s resident KV for adoption. The slot must
+    still be live: call before retire() frees its pages or row."""
+    if transport not in ("device", "host"):
+        raise ValueError(
+            f"transport must be 'device' or 'host', got {transport!r}"
+        )
+    slot = next(
+        (
+            s for s in range(engine.n_slots)
+            if engine.slot_req[s] is not None
+            and engine.slot_req[s].idx == idx
+        ),
+        None,
+    )
+    if slot is None:
+        raise KeyError(f"request {idx} holds no live slot")
+    req = engine.slot_req[slot]
+    p = len(req.prompt)
+    if engine.kv_layout == "paged":
+        run = engine._slot_pages[slot]
+        n_ship = (p - 1) // engine.page_size + 1
+        ids = np.full(_pad_bucket(n_ship, lo=4), TRASH_PAGE, np.int64)
+        ids[:n_ship] = run[:n_ship]
+        ids_dev = engine._upload(ids)
+        data = {name: arr[:, ids_dev] for name, arr in engine.page_pool.items()}
+        page_size = engine.page_size
+    else:
+        bank_len = engine.max_len + engine.spec_draft_len
+        w = min(_pad_bucket(p), bank_len)
+        data = {
+            name: arr[:, slot:slot + 1, :w].clone()
+            for name, arr in engine.cache.items()
+        }
+        page_size, n_ship = 0, 0
+    checksum = ""
+    if transport == "host":
+        # the handoff EGRESS: stamp the digest the moment the bytes are
+        # on the host, then let the fault injector model corruption in
+        # transit (the adopting ingress verifies)
+        data = {name: _host_bounce(v) for name, v in data.items()}
+        if engine.kv_checksums:
+            checksum = kv_checksum(data)
+        if engine.chaos is not None and hasattr(engine.chaos, "maybe_corrupt"):
+            data = engine.chaos.maybe_corrupt(engine.chaos_tag, "handoff", data)
+    return KVHandoff(
+        prompt=np.asarray(req.prompt, np.int64).copy(),
+        max_new=max(int(engine.limit[slot]) - p, 1),
+        prng_key=int(req.seed),
+        kv_layout=engine.kv_layout,
+        transport=transport,
+        n_cells=p,
+        data=data,
+        page_size=page_size,
+        n_ship=n_ship,
+        src=engine.chaos_tag,
+        checksum=checksum,
+    )
+
+
+def check_compatible(engine, pkg: KVHandoff) -> None:
+    """Raise ValueError when `engine` cannot adopt `pkg` (the caller's
+    cue to try another target or to replay)."""
+    if engine.kv_layout != pkg.kv_layout:
+        raise ValueError(
+            f"kv_layout mismatch: package {pkg.kv_layout!r}, "
+            f"engine {engine.kv_layout!r}"
+        )
+    if pkg.kv_layout == "paged":
+        if engine.page_size != pkg.page_size:
+            raise ValueError(
+                f"page_size mismatch: package {pkg.page_size}, "
+                f"engine {engine.page_size}"
+            )
+    else:
+        bank_len = engine.max_len + engine.spec_draft_len
+        w = next(iter(pkg.data.values())).shape[2]
+        if w > bank_len:
+            raise ValueError(
+                f"shipped row width {w} exceeds engine bank length "
+                f"{bank_len}"
+            )
+    if len(pkg.prompt) + 1 > engine.max_len:
+        raise ValueError(
+            f"prompt length {len(pkg.prompt)} leaves no room to generate "
+            f"(max_len {engine.max_len})"
+        )
+
+
+def _on_device(v: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A shipped tensor on the adopting engine's device: itself when it
+    is there already (the device transport), else a non-blocking upload
+    from page-locked memory."""
+    return v.to(device, non_blocking=True)
+
+
+def _adopt_pages(engine, n: int) -> List[int]:
+    """Reserve `n` pages for a shipped run, reclaiming as _alloc_pages
+    does (evict prefix runs, then preempt)."""
+    while True:
+        try:
+            return engine.allocator.adopt(n)
+        except OutOfPages:
+            if not engine._reclaim_pages():
+                raise
+
+
+def adopt_into_slot(engine, slot: int, pkg: KVHandoff) -> None:
+    """Install a shipped package into `slot` in place of a prefill
+    (called from the engine's admission, whose tail then sets the carry
+    token, position, limit and generator as a colocated admission of the
+    same prompt would). Raises KVIntegrityError on a stamped package
+    that no longer verifies, OutOfPages when the pool cannot back the
+    request even after reclaim."""
+    if pkg.checksum:
+        # the handoff INGRESS: corrupted bytes are never installed
+        engine._integrity_checks += 1
+        if not verify_checksum(pkg.data, pkg.checksum):
+            engine._integrity_quarantines += 1
+            raise KVIntegrityError(
+                f"handoff package from {pkg.src or 'unknown source'} "
+                "failed content verification; quarantined"
+            )
+    check_compatible(engine, pkg)
+    dev = engine.device
+    if engine.kv_layout == "paged":
+        p = pkg.n_cells
+        limit = min(p + pkg.max_new, engine.max_len)
+        n_need = (limit - 1 + engine.spec_draft_len) // engine.page_size + 1
+        adopted = _adopt_pages(engine, pkg.n_ship)
+        try:
+            own = engine._alloc_pages(n_need - pkg.n_ship)
+        except OutOfPages:
+            engine.allocator.free(adopted)
+            raise
+        m = next(iter(pkg.data.values())).shape[1]
+        ids = np.full(m, TRASH_PAGE, np.int64)
+        ids[:pkg.n_ship] = adopted
+        ids_dev = upload(ids, dev)
+        for name, arr in engine.page_pool.items():
+            arr[:, ids_dev] = _on_device(pkg.data[name], dev).to(arr.dtype)
+        run = adopted + own
+        engine._table[slot] = engine._table_row(run)
+        engine._slot_pages[slot] = run
+    else:
+        for name, arr in engine.cache.items():
+            src = _on_device(pkg.data[name], dev)
+            arr[:, slot:slot + 1, :src.shape[2]] = src.to(arr.dtype)

@@ -45,6 +45,8 @@ class PageAllocator:
         self.pages_freed = 0
         self.pages_shared = 0
         self.cow_copies = 0
+        self.pages_adopted = 0
+        self.pages_promoted = 0
 
     @property
     def capacity(self) -> int:
@@ -81,6 +83,26 @@ class PageAllocator:
         for p in pages:
             self._refs[p] = 1
         self.pages_allocated += n
+        return pages
+
+    def adopt(self, n: int) -> List[int]:
+        """The page-run install entry point of a cross-replica handoff
+        (serving/handoff.py): `n` fresh pages to receive a run shipped
+        from a prefill replica. An alloc (each page at refcount 1, owned
+        by the adopting slot: nothing to copy on write), counted apart
+        so the handoff share of admissions stays observable."""
+        pages = self.alloc(n)
+        self.pages_adopted += n
+        return pages
+
+    def promote(self, n: int) -> List[int]:
+        """The page-run install entry point of a host-tier promotion
+        (serving/kv_tier.py): `n` fresh pages to receive a run uploaded
+        from host memory. An alloc, counted apart so PCIe-paid
+        admissions stay observable beside cold prefills and
+        adoptions."""
+        pages = self.alloc(n)
+        self.pages_promoted += n
         return pages
 
     def share(self, pages: List[int]) -> None:
@@ -168,4 +190,6 @@ class PageAllocator:
             "pages_freed": self.pages_freed,
             "pages_shared": self.pages_shared,
             "cow_copies": self.cow_copies,
+            "pages_adopted": self.pages_adopted,
+            "pages_promoted": self.pages_promoted,
         }

@@ -51,7 +51,9 @@ class RadixPrefixCache:
         self,
         n_rows: int,
         block: int = 16,
-        on_evict: Optional[Callable[[int], None]] = None,
+        on_evict: Optional[
+            Callable[[int, List[Tuple[int, ...]]], None]
+        ] = None,
     ):
         if n_rows < 1:
             raise ValueError(f"n_rows must be >= 1, got {n_rows}")
@@ -59,9 +61,11 @@ class RadixPrefixCache:
             raise ValueError(f"block must be >= 1, got {block}")
         self.n_rows = n_rows
         self.block = block
-        # fired with the row whenever a row leaves the tree: the paged
-        # engine drops the published page run's references there, so
-        # an evicted prefix cannot leak pool pages
+        # fired with (row, block-edge path) whenever a row leaves the
+        # tree: the paged engine drops the published page run's
+        # references there, so an evicted prefix cannot leak pool
+        # pages, and the host tier (serving/kv_tier.py) keys the
+        # demoted K/V by the path's digest before the bytes are dropped
         self.on_evict = on_evict
         self.root = _Node()
         self._row_node: Dict[int, _Node] = {}
@@ -188,9 +192,21 @@ class RadixPrefixCache:
         node.row = None
         del self._lru[row]
         self.evictions += 1
+        # the edge path BEFORE pruning detaches the chain
+        blocks = self._path(node) if self.on_evict is not None else []
         self._prune(node)
         if self.on_evict is not None:
-            self.on_evict(row)
+            self.on_evict(row, blocks)
+
+    @staticmethod
+    def _path(node: _Node) -> List[Tuple[int, ...]]:
+        """The block edges from the root down to `node`."""
+        path: List[Tuple[int, ...]] = []
+        while node.parent is not None:
+            path.append(node.edge)
+            node = node.parent
+        path.reverse()
+        return path
 
     @staticmethod
     def _prune(node: _Node) -> None:
@@ -228,3 +244,17 @@ class RadixPrefixCache:
             "rows_used": len(self._row_node),
             "rows_total": self.n_rows,
         }
+
+    # ---- enumeration -----------------------------------------------------
+
+    def published_blocks(self):
+        """Yield the block-edge path (root -> node, one block tuple per
+        edge) of every PUBLISHED prefix, newest-touched first: what
+        affinity.cache_digests hashes into advertised digests."""
+        # snapshot the LRU order first: a reader may walk this while
+        # the engine publishes or evicts
+        for row in reversed(list(self._lru)):
+            node = self._row_node.get(row)
+            if node is None:  # torn iteration under churn: skip
+                continue
+            yield self._path(node)

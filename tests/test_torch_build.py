@@ -87,7 +87,8 @@ def test_launch_counters():
         "flash_fwd": 0, "flash_fwd_wgmma": 0, "flash_bwd_dq": 0,
         "flash_bwd_dq_wgmma": 0, "flash_bwd_dkv": 0,
         "flash_bwd_dkv_wgmma": 0, "paged_attention": 2,
-        "paged_attention_tma": 0, "quant_int8": 0, "quant_int8_any": 0,
+        "paged_attention_tma": 0, "paged_attention_tma_int8": 0,
+        "quant_int8": 0, "quant_int8_any": 0,
         "dequant_int8": 0, "dequant_int8_any": 0,
         "dqmm": 0, "dqmm_ws": 0, "dqmm_decode_tma": 0, "dqmm_general": 0,
     }

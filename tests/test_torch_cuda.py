@@ -1628,3 +1628,163 @@ def test_int8_live_refresh_requantizes_on_the_card(gen):
     got = [o.tolist() for o in eng.generate_all(prompts)]
     fresh = ContinuousBatcher(cfg, b, **kw)
     assert got == [o.tolist() for o in fresh.generate_all(prompts)]
+
+
+def _tier_engine(gen, **kw):
+    """The small serving model in a paged engine (pages of 16, the TMA
+    kernel's) with a host KV tier."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg, params = _serving_model(gen)
+    base = dict(n_slots=3, max_len=64, max_new_tokens=20, chunk=2,
+                kv_layout="paged", page_size=16, kv_tier_bytes=64 << 20)
+    return cfg, params, ContinuousBatcher(cfg, params, **{**base, **kw})
+
+
+def _run_pages(eng, slot, n):
+    return {k: a[:, eng._slot_pages[slot][:n]].clone()
+            for k, a in eng.page_pool.items()}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_kv_tier_swap_round_trip_is_byte_exact_on_the_card(gen, quant):
+    """A decoding slot swapped out to page-locked host memory and back:
+    the host entry holds the run's bytes, and the pages the swap-in
+    installs equal the pages before the swap-out, byte for byte."""
+    _, _, eng = _tier_engine(gen, kv_quant=quant)
+    rng = np.random.default_rng(0)
+    for n in (20, 33, 9):
+        eng.submit(rng.integers(1, 250, size=n).tolist())
+    eng.step()
+    eng.step()
+    slot = eng._pick_preempt_slot()
+    n = int(eng.pos[slot]) // eng.page_size + 1
+    before = _run_pages(eng, slot, n)
+    eng._preempt_slot(slot)
+    eng.kv_tier.drain()
+    (ent,) = eng.kv_tier._entries.values()
+    assert ent.kind == "swap" and ent.n_pages == n
+    for k, v in ent.data.items():
+        assert v.device.type == "cpu" and v.is_pinned()
+        assert torch.equal(v[:, :n].cuda(), before[k]), k
+    after = {}
+    swap_in = eng._tier_swap_in
+
+    def watch(s, req, p):
+        ok = swap_in(s, req, p)
+        if ok:
+            after.update(_run_pages(eng, s, n))
+        return ok
+
+    eng._tier_swap_in = watch
+    eng.step()
+    assert eng.kv_tier_stats()["swap_ins"] == 1
+    for k in before:
+        assert torch.equal(after[k], before[k]), k
+    assert all(len(o) == 20 for o in eng.generate_all([]))
+    eng.allocator.check()
+
+
+def test_kv_tier_demotion_and_promotion_never_synchronize(gen):
+    """At async_depth=1, the step that demotes a published prefix (an
+    eviction at publish), the step that promotes it back, a swap-out of
+    a decoding slot and the step that swaps it in all run under
+    torch.cuda.set_sync_debug_mode("error"): the gathers, the side
+    stream's copies into page-locked memory, the drain (event waits)
+    and the non-blocking uploads never synchronize a stream or the
+    device."""
+    rng = np.random.default_rng(1)
+    a, b, c = (rng.integers(1, 250, size=40).tolist() for _ in range(3))
+    _, _, eng = _tier_engine(gen, n_slots=2, prefix_cache_rows=1,
+                             max_new_tokens=6, async_depth=1)
+
+    def no_sync(fn, *args):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    eng.generate_all([a])                 # publishes a's prefix
+    eng.submit(b)
+    no_sync(eng.step)                     # b publishes: a's row demotes
+    assert eng.kv_tier_stats()["demotions"] == 1
+    eng.generate_all([])
+    eng.submit(a)
+    no_sync(eng.step)                     # a's prefix promotes back
+    assert eng.kv_tier_stats()["promotions"] == 1
+    assert eng.paged_stats()["pages_promoted"] > 0
+    eng.generate_all([])
+    eng.submit(c)
+    eng.step()
+    eng.step()
+    eng._harvest()
+    slot = next(s for s in range(eng.n_slots) if eng.slot_req[s] is not None)
+    no_sync(eng._preempt_slot, slot)      # swap-out
+    assert eng.kv_tier_stats()["swap_outs"] == 1
+    no_sync(eng.step)                     # drain + swap-in
+    assert eng.kv_tier_stats()["swap_ins"] == 1
+    assert all(len(o) == 6 for o in eng.generate_all([]))
+
+
+def test_host_handoff_pages_equal_the_source_pages(gen, monkeypatch):
+    """A prefill engine's package over the host transport: page-locked
+    host tensors equal to the source pages; the decode engine's adopted
+    pages equal the package; the decode stream equals a colocated
+    engine's on the same prompt."""
+    from dlrover_tpu_torch.serving import handoff
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg, params = _serving_model(gen)
+    kw = dict(n_slots=2, max_len=64, max_new_tokens=8, chunk=2,
+              kv_layout="paged")
+    pre = ContinuousBatcher(cfg, params, replica_role="prefill",
+                            kv_checksums=1, **kw)
+    dec = ContinuousBatcher(cfg, params, replica_role="decode",
+                            kv_checksums=1, **kw)
+    prompt = list(range(3, 40))
+    idx = pre.submit(prompt)
+    pre.step()
+    assert [r.idx for r in pre.take_prefilled()] == [idx]
+    pkg = handoff.export_run(pre, idx, transport="host")
+    assert pkg.checksum
+    src = pre._slot_pages[0][:pkg.n_ship]
+    for name, arr in pre.page_pool.items():
+        shipped = pkg.data[name]
+        assert shipped.device.type == "cpu" and shipped.is_pinned()
+        assert torch.equal(shipped[:, :pkg.n_ship].cuda(), arr[:, src]), name
+    pre.retire(idx)
+    installed = {}
+    real = handoff.adopt_into_slot
+
+    def adopt(engine, slot, p):
+        real(engine, slot, p)
+        installed.update(_run_pages(engine, slot, p.n_ship))
+
+    monkeypatch.setattr(handoff, "adopt_into_slot", adopt)
+    dec.submit_adopted(pkg)
+    out = dec.generate_all([])
+    for name in installed:
+        assert torch.equal(installed[name],
+                           pkg.data[name][:, :pkg.n_ship].cuda()), name
+    assert dec.health_stats()["integrity_checks"] == 1
+    colocated = ContinuousBatcher(cfg, params, **kw)
+    assert [o.tolist() for o in out] == [
+        o.tolist() for o in colocated.generate_all([prompt])]
+    assert pre.allocator.used_pages == 0 and dec.allocator.used_pages == 0
+
+
+def test_kv_checksum_of_a_card_tensor_equals_its_cpu_copy(gen):
+    from dlrover_tpu_torch.serving.health import kv_checksum
+
+    data = {
+        "k": torch.randn((2, 16, 4, 64), generator=gen,
+                         device="cuda").bfloat16(),
+        "k_scale": torch.rand((2, 16, 4, 1), generator=gen,
+                              device="cuda").bfloat16(),
+        "v": torch.randint(-127, 128, (2, 16, 4, 64), generator=gen,
+                           device="cuda", dtype=torch.int8),
+    }
+    assert kv_checksum(data) == kv_checksum(
+        {k: v.cpu() for k, v in data.items()})

@@ -78,11 +78,14 @@ def test_radix_fuzz_matches_jax(seed):
         rows = int(rng.integers(1, 4))
         block = int(rng.choice([1, 2, 4]))
         jlog, tlog = [], []
+        # the callback gets the evicted prefix's block path (what the
+        # host KV tier keys a demotion by) in both packages
         jax_cache = JaxRadix(
             rows, block=block,
-            on_evict=lambda row, blocks: jlog.append(("evict", row)))
+            on_evict=lambda row, blocks: jlog.append(("evict", row, blocks)))
         port = RadixPrefixCache(
-            rows, block=block, on_evict=lambda row: tlog.append(("evict", row)))
+            rows, block=block,
+            on_evict=lambda row, blocks: tlog.append(("evict", row, blocks)))
         for _ in range(int(rng.integers(1, 60))):
             kind = _OPS[int(rng.integers(len(_OPS)))]
             toks = rng.integers(0, 4, size=int(rng.integers(0, 10))).tolist()
