@@ -47,6 +47,16 @@ Phases, one line each (any failure exits non-zero before the last line):
      bytes must be <= 0.55x the bf16 engine's, and
      the first-decode-step logits must match the same decode functions
      on a dense bf16 tree of exactly the dequantized weights;
+  5a. serve.int8_stochastic: the same traffic and weights through
+     weight_quant="int8_stochastic" (the install rounds each value up
+     or down at random, plain PyTorch on the card): every request
+     finishes, the dequant-matmul launches by variant equal serve.int8's
+     and the quantize kernel launches 0 times; for the last layer slice
+     of every quantized weight and the lm_head, the scales byte-equal to
+     the CPU `stochastic_round_int8` on the same slice, every q8 the
+     floor or the ceiling of w / scale, and the mean of dequant - w
+     within 6 standard deviations of its binomial spread; install_s and
+     the greedy agreement with serve.int8 (reported);
   6. serve.spec: the paged engine with spec_draft_len=4 and max_len 2044
      (a 2048-cell bank in pages of 16), bf16 weights, greedy-serving 12
      requests of 64-token segments tiled to 256-1024 tokens, max_new 64:
@@ -146,6 +156,15 @@ Phases, one line each (any failure exits non-zero before the last line):
      the shipped bytes equal the installed pages, the first decode after
      an adoption within 5% of the colocated path's; export / adopt ms
      per request, kv_checksum ms per MB, TTFT and TPOT;
+  19a. serve.sched: RequestScheduler over the paged bf16 engine built
+     with mesh_spec={"tp": 1} (kernel_path "kernel"): 24 single-turn
+     requests from workload.generate_trace (seed 5, all three tiers,
+     max_new 32, 600 s deadlines), a burst of 8 batch-tier ones filling
+     the 8 slots, then 2 arrivals a pump: every request ends DONE, at
+     least one tier preemption, every flash forward on wgmma and every
+     paged launch on the TMA-ring kernel; per-tier TTFT and TPOT from
+     ServingMetrics, and the greedy agreement with the same engine's
+     generate_all on the same prompts (reported);
   20. train: Trainer(ElasticTrainer(...)) over accelerate over
      llama.loss_fn on Llama-3-8B at full width, 4 layers (f32 params,
      bf16 compute, remat "full", AdamW), 8 steps of a global batch of
@@ -195,8 +214,8 @@ pools; the int8 matmul at the engine's blocks of K = 24, 96, 160 and
 512 on the embedding's moment): each launched once on the variant it
 names, held to its plain version and timed beside it
 (`--jax-gate-shapes` runs only the card, build and this phase).
-Then one JSON line with every kernel's numbers, and last
-{"ok": true, "device": {...}}.
+Then the script's wall time, one JSON line with every kernel's numbers,
+the card's name and power limit, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where CUDA is not available.
 `python3 chip_smoke.py --profile [--int8]` instead profiles one
@@ -215,7 +234,8 @@ phases 6-9 (the speculative and async serving), no result line;
 phases 10-14 (adapters and weight refresh), no result line;
 `python3 chip_smoke.py --tier` the card, build, serve and
 serve.prefix_pressure phases and phases 17-19 (KV tier and handoff), no
-result line.
+result line; `python3 chip_smoke.py --sched` the card, build, serve and
+serve.int8 phases and phases 5a and 19a, no result line.
 `python3 chip_smoke.py --decode-kernels [--package-root DIR]`
 runs the card, build and paged-attention phases and the dqmm rows at
 T = 1, 8 and 16 of the five weight shapes: the A/B of the two decode
@@ -262,6 +282,18 @@ PRESSURE_PAGES = 2048 // 16 + 1
 TIER_BYTES = 4 << 30
 TIER_VICTIM_TOKENS = 600
 TIER_TRANSFER_REPS = 5
+# serve.int8_stochastic: the install's rounding checks hold the mean of
+# (dequant - w) within STOCH_Z standard deviations of its binomial
+# spread; the CPU scales are computed STOCH_CPU_ROWS output rows at a time
+STOCH_Z = 6.0
+STOCH_CPU_ROWS = 16384
+# serve.sched: 24 requests from the workload generator (seed 5), a burst
+# of 8 batch-tier ones filling the 8 slots, then 2 arrivals a pump
+SCHED_SEED = 5
+SCHED_SLOTS = 8
+SCHED_REQUESTS = 24
+SCHED_MAX_NEW = 32
+SCHED_ARRIVALS_PER_PUMP = 2
 # the speculative phases: draft width K = 4 and max_len 2044, so the bank
 # (max_len + K) is 2048 cells in pages of 16; 12 requests of 64 tokens
 SPEC_K = 4
@@ -1654,6 +1686,7 @@ def phase_serve_int8(params, cfg, bf16):
             np.mean(np.concatenate(outs) == np.concatenate(bf16["outs"]))),
     )
     log("serve.int8", **e2e)
+    e2e["outs"] = outs
     qparams = engine.params
     del engine
     torch.cuda.empty_cache()
@@ -1674,6 +1707,251 @@ def phase_serve_int8(params, cfg, bf16):
         "in another order, each rounded to bf16, carried through 32 "
         "layers",
     )
+    return e2e
+
+
+def _check_stochastic_install(params, qparams):
+    """The last layer slice of every quantized leaf and the untied
+    lm_head, as the int8_stochastic install stored them: the scales
+    byte-equal to the port's CPU `stochastic_round_int8` on the same
+    bf16 slice (the scales take no random bits; the lm_head in row
+    blocks, each row's blocks whole), every q8 the floor or the ceiling
+    of w / scale (clipped to +-127), and the mean of dequant - w, in
+    units of the scale and absolute, within STOCH_Z standard deviations
+    of 0: each value rounds up with probability f, its fractional part,
+    so dequant - w = scale (up - f) has variance scale^2 f (1 - f), and
+    the mean over the slice's M values sqrt(sum of those) / M."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    leaves = [(name, params["layers"][name][-1], w[-1])
+              for name, w in sorted(qparams["layers"].items())
+              if isinstance(w, tq.QuantizedWeight)]
+    head = qparams.get("lm_head", {}).get("weight")
+    if isinstance(head, tq.QuantizedWeight):
+        leaves.append(("lm_head", params["lm_head"]["weight"], head))
+    rows = {}
+    for name, dense, qw in leaves:
+        wt = dense.t().contiguous()
+        s_diff = 0
+        for r0 in range(0, wt.shape[0], STOCH_CPU_ROWS):
+            _, s_cpu = tq.stochastic_round_int8(
+                wt[r0:r0 + STOCH_CPU_ROWS].cpu(), qw.block,
+                torch.Generator().manual_seed(0))
+            s_diff += int((qw.s8[r0:r0 + STOCH_CPU_ROWS].cpu()
+                           != s_cpu).sum())
+        srep = qw.s8.repeat_interleave(qw.block, dim=1)
+        xs = wt.float() / srep
+        lo = torch.floor(xs)
+        q = qw.q8.float()
+        off = int(((q != lo.clamp(-127, 127))
+                   & (q != (lo + 1).clamp(-127, 127))).sum())
+        f = xs - lo
+        var = f * (1 - f)
+        m = q.numel()
+        dev = float((q - xs).double().mean())
+        sd = float(var.double().sum().sqrt()) / m
+        err = float((q * srep - wt.float()).double().mean())
+        sd_abs = float((var * srep * srep).double().sum().sqrt()) / m
+        rows[name] = dict(shape=list(qw.q8.shape), s8_diff=s_diff,
+                          not_floor_or_ceil=off, mean_up_minus_f=dev,
+                          bound=STOCH_Z * sd, mean_dequant_err=err,
+                          bound_abs=STOCH_Z * sd_abs)
+        del wt, srep, xs, lo, q, f, var
+        if s_diff or off or abs(dev) > STOCH_Z * sd or abs(err) > (
+                STOCH_Z * sd_abs):
+            raise AssertionError(
+                f"serve.int8_stochastic: installed {name} fails its "
+                f"checks: {rows[name]}")
+    log("serve.int8_stochastic.install", z=STOCH_Z, leaves=rows)
+
+
+def phase_serve_int8_stochastic(params, cfg, int8):
+    """serve.int8's traffic and weights through
+    weight_quant="int8_stochastic": the install rounds on the card in
+    plain PyTorch (no kernel; JAX's is XLA), serving runs the same
+    dequant-matmul kernels as serve.int8, launch for launch, with the
+    counts set to 0 just before the install and read after the drain."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    max_new, n_slots, max_len = 32, 8, 2048
+    prompts = _prompts(cfg)
+    kw = dict(n_slots=n_slots, max_len=max_len, max_new_tokens=max_new,
+              chunk=8, kv_layout="paged", weight_quant="int8_stochastic")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = ContinuousBatcher(cfg, params, **kw)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    outs, tm = _serve(engine, prompts, max_new)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    lens = [len(o) for o in outs]
+    if lens != [max_new] * len(prompts):
+        raise AssertionError(
+            f"int8_stochastic token counts {lens}, want {max_new} each")
+    toks = np.concatenate(outs)
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError("int8_stochastic: token id out of the vocabulary")
+    if engine.weight_quant_path != "int8_stochastic:kernel":
+        raise AssertionError(f"weight_quant_path {engine.weight_quant_path}")
+    by_variant = dict(
+        ws=launches["dqmm_ws"], decode_tma=launches["dqmm_decode_tma"],
+        decode_mma=(launches["dqmm"] - launches["dqmm_ws"]
+                    - launches["dqmm_decode_tma"]),
+    )
+    if (by_variant != int8["dqmm_launches_by_variant"]
+            or launches["quant_int8"] != 0):
+        raise AssertionError(
+            f"int8_stochastic: dqmm launches by variant {by_variant}, "
+            f"serve.int8's {int8['dqmm_launches_by_variant']}; quantize "
+            f"launches {launches['quant_int8']}, want 0")
+    _check_wgmma("serve.int8_stochastic", launches)
+    _check_paged_tma("serve.int8_stochastic", launches)
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(outs, int8["outs"]))
+    e2e = dict(
+        requests=len(prompts), admissions=engine.admissions,
+        decode_steps=engine.decode_steps, launches=launches,
+        dqmm_launches_by_variant=by_variant, install_s=install_s,
+        int8_install_s=int8["install_s"],
+        weight_quant_path=engine.weight_quant_path,
+        weight_quant_stats=engine.weight_quant_stats(),
+        **_timings(tm, lens),
+        int8_greedy_streams_identical=same,
+        int8_greedy_token_agreement=float(
+            np.mean(np.concatenate(outs) == np.concatenate(int8["outs"]))),
+    )
+    log("serve.int8_stochastic", **e2e)
+    qparams = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    _check_stochastic_install(params, qparams)
+    del qparams
+    torch.cuda.empty_cache()
+    return e2e
+
+
+def _sched_traffic(cfg):
+    """serve.sched's requests from the workload generator (seed
+    SCHED_SEED, single-turn sessions, all three tiers): the first
+    n_slots batch-tier events as one burst, then the next
+    SCHED_REQUESTS - n_slots events of any tier, in arrival order."""
+    from dlrover_tpu_torch.serving import workload
+
+    trace = workload.generate_trace(workload.WorkloadConfig(
+        seed=SCHED_SEED, horizon_s=600.0, base_rate=0.5, turns_lo=1,
+        turns_hi=1, user_tokens_lo=32, user_tokens_hi=512,
+        max_new_lo=SCHED_MAX_NEW, max_new_hi=SCHED_MAX_NEW,
+        long_context_prob=0.1, long_context_tokens=1024,
+        system_prompt_tokens=256, vocab=cfg.vocab_size - 1,
+        max_prompt_tokens=1536, latency_frac=0.3, batch_frac=0.4,
+        latency_deadline_s=600.0, standard_deadline_s=600.0,
+        batch_deadline_s=600.0))
+    book = workload.SessionBook(trace)
+    burst = [e for e in trace.events if e.tier == "batch"][:SCHED_SLOTS]
+    rest = [e for e in trace.events if e not in burst]
+    rest = rest[:SCHED_REQUESTS - len(burst)]
+    return [(e, book.prompt_for(e).tolist()) for e in burst + rest]
+
+
+def phase_serve_sched(params, cfg):
+    """serve.sched: RequestScheduler over the paged bf16 engine built
+    with mesh_spec={"tp": 1}; a burst of batch-tier requests fills
+    every slot, then the rest of the trace arrives a few requests a
+    pump, so latency-tier arrivals preempt batch work. The launch
+    counts are set to 0 just before the engine is built and read after
+    the drain."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving import (
+        TIERS,
+        ContinuousBatcher,
+        RequestScheduler,
+        RequestState,
+        ServingMetrics,
+        SloConfig,
+    )
+
+    traffic = _sched_traffic(cfg)
+    kw = dict(n_slots=SCHED_SLOTS, max_len=2048,
+              max_new_tokens=SCHED_MAX_NEW, chunk=8, kv_layout="paged",
+              mesh_spec={"tp": 1})
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    engine = ContinuousBatcher(cfg, params, **kw)
+    if engine.kernel_path != "kernel" or engine.mesh_shape != {"tp": 1}:
+        raise AssertionError(
+            f"serve.sched: kernel_path {engine.kernel_path}, mesh_shape "
+            f"{engine.mesh_shape}")
+    metrics = ServingMetrics()
+    sched = RequestScheduler(
+        engine, SloConfig(max_queue_depth=64, max_new_tokens=SCHED_MAX_NEW,
+                          default_deadline_s=600.0, tier_aging_s=600.0),
+        metrics=metrics)
+    t0 = time.perf_counter()
+    reqs = []
+    burst = [(e, p) for e, p in traffic if e.tier == "batch"][:SCHED_SLOTS]
+    for e, p in burst:
+        reqs.append(sched.submit(p, max_new=e.max_new,
+                                 deadline_s=e.deadline_s, tier=e.tier))
+    sched.pump()
+    for i in range(len(burst), len(traffic), SCHED_ARRIVALS_PER_PUMP):
+        for e, p in traffic[i:i + SCHED_ARRIVALS_PER_PUMP]:
+            reqs.append(sched.submit(p, max_new=e.max_new,
+                                     deadline_s=e.deadline_s, tier=e.tier))
+        sched.pump()
+    sched.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    states = [r.state for r in reqs]
+    preempted = dict(metrics.tier_preempted_total)
+    if any(st is not RequestState.DONE for st in states):
+        raise AssertionError(f"serve.sched: states {[s.value for s in states]}")
+    if sum(preempted.values()) < 1:
+        raise AssertionError("serve.sched: no tier preemption")
+    lens = [len(r.tokens) for r in reqs]
+    if lens != [e.max_new for e, _ in traffic]:
+        raise AssertionError(f"serve.sched: token counts {lens}")
+    want_paged = engine.decode_steps * cfg.n_layers
+    if (launches["flash_fwd"] < engine.admissions * cfg.n_layers
+            or launches["paged_attention"] < want_paged):
+        raise AssertionError(f"serve.sched: kernels not on the path {launches}")
+    _check_wgmma("serve.sched", launches)
+    _check_paged_tma("serve.sched", launches)
+    tiers = {}
+    for t in TIERS:
+        n = sum(1 for e, _ in traffic if e.tier == t)
+        ttft = metrics.tier_ttft_quantiles(t)
+        tpot = metrics._tier_tpot[t].quantiles()
+        tiers[t] = dict(requests=n, ttft_ms_p50=ttft[0.5],
+                        ttft_ms_p95=ttft[0.95], tpot_ms_p50=tpot[0.5],
+                        tpot_ms_p95=tpot[0.95],
+                        preempted=preempted.get(t, 0))
+    got = [np.asarray(r.tokens) for r in reqs]
+    admissions, decode_steps = engine.admissions, engine.decode_steps
+    # the same engine, idle again, on the same prompts without the
+    # scheduler: greedy agreement (reported; replays and other batches
+    # round other ways in bf16)
+    ref = engine.generate_all([p for _, p in traffic])
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(got, ref))
+    e2e = dict(
+        requests=len(reqs), burst=len(burst),
+        prompt_lens=[len(p) for _, p in traffic],
+        tiers_in_order=[e.tier for e, _ in traffic], wall_s=wall,
+        admissions=admissions, decode_steps=decode_steps,
+        launches=launches, kernel_path=engine.kernel_path,
+        mesh_shape=engine.mesh_shape, n_chips=engine.n_chips,
+        preempted=preempted, per_tier=tiers,
+        tokens_per_s=float(sum(lens)) / wall,
+        greedy_streams_identical=same,
+        greedy_token_agreement=float(
+            np.mean(np.concatenate(got) == np.concatenate(ref))),
+    )
+    log("serve.sched", **e2e)
+    del engine, sched
+    torch.cuda.empty_cache()
     return e2e
 
 
@@ -4054,6 +4332,7 @@ def phase_profile_train(int8, fused_ce=False):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -4105,6 +4384,15 @@ def main():
         e2e = phase_serve(params, cfg)
         phase_adapters_and_refresh(params, cfg, e2e)
         return 0
+    if "--sched" in args:
+        cfg = llama.LlamaConfig.llama3_8b()
+        params = llama.init_params(cfg, gen)
+        e2e = phase_serve(params, cfg)
+        e2e_int8 = phase_serve_int8(params, cfg, e2e)
+        phase_serve_int8_stochastic(params, cfg, e2e_int8)
+        phase_serve_sched(params, cfg)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
+        return 0
     if "--tier" in args:
         cfg = llama.LlamaConfig.llama3_8b()
         params = llama.init_params(cfg, gen)
@@ -4136,6 +4424,7 @@ def main():
         dtype=str(cfg.dtype), init_s=time.perf_counter() - t0)
     e2e = phase_serve(params, cfg)
     e2e_int8 = phase_serve_int8(params, cfg, e2e)
+    e2e_stoch = phase_serve_int8_stochastic(params, cfg, e2e_int8)
     e2e_spec = phase_serve_spec(params, cfg)
     phase_verify(params, cfg)
     e2e_spec_int8 = phase_serve_spec(params, cfg, "int8")
@@ -4152,6 +4441,7 @@ def main():
     e2e_tier_int8 = phase_serve_kv_tier(params, cfg, pressure_prompts,
                                         e2e_pressure, kv_quant=True)
     handoff_runs = phase_serve_handoff(params, cfg, e2e)
+    e2e_sched = phase_serve_sched(params, cfg)
     del params
     torch.cuda.empty_cache()
     train = phase_train()
@@ -4163,12 +4453,14 @@ def main():
     main_flash = next(r for r in flash_rows if (r["B"], r["S"]) == (1, 512))
     main_bwd = next(r for r in bwd_rows if (r["B"], r["S"]) == (2, 2048))
     serve_paths = {"serve": e2e, "serve.int8": e2e_int8,
+                   "serve.int8_stochastic": e2e_stoch,
                    "serve.spec": e2e_spec, "serve.spec.int8": e2e_spec_int8,
                    "serve.async": e2e_async, **adapter_runs,
                    "serve.prefix_pressure": e2e_pressure,
                    "serve.prefill_chunk": e2e_chunked,
                    "serve.kv_tier": e2e_tier,
-                   "serve.kv_tier.int8kv": e2e_tier_int8, **handoff_runs}
+                   "serve.kv_tier.int8kv": e2e_tier_int8, **handoff_runs,
+                   "serve.sched": e2e_sched}
     remat_paths = {f"train.remat {r['run']}": r for r in remat_runs}
     flash_by_path = {**{path: run["launches"]["flash_fwd"]
                         for path, run in serve_paths.items()},
@@ -4188,13 +4480,17 @@ def main():
     main_paged = paged_rows[0]
     main_quant = next(r for r in quant_rows if r["input"] == "bfloat16")
     quant_by_path = {"serve.int8": e2e_int8["launches"]["quant_int8"],
+                     "serve.int8_stochastic": e2e_stoch["launches"][
+                         "quant_int8"],
                      "serve.spec.int8": e2e_spec_int8["launches"][
                          "quant_int8"],
                      **{path: adapter_runs[path]["launches"]["quant_int8"]
                         for path in ("serve.adapters.int8",
                                      "serve.refresh.int8")},
                      "train.int8_adam": train_int8["launches"]["quant_int8"]}
-    dqmm_paths = {"serve.int8": e2e_int8, "serve.spec.int8": e2e_spec_int8,
+    dqmm_paths = {"serve.int8": e2e_int8,
+                  "serve.int8_stochastic": e2e_stoch,
+                  "serve.spec.int8": e2e_spec_int8,
                   "serve.adapters.int8": adapter_runs["serve.adapters.int8"],
                   "serve.refresh.int8": adapter_runs["serve.refresh.int8"]}
     main_dequant = dequant_rows[0]
@@ -4322,6 +4618,7 @@ def main():
                    "(dqmm_ws)",
              per_shape=dqmm_rows, jax_gate_shapes=gate("dqmm")),
     ]
+    log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ Counterpart of dlrover_tpu/ops/quantization.py but for its compressed
 collectives: `quantize_int8` (the `_quant_kernel`), `dequantize_int8`
 (the `_dequant_kernel`), `quantize_any` / `dequantize_any` (any shape,
 flattened and zero-padded to a block multiple: the int8 AdamW's
-moments), and for serving `QuantizedWeight`, `weight_quant_block`,
+moments), `stochastic_round_int8` (plain PyTorch, as JAX's is plain
+XLA), and for serving `QuantizedWeight`, `weight_quant_block`,
 `_dq_weight`, `quantized_matmul_reference`, `quantized_matmul` (the
 `_dqmm_kernel`) and `matmul_any`. The compressed collectives
 (`quantized_reduce_scatter`, `quantized_all_reduce_tree`) wait for the
@@ -25,7 +26,7 @@ bf16 or f32 activations (dqmm).
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch.nn.functional as F
 
@@ -258,6 +259,43 @@ def dequantize_any(q, s, shape, pad, out_dtype=torch.float32):
     if pad:
         flat = flat[:-pad]
     return flat.reshape(shape)
+
+
+def stochastic_round_int8(
+    x: torch.Tensor, block: int = DEFAULT_BLOCK,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unbiased int8 quantization (E[dequant] == x): floor plus a
+    Bernoulli draw on the fractional part, the JAX package's
+    `stochastic_round_int8`. x: [m, n] with n % block == 0 -> (q int8
+    [m, n], scales f32 [m, n/block]).
+
+    The scale is amax / 127 with a true division (1.0 where amax is 0),
+    not the quantize kernel's amax * f32(1/127): JAX's function is
+    plain XLA code, which divides here. The uniform draws come from
+    `generator` (a torch.Generator on x's device; the default
+    generator when None), so the bits are torch's, not jax.random's:
+    the scales take no random bits and equal JAX's; the rounding
+    agrees with it only in distribution. Plain PyTorch on either
+    device: JAX runs no kernel here either."""
+    if x.ndim != 2 or x.shape[1] % block:
+        raise ValueError(
+            f"stochastic_round_int8 takes [m, n] with n % block == 0, "
+            f"got {tuple(x.shape)} and block {block}"
+        )
+    m, n = x.shape
+    xf = x.float()
+    amax = xf.abs().reshape(m, n // block, block).amax(dim=2)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # product with its reciprocal (the quantize kernel's formula)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, INT8_MAX),
+                        1.0)
+    xs = xf / scale.repeat_interleave(block, dim=1)
+    lo = torch.floor(xs)
+    u = torch.rand((m, n), generator=generator, device=x.device,
+                   dtype=torch.float32)
+    q = torch.clamp(lo + (u < xs - lo).float(), -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8), scale
 
 
 # ---------------------------------------------------------------------------

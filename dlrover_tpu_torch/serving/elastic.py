@@ -3,8 +3,8 @@ dlrover_tpu/serving/elastic.py.
 
 The JAX engine survives a chip loss by re-forming its mesh at the
 largest tp that the surviving chips and the KV heads allow, preempting
-every live request for replay. The port's engine takes no `mesh_spec`
-yet: it runs at tp 1 on one card, where the target tp always clamps to
+every live request for replay. The port's engine serves `mesh_spec`
+tp=1 only: it runs on one card, where the target tp always clamps to
 the constructed tp and a resize is the reported no-op JAX's tp=1 engine
 returns. The re-forming branch waits for the port's tensor-parallel
 serving.
@@ -48,5 +48,5 @@ def resize(engine, n_chips: int) -> ResizeReport:
         return ResizeReport(old_tp, new_tp, 0, 0.0, "noop")
     raise NotImplementedError(
         f"resize from tp={old_tp} to tp={new_tp} re-forms a mesh; the "
-        "port's engine serves on one card (no mesh_spec yet)"
+        "port's engine serves on one card (tp=1)"
     )

@@ -42,6 +42,10 @@ serves colocated dense and paged traffic synchronously.
   kernel on the card), and every projection, MLP and untied lm_head
   product of prefill and decode then runs the fused W8A16
   dequant-matmul kernel (the plain version on the CPU).
+  weight_quant="int8_stochastic" stores the same layout, rounded
+  stochastically at install (`stochastic_round_int8`, plain PyTorch on
+  a per-leaf generator seeded from the engine seed), and serves through
+  the same kernels.
 - spec_draft_len = K > 0: speculative decoding. The host n-gram
   drafter (serving/speculative.py) proposes up to K tokens per live
   slot; one verify forward prices the carry token and the drafts of
@@ -101,11 +105,16 @@ depth and only the call on which events surface moves.
   "decode" engine installs the package by `submit_adopted(pkg)` in
   place of a prefill.
 
-Not ported yet (later slices): weight_quant="int8_stochastic" and
-mesh_spec (tp; `resize` at one card is the tp=1 no-op).
+- mesh_spec: the serving slice's tp degree (an int, {"tp": n}, or an
+  object with `.tensor`), validated as the JAX engine validates it
+  (ValueError for a bool, extra axes, tp < 1, tp past the local device
+  count, tp not dividing the KV heads). tp=1 is the one-card engine;
+  tp > 1 raises NotImplementedError until tensor-parallel serving is
+  ported, and `resize` at one card is the tp=1 no-op.
 """
 
 import dataclasses
+import hashlib
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -137,9 +146,11 @@ from dlrover_tpu_torch.models.decode import (
     spec_accept_sampled,
     verify_step,
 )
+from dlrover_tpu_torch.ops import paged_attention as _pa
 from dlrover_tpu_torch.ops.quantization import (
     QuantizedWeight,
     quantize_int8,
+    stochastic_round_int8,
     weight_quant_block,
 )
 from dlrover_tpu_torch.serving import kv_tier as _kv_tier
@@ -192,6 +203,71 @@ def _seed_of(prng_key) -> int:
     for word in np.asarray(prng_key).ravel():
         seed = (seed << 32) | (int(word) & 0xFFFFFFFF)
     return seed % 2**64
+
+
+def _parse_mesh_tp(mesh_spec) -> int:
+    """The `mesh_spec` knob: an int tp degree, a {"tp": n} dict, or an
+    object with a `.tensor` attribute (a MeshSpec's tensor axis)."""
+    if isinstance(mesh_spec, bool):
+        raise ValueError(f"mesh_spec must be an int tp degree, a "
+                         f"{{'tp': n}} dict or a MeshSpec, got "
+                         f"{mesh_spec!r}")
+    if isinstance(mesh_spec, int):
+        return mesh_spec
+    if isinstance(mesh_spec, dict):
+        extra = set(mesh_spec) - {"tp"}
+        if extra:
+            raise ValueError(
+                f"mesh_spec dict supports only the 'tp' axis for "
+                f"serving, got extra axes {sorted(extra)}"
+            )
+        return int(mesh_spec.get("tp", 1))
+    tensor = getattr(mesh_spec, "tensor", None)
+    if tensor is not None:
+        return int(tensor)
+    raise ValueError(
+        f"mesh_spec must be an int tp degree, a {{'tp': n}} dict or "
+        f"a MeshSpec, got {mesh_spec!r}"
+    )
+
+
+def _local_device_count(device: torch.device) -> int:
+    """Devices a serving slice may span: the cards on CUDA, one on the
+    CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device_count()
+    return 1
+
+
+def _check_serving_tp(tp: int, n_kv_heads: int, n_devices: int) -> None:
+    """The JAX package's `serving_mesh_spec` checks: 1 <= tp <= the
+    local device count, and tp divides the KV heads (the KV banks shard
+    the head axis)."""
+    if tp < 1:
+        raise ValueError(f"serving mesh tp must be >= 1, got {tp}")
+    if tp > n_devices:
+        raise ValueError(
+            f"serving mesh needs tp={tp} local devices, host has only "
+            f"{n_devices} — shrink mesh_spec or run on a larger slice"
+        )
+    if n_kv_heads % tp != 0:
+        raise ValueError(
+            f"n_kv_heads={n_kv_heads} is not divisible by tp={tp}: the "
+            f"KV cache shards the head axis, so tp must divide the KV "
+            f"head count — use tp in "
+            f"{[t for t in range(1, n_kv_heads + 1) if n_kv_heads % t == 0]}"
+        )
+
+
+def _wq_leaf_seed(seed: int, salt: int) -> int:
+    """The generator seed of one weight leaf under
+    weight_quant="int8_stochastic": the first 8 bytes (little-endian) of
+    blake2b("<seed>/<salt>"), so every bit of the seed and the salt
+    reaches the low 32 bits the CPU generator keeps (JAX folds the salt
+    into PRNGKey(seed) instead; the draws are torch's)."""
+    digest = hashlib.blake2b(f"{int(seed)}/{int(salt)}".encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little")
 
 
 def _tree_signature(tree, path=()) -> List[Tuple[Tuple[str, ...], tuple]]:
@@ -312,6 +388,7 @@ class ContinuousBatcher:
         swap_to_host: bool = True,   # preempted runs demote, not drop
         kv_tier_promote: str = "always",  # | "swap_only" | "never"
         kv_checksums: int = 0,   # 1 = content-verify KV in transit
+        mesh_spec=None,          # tp degree: None / 1 serve on one card
         device: DeviceLike = None,
     ):
         if eos_id is not None and eos_id == pad_id:
@@ -364,16 +441,10 @@ class ContinuousBatcher:
             raise ValueError(
                 f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}"
             )
-        if weight_quant == "int8_stochastic":
-            raise NotImplementedError(
-                "weight_quant='int8_stochastic' is not ported yet "
-                "(ROADMAP queue 1: stochastic rounding needs a Philox "
-                "counterpart of jax.random and a distributional oracle)"
-            )
-        if weight_quant not in ("none", "int8"):
+        if weight_quant not in ("none", "int8", "int8_stochastic"):
             raise ValueError(
-                f"weight_quant must be 'none' or 'int8', got "
-                f"{weight_quant!r}"
+                f"weight_quant must be 'none', 'int8' or "
+                f"'int8_stochastic', got {weight_quant!r}"
             )
         if weight_refresh_mode not in ("live", "defer", "raise"):
             raise ValueError(
@@ -382,10 +453,22 @@ class ContinuousBatcher:
             )
         self.device = resolve_device(device)
         self.cfg = cfg
-        # one card, tp 1: the constructed tp is also the largest a
-        # resize may grow back to (serving/elastic.py)
+        # the serving slice: validated even at tp 1, so a bad knob fails
+        # here. tp 1 is the one-card engine; the constructed tp is also
+        # the largest a resize may grow back to (serving/elastic.py)
         self.mesh_tp = 1
-        self._full_tp = 1
+        if mesh_spec is not None:
+            tp = _parse_mesh_tp(mesh_spec)
+            n_kv = getattr(cfg, "n_kv_heads", None) or cfg.n_heads
+            _check_serving_tp(tp, n_kv, _local_device_count(self.device))
+            if tp > 1:
+                raise NotImplementedError(
+                    f"mesh_spec tp={tp}: tensor-parallel serving is not "
+                    "ported yet (ROADMAP queue 1 item 11 (i)); tp=1 "
+                    "serves on one card"
+                )
+            self.mesh_tp = tp
+        self._full_tp = self.mesh_tp
         # fault injection: on_engine_step(chaos_tag, n) at every step()
         self.chaos = chaos
         self.chaos_tag = chaos_tag
@@ -411,6 +494,7 @@ class ContinuousBatcher:
         }
         self._elastic_replayed = 0
         self.weight_quant = weight_quant
+        self._wq_seed = seed
         self._wq_stats = {"leaves": 0, "skipped": 0}
         # refreshes arrive as DENSE trees: they validate against the
         # tree the engine was constructed with, before quantization
@@ -626,21 +710,32 @@ class ContinuousBatcher:
         is never made). Weights whose K has no block
         (`weight_quant_block` 0) stay dense. Idempotent: a leaf that is
         already a QuantizedWeight passes through. weight_quant="none"
-        returns `params` itself. The caller's dict is not modified."""
+        returns `params` itself. The caller's dict is not modified.
+
+        "int8_stochastic" rounds each value up or down at random in
+        proportion to its fractional part (`stochastic_round_int8`,
+        plain PyTorch, as JAX's is XLA) instead of to nearest. Each leaf
+        draws from its own generator on the weight's device, seeded by
+        `_wq_leaf_seed(seed, salt)` with JAX's salts (the index of the
+        layer weight in sorted(params["layers"]), len(layers) for the
+        untied lm_head), slice after slice in layer order: the same
+        engine seed installs the same bytes, at every commit too."""
         if self.weight_quant == "none":
             return params
         if not isinstance(params, dict) or "layers" not in params:
             return params
+        stochastic = self.weight_quant == "int8_stochastic"
         leaves = skipped = 0
         lay = dict(params["layers"])
-        targets = [("layers", name) for name in sorted(lay)
+        targets = [("layers", name, salt)
+                   for salt, name in enumerate(sorted(lay))
                    if name in _WQ_LAYER_WEIGHTS]
         head = params.get("lm_head")
         if isinstance(head, dict) and "weight" in head:
             # untied unembed [D, V]: the largest weight read of a step
             head = dict(head)
-            targets.append(("lm_head", "weight"))
-        for group, name in targets:
+            targets.append(("lm_head", "weight", len(lay)))
+        for group, name, salt in targets:
             w = lay[name] if group == "layers" else head[name]
             if isinstance(w, QuantizedWeight):
                 leaves += 1
@@ -656,8 +751,16 @@ class ContinuousBatcher:
                              dtype=torch.int8, device=w.device)
             s8 = torch.empty((slices.shape[0], o_dim, k_dim // blk),
                              dtype=torch.float32, device=w.device)
+            gen = None
+            if stochastic:
+                gen = torch.Generator(device=w.device).manual_seed(
+                    _wq_leaf_seed(self._wq_seed, salt))
             for i in range(slices.shape[0]):
-                q, s = quantize_int8(slices[i].t().contiguous(), blk)
+                wt = slices[i].t().contiguous()
+                if stochastic:
+                    q, s = stochastic_round_int8(wt, blk, gen)
+                else:
+                    q, s = quantize_int8(wt, blk)
                 q8[i].copy_(q)
                 s8[i].copy_(s)
             qw = QuantizedWeight(
@@ -820,6 +923,36 @@ class ContinuousBatcher:
         if self._staged_params is not None and not self.has_work():
             self._commit_refresh(self._staged_params)
 
+    # -- serving slice ----------------------------------------------------
+
+    @property
+    def mesh_shape(self) -> Dict[str, int]:
+        """The replica's slice shape (heartbeat payload)."""
+        return {"tp": self.mesh_tp}
+
+    @property
+    def n_chips(self) -> int:
+        """Devices this replica occupies: the auto-scaler's unit."""
+        return self.mesh_tp
+
+    @property
+    def kernel_path(self) -> str:
+        """Which attention body the per-token paged decode step runs:
+        "kernel" (the paged-attention kernel) or "reference" (the
+        gathered dense view), decided on the shapes as the decode step
+        decides it (`paged_attention.takes_kernel`). The dense layout
+        and attn_impl="reference" always take the reference."""
+        if not self._paged or getattr(self.cfg, "attn_impl",
+                                      "auto") == "reference":
+            return "reference"
+        cfg = self.cfg
+        q_shape = (self.n_slots, cfg.n_heads, cfg.head_dim)
+        pages_shape = tuple(self.page_pool["k"].shape[1:])
+        table_shape = tuple(self._table.shape)
+        if _pa.takes_kernel(q_shape, pages_shape, table_shape, self.device):
+            return "kernel"
+        return "reference"
+
     # -- elastic resize ----------------------------------------------------
 
     def device_health(self) -> Dict[str, int]:
@@ -879,9 +1012,11 @@ class ContinuousBatcher:
         """Queue one request; returns its index in the output list.
         `max_new` caps THIS request's generation; default is the
         engine's. `prng_key` (an int, or a key's 32-bit words) seeds the
-        request's sampling generator; omitted, the engine draws a seed
-        at admission. `adapter_id` names a registered adapter to decode
-        under (None: the base model)."""
+        request's sampling generator; a generator state (a torch.uint8
+        tensor, as `live_request_keys` reports it) continues that
+        stream instead, as a JAX key continues its split chain; omitted,
+        the engine draws a seed at admission. `adapter_id` names a
+        registered adapter to decode under (None: the base model)."""
         # a deferred refresh commits BEFORE the request enters the
         # queue: it starts (and fences) on the new version
         self._maybe_commit_refresh()
@@ -903,7 +1038,12 @@ class ContinuousBatcher:
                 "adapter_id requires an engine constructed with "
                 "adapter_registry=... (multi-adapter serving is off)"
             )
-        seed = None if prng_key is None else _seed_of(prng_key)
+        gen_state = None
+        if isinstance(prng_key, torch.Tensor) and prng_key.dtype == torch.uint8:
+            # a journaled generator state: no seed is drawn for it
+            gen_state, seed = prng_key.clone(), 0
+        else:
+            seed = None if prng_key is None else _seed_of(prng_key)
         aslot = 0
         if adapter_id is not None:
             # pin the bank slot for the request's whole ledger life.
@@ -913,6 +1053,7 @@ class ContinuousBatcher:
         req = _Request(
             idx=self._next_idx, prompt=arr, max_new=max_new or 0,
             seed=seed, adapter_id=adapter_id, adapter_slot=aslot,
+            gen_state=gen_state,
         )
         self._next_idx += 1
         self._requests[req.idx] = req
@@ -2164,13 +2305,26 @@ class ContinuousBatcher:
 
     def live_request_keys(self) -> Dict[int, torch.Tensor]:
         """idx -> the sampling generator state of every live request,
-        from which a re-admission continues the same stream (a slot
-        that has not started decoding reports its admission state)."""
+        from which a re-admission (`submit(prng_key=state)`) continues
+        the same stream. As JAX's key mirror, it describes the last
+        HARVESTED dispatch: with a sampled dispatch in flight
+        (async_depth=1) a slot reports its state before that dispatch's
+        draws. A slot that has not started decoding reports its
+        admission state."""
+        before = {}
+        pend = self._inflight
+        if pend is not None and pend.gens is not None:
+            before = {slot: snap for slot, snap in enumerate(pend.gens)
+                      if snap is not None}
         out: Dict[int, torch.Tensor] = {}
         for slot in range(self.n_slots):
             req = self.slot_req[slot]
             if req is not None and not req.done:
                 gen = self._slot_gen[slot]
+                snap = before.get(slot)
+                if gen is not None and snap is not None and snap[0] is gen:
+                    out[req.idx] = snap[1].clone()
+                    continue
                 if gen is None:
                     gen = self._make_gen(req)
                 out[req.idx] = gen.get_state()

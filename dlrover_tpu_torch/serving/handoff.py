@@ -66,7 +66,9 @@ class KVHandoff:
 
     prompt: np.ndarray            # [p] the original prompt
     max_new: int                  # remaining token budget
-    prng_key: int                 # the request's sampling seed
+    # the request's sampling seed, or the generator state it was
+    # submitted with (a resumed request continues that stream)
+    prng_key: Any
     kv_layout: str                # "dense" | "paged"
     transport: str                # "device" | "host"
     n_cells: int                  # prompt cells resident (== p)
@@ -129,7 +131,8 @@ def export_run(engine, idx: int, transport: str = "device") -> KVHandoff:
     return KVHandoff(
         prompt=np.asarray(req.prompt, np.int64).copy(),
         max_new=max(int(engine.limit[slot]) - p, 1),
-        prng_key=int(req.seed),
+        prng_key=(req.gen_state.clone() if req.gen_state is not None
+                  else int(req.seed)),
         kv_layout=engine.kv_layout,
         transport=transport,
         n_cells=p,

@@ -1788,3 +1788,90 @@ def test_kv_checksum_of_a_card_tensor_equals_its_cpu_copy(gen):
     }
     assert kv_checksum(data) == kv_checksum(
         {k: v.cpu() for k, v in data.items()})
+
+
+def test_stochastic_round_on_the_card(gen):
+    """`stochastic_round_int8` on a card tensor draws from a CUDA
+    generator: its scales equal the CPU function's on the same values
+    byte for byte (they take no random bits), every q8 is the floor or
+    the ceiling of x / scale, and one generator seed gives one result."""
+    x = torch.randn((512, 1024), generator=gen, device="cuda").bfloat16()
+    g = lambda: torch.Generator(device="cuda").manual_seed(11)  # noqa: E731
+    q, s = tq.stochastic_round_int8(x, 256, g())
+    q2, _ = tq.stochastic_round_int8(x, 256, g())
+    _, s_cpu = tq.stochastic_round_int8(x.cpu(), 256,
+                                        torch.Generator().manual_seed(0))
+    assert q.is_cuda and torch.equal(q, q2)
+    assert torch.equal(s.cpu(), s_cpu)
+    xs = x.float() / s.repeat_interleave(256, dim=1)
+    lo = torch.floor(xs)
+    qf = q.float()
+    assert bool(((qf == lo.clamp(-127, 127))
+                 | (qf == (lo + 1).clamp(-127, 127))).all())
+
+
+def test_int8_stochastic_engine_on_the_card(gen):
+    """weight_quant="int8_stochastic" installs without the quantize
+    kernel and serves every product on the dequant-matmul kernel, as
+    "int8" does; the same seed installs the same bytes."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg, params = _serving_model(gen)
+    kw = dict(n_slots=2, max_len=64, max_new_tokens=6, kv_layout="paged",
+              weight_quant="int8_stochastic", seed=3)
+    _build.reset_launch_counts()
+    eng = ContinuousBatcher(cfg, params, **kw)
+    assert eng.weight_quant_path == "int8_stochastic:kernel"
+    assert _build.launch_counts()["quant_int8"] == 0
+    outs = eng.generate_all([[1, 2, 3, 4, 5], [9, 8, 7]])
+    counts = _build.launch_counts()
+    assert [len(o) for o in outs] == [6, 6]
+    per_forward = 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    assert counts["dqmm"] == (eng.admissions + eng.decode_steps) * per_forward
+    again = ContinuousBatcher(cfg, params, **kw)
+    for name in ("wq", "w_gate"):
+        assert torch.equal(eng.params["layers"][name].q8,
+                           again.params["layers"][name].q8)
+
+
+def test_scheduler_over_the_paged_engine_on_the_card(gen):
+    """RequestScheduler over a paged engine on the card built with
+    mesh_spec={"tp": 1}: kernel_path "kernel", a latency arrival preempts
+    batch work, every request finishes with its budget, the paged
+    launches all on the TMA-ring kernel; a sampled engine's journaled
+    keys are CUDA generator states that submit() continues."""
+    from dlrover_tpu_torch.serving import (
+        ContinuousBatcher,
+        RequestScheduler,
+        RequestState,
+    )
+
+    cfg, params = _serving_model(gen)
+    with pytest.raises((ValueError, NotImplementedError)):
+        ContinuousBatcher(cfg, params, n_slots=2, max_len=64, mesh_spec=2)
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=64,
+                            max_new_tokens=12, chunk=4, kv_layout="paged",
+                            mesh_spec={"tp": 1}, temperature=0.8, top_k=20)
+    assert eng.kernel_path == "kernel" and eng.n_chips == 1
+    _build.reset_launch_counts()
+    s = RequestScheduler(eng)
+    reqs = [s.submit([3, 4, 5, 6] * 3, tier="batch"),
+            s.submit([7, 8, 9] * 4, tier="batch")]
+    s.pump()
+    keys = eng.live_request_keys()
+    assert len(keys) == 2
+    for key in keys.values():
+        assert key.dtype == torch.uint8 and not key.is_cuda
+    reqs.append(s.submit([1, 2, 3, 4, 5], tier="latency"))
+    s.run_to_completion()
+    counts = _build.launch_counts()
+    assert [r.state for r in reqs] == [RequestState.DONE] * 3
+    assert [len(r.tokens) for r in reqs] == [12, 12, 12]
+    assert s.metrics.tier_preempted_total["batch"] >= 1
+    assert counts["paged_attention"] > 0
+    assert counts["paged_attention_tma"] == counts["paged_attention"]
+    # a journaled state continues: the request's generator starts there
+    state = torch.Generator(device="cuda").manual_seed(5).get_state()
+    idx = eng.submit([1, 2, 3], prng_key=state)
+    assert torch.equal(eng._make_gen(eng._requests[idx]).get_state(), state)
+    eng.cancel(idx)

@@ -15,8 +15,9 @@ the engine's hooks) against the JAX package, on the tiny f32 Llama.
 - A `FaultInjector` with one seed draws and fires as JAX's does.
 - `device_health` / `surviving_chips` under `lose_chip` and `resize()`
   at one card (the "noop" report) equal the JAX tp=1 engine's.
-- The new engine knobs validate as JAX's do; `mesh_spec` is the one
-  keyword the port still refuses.
+- The new engine knobs validate as JAX's do, and the port takes every
+  keyword of the JAX engine's (`mesh_spec` at tp=1 since F7 closed;
+  its matrix is in test_torch_mesh_spec.py).
 """
 
 import dataclasses
@@ -566,16 +567,16 @@ def test_knob_validation_as_jax(model, bad):
 
 
 def test_every_jax_keyword_but_mesh_spec(model):
-    """The port's engine takes every keyword of the JAX engine's but
-    mesh_spec (tp serving), which still raises TypeError."""
+    """The port's engine takes every keyword of the JAX engine's,
+    mesh_spec included since F7 closed (tp=1 serves on one card; the
+    knob matrix is held to JAX's in test_torch_mesh_spec.py)."""
     import inspect
 
     jax_kw = set(inspect.signature(JaxBatcher.__init__).parameters)
     port_kw = set(inspect.signature(teng.ContinuousBatcher.__init__)
                   .parameters)
-    assert jax_kw - port_kw == {"mesh_spec"}
-    with pytest.raises(TypeError):
-        _port(model, mesh_spec=1)
+    assert jax_kw - port_kw == set()
+    assert _port(model, mesh_spec=1).mesh_tp == 1
     eng = _port(model, kv_layout="paged", kv_tier_bytes=1 << 20,
                 swap_to_host=False, kv_tier_promote="swap_only",
                 kv_checksums=1, replica_role="decode",

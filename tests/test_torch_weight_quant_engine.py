@@ -131,8 +131,9 @@ def test_none_leaves_params_untouched(model, prompts):
 def test_weight_quant_knob_validation(model):
     with pytest.raises(ValueError, match="weight_quant"):
         _port(model, weight_quant="int4")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(model, weight_quant="int8_stochastic")
+    # ported: the stochastic install serves (test_torch_stochastic_quant.py)
+    eng = _port(model, weight_quant="int8_stochastic")
+    assert eng.weight_quant_path == "int8_stochastic:reference"
 
 
 def test_quantize_is_idempotent_and_leaves_caller_tree(model):
