@@ -165,6 +165,29 @@ Phases, one line each (any failure exits non-zero before the last line):
      paged launch on the TMA-ring kernel; per-tier TTFT and TPOT from
      ServingMetrics, and the greedy agreement with the same engine's
      generate_all on the same prompts (reported);
+  19b. serve.fleet: the serving fleet behind its HTTP front door — two
+     paged bf16 engines on the card sharing the weights (8 slots,
+     max_len 2048, pages of 16, chunk 8, prefix cache of 4 rows at a
+     512-token block), each under a RequestScheduler and an
+     InferenceReplica, in a ReplicaPool over a KVStoreService, behind a
+     ServingGateway on 127.0.0.1; the traffic is two tenants, each with
+     its own 512-token system prompt plus 50-400 user tokens (seed 3),
+     max_new 32, greedy, 16 streaming POST /v1/generate from 16 client
+     threads. (a) colocated: each tenant's prefix warmed on its own
+     replica, then the 16 requests: every stream done with 32 tokens,
+     both replicas admitted routed work, affinity matches > 0, on each
+     engine flash launches = prefix misses x 32 layers (warm admissions
+     attend through the cached path) all wgmma and paged launches =
+     decode steps x 32 all TMA; client TTFT p50/p95, TPOT p50,
+     tokens/s, routing stats and the greedy agreement with a fresh
+     engine's generate_all (reported); (b) failover: the same traffic
+     with a crash plan on replica-0 a few steps in: every stream done,
+     failovers >= 1, replica-0's breaker open; (c) phase split: roles
+     prefill and decode over HandoffCoordinator and the device
+     transport: every stream done and handed off, the decode engine
+     launches no flash forward, the prefill engine no paged attention.
+     Per-engine launches are each engine's own steps' (per-thread
+     counts), and their sum equals the phase's global counts;
   20. train: Trainer(ElasticTrainer(...)) over accelerate over
      llama.loss_fn on Llama-3-8B at full width, 4 layers (f32 params,
      bf16 compute, remat "full", AdamW), 8 steps of a global batch of
@@ -235,7 +258,10 @@ phases 10-14 (adapters and weight refresh), no result line;
 `python3 chip_smoke.py --tier` the card, build, serve and
 serve.prefix_pressure phases and phases 17-19 (KV tier and handoff), no
 result line; `python3 chip_smoke.py --sched` the card, build, serve and
-serve.int8 phases and phases 5a and 19a, no result line.
+serve.int8 phases and phases 5a and 19a, no result line;
+`python3 chip_smoke.py --fleet` the card, build and serve.fleet phases,
+then part (a)'s traffic through one replica and through two with a 0.5
+ms thread switch interval (reported only), no result line.
 `python3 chip_smoke.py --decode-kernels [--package-root DIR]`
 runs the card, build and paged-attention phases and the dqmm rows at
 T = 1, 8 and 16 of the five weight shapes: the A/B of the two decode
@@ -294,6 +320,15 @@ SCHED_SLOTS = 8
 SCHED_REQUESTS = 24
 SCHED_MAX_NEW = 32
 SCHED_ARRIVALS_PER_PUMP = 2
+# serve.fleet: two tenants' 512-token system prompts plus 50-400 user
+# tokens (seed 3), 16 streaming requests over HTTP from 16 client
+# threads, max_new 32; replica-0 crashes FLEET_CRASH_AFTER engine steps
+# into part (b)'s traffic
+FLEET_SEED = 3
+FLEET_SYSTEM = 512
+FLEET_REQUESTS = 16
+FLEET_MAX_NEW = 32
+FLEET_CRASH_AFTER = 6
 # the speculative phases: draft width K = 4 and max_len 2044, so the bank
 # (max_len + K) is 2048 cells in pages of 16; 12 requests of 64 tokens
 SPEC_K = 4
@@ -1952,6 +1987,300 @@ def phase_serve_sched(params, cfg):
     log("serve.sched", **e2e)
     del engine, sched
     torch.cuda.empty_cache()
+    return e2e
+
+
+def _fleet_traffic(cfg):
+    """serve.fleet's prompts: one warm-up per tenant, then 16 requests
+    alternating tenants, each the tenant's system prompt plus 50-400
+    user tokens."""
+    rng = np.random.default_rng(FLEET_SEED)
+    systems = [rng.integers(1, cfg.vocab_size, size=FLEET_SYSTEM).tolist()
+               for _ in range(2)]
+
+    def user():
+        n = int(rng.integers(50, 401))
+        return rng.integers(1, cfg.vocab_size, size=n).tolist()
+
+    warm = [system + user() for system in systems]
+    traffic = [systems[i % 2] + user() for i in range(FLEET_REQUESTS)]
+    return warm, traffic
+
+
+def _count_engine_launches(engine):
+    """Wrap `engine.step` so the kernel launches of its own steps (the
+    calling thread's counts around each step) add up in the returned
+    Counter, whichever thread steps it."""
+    from collections import Counter
+
+    from dlrover_tpu_torch.ops import _build
+
+    counts, step = Counter(), engine.step
+
+    def counted():
+        before = _build.thread_launch_counts()
+        try:
+            return step()
+        finally:
+            for k, v in _build.thread_launch_counts().items():
+                counts[k] += v - before[k]
+
+    engine.step = counted
+    return counts
+
+
+def _http_stream(port, prompt, max_new):
+    """One streaming POST /v1/generate; the client's clock: TTFT to the
+    first token line, TPOT over the rest."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/generate", json.dumps(
+            {"tokens": prompt, "max_new": max_new, "deadline_s": 600.0}))
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"serve.fleet: HTTP {resp.status} "
+                                 f"{resp.read()[:200]!r}")
+        tokens, first, last, trailer = [], None, None, None
+        for line in iter(resp.readline, b""):
+            d = json.loads(line)
+            if "error" in d:
+                raise AssertionError(f"serve.fleet: stream error {d}")
+            if d.get("tokens"):
+                now = time.perf_counter()
+                first = now if first is None else first
+                last = now
+                tokens.extend(d["tokens"])
+            if d.get("done"):
+                trailer = d
+    finally:
+        conn.close()
+    return dict(tokens=tokens, trailer=trailer, ttft_s=first - t0,
+                tpot_s=(last - first) / max(1, len(tokens) - 1))
+
+
+def _fleet_run(cfg, params, part, warm, traffic, roles, fi=None,
+               crash_after=None):
+    """One part of serve.fleet: two engines, their schedulers and
+    replicas in a ReplicaPool behind a ServingGateway; warm-ups (when
+    given) each submitted to its own replica's scheduler and drained,
+    one health round, then `traffic` as concurrent streaming requests.
+    Everything started here is stopped before it returns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dlrover_tpu_torch.master.kv_store import KVStoreService
+    from dlrover_tpu_torch.serving import (
+        ContinuousBatcher,
+        InferenceReplica,
+        ReplicaPool,
+        RequestScheduler,
+        ServingGateway,
+        ServingMetrics,
+        SloConfig,
+    )
+
+    kw = dict(n_slots=8, max_len=2048, max_new_tokens=FLEET_MAX_NEW, chunk=8,
+              kv_layout="paged", page_size=16, prefix_cache_rows=4,
+              prefix_block=FLEET_SYSTEM)
+    metrics, kv = ServingMetrics(), KVStoreService()
+    pool = ReplicaPool(kv=kv, metrics=metrics)
+    reps, counts = [], []
+    for i, role in enumerate(roles):
+        tag = f"replica-{i}"
+        eng = ContinuousBatcher(cfg, params, replica_role=role, chaos=fi,
+                                chaos_tag=tag, **kw)
+        if eng.kernel_path != "kernel":
+            raise AssertionError(f"{part}: kernel_path {eng.kernel_path}")
+        counts.append(_count_engine_launches(eng))
+        sched = RequestScheduler(
+            eng, SloConfig(max_queue_depth=64, max_new_tokens=FLEET_MAX_NEW,
+                           default_deadline_s=600.0),
+            metrics=metrics, handoff_transport="device")
+        rep = InferenceReplica(tag, sched, chaos=fi, preflight_check=True)
+        pool.add(rep)
+        reps.append(rep)
+    gw = ServingGateway(pool, metrics=metrics)
+    try:
+        for rep in reps:
+            rep.start()
+        gw.start()
+        for rep, prompt in zip(reps, warm):
+            req = rep.scheduler.submit(prompt, max_new=FLEET_MAX_NEW)
+            if not req.wait(timeout=600) or req.state.value != "done":
+                raise AssertionError(f"{part}: warm-up {req.state.value}")
+        pool.check_replicas()
+        warm_admissions = [r.scheduler.engine.admissions for r in reps]
+        if crash_after is not None:
+            eng0 = reps[0].scheduler.engine
+            fi.crash_replica("replica-0", at_step=eng0._step_no + crash_after)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(traffic)) as ex:
+            streams = list(ex.map(
+                lambda p: _http_stream(gw.port, p, FLEET_MAX_NEW), traffic))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pool.check_replicas()
+        registered = json.loads(kv.get(reps[-1].kv_key))
+    finally:
+        gw.stop()
+        pool.stop()
+    engines = [r.scheduler.engine for r in reps]
+    ttft = [s["ttft_s"] * 1e3 for s in streams]
+    tpot = [s["tpot_s"] * 1e3 for s in streams]
+    n_tokens = sum(len(s["tokens"]) for s in streams)
+    out = dict(
+        roles=list(roles), requests=len(traffic),
+        prompt_lens=[len(p) for p in traffic], max_new=FLEET_MAX_NEW,
+        states=[s["trailer"]["state"] if s["trailer"] else None
+                for s in streams],
+        n_tokens=[len(s["tokens"]) for s in streams],
+        admissions=[e.admissions for e in engines],
+        routed_admissions=[e.admissions - w
+                           for e, w in zip(engines, warm_admissions)],
+        decode_steps=[e.decode_steps for e in engines],
+        prefix=[e.prefix_cache.stats() for e in engines],
+        launches=[dict(c) for c in counts], wall_s=wall,
+        ttft_ms_p50=float(np.percentile(ttft, 50)),
+        ttft_ms_p95=float(np.percentile(ttft, 95)),
+        tpot_ms_p50=float(np.percentile(tpot, 50)),
+        tokens_per_s=n_tokens / wall, routing=pool.routing_stats(),
+        affinity_matched=metrics.affinity_matched,
+        affinity_capped=metrics.affinity_capped,
+        failovers=metrics.failovers_total,
+        handoffs=dict(metrics.handoff_total),
+        breakers={r.id: pool.breakers[r.id].state for r in reps},
+        healthy=[r.healthy for r in reps],
+        preflight_ok=[r.preflight_ok for r in reps],
+        heartbeat_keys=sorted(registered))
+    return out, [s["tokens"] for s in streams]
+
+
+def _fleet_engine_checks(cfg, run, i, want_flash=True, want_paged=True):
+    """Engine i's own launches: flash = prefix misses x layers, all
+    wgmma; paged = decode steps x layers, all TMA (or none of either
+    where the role runs none)."""
+    c, layers = run["launches"][i], cfg.n_layers
+    flash = run["prefix"][i]["misses"] * layers if want_flash else 0
+    paged = run["decode_steps"][i] * layers if want_paged else 0
+    return {
+        f"engine {i}: flash_fwd == {flash}": c.get("flash_fwd", 0) == flash,
+        f"engine {i}: flash all wgmma": (
+            c.get("flash_fwd_wgmma", 0) == c.get("flash_fwd", 0)),
+        f"engine {i}: paged == {paged}": c.get("paged_attention", 0) == paged,
+        f"engine {i}: paged all TMA": (
+            c.get("paged_attention_tma", 0) == c.get("paged_attention", 0)),
+    }
+
+
+def _fleet_summary(run):
+    return {k: run[k] for k in (
+        "wall_s", "ttft_ms_p50", "ttft_ms_p95", "tpot_ms_p50",
+        "tokens_per_s", "admissions", "decode_steps", "affinity_matched")}
+
+
+def phase_serve_fleet(params, cfg, probes=False):
+    """serve.fleet (phase 19b): parts (a) colocated, (b) failover and (c)
+    phase split of the fleet behind its HTTP gateway. The launch counts
+    are set to 0 just before part (a) and read just after part (c); the
+    greedy reference run comes after that read. With `probes` (the
+    --fleet flag), part (a)'s traffic then runs twice more, reported
+    only: through a pool of one replica, and through two replicas with
+    the interpreter's thread switch interval at 0.5 ms instead of 5 ms
+    (two pump threads share one interpreter lock)."""
+    from collections import Counter
+
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving import ContinuousBatcher
+    from dlrover_tpu_torch.serving.chaos import FaultInjector
+    from dlrover_tpu_torch.serving.failover import OPEN
+
+    warm, traffic = _fleet_traffic(cfg)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    runs, checks = {}, {}
+    a, outs = _fleet_run(cfg, params, "serve.fleet.colocated", warm,
+                         traffic, ("colocated", "colocated"))
+    runs["colocated"] = a
+    checks.update({
+        "(a) every stream done": a["states"] == ["done"] * FLEET_REQUESTS,
+        "(a) 32 tokens each": a["n_tokens"] == [FLEET_MAX_NEW] * FLEET_REQUESTS,
+        "(a) both replicas admitted routed work": min(
+            a["routed_admissions"]) > 0,
+        "(a) affinity matched": a["affinity_matched"] > 0,
+        "(a) preflight passed": a["preflight_ok"] == [True, True],
+    })
+    for i in range(2):
+        checks.update({f"(a) {k}": v for k, v in
+                       _fleet_engine_checks(cfg, a, i).items()})
+    fi = FaultInjector(seed=SEED)
+    b, _ = _fleet_run(cfg, params, "serve.fleet.failover", warm, traffic,
+                      ("colocated", "colocated"), fi=fi,
+                      crash_after=FLEET_CRASH_AFTER)
+    runs["failover"] = b
+    checks.update({
+        "(b) the crash fired": bool(fi.fired),
+        "(b) every stream done": b["states"] == ["done"] * FLEET_REQUESTS,
+        "(b) 32 tokens each": b["n_tokens"] == [FLEET_MAX_NEW] * FLEET_REQUESTS,
+        "(b) failovers >= 1": b["failovers"] >= 1,
+        "(b) replica-0's breaker open": b["breakers"]["replica-0"] == OPEN,
+    })
+    c, _ = _fleet_run(cfg, params, "serve.fleet.phase_split", [], traffic,
+                      ("prefill", "decode"))
+    runs["phase_split"] = c
+    checks.update({
+        "(c) every stream done": c["states"] == ["done"] * FLEET_REQUESTS,
+        "(c) 32 tokens each": c["n_tokens"] == [FLEET_MAX_NEW] * FLEET_REQUESTS,
+        "(c) every request handed off": (
+            c["handoffs"].get("device") == FLEET_REQUESTS),
+        "(c) decode admissions are the adoptions": (
+            c["admissions"][1] == FLEET_REQUESTS),
+    })
+    checks.update({f"(c) {k}": v for k, v in
+                   _fleet_engine_checks(cfg, c, 0, want_paged=False).items()})
+    checks.update({f"(c) {k}": v for k, v in
+                   _fleet_engine_checks(cfg, c, 1, want_flash=False).items()})
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    per_engine = Counter()
+    for run in runs.values():
+        for cnt in run["launches"]:
+            per_engine.update(cnt)
+    checks["per-engine launches sum to the phase's"] = all(
+        per_engine.get(k, 0) == v for k, v in launches.items())
+    # the same prompts on one fresh engine (greedy agreement, reported:
+    # batch composition and warm admissions change the bf16 GEMMs)
+    ref = ContinuousBatcher(
+        cfg, params, n_slots=8, max_len=2048, max_new_tokens=FLEET_MAX_NEW,
+        chunk=8, kv_layout="paged", page_size=16, prefix_cache_rows=4,
+        prefix_block=FLEET_SYSTEM).generate_all(traffic)
+    got = [np.asarray(o) for o in outs]
+    e2e = dict(
+        launches=launches, checks=checks, **{
+            part: {k: v for k, v in run.items()} for part, run in runs.items()},
+        greedy_streams_identical=sum(
+            int(np.array_equal(a_, b_)) for a_, b_ in zip(got, ref)),
+        greedy_token_agreement=float(np.mean(
+            np.concatenate(got) == np.concatenate(ref))))
+    log("serve.fleet", **e2e)
+    torch.cuda.empty_cache()
+    _raise_failed("serve.fleet", checks)
+    if probes:
+        one, _ = _fleet_run(cfg, params, "serve.fleet.one_replica", warm,
+                            traffic, ("colocated",))
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(5e-4)
+        try:
+            fast, _ = _fleet_run(cfg, params, "serve.fleet.switch_0.5ms",
+                                 warm, traffic, ("colocated", "colocated"))
+        finally:
+            sys.setswitchinterval(interval)
+        log("serve.fleet.probes", two_replicas=_fleet_summary(a),
+            one_replica=_fleet_summary(one),
+            two_replicas_switch_0_5ms=_fleet_summary(fast))
+        torch.cuda.empty_cache()
     return e2e
 
 
@@ -4393,6 +4722,12 @@ def main():
         phase_serve_sched(params, cfg)
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
+    if "--fleet" in args:
+        cfg = llama.LlamaConfig.llama3_8b()
+        params = llama.init_params(cfg, gen)
+        phase_serve_fleet(params, cfg, probes=True)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
+        return 0
     if "--tier" in args:
         cfg = llama.LlamaConfig.llama3_8b()
         params = llama.init_params(cfg, gen)
@@ -4442,6 +4777,7 @@ def main():
                                         e2e_pressure, kv_quant=True)
     handoff_runs = phase_serve_handoff(params, cfg, e2e)
     e2e_sched = phase_serve_sched(params, cfg)
+    e2e_fleet = phase_serve_fleet(params, cfg)
     del params
     torch.cuda.empty_cache()
     train = phase_train()
@@ -4460,7 +4796,7 @@ def main():
                    "serve.prefill_chunk": e2e_chunked,
                    "serve.kv_tier": e2e_tier,
                    "serve.kv_tier.int8kv": e2e_tier_int8, **handoff_runs,
-                   "serve.sched": e2e_sched}
+                   "serve.sched": e2e_sched, "serve.fleet": e2e_fleet}
     remat_paths = {f"train.remat {r['run']}": r for r in remat_runs}
     flash_by_path = {**{path: run["launches"]["flash_fwd"]
                         for path, run in serve_paths.items()},

@@ -11,7 +11,9 @@ Ported so far: the paged serving path — `serving/engine.py`
 with the flash-attention forward (`ops/flash_attention.py`) and the
 paged-attention decode kernel (`ops/paged_attention.py`), and its
 int8 weight-quantized form (`weight_quant="int8"`: the quantize and
-dequant-matmul kernels of `ops/quantization.py`); one-device training
+dequant-matmul kernels of `ops/quantization.py`), behind the scheduler,
+the replica pool and the HTTP gateway of `serving/` (host code, with
+the port's own `master/kv_store.py` and `brain/`); one-device training
 (`trainer/`, `parallel/accelerate.py`, the flash-attention backward
 kernels, the chunked cross entropy of `ops/fused_ce.py`, and flash
 checkpoint: `trainer/flash_checkpoint/` over `agent/ckpt_saver.py`

@@ -18,7 +18,10 @@ variant also under "<name>_wgmma"; the dequant-matmul counts every
 launch under "dqmm", those of its prefill kernel also under "dqmm_ws"
 and those of its TMA-ring decode kernel under "dqmm_decode_tma"; the
 paged attention counts every launch under "paged_attention" and those of
-its TMA-ring kernel also under "paged_attention_tma".
+its TMA-ring kernel also under "paged_attention_tma". The counts are
+kept under a lock (replicas on one card launch from their own scheduler
+threads), and each thread also keeps its own (`thread_launch_counts()`),
+so a caller can tell the launches of one engine's steps from another's.
 
 The two decode kernels that share their work evenly over a fixed grid
 sum a run of work that several blocks shared in the last block to finish
@@ -33,6 +36,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
@@ -59,23 +63,42 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 _FNS: Dict[Tuple[str, str], Any] = {}
 _LAUNCHES: Dict[str, int] = {
     name: 0 for src in KERNELS for name in LAUNCHES.get(src, (src,))
 }
 
 
+_LAUNCH_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+    with _LAUNCH_LOCK:
+        _LAUNCHES[name] += 1
+    mine = getattr(_THREAD, "launches", None)
+    if mine is None:
+        mine = _THREAD.launches = dict.fromkeys(_LAUNCHES, 0)
+    mine[name] += 1
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(_LAUNCHES)
+
+
+def thread_launch_counts() -> Dict[str, int]:
+    """The calling thread's launches since it started (never reset):
+    the difference of two reads around a call is that call's."""
+    mine = getattr(_THREAD, "launches", None)
+    return dict(mine) if mine is not None else dict.fromkeys(_LAUNCHES, 0)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 # the SMs of an H100 SXM: the launch plans' default where no card is asked
@@ -197,8 +220,13 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        # one build at a time: two threads' first launches must not
+        # run nvcc into the same temporary file
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 

@@ -1,24 +1,34 @@
 """The serving stack on one card — the counterpart of
-dlrover_tpu/serving/, exporting the same public names, limited to what
-the port has:
+dlrover_tpu/serving/, exporting the same public names:
 
+  gateway.py   — the stdlib HTTP front door: streaming NDJSON
+                 generation, /healthz, Prometheus /metrics
+  replica.py   — replicas registered in the master KV store, the pool
+                 that health-checks them (circuit breakers, probation,
+                 straggler fencing) and routes across them (phase tier,
+                 prefix affinity, adapter residency, load), failover
+                 and handoff wiring, scale hints and the brain forecast
   scheduler.py — SLO-aware admission control, per-tier EDF dispatch,
                  aging, tier preemption and deadline shedding over the
                  engine's slot bank
   engine.py    — the continuous-batching generation engine
+                 (`ContinuousBatcher`, alias `GenerationEngine`)
+  handoff.py   — prefill/decode KV packages and the coordinator that
+                 places them on decode replicas
   metrics.py   — TTFT/TPOT/queue-depth counters, Prometheus exposition
   failover.py  — per-request resume journal, circuit breaker, crash
                  evacuation by replaying prompt+emitted
   workload.py  — seed-driven production-trace generator
-  prefix_cache.py, speculative.py, adapters.py, chaos.py, affinity.py
-               — prefix reuse, n-gram drafting, multi-adapter LoRA,
-                 fault injection, prefix digests
-
-The replica pool and the HTTP gateway (`replica.py`, `gateway.py`) and
-the fleet digest map are not ported yet.
+  affinity.py  — prefix digests, the fleet digest map and the affinity
+                 order
+  prefix_cache.py, speculative.py, adapters.py, chaos.py, kv_tier.py,
+  health.py    — prefix reuse, n-gram drafting, multi-adapter LoRA,
+                 fault injection, the host KV tier, the health sentinel
 """
 
 from dlrover_tpu_torch.serving.affinity import (
+    FleetDigestMap,
+    affinity_order,
     cache_digests,
     prefix_digest_chain,
 )
@@ -33,7 +43,10 @@ from dlrover_tpu_torch.serving.chaos import (
     FaultInjector,
     ReplicaCrashed,
 )
-from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+from dlrover_tpu_torch.serving.engine import (
+    ContinuousBatcher,
+    GenerationEngine,
+)
 from dlrover_tpu_torch.serving.failover import (
     CircuitBreaker,
     FailoverManager,
@@ -55,6 +68,12 @@ from dlrover_tpu_torch.serving.speculative import (
     SpecController,
     SpeculativeDecoder,
 )
+from dlrover_tpu_torch.serving.replica import (
+    InferenceReplica,
+    NoHealthyReplicasError,
+    ReplicaPool,
+)
+from dlrover_tpu_torch.serving.gateway import ServingGateway
 from dlrover_tpu_torch.serving.workload import (
     SessionBook,
     Trace,
@@ -74,14 +93,20 @@ __all__ = [
     "DeviceAdapterCache",
     "FailoverManager",
     "FaultInjector",
+    "FleetDigestMap",
+    "GenerationEngine",
+    "InferenceReplica",
     "NgramDrafter",
+    "NoHealthyReplicasError",
     "RadixPrefixCache",
     "ReplicaCrashed",
+    "ReplicaPool",
     "RequestJournal",
     "RequestScheduler",
     "RequestState",
     "ResumeTicket",
     "ServeRequest",
+    "ServingGateway",
     "ServingMetrics",
     "SessionBook",
     "SloConfig",
@@ -91,6 +116,7 @@ __all__ = [
     "Trace",
     "TraceEvent",
     "WorkloadConfig",
+    "affinity_order",
     "cache_digests",
     "generate_trace",
     "prefix_digest_chain",

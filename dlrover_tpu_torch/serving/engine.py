@@ -2456,3 +2456,8 @@ def _draw_rows(probs: torch.Tensor, gens: List[Optional[torch.Generator]]):
         if gen is not None:
             out[row] = categorical(probs[row], gen)
     return out
+
+
+# serving-facing name, as in the JAX package; ContinuousBatcher stays
+# for existing callers
+GenerationEngine = ContinuousBatcher

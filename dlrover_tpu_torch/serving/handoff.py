@@ -1,7 +1,8 @@
 """Cross-replica KV handoff for phase-split serving — the port's
-counterpart of dlrover_tpu/serving/handoff.py (the package, the export
-and the adoption; the coordinator that routes packages between replicas
-belongs to the replica pool, not ported yet).
+counterpart of dlrover_tpu/serving/handoff.py: the package, the export,
+the adoption, and the coordinator that routes packages from
+prefill-role replicas to decode targets (`HandoffCoordinator`, wired by
+the replica pool).
 
 A prefill-role engine's admission IS the prefill: right after it the
 slot holds exactly what a colocated engine holds before its first
@@ -22,17 +23,21 @@ Transports on one card: "device" keeps the gathered tensors on the card
 (a gather and a scatter); "host" bounces them through page-locked host
 memory (`_host_bounce`, the one D2H site), is stamped with
 `kv_checksum` when the engine has kv_checksums=1 and passes through the
-fault injector's `maybe_corrupt`. Adoption verifies a stamped package
-and raises KVIntegrityError on a mismatch; the caller then replays.
+fault injector's `maybe_corrupt`. The coordinator verifies a stamped
+package before any target enqueues it (a mismatch sends the request
+back to replay on its prefill replica), and adoption verifies it again
+and raises KVIntegrityError on a mismatch.
 """
 
 import dataclasses
+import threading
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from dlrover_tpu_torch._device import upload
+from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.serving.engine import _pad_bucket
 from dlrover_tpu_torch.serving.health import (
     KVIntegrityError,
@@ -232,3 +237,98 @@ def adopt_into_slot(engine, slot: int, pkg: KVHandoff) -> None:
         for name, arr in engine.cache.items():
             src = _on_device(pkg.data[name], dev)
             arr[:, slot:slot + 1, :src.shape[2]] = src.to(arr.dtype)
+
+
+# ---- the coordinator -----------------------------------------------------
+
+
+class HandoffCoordinator:
+    """Routes prefilled requests from prefill-role replicas to decode
+    targets. Wired as each prefill scheduler's `on_handoff` by
+    ReplicaPool.add(); called OUTSIDE the source scheduler's lock
+    (the `_dispatch_failure` discipline — adoption takes the target's
+    lock). Returns True when the request was handled (adopted, or
+    terminally shed by the target's deadline check); False sends the
+    scheduler to the resume-by-replay fallback."""
+
+    # _step is bumped from every prefill scheduler's pump thread, under
+    # _lock
+    GUARDED_FIELDS = frozenset({"_step"})
+
+    def __init__(
+        self,
+        pool,
+        chaos=None,
+        chaos_tag: str = "handoff",
+    ):
+        self.pool = pool
+        self.chaos = chaos
+        self.chaos_tag = chaos_tag
+        self._lock = threading.Lock()
+        self._step = 0
+
+    def _targets(self, source) -> List[Any]:
+        """Healthy non-source adopters, decode-role first (colocated
+        replicas are valid fallback targets — they can decode anything
+        — but never steal work from dedicated decoders), least-loaded
+        first for the same reason routing is."""
+        reps = [
+            r
+            for r in self.pool.replicas()
+            if r.scheduler is not source
+            and r.healthy
+            and not r.scheduler.crashed
+            and getattr(r, "role", "colocated") != "prefill"
+        ]
+        decode = [r for r in reps if r.role == "decode"]
+        out = decode or reps
+        out.sort(key=lambda r: r.load())
+        return out
+
+    def on_prefill_done(self, scheduler, ticket, pkg) -> bool:
+        with self._lock:
+            step = self._step
+            self._step += 1
+        if self.chaos is not None:
+            # the mid-handoff crash point: the package is exported,
+            # the source slot retired, nothing adopted yet — exactly
+            # the state resume-by-replay must recover from
+            self.chaos.on_engine_step(self.chaos_tag, step)
+        req = ticket.req
+        if pkg.checksum:
+            # the handoff INGRESS gate: verify the stamped package
+            # HERE, before any target enqueues it — adoption itself
+            # runs later, inside the target engine's admission pump,
+            # where a raise would read as a fatal engine failure and
+            # eject the healthy decoder. Returning False instead sends
+            # the source scheduler down the resume-by-replay fallback:
+            # the request re-prefills from its journaled prompt and
+            # generator state, and the corrupted bytes are never
+            # shipped anywhere.
+            src_eng = getattr(scheduler, "engine", None)
+            if src_eng is not None and hasattr(src_eng, "_integrity_checks"):
+                src_eng._integrity_checks += 1
+            if not verify_checksum(pkg.data, pkg.checksum):
+                if src_eng is not None and hasattr(
+                    src_eng, "_integrity_quarantines"
+                ):
+                    src_eng._integrity_quarantines += 1
+                logger.warning(
+                    "handoff package for request %d failed content "
+                    "verification; quarantined — resuming by replay",
+                    req.id,
+                )
+                return False
+        for rep in self._targets(scheduler):
+            try:
+                rep.scheduler.adopt(req, ticket, pkg)
+            except Exception:  # noqa: BLE001 — try the next target
+                logger.warning(
+                    "replica %s cannot adopt request %d",
+                    rep.id, req.id, exc_info=True,
+                )
+                continue
+            # adopted, or shed by the target's deadline check —
+            # terminal either way, replay would not help
+            return True
+        return False

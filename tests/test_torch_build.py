@@ -96,6 +96,33 @@ def test_launch_counters():
     assert set(_build.launch_counts().values()) == {0}
 
 
+def test_launch_counters_across_threads():
+    """Launches from several threads at once all reach the global count,
+    and each thread's own view counts only its launches (what
+    chip_smoke's serve.fleet reads around each engine's step)."""
+    import threading
+
+    _build.reset_launch_counts()
+    mine = _build.thread_launch_counts()["flash_fwd"]
+    views = {}
+
+    def launch(i):
+        before = _build.thread_launch_counts()["flash_fwd"]
+        for _ in range(1000 * (i + 1)):
+            _build.count_launch("flash_fwd")
+        views[i] = _build.thread_launch_counts()["flash_fwd"] - before
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert views == {0: 1000, 1: 2000, 2: 3000, 3: 4000}
+    assert _build.launch_counts()["flash_fwd"] == 10000
+    assert _build.thread_launch_counts()["flash_fwd"] == mine
+    _build.reset_launch_counts()
+
+
 def test_function_sets_types_once(monkeypatch):
     """`function` binds a symbol of a kernel library with int return and
     the given argument types, once: later calls get the same object."""

@@ -1875,3 +1875,151 @@ def test_scheduler_over_the_paged_engine_on_the_card(gen):
     idx = eng.submit([1, 2, 3], prng_key=state)
     assert torch.equal(eng._make_gen(eng._requests[idx]).get_state(), state)
     eng.cancel(idx)
+
+
+def _fleet_replica(R, S, cfg, params, tag, **kw):
+    """One replica over the small serving model on the card, its
+    scheduler on a frozen clock (dispatch order: prompt length, then
+    arrival)."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    base = dict(n_slots=2, max_len=64, max_new_tokens=10, chunk=2,
+                kv_layout="paged")
+    eng = ContinuousBatcher(cfg, params, **{**base, **kw})
+    return R.InferenceReplica(tag, S.RequestScheduler(eng,
+                                                      clock=lambda: 0.0))
+
+
+def test_two_replicas_pumped_concurrently_equal_a_lone_engine(gen):
+    """Two replicas on one card, each stepped by its own scheduler
+    thread at once (both issue on the legacy default stream, so the
+    kernels' shared counter buffer sees no overlap): each replica's
+    greedy streams equal one lone scheduler's, fed the same prompts one
+    replica's worth at a time."""
+    from dlrover_tpu_torch.serving import replica as R
+    from dlrover_tpu_torch.serving import scheduler as S
+
+    cfg, params = _serving_model(gen)
+    rng = np.random.default_rng(3)
+    waves = [[rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+              for n in rng.integers(5, 40, size=4)] for _ in range(2)]
+    lone = _fleet_replica(R, S, cfg, params, "lone").scheduler
+    want = []
+    for wave in waves:
+        reqs = [lone.submit(p) for p in wave]
+        lone.run_to_completion()
+        want.append([list(r.tokens) for r in reqs])
+    pool = R.ReplicaPool(clock=lambda: 0.0)
+    reps = [_fleet_replica(R, S, cfg, params, f"replica-{i}")
+            for i in range(2)]
+    for rep in reps:
+        pool.add(rep)
+    reqs = [[rep.scheduler.submit(p) for p in wave]
+            for rep, wave in zip(reps, waves)]
+    try:
+        for rep in reps:
+            rep.start()
+        for wave in reqs:
+            for req in wave:
+                assert req.wait(timeout=300)
+    finally:
+        pool.stop()
+    assert [[list(r.tokens) for r in wave] for wave in reqs] == want
+    assert all(len(t) == 10 for wave in want for t in wave)
+
+
+def test_gateway_stream_over_card_engines_equals_generate_all(gen):
+    import http.client
+    import json
+
+    from dlrover_tpu_torch.serving import replica as R
+    from dlrover_tpu_torch.serving import scheduler as S
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+    from dlrover_tpu_torch.serving.gateway import ServingGateway
+
+    cfg, params = _serving_model(gen)
+    prompt = list(range(5, 41))
+    pool = R.ReplicaPool()
+    for i in range(2):
+        rep = _fleet_replica(R, S, cfg, params, f"replica-{i}")
+        assert rep.scheduler.engine.kernel_path == "kernel"
+        rep.start()
+        pool.add(rep)
+    gw = ServingGateway(pool)
+    gw.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=300)
+        conn.request("POST", "/v1/generate", json.dumps(
+            {"tokens": prompt, "max_new": 10, "deadline_s": 600.0}))
+        resp = conn.getresponse()
+        assert resp.status == 200
+        lines = [json.loads(ln) for ln in resp.read().decode().splitlines()]
+        conn.close()
+    finally:
+        gw.stop()
+        pool.stop()
+    got = [t for d in lines for t in d.get("tokens", [])]
+    assert lines[-1]["done"] and lines[-1]["state"] == "done"
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=64,
+                            max_new_tokens=10, chunk=2, kv_layout="paged")
+    assert got == eng.generate_all([prompt])[0].tolist()
+
+
+def test_coordinator_device_handoff_adopts_the_exported_pages(
+        gen, monkeypatch):
+    """A prefill and a decode replica in a ReplicaPool over the device
+    transport: HandoffCoordinator places every package on the decode
+    replica, whose installed pages are byte-equal to the exported ones;
+    the decode engine launches no flash forward, the prefill engine no
+    paged attention (per-thread launch counts around each step)."""
+    from dlrover_tpu_torch.serving import handoff
+    from dlrover_tpu_torch.serving import replica as R
+    from dlrover_tpu_torch.serving import scheduler as S
+
+    cfg, params = _serving_model(gen)
+    pool = R.ReplicaPool(clock=lambda: 0.0)
+    reps = {}
+    for role in ("prefill", "decode"):
+        rep = _fleet_replica(R, S, cfg, params, role, replica_role=role)
+        rep.scheduler.handoff_transport = "device"
+        pool.add(rep)
+        reps[role] = rep
+    assert reps["prefill"].scheduler.on_handoff == pool.handoff.on_prefill_done
+    compared = []
+    real = handoff.adopt_into_slot
+
+    def adopt(engine, slot, pkg):
+        real(engine, slot, pkg)
+        run = engine._slot_pages[slot][:pkg.n_ship]
+        compared.append(all(
+            torch.equal(arr[:, run], pkg.data[name][:, :pkg.n_ship])
+            for name, arr in engine.page_pool.items()))
+
+    monkeypatch.setattr(handoff, "adopt_into_slot", adopt)
+    launches = {}
+    for role, rep in reps.items():
+        eng, step = rep.scheduler.engine, rep.scheduler.engine.step
+        counts = launches[role] = {"flash_fwd": 0, "paged_attention": 0}
+
+        def counted(step=step, counts=counts):
+            before = _build.thread_launch_counts()
+            out = step()
+            after = _build.thread_launch_counts()
+            for k in counts:
+                counts[k] += after[k] - before[k]
+            return out
+
+        eng.step = counted
+    reqs = [pool.submit(list(range(3, 3 + n)), max_new=8) for n in (9, 30, 17)]
+    for _ in range(500):
+        if not any([r.scheduler.pump() for r in reps.values()]):
+            break
+    pool.stop()
+    assert [r.state.value for r in reqs] == ["done"] * 3
+    assert [len(r.tokens) for r in reqs] == [8] * 3
+    assert compared == [True] * 3
+    assert launches["decode"]["flash_fwd"] == 0
+    assert launches["prefill"]["paged_attention"] == 0
+    assert launches["prefill"]["flash_fwd"] > 0
+    assert launches["decode"]["paged_attention"] > 0
+    assert reps["decode"].scheduler.engine.allocator.pages_adopted > 0

@@ -23,7 +23,10 @@ scheduler's crash path, against the JAX package, on the tiny f32 Llama.
   request that keeps crashing; a readmission past its deadline is shed;
   a lost chip at tp=1 crashes the replica; restart() serves again.
 - Engine lifecycle (TestEngineLifecycle): cancel frees the slot and the
-  prefix pin; reset rebuilds the device state."""
+  prefix pin; reset rebuilds the device state.
+- The same crash through the real ReplicaPool, which wires its own
+  FailoverManager as each scheduler's on_failure: streams, tickets,
+  counters and the health round's ejection equal JAX's."""
 
 import dataclasses
 
@@ -38,12 +41,14 @@ from dlrover_tpu.serving import chaos as jchaos
 from dlrover_tpu.serving import engine as jeng
 from dlrover_tpu.serving import failover as jfo
 from dlrover_tpu.serving import metrics as jmetrics
+from dlrover_tpu.serving import replica as jrep
 from dlrover_tpu.serving import scheduler as jsched
 from dlrover_tpu_torch.models import llama as tllama
 from dlrover_tpu_torch.serving import chaos as tchaos
 from dlrover_tpu_torch.serving import engine as teng
 from dlrover_tpu_torch.serving import failover as tfo
 from dlrover_tpu_torch.serving import metrics as tmetrics
+from dlrover_tpu_torch.serving import replica as trep
 from dlrover_tpu_torch.serving import scheduler as tsched
 
 ENGINE = dict(n_slots=2, max_len=64, max_new_tokens=8, chunk=2)
@@ -486,3 +491,54 @@ def test_handoff_carries_a_journaled_state(sides):
     assert torch.equal(pkg.prng_key, state)
     dec.submit_adopted(pkg)
     assert [int(t) for t in dec.generate_all([])[0]] == want
+
+
+# ---- the crash through the real replica pool ------------------------------
+
+
+def _real_pool_crash(side, prompts, fuzz_seed):
+    """replica-0 crashes at a fuzzed step under everything submitted to
+    it; the ReplicaPool's own FailoverManager re-homes the tickets on
+    replica-1, and the next health round ejects the victim."""
+    R = {jsched: jrep, tsched: trep}[side.S]
+    fi = side.C.FaultInjector(seed=fuzz_seed)
+    step = fi.crash_replica("replica-0", between=(1, 8))
+    metrics = side.M.ServingMetrics()
+    pool = R.ReplicaPool(metrics=metrics, clock=lambda: 0.0, max_strikes=1)
+    reps = []
+    for i in range(2):
+        tag = f"replica-{i}"
+        sched = side.S.RequestScheduler(
+            side.engine(chaos=fi, chaos_tag=tag), metrics=metrics,
+            clock=lambda: 0.0)
+        rep = R.InferenceReplica(tag, sched, chaos=fi)
+        pool.add(rep)
+        reps.append(rep)
+    wired = [r.scheduler.on_failure == pool.manager.on_scheduler_failure
+             for r in reps]
+    reqs = [reps[0].scheduler.submit(p, deadline_s=600.0) for p in prompts]
+    _drive(reps)
+    pool.check_replicas()
+    out = dict(step=step, fired=bool(fi.fired), wired=wired,
+               reqs=[(r.state.value, list(r.tokens), r.retries)
+                     for r in reqs],
+               failed=metrics.failed_total, failovers=metrics.failovers_total,
+               ejections=metrics.replica_ejections,
+               healthy=[r.healthy for r in reps],
+               breakers=[pool.breakers[r.id].state for r in reps],
+               routable=[r.id for r in pool.ranked_replicas()])
+    pool.stop()
+    return out
+
+
+@pytest.mark.parametrize("fuzz_seed", [0, 3])
+def test_crash_through_the_replica_pool_equal_jax(sides, fuzz_seed):
+    prompts = _prompts((5, 9, 3, 7), seed=fuzz_seed + 1)
+    j, t = both(sides, _real_pool_crash, prompts, fuzz_seed)
+    assert t == j
+    assert t["fired"] and t["wired"] == [True, True]
+    assert [tok for _, tok, _ in t["reqs"]] == _reference(sides[1], prompts)
+    assert all(state == "done" for state, _, _ in t["reqs"])
+    assert t["failed"] == 0 and t["failovers"] >= 1
+    assert t["healthy"] == [False, True] and t["routable"] == ["replica-1"]
+    assert t["breakers"] == [tfo.OPEN, tfo.CLOSED]

@@ -45,3 +45,26 @@ def test_no_jax_imports(path):
     assert path.exists(), path
     bad = [(ln, name) for ln, name in _imports(path) if _banned(name)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# the fleet's modules, named so a rename cannot drop them from the scan
+FLEET = ("master/__init__.py", "master/kv_store.py", "brain/__init__.py",
+         "brain/datastore.py", "brain/algorithms.py", "serving/affinity.py",
+         "serving/handoff.py", "serving/replica.py", "serving/gateway.py")
+
+
+@pytest.mark.parametrize("rel", FLEET)
+def test_fleet_module_scanned(rel):
+    path = ROOT / "dlrover_tpu_torch" / rel
+    assert path in FILES
+    assert not [n for _, n in _imports(path) if _banned(n)]
+
+
+def test_serving_exports_equal_jax():
+    import dlrover_tpu.serving as jserving
+    import dlrover_tpu_torch.serving as tserving
+
+    assert set(tserving.__all__) == set(jserving.__all__)
+    for name in set(tserving.__all__) - {"TIERS"}:
+        module = getattr(tserving, name).__module__
+        assert module.startswith("dlrover_tpu_torch."), (name, module)
