@@ -209,6 +209,21 @@ Phases, one line each (any failure exits non-zero before the last line):
      unlinked, bit-equal again: the losses of steps 9 and 10 must equal
      the uninterrupted run's bit for bit. The segment and the
      checkpoint directory are removed whatever happens;
+  21a. train.master: the train workload fed through the port's job
+     master in this process (LocalJobMaster over the stdlib transport,
+     MasterClient, an ElasticDataset over IndexShardingClient reading
+     {"tokens": row} samples of a seeded token array, batches into
+     Trainer(master_client=...)): 8 steps, every index read exactly
+     once, the dataset finished, the master's speed monitor at step 8
+     and its metric collector holding the state's parameter count,
+     exact flash launch counts (all wgmma), falling losses; then 4 steps
+     saving to memory (and to disk at the end, the saver reporting the
+     committed step: get_ckpt_latest_step), the master stopped and a
+     new one started on the same port, and a Trainer from another seed
+     resumed from memory over the same dataset: the union of reads
+     covers the epoch, only at-least-once repeats, step 5's loss
+     against the uninterrupted run's; RPC round trips (p50 / p99),
+     master start and restart seconds, median step against train's;
   22. train.int8_adam: the same workload from the same params and
      tokens with int8_adam (int8 block-quantized moments) in place of
      AdamW; the losses must be finite and fall, step 1's loss must
@@ -259,6 +274,8 @@ phases 10-14 (adapters and weight refresh), no result line;
 serve.prefix_pressure phases and phases 17-19 (KV tier and handoff), no
 result line; `python3 chip_smoke.py --sched` the card, build, serve and
 serve.int8 phases and phases 5a and 19a, no result line;
+`python3 chip_smoke.py --master` the card, build, train and
+train.master phases, no result line;
 `python3 chip_smoke.py --fleet` the card, build and serve.fleet phases,
 then part (a)'s traffic through one replica and through two with a 0.5
 ms thread switch interval (reported only), no result line.
@@ -4365,6 +4382,379 @@ def phase_train_ckpt(train):
         torch.cuda.empty_cache()
 
 
+# train.master: the data-driven loop through the port's job master
+MASTER_SEED = TRAIN_SEED + 3      # the dataset's tokens
+MASTER_VOCAB = 512                # distinct token ids the samples draw
+MASTER_SHARD = TRAIN_GLOBAL_BATCH  # samples a shard: one step's batch
+MASTER_RESUME_AT = 4              # the interrupted run stops after it
+MASTER_RPC_CALLS = 1000           # timed calls of each verb
+
+
+def _master_rows(cfg):
+    """The epoch: TRAIN_STEPS x TRAIN_GLOBAL_BATCH samples of
+    TRAIN_SEQ + 1 tokens, drawn on the host from MASTER_VOCAB token ids
+    of the vocabulary (numpy, seeded), so that every batch shares what
+    there is to learn and the loss falls from batch to batch."""
+    rng = np.random.default_rng(MASTER_SEED)
+    ids = rng.choice(cfg.vocab_size, MASTER_VOCAB, replace=False)
+    n = TRAIN_STEPS * TRAIN_GLOBAL_BATCH
+    return ids[rng.integers(0, MASTER_VOCAB, size=(n, TRAIN_SEQ + 1))]
+
+
+def _rpc_figures(client, master):
+    """Round trips of get_task and report_global_step over the stdlib
+    transport against a master of their own (p50 / p99 ms)."""
+    client.report_dataset_params("rpc", MASTER_RPC_CALLS, 1)
+    out = {}
+    for verb, call in (
+            ("get_task", lambda i: client.get_task("rpc")),
+            ("report_global_step",
+             lambda i: client.report_global_step(i + 1, 1.0))):
+        ms = []
+        for i in range(MASTER_RPC_CALLS):
+            t0 = time.perf_counter()
+            call(i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[verb] = dict(calls=len(ms), p50_ms=float(np.percentile(ms, 50)),
+                         p99_ms=float(np.percentile(ms, 99)),
+                         max_ms=max(ms))
+    if master.servicer.speed_monitor.global_step != MASTER_RPC_CALLS:
+        raise AssertionError("train.master: the timed step reports did not "
+                             "all reach the master")
+    return out
+
+
+def phase_train_master(train, smi):
+    """The data-driven training loop in one process, through the port's
+    control plane: a LocalJobMaster (stdlib transport), a MasterClient
+    that registers node 0, an ElasticDataset over IndexShardingClient
+    reading {"tokens": row} samples of a seeded token array (shards of
+    one batch, in index order), its
+    `batches(TRAIN_GLOBAL_BATCH)` feeding Trainer(master_client=...)
+    over the train phase's model, params and AdamW.
+    (1) uninterrupted: TRAIN_STEPS steps; every index read exactly
+    once, the dataset finished, the master's speed monitor at step
+    TRAIN_STEPS, its metric collector holding the state's parameter
+    count; launch counts by the train formula, all wgmma; losses
+    finite and falling. (2) interrupted: the same for
+    MASTER_RESUME_AT steps, saving to memory (the Trainer's save at its
+    end goes to disk too; the saver, which this script runs as an agent
+    would, reports the committed step to the master:
+    get_ckpt_latest_step); then the Trainer and the master stop, a new
+    master starts on the same port, the client sees the session change
+    and registers again, and a Trainer from another seed resumes from
+    the memory checkpoint over the same dataset object: its client
+    finds the dataset unknown, registers it again and restores its
+    cached shard checkpoint (IndexShardingClient acks inside
+    fetch_index and pulls none, as in JAX, so the master re-issues the
+    epoch), and the Trainer skips the MASTER_RESUME_AT consumed batches
+    by count (JAX's rule for a stream without load_state_dict): the
+    union of reads covers the epoch, the repeats are the shards acked
+    before the interruption, and step MASTER_RESUME_AT + 1's loss
+    matches the uninterrupted run's. (3) host figures: RPC round trips,
+    master start and restart seconds, the median step against the
+    train phase's."""
+    import gc
+    import os
+    import shutil
+
+    from torch.utils._pytree import tree_leaves
+
+    from dlrover_tpu_torch.agent.ckpt_saver import (
+        AsyncCheckpointSaver,
+        shm_segment_name,
+    )
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common.messages import find_free_port
+    from dlrover_tpu_torch.common.multi_process import (
+        LocalSocketServer,
+        shm_dir,
+    )
+    from dlrover_tpu_torch.master.master import LocalJobMaster
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.trainer.elastic.data import ElasticDataset
+    from dlrover_tpu_torch.trainer.flash_checkpoint import Checkpointer
+    from dlrover_tpu_torch.trainer.trainer import (
+        Trainer,
+        TrainerCallback,
+        TrainingArguments,
+    )
+
+    class Record(TrainerCallback):
+        def __init__(self):
+            self.t0, self.ends, self.losses = None, [], []
+
+        def on_train_begin(self, trainer, state):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+
+        def on_step_end(self, trainer, state, metrics):
+            self.ends.append(time.perf_counter())   # the step has synced
+
+        def on_log(self, trainer, state, logs):
+            self.losses.append(logs["loss"])
+
+    def check_launches(what, launches, steps, grad_accum):
+        per_pass = TRAIN_LAYERS * grad_accum * steps
+        want = dict(flash_fwd=2 * per_pass, flash_bwd_dq=per_pass,
+                    flash_bwd_dkv=per_pass)
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{what} launches {launches}, want {want}")
+        _check_wgmma(what, launches,
+                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+    def wait_for(pred, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while not pred() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        return pred()
+
+    job = f"chip-smoke-master-{os.getpid()}"
+    root = os.path.join(_smoke_out(), f"master-{os.getpid()}")
+    ckpt_dir = os.path.join(root, "checkpoints")
+    seg_path = os.path.join(shm_dir(), shm_segment_name(job, 0))
+    os.environ["DLROVER_TPU_JOB_NAME"] = job
+    port = find_free_port()
+    masters, closers = [], []
+    server = LocalSocketServer(job)
+    server.start()
+    saver = client = None
+
+    def start_master(p=port):
+        t0 = time.perf_counter()
+        m = LocalJobMaster(port=p, num_nodes=1, poll_interval=0.5)
+        m.start()
+        masters.append(m)
+        return m, time.perf_counter() - t0
+
+    try:
+        m0, start_s = start_master()
+        client = MasterClient(m0.addr, node_id=0, max_retries=3)
+        client.register_node(rank=0)
+        saver = AsyncCheckpointSaver(job_name=job, master_client=client)
+        saver.start()
+        rows = _master_rows(
+            llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS))
+        n = len(rows)
+
+        def dataset(name, reads):
+            def read_sample(i):
+                reads.append(i)
+                return {"tokens": rows[i]}
+
+            return ElasticDataset(name, n, MASTER_SHARD, read_sample,
+                                  master_client=client)
+
+        # (1) the uninterrupted run
+        cfg, et, _, gen = _train_setup(_adamw)
+        state = et.init_state(gen)
+        state_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        reads_u, rec_u = [], Record()
+        ds_u = dataset("train-u", reads_u)
+        trainer = Trainer(
+            et, TrainingArguments(max_steps=TRAIN_STEPS, logging_steps=1,
+                                  save_steps=0, resume=False),
+            train_data=ds_u.batches(TRAIN_GLOBAL_BATCH), callbacks=[rec_u],
+            master_client=client)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        state = trainer.train(state)
+        torch.cuda.synchronize()
+        launches_u = _build.launch_counts()
+        check_launches("train.master", launches_u, TRAIN_STEPS,
+                       et.grad_accum)
+        grad_accum = et.grad_accum
+        collector = m0.servicer.metric_collector
+        wait_for(lambda: collector._model is not None, 30)
+        model = collector._model
+        steps_u = np.diff([rec_u.t0] + rec_u.ends)
+        del state, et, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        uninterrupted = dict(
+            losses=rec_u.losses, reads=reads_u,
+            finished=m0.servicer.task_manager.get_dataset(
+                "train-u").finished(),
+            master_global_step=m0.servicer.speed_monitor.global_step,
+            model_info=dataclasses.asdict(model) if model else None,
+            state_params=state_params, step_s=steps_u.tolist(),
+            median_step_s=float(np.median(steps_u[1:])))
+        m0.stop()
+
+        # (2) the interrupted run: MASTER_RESUME_AT steps on a new master
+        m1, _ = start_master()
+        client.register_node(rank=0)
+        cfg, et, _, gen = _train_setup(_adamw)
+        state = et.init_state(gen)
+        ck = Checkpointer(ckpt_dir, job_name=job)
+        closers.append(ck)
+        reads_r, rec_r1 = [], Record()
+        ds_r = dataset("train-r", reads_r)
+        trainer = Trainer(
+            et, TrainingArguments(output_dir=root, max_steps=MASTER_RESUME_AT,
+                                  logging_steps=1,
+                                  save_steps=MASTER_RESUME_AT,
+                                  save_storage="memory", resume=False),
+            train_data=ds_r.batches(TRAIN_GLOBAL_BATCH), callbacks=[rec_r1],
+            checkpointer=ck, master_client=client)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        state = trainer.train(state)
+        torch.cuda.synchronize()
+        launches_r1 = _build.launch_counts()
+        check_launches("train.master.resume (before)", launches_r1,
+                       MASTER_RESUME_AT, et.grad_accum)
+        t_persist = time.perf_counter()
+        if not ck.wait_latest_checkpoint(MASTER_RESUME_AT, timeout=900):
+            raise AssertionError("train.master: the disk save never "
+                                 "committed")
+        persist_wait_s = time.perf_counter() - t_persist
+        wait_for(lambda: client.get_ckpt_latest_step(ckpt_dir)
+                 == MASTER_RESUME_AT, 30)
+        latest_step = client.get_ckpt_latest_step(ckpt_dir)
+        reads_before = list(reads_r)
+        cached = ds_r.client._cached_checkpoint
+        master_view = json.loads(ds_r.client.shard_checkpoint())
+        ck.close()
+        del state, et, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the interruption: the master goes; a new one on the same port
+        session = client.report_heart_beat().master_session
+        t0 = time.perf_counter()
+        m1.stop()
+        m2, _ = start_master()
+        new_session = client.report_heart_beat().master_session
+        restart_s = time.perf_counter() - t0
+        if new_session == session:
+            raise AssertionError("train.master: no session change")
+        client.register_node(rank=0)
+        cfg, et, _, _ = _train_setup(_adamw)
+        state = et.init_state(
+            torch.Generator(device="cuda").manual_seed(CKPT_RESTORE_SEED))
+        rec_r2 = Record()
+        trainer = Trainer(
+            et, TrainingArguments(output_dir=root, max_steps=TRAIN_STEPS,
+                                  logging_steps=1, save_steps=0,
+                                  resume=True),
+            train_data=ds_r.batches(TRAIN_GLOBAL_BATCH), callbacks=[rec_r2],
+            master_client=client)
+        closers.append(trainer.checkpointer)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t_resume = time.perf_counter()
+        state = trainer.train(state)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t_resume
+        launches_r2 = _build.launch_counts()
+        check_launches("train.master.resume (after)", launches_r2,
+                       TRAIN_STEPS - MASTER_RESUME_AT, et.grad_accum)
+        trainer.checkpointer.close()
+        resumed_step = trainer.global_step
+        del state, et, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        reads_after = reads_r[len(reads_before):]
+        repeats = sorted(set(reads_before) & set(reads_after))
+        k = MASTER_RESUME_AT * TRAIN_GLOBAL_BATCH
+        first_resumed = rec_r2.losses[0] if rec_r2.losses else float("nan")
+        want_loss = rec_u.losses[MASTER_RESUME_AT]
+        node2 = m2.servicer.node_manager.get_node("worker", 0)
+
+        # (3) host figures on a master of their own
+        m_rpc, _ = start_master(find_free_port())
+        rpc_client = MasterClient(m_rpc.addr, node_id=0, max_retries=1)
+        try:
+            rpc = _rpc_figures(rpc_client, m_rpc)
+        finally:
+            rpc_client.close()
+            m_rpc.stop()
+
+        losses_u = uninterrupted["losses"]
+        checks = dict(
+            launches=True,   # check_launches raised otherwise
+            losses_fall=(len(losses_u) == TRAIN_STEPS
+                         and bool(np.all(np.isfinite(losses_u)))
+                         and losses_u[-1] < losses_u[0]),
+            every_index_once=sorted(reads_u) == list(range(n)),
+            dataset_finished=uninterrupted["finished"],
+            speed_monitor_step=(uninterrupted["master_global_step"]
+                                == TRAIN_STEPS),
+            model_info_params=(model is not None
+                               and model.num_params == state_params
+                               == llama.num_params(cfg)),
+            ckpt_latest_step=latest_step == MASTER_RESUME_AT,
+            reads_before=sorted(reads_before) == sorted(reads_u[:k]),
+            union_covers_epoch=sorted(set(reads_before) | set(reads_after))
+            == list(range(n)),
+            repeats_at_least_once=set(repeats) <= set(reads_before),
+            resumed_steps=(resumed_step == TRAIN_STEPS
+                           and len(rec_r2.losses)
+                           == TRAIN_STEPS - MASTER_RESUME_AT),
+            same_order=reads_before + reads_after[k:] == reads_u,
+            resumed_loss=abs(first_resumed - want_loss)
+            <= TRAIN_LOSS_REL_TOL * abs(want_loss),
+            restarted_master=(m2.servicer.task_manager.get_dataset(
+                "train-r") is not None
+                and m2.servicer.task_manager.get_dataset("train-r").finished()
+                and m2.servicer.speed_monitor.global_step == TRAIN_STEPS
+                and node2 is not None),
+        )
+        out = dict(
+            nvidia_smi=smi, steps=TRAIN_STEPS, resume_at=MASTER_RESUME_AT,
+            samples=n, shard=MASTER_SHARD, vocab_ids=MASTER_VOCAB,
+            grad_accum=grad_accum,
+            uninterrupted={k_: v for k_, v in uninterrupted.items()
+                           if k_ != "reads"},
+            reads_uninterrupted=reads_u,
+            reads_before_interruption=reads_before,
+            reads_after_restart=reads_after, repeats=repeats,
+            client_cached_shard_checkpoint=cached,
+            master_shard_checkpoint_at_interruption=master_view,
+            resumed_losses=rec_r2.losses,
+            uninterrupted_loss_at_resume=want_loss,
+            resumed_loss_abs_err=abs(first_resumed - want_loss),
+            loss_rel_tol=TRAIN_LOSS_REL_TOL,
+            ckpt_latest_step=latest_step, persist_wait_s=persist_wait_s,
+            resume_s=resume_s,
+            launches=launches_u,
+            launches_resume={k_: launches_r1[k_] + launches_r2[k_]
+                             for k_ in launches_r1},
+            host=dict(rpc=rpc, master_start_s=start_s,
+                      master_restart_s=restart_s,
+                      median_step_s=uninterrupted["median_step_s"],
+                      train_median_step_s=train["median_step_s"],
+                      step_ratio=uninterrupted["median_step_s"]
+                      / train["median_step_s"]),
+            checks=checks,
+        )
+        log("train.master", **out)
+        if not all(checks.values()):
+            raise AssertionError(
+                f"train.master: failed checks "
+                f"{[c for c, ok in checks.items() if not ok]}")
+        return out
+    finally:
+        for c in closers:
+            c.close()
+        if saver is not None:
+            saver.stop()
+            saver.join(timeout=60)
+            saver.shm_handler.close()
+        server.stop()
+        for m in masters:
+            m.stop()
+        if client is not None:
+            client.close()
+        if os.path.exists(seg_path):
+            os.unlink(seg_path)
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("DLROVER_TPU_JOB_NAME", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # train.remat: (cfg.remat_policy, Strategy.remat) of each run; policy
 # "none" runs with cfg.remat off, no checkpoint at all (under cfg.remat
 # the model checkpoints "none" as "full", as JAX's does)
@@ -4722,6 +5112,10 @@ def main():
         phase_serve_sched(params, cfg)
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
+    if "--master" in args:
+        phase_train_master(phase_train(), smi)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
+        return 0
     if "--fleet" in args:
         cfg = llama.LlamaConfig.llama3_8b()
         params = llama.init_params(cfg, gen)
@@ -4782,6 +5176,7 @@ def main():
     torch.cuda.empty_cache()
     train = phase_train()
     ckpt = phase_train_ckpt(train)
+    master_run = phase_train_master(train, smi)
     train_int8 = phase_train_int8(train)
     remat_runs = phase_train_remat()
     phase_fp8_dot(gen)
@@ -4802,11 +5197,17 @@ def main():
                         for path, run in serve_paths.items()},
                      "train": train["launches"]["flash_fwd"],
                      "train.ckpt": ckpt["launches"]["flash_fwd"],
+                     "train.master": master_run["launches"]["flash_fwd"],
+                     "train.master.resume":
+                         master_run["launches_resume"]["flash_fwd"],
                      "train.int8_adam": train_int8["launches"]["flash_fwd"],
                      **{path: r["launches"]["flash_fwd"]
                         for path, r in remat_paths.items()}}
     bwd_by_path = {name: {"train": train["launches"][name],
                           "train.ckpt": ckpt["launches"][name],
+                          "train.master": master_run["launches"][name],
+                          "train.master.resume":
+                              master_run["launches_resume"][name],
                           "train.int8_adam": train_int8["launches"][name],
                           **{path: r["launches"][name]
                              for path, r in remat_paths.items()}}

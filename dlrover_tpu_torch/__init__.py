@@ -17,7 +17,10 @@ the port's own `master/kv_store.py` and `brain/`); one-device training
 (`trainer/`, `parallel/accelerate.py`, the flash-attention backward
 kernels, the chunked cross entropy of `ops/fused_ce.py`, and flash
 checkpoint: `trainer/flash_checkpoint/` over `agent/ckpt_saver.py`
-and `common/`); and the optimizer package `optim/` (`int8_adam`,
+and `common/`), fed by the job master in one process (`master/`, over
+the stdlib transport of `common/comm.py`), its client
+(`agent/master_client.py`) and the elastic data pipeline
+(`trainer/elastic/data.py`); and the optimizer package `optim/` (`int8_adam`,
 `bf16_adam`, `agd`, `wsam` / `sam_gradient`, muP), whose int8 AdamW
 runs the quantize and the dequantize kernels (`ops/quantization.py`)
 on its moments. Every Pallas kernel of the JAX package now has its

@@ -279,10 +279,12 @@ class SharedMemoryHandler:
 class AsyncCheckpointSaver:
     """Agent-resident daemon: drains save events, persists shm to
     storage, runs the done-file commit protocol. One saver per host;
-    `node_rank` / `num_nodes` drive the commit barrier. What the agent
-    adds around it in the JAX package (the per-process factory, the
-    re-pointing after a rendezvous, `master_client`'s step report) waits
-    for the control plane's port (ROADMAP queue 1, item 9)."""
+    `node_rank` / `num_nodes` drive the commit barrier; with a
+    `master_client`, rank 0 reports each committed step to the master
+    (`report_ckpt_saved`), as JAX's saver does. What the agent adds
+    around it in the JAX package (the per-process factory, the
+    re-pointing after a rendezvous) waits for ROADMAP queue 1, item 9:
+    the agent, runtime and multi-GPU."""
 
     def __init__(
         self,
@@ -292,12 +294,8 @@ class AsyncCheckpointSaver:
         storage: Optional[CheckpointStorage] = None,
         master_client=None,
     ):
-        if master_client is not None:
-            raise NotImplementedError(
-                "the master client (control plane) is not ported yet "
-                "(ROADMAP queue 1, item 9); pass master_client=None"
-            )
         self.job_name = job_name
+        self.master_client = master_client
         self.node_rank = node_rank
         self.num_nodes = num_nodes
         self.storage = storage or get_checkpoint_storage()
@@ -416,7 +414,8 @@ class AsyncCheckpointSaver:
         self, step: int, path: str, timeout: float = None
     ):
         """Two-phase: every host writes `.done_{rank}`; rank 0 waits for
-        all, then atomically updates the tracker file."""
+        all, then atomically updates the tracker file and notifies the
+        master."""
         timeout = timeout or CheckpointConstant.SAVE_TIMEOUT_SECS
         step_dir = os.path.join(path, str(step))
         done_file = os.path.join(
@@ -456,6 +455,11 @@ class AsyncCheckpointSaver:
             self.storage.commit(step, False)
             return
         self._promote_tracker(step, path)
+        if self.master_client is not None:
+            try:
+                self.master_client.report_ckpt_saved(step, path)
+            except Exception:  # noqa: BLE001
+                logger.warning("ckpt step report failed", exc_info=True)
 
     def _promote_tracker(self, step: int, path: str):
         """Advance the tracker to `step` unless it already points past

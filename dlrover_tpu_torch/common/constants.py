@@ -1,8 +1,91 @@
 """Constants the port reads — a copy of the parts of
-dlrover_tpu/common/constants.py it needs."""
+dlrover_tpu/common/constants.py it needs: the trainer's and the flash
+checkpoint's files, and the control plane's node, job and rendezvous
+names the master and its client speak."""
 
 import os
 import tempfile
+
+
+class NodeType:
+    MASTER = "master"
+    WORKER = "worker"
+    PS = "ps"
+    CHIEF = "chief"
+    EVALUATOR = "evaluator"
+
+
+class NodeStatus:
+    INITIAL = "initial"
+    PENDING = "pending"
+    RUNNING = "running"
+    SUCCEEDED = "succeeded"
+    FAILED = "failed"
+    DELETED = "deleted"
+    UNKNOWN = "unknown"
+    # breakdown of FAILED for relaunch policy
+    OOM = "oom"
+
+    @classmethod
+    def is_terminal(cls, status):
+        return status in (cls.SUCCEEDED, cls.FAILED, cls.DELETED)
+
+
+class NodeEventType:
+    ADDED = "added"
+    MODIFIED = "modified"
+    DELETED = "deleted"
+
+
+class NodeExitReason:
+    SUCCEEDED = "succeeded"
+    KILLED = "killed"
+    OOM = "oom"
+    FATAL_ERROR = "fatal_error"
+    HARDWARE_ERROR = "hardware_error"  # relaunch on a *different* host
+    RELAUNCHED = "relaunched"
+    UNKNOWN_ERROR = "unknown_error"
+
+
+class DiagnosisDataType:
+    """Payload kinds flowing agent → master over DiagnosisReport."""
+
+    TRAINING_LOG = "training_log"
+    CHIP_METRICS = "chip_metrics"
+    STEP_REPORT = "step_report"
+    HEARTBEAT = "heartbeat"
+
+
+class JobStage:
+    INIT = "init"
+    RUNNING = "running"
+    SUCCEEDED = "succeeded"
+    FAILED = "failed"
+    STOPPED = "stopped"
+
+
+class RendezvousName:
+    TRAINING = "training"
+    NETWORK_CHECK = "network-check"
+
+
+class TrainingExceptionLevel:
+    PROCESS_ERROR = "process_error"
+    NODE_ERROR = "node_error"
+    RDZV_ERROR = "rdzv_error"
+    WARNING = "warning"
+    INFO = "info"
+
+
+class JobConstant:
+    RDZV_JOIN_TIMEOUT_DEFAULT = 600
+    # after min_nodes joined, wait this long for more before completing
+    RDZV_WAITING_TIMEOUT = 3
+    HEARTBEAT_INTERVAL_SECS = 15
+    MASTER_CLIENT_TIMEOUT_SECS = 30
+    TRAINING_AGENT_LOOP_INTERVAL_SECS = 5
+    PENDING_NODE_TIMEOUT_SECS = 900
+    NODE_CHECK_TIMEOUT_SECS = 300
 
 
 class ConfigPath:

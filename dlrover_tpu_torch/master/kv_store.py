@@ -1,21 +1,21 @@
-"""In-master KV store, its client-side retry wrapper and the fleet's
-prefix directory — a copy of dlrover_tpu/master/kv_store.py's
-`KVStoreService`, `RetryingKV` and `PrefixDirectory` (stdlib only; the
-port imports nothing of the JAX package). These are the verbs the
-serving replica pool speaks: replica registration and heartbeats, the
-scale hint, and the shared digest directory.
+"""In-master KV store, its client-side retry wrapper, the fleet's
+prefix directory and the named sync barriers — a copy of
+dlrover_tpu/master/kv_store.py (stdlib only; the port imports nothing
+of the JAX package). The serving replica pool speaks the KV verbs
+(replica registration and heartbeats, the scale hint, the shared digest
+directory), in process or through the master's `kv_set` / `kv_get`;
+the master's servicer holds a `KVStoreService` and a `SyncService`.
 
 Reference parity: dlrover/python/master/elastic_training/
-kv_store_service.py (`KVStoreService`). The named sync barriers
-(`SyncService`) and the gRPC master that serves this store to other
-processes are not ported.
+kv_store_service.py (`KVStoreService`) and sync_service.py
+(`SyncService`).
 """
 
 import json
 import random
 import threading
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Set
 
 
 class KVStoreService:
@@ -192,3 +192,44 @@ class PrefixDirectory:
     def snapshot(self) -> Dict[str, List[str]]:
         """replica id → advertised digests, fleet-wide."""
         return self._read()
+
+
+class SyncService:
+    """Named barriers across workers.
+
+    Reference parity: master/elastic_training/sync_service.py:26 — workers
+    `join` a named sync; once every expected worker joined, the sync is
+    reached; `finish` marks it explicitly done (the reference's
+    barrier/notify split).
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._joined: Dict[str, Set[int]] = {}
+        self._finished: Set[str] = set()
+        self._expected: Optional[int] = None
+
+    def set_expected_workers(self, n: Optional[int]):
+        with self._lock:
+            self._expected = n
+
+    def join(self, sync_name: str, node_id: int) -> bool:
+        """Returns True when the sync is now complete."""
+        with self._lock:
+            members = self._joined.setdefault(sync_name, set())
+            members.add(node_id)
+            if self._expected is not None and len(members) >= self._expected:
+                self._finished.add(sync_name)
+            return sync_name in self._finished
+
+    def finish(self, sync_name: str):
+        with self._lock:
+            self._finished.add(sync_name)
+
+    def reached(self, sync_name: str) -> bool:
+        with self._lock:
+            return sync_name in self._finished
+
+    def members(self, sync_name: str) -> List[int]:
+        with self._lock:
+            return sorted(self._joined.get(sync_name, ()))

@@ -122,5 +122,5 @@ class ElasticTrainer:
     def on_world_change(self, state: Any, *args, **kwargs) -> Any:
         raise NotImplementedError(
             "a world change needs the multi-GPU port (ROADMAP queue 1, "
-            "item 9: runtime and multi-GPU)"
+            "item 9: the agent, runtime and multi-GPU)"
         )

@@ -10,17 +10,25 @@ the end), `max_steps`, step and card metrics published for the agent,
 and a `HangingDetector` watching step liveness. Callbacks mirror the HF
 `TrainerCallback` surface.
 
-Not ported yet: the control plane (the master client and
-`report_model_info`; ROADMAP queue 1, item 9). `master_client` raises
-`NotImplementedError`; nothing is skipped quietly.
+With a `master_client` (the port's `agent/master_client.py`, talking to
+a `LocalJobMaster`), the loop reports to the job master as JAX's does:
+the model's size once a process after the first step
+(`_report_model_info`, a daemon thread), the global step and the host
+time per step at every logging window (the speed monitor), and a hang
+through the `HangingDetector`. The port's `ElasticTrainer` has no
+`profile_program` (XLA's cost analysis in JAX), so `flops_per_step` is
+0.0 and `program_stats` empty, as JAX reports for a trainer without
+one.
 """
 
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from dlrover_tpu_torch.agent.monitor import (
     publish_chip_metrics,
@@ -37,8 +45,7 @@ from dlrover_tpu_torch.utils.hanging_detector import HangingDetector
 @dataclass
 class TrainingArguments:
     """Reference: atorch/atorch/trainer/atorch_args.py (HF-style args).
-    The JAX package's fields but `report_model_info`, which comes with
-    the control plane. `resume` (default True, as in JAX) restores the
+    The JAX package's fields. `resume` (default True, as in JAX) restores the
     latest checkpoint under `output_dir/checkpoints`, a no-op where
     there is none; with `save_steps` or `resume` the Trainer holds a
     `Checkpointer` (`trainer.checkpointer`; its owner closes it)."""
@@ -54,6 +61,9 @@ class TrainingArguments:
     resume: bool = True
     hang_timeout: float = 1800.0
     publish_step_metrics: bool = True
+    # after the first step, send the model's size to the master's
+    # metric collector
+    report_model_info: bool = True
 
 
 class TrainerCallback:
@@ -90,7 +100,8 @@ class Trainer:
     """Train an ElasticTrainer-wrapped model with flash checkpointing.
 
     ``train_data`` yields host batches whose leading dim equals the
-    elastic trainer's global batch size (any iterable); ``eval_data``
+    elastic trainer's global batch size (an `ElasticDataLoader`, an
+    `ElasticDataset.batches(...)` stream or any iterable); ``eval_data``
     likewise for evaluation.
     """
 
@@ -106,14 +117,10 @@ class Trainer:
     ):
         self.et = elastic_trainer
         self.args = args or TrainingArguments()
-        if master_client is not None:
-            raise NotImplementedError(
-                "the master client (control plane) is not ported yet "
-                "(ROADMAP queue 1, item 9); pass master_client=None"
-            )
         self.train_data = train_data
         self.eval_data = eval_data
         self.callbacks = list(callbacks or [])
+        self._mc = master_client
         self.checkpointer = checkpointer
         if self.checkpointer is None and (
             self.args.save_steps > 0 or self.args.resume
@@ -124,7 +131,63 @@ class Trainer:
             )
         self.global_step = 0
         self.last_logs: Dict = {}
-        self._hang = HangingDetector(timeout=self.args.hang_timeout)
+        # once per PROCESS, not per job: a restarted or resumed worker
+        # reports again (the master's collector is in memory)
+        self._model_info_reported = False
+        self._hang = HangingDetector(
+            timeout=self.args.hang_timeout, master_client=master_client
+        )
+
+    def _report_model_info(self, state, batch):
+        """One-shot after the first step: the model's size and the
+        batch's shape to the master (JAX `Trainer._report_model_info`),
+        in a daemon thread off the training path; a failed report is
+        logged and dropped, as in JAX."""
+        if self._mc is None or not self.args.report_model_info:
+            return
+
+        def _report():
+            try:
+                params = (
+                    state.get("params")
+                    if isinstance(state, dict)
+                    else state
+                )
+                num_params = int(
+                    sum(
+                        x.numel()
+                        for x in tree_leaves(params)
+                        if isinstance(x, torch.Tensor)
+                    )
+                )
+                bsz = 0
+                seq = 0
+                tok = (
+                    batch.get("tokens")
+                    if isinstance(batch, dict)
+                    else None
+                )
+                if tok is not None and getattr(tok, "ndim", 0) >= 2:
+                    # the global batch is the per-host one: the port
+                    # trains in one process (JAX divides by its count)
+                    bsz = int(tok.shape[0])
+                    seq = int(tok.shape[1])
+                # no program profile (XLA's cost analysis in JAX): no
+                # FLOP count and no program stats, as JAX reports for
+                # a trainer without `profile_program`
+                self._mc.report_model_info(
+                    num_params=num_params,
+                    flops_per_step=0.0,
+                    batch_size_per_host=bsz,
+                    seq_len=seq,
+                    program_stats="",
+                )
+            except Exception:  # noqa: BLE001 — never kill training
+                logger.debug("model info report failed", exc_info=True)
+
+        threading.Thread(
+            target=_report, name="model-info-report", daemon=True
+        ).start()
 
     # -- checkpoint --------------------------------------------------------
 
@@ -215,6 +278,7 @@ class Trainer:
 
         window_t0 = time.monotonic()
         window_steps = 0
+        window_host_ms = 0.0
         stop = False
         try:
             for epoch in range(start_epoch, self.args.num_epochs):
@@ -226,8 +290,15 @@ class Trainer:
                     if skip > 0:
                         skip -= 1
                         continue
+                    # host time = Python + launches, before the wait
+                    # for the device: the runtime-straggler signal
+                    t_host = time.monotonic()
                     state, metrics = self.et.step(state, batch)
+                    window_host_ms += (time.monotonic() - t_host) * 1e3
                     _sync(metrics.get("loss"))
+                    if not self._model_info_reported:
+                        self._model_info_reported = True
+                        self._report_model_info(state, batch)
                     self.global_step += 1
                     window_steps += 1
                     self._hang.record_step(self.global_step)
@@ -258,8 +329,22 @@ class Trainer:
                                 publish_chip_metrics()
                             except Exception:  # noqa: BLE001
                                 pass
+                        if self._mc is not None:
+                            # a lost step report never stops training
+                            # (the JAX Trainer swallows it too)
+                            try:
+                                self._mc.report_global_step(
+                                    self.global_step,
+                                    host_compute_ms=(
+                                        window_host_ms
+                                        / max(window_steps, 1)
+                                    ),
+                                )
+                            except Exception:  # noqa: BLE001
+                                pass
                         window_t0 = time.monotonic()
                         window_steps = 0
+                        window_host_ms = 0.0
                     if a.eval_steps and self.global_step % a.eval_steps == 0:
                         self.evaluate(state)
                     if a.save_steps and self.global_step % a.save_steps == 0:

@@ -8,9 +8,8 @@ The trainer calls ``record_step()`` after each completed step (after
 the device has finished it — a deadlocked collective or kernel means
 the step never returns, which is exactly what the wall-clock watchdog
 catches). A daemon thread logs an error once no step lands within
-``timeout`` seconds. The JAX version then reports the failure to the
-master so the agent restarts the workers; that waits for the control
-plane's port (ROADMAP queue 1, item 9).
+``timeout`` seconds and, with a ``master_client``, reports the failure
+to the master (``report_failure``) so the agent restarts the workers.
 """
 
 import threading
@@ -25,9 +24,11 @@ class HangingDetector:
         self,
         timeout: float = 1800.0,
         check_interval: float = 10.0,
+        master_client=None,
     ):
         self.timeout = timeout
         self.check_interval = check_interval
+        self._mc = master_client
         self._last_step_time: Optional[float] = None
         self._last_step = -1
         self._hang_reported = False
@@ -76,3 +77,11 @@ class HangingDetector:
                 stalled,
                 self._last_step,
             )
+            if self._mc is not None:
+                try:
+                    self._mc.report_failure(
+                        error_data=f"hang: no step for {stalled:.0f}s",
+                        level="process",
+                    )
+                except Exception:
+                    logger.exception("hang report to master failed")

@@ -491,6 +491,67 @@ def _int8_adam_trainer(gen, tmp_path, monkeypatch, block):
     return counts
 
 
+def test_trainer_fed_by_the_master_on_the_card(gen, tmp_path, monkeypatch):
+    """The port's LocalJobMaster, its client and an ElasticDataset over
+    IndexShardingClient feed two Trainer steps of a small Llama on the
+    card: every sample read once, the dataset finished, the steps and
+    the model's size at the master, and the flash kernels launched as
+    the path calls them (forward twice a layer and microbatch under
+    remat "full", each backward once), all on their wgmma variants."""
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.master.master import LocalJobMaster
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.trainer.elastic.data import ElasticDataset
+    from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
+    from dlrover_tpu_torch.trainer.trainer import Trainer, TrainingArguments
+
+    monkeypatch.setenv("DLROVER_TPU_RUNTIME_METRICS_PATH",
+                       str(tmp_path / "runtime.json"))
+    monkeypatch.setenv("DLROVER_TPU_CHIP_METRICS_PATH",
+                       str(tmp_path / "chip.json"))
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=2, n_kv_heads=1,
+                                  mlp_dim=512, vocab_size=512,
+                                  attn_impl="auto", remat=True)
+    et = ElasticTrainer(
+        lambda g: tllama.init_params(cfg, g, dtype=torch.float32),
+        lambda p, b: tllama.loss_fn(cfg, p, b),
+        lambda params: torch.optim.AdamW(params, lr=1e-3),
+        global_batch_size=4, max_per_replica_batch=2,
+    )
+    rows = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             size=(8, 129))
+    read = []
+
+    def read_sample(i):
+        read.append(i)
+        return {"tokens": rows[i]}
+
+    master = LocalJobMaster(num_nodes=1, poll_interval=0.05)
+    master.start()
+    client = MasterClient(master.addr, node_id=0)
+    try:
+        client.register_node(rank=0)
+        ds = ElasticDataset("rows", len(rows), 4, read_sample,
+                            master_client=client)
+        state = et.init_state(gen)
+        _build.reset_launch_counts()
+        Trainer(et, TrainingArguments(max_steps=2, logging_steps=1,
+                                      resume=False),
+                train_data=ds.batches(4), master_client=client).train(state)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        assert sorted(read) == list(range(8))
+        assert master.servicer.task_manager.get_dataset("rows").finished()
+        assert master.servicer.speed_monitor.global_step == 2
+        per = cfg.n_layers * et.grad_accum * 2
+        assert counts["flash_fwd"] == counts["flash_fwd_wgmma"] == 2 * per
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert counts[name] == counts[name + "_wgmma"] == per
+    finally:
+        client.close()
+        master.stop()
+
+
 @pytest.mark.parametrize(
     "t,k,o,block",
     [(1, 256, 40, 256), (8, 512, 200, 256), (8, 4096, 1024, 256),

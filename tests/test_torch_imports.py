@@ -60,6 +60,50 @@ def test_fleet_module_scanned(rel):
     assert not [n for _, n in _imports(path) if _banned(n)]
 
 
+# the control plane's modules (master, client, transport, data pipeline)
+CONTROL = ("common/comm.py", "common/messages.py", "common/node.py",
+           "common/constants.py", "master/master.py", "master/servicer.py",
+           "master/status_flow.py", "master/node_manager.py",
+           "master/rendezvous.py", "master/shard/dataset_splitter.py",
+           "master/shard/task_manager.py", "master/monitor/speed_monitor.py",
+           "master/monitor/error_monitor.py", "master/elastic_ps.py",
+           "master/net_topology.py", "master/stats.py",
+           "agent/master_client.py", "trainer/elastic/data.py")
+
+
+@pytest.mark.parametrize("rel", CONTROL)
+def test_control_plane_module_scanned_and_grpc_free(rel):
+    path = ROOT / "dlrover_tpu_torch" / rel
+    assert path in FILES
+    names = [n for _, n in _imports(path)]
+    assert not [n for n in names if _banned(n)]
+    assert not [n for n in names if n == "grpc" or n.startswith("grpc.")]
+
+
+def test_every_module_imports_without_grpc():
+    """Every module of the port imports in a fresh interpreter where
+    `import grpc` fails (as on the card's machine, which has no grpc):
+    the port's master, client and transport run on the stdlib."""
+    import subprocess
+    import sys
+
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in FILES if p.parent != ROOT)
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['grpc'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sum(n.startswith('dlrover_tpu_torch') for n in sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[-1]) >= len(mods)
+
+
 def test_serving_exports_equal_jax():
     import dlrover_tpu.serving as jserving
     import dlrover_tpu_torch.serving as tserving

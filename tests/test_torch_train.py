@@ -431,12 +431,13 @@ def test_trainer_keeps_training_when_chip_metrics_cannot_be_written(
 
 
 def test_not_ported_options_raise(tmp_path, monkeypatch):
-    """What ROADMAP queue 1 has not ported raises: the control plane and
-    its checkpoint replica and Orbax format (item 9). Fused cross entropy
-    (item 5), checkpoint save and resume (item 8) and the named remat
-    policies (item 6), ported since, work: `resume` defaults to True as
-    in JAX, every policy name resolves, and a loss under "proj" equals
-    the plain one."""
+    """What ROADMAP queue 1 has not ported raises: a world change, the
+    checkpoint replica and the Orbax format (item 9). Fused cross
+    entropy (item 5), checkpoint save and resume (item 8), the named
+    remat policies (item 6) and the master client (ported since) work:
+    `resume` defaults to True as in JAX, a `master_client` reaches the
+    HangingDetector, every policy name resolves, and a loss under
+    "proj" equals the plain one."""
     from dlrover_tpu_torch.trainer.flash_checkpoint import (
         CheckpointEngine,
         OrbaxCheckpointer,
@@ -460,8 +461,10 @@ def test_not_ported_options_raise(tmp_path, monkeypatch):
     assert trainer.checkpointer is not None
     trainer.checkpointer.close()
     assert Trainer(et, TrainingArguments(resume=False)).checkpointer is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(et, TrainingArguments(resume=False), master_client=object())
+    client = object()
+    trainer = Trainer(et, TrainingArguments(resume=False),
+                      master_client=client)
+    assert trainer._mc is client and trainer._hang._mc is client
     with pytest.raises(NotImplementedError, match="item 9"):
         et.on_world_change(None)
     with pytest.raises(NotImplementedError, match="item 9"):
