@@ -238,6 +238,23 @@ Phases, one line each (any failure exits non-zero before the last line):
      in the launcher, the node check's isolated bench healthy, and a
      script exiting 5 under --max-restarts 1 making the launcher exit
      5; the time to recover in parts and each attempt's median step;
+  21c. train.dp: data-parallel training through the same launcher in
+     subprocesses. (a) One rank on NCCL (a world of one) with train's
+     config: losses within 1e-3 of train's (bit equality reported),
+     exact flash launches (all wgmma). (b) Two agents on this machine,
+     gloo by DLROVER_TPU_TORCH_DIST_BACKEND (NCCL refuses two ranks on
+     one card), the model cut to 1 layer, global batch 4 at 1 row a
+     replica: both ranks bit-equal after the init broadcast and every
+     step, losses within 1e-3 of a one-process run of the same model,
+     exact flash launches on each rank; then rank 1 leaves and rank 0,
+     in a world of one after on_world_change, keeps its params bit for
+     bit, doubles its grad_accum and takes 2 more steps. (c) On those
+     two ranks, the compressed collectives on a w_gate-sized f32
+     gradient a rank: every int8 payload byte-equal to the plain
+     quantize, every received payload's dequantize bit-equal to the
+     plain dequantize, the sums within JAX's tolerances (0.02 tree,
+     0.15 ring),
+     kernels 5 and 6 once a leaf or hop; step and collective times;
   22. train.int8_adam: the same workload from the same params and
      tokens with int8_adam (int8 block-quantized moments) in place of
      AdamW; the losses must be finite and fall, step 1's loss must
@@ -292,6 +309,8 @@ serve.int8 phases and phases 5a and 19a, no result line;
 train.master phases, no result line;
 `python3 chip_smoke.py --agent` the card, build, train and
 train.agent phases, no result line;
+`python3 chip_smoke.py --dp` the card, build, train and train.dp
+phases, no result line;
 `python3 chip_smoke.py --fleet` the card, build and serve.fleet phases,
 then part (a)'s traffic through one replica and through two with a 0.5
 ms thread switch interval (reported only), no result line.
@@ -3833,13 +3852,16 @@ def _smoke_out():
                         "smoke_out")
 
 
-def _train_setup(optimizer, fused_ce=False):
+def _train_setup(optimizer, fused_ce=False, n_layers=TRAIN_LAYERS,
+                 microbatch=TRAIN_MICROBATCH):
     """The train phases' model, ElasticTrainer over `optimizer` (a
     factory), batch and the generator to draw the params from next:
     every phase draws the tokens and then the params from one fixed
-    seed, so all start from the same point. The Trainer's step and
-    card metrics files are pointed into smoke_out/ beside this
-    script."""
+    seed, so all start from the same point (train.dp's two-rank run
+    cuts the depth to `n_layers` and the largest replica batch to
+    `microbatch`). The ElasticTrainer trains over the world this
+    process joined, if any. The Trainer's step and card metrics files
+    are pointed into smoke_out/ beside this script."""
     import os
 
     from dlrover_tpu_torch.models import llama
@@ -3850,8 +3872,7 @@ def _train_setup(optimizer, fused_ce=False):
         out, "runtime_metrics.json")
     os.environ["DLROVER_TPU_CHIP_METRICS_PATH"] = os.path.join(
         out, "chip_metrics.json")
-    cfg = llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS,
-                                      fused_ce=fused_ce)
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=n_layers, fused_ce=fused_ce)
     assert cfg.remat and cfg.remat_policy == "full"
     gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     tokens = torch.randint(0, cfg.vocab_size,
@@ -3862,7 +3883,7 @@ def _train_setup(optimizer, fused_ce=False):
         lambda p, b: llama.loss_fn(cfg, p, b),
         optimizer,
         global_batch_size=TRAIN_GLOBAL_BATCH,
-        max_per_replica_batch=TRAIN_MICROBATCH,
+        max_per_replica_batch=microbatch,
     )
     return cfg, et, tokens, gen
 
@@ -5222,6 +5243,484 @@ def phase_train_agent(train, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+DP_LAYERS = 1                     # (b): 1.27 B params, ~24 GB a rank
+DP_MICROBATCH = 1                 # (b): accum 2 of one row a rank
+DP_STEPS = 4                      # (b): steps in the world of two
+DP_MORE_STEPS = 2                 # (b): steps after the world change
+DP_COLL_SEED = TRAIN_SEED + 7     # (c): rank r's gradient from seed + r
+DP_COLL_SHAPE = (14336, 4096)     # (c): one w_gate, f32
+DP_COLL_BLOCK = 256
+DP_COLL_REPS = 3
+DP_TREE_REL_TOL = 0.02            # tests/test_compute_path.py:189-206
+DP_RING_REL_TOL = 0.15
+DP_TIMEOUT_S = 600                # each launcher's wall-time limit
+
+# The worker each agent of train.dp supervises. Mode "a": one rank on
+# NCCL, the train phase's config through chip_smoke's _run_trainer.
+# Mode "b": rank 0 or 1 of a gloo world on the one card (the agents'
+# env sets DLROVER_TPU_TORCH_DIST_BACKEND=gloo): the 1-layer model for
+# DP_STEPS steps, then (c) the compressed collectives, then rank 1
+# leaves and rank 0 goes on alone in a world of one after
+# on_world_change. One JSON line an event to events_<mode>_<rank>.jsonl.
+DP_WORKER = '''\
+import json, os, sys, time
+OUT = os.environ["DP_SMOKE_OUT"]
+MODE = os.environ["DP_SMOKE_MODE"]
+import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_leaves
+
+import dlrover_tpu_torch
+from dlrover_tpu_torch import runtime
+from dlrover_tpu_torch.common.messages import find_free_port
+from dlrover_tpu_torch.ops import _build
+from dlrover_tpu_torch.ops import quantization as Q
+
+ctx = dlrover_tpu_torch.init()
+if MODE == "a":
+    # one node: init() joins no world; a world of one rank on NCCL
+    runtime.join_world(os.environ["DLROVER_TPU_COORDINATOR_ADDR"], 1, 0)
+RANK, WORLD = dist.get_rank(), dist.get_world_size()
+FD = os.open(os.path.join(OUT, f"events_{MODE}_{RANK}.jsonl"),
+             os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
+
+
+def event(name, **kw):
+    line = dict(event=name, rank=RANK, t=time.time(), **kw)
+    os.write(FD, (json.dumps(line, default=float) + "\\n").encode())
+
+
+event("init", world=WORLD, backend=dist.get_backend(),
+      device=str(runtime.device()),
+      prebuilt={n: _build.library_path(n).exists()
+                for n in ("flash_fwd", "flash_bwd", "quant_int8",
+                          "dequant_int8")})
+import chip_smoke as cs
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def checksums(state):
+    """Per param leaf: the sum of its 32-bit words (int64) and of its
+    values (f64), on the host."""
+    out = []
+    for t in tree_leaves(state["params"]):
+        t = t.detach()
+        out.append([float(t.view(torch.int32).sum(dtype=torch.int64)),
+                    float(t.double().sum())])
+    return torch.tensor(out, dtype=torch.float64)
+
+
+def same_on_both(cs_t):
+    got = [torch.empty_like(cs_t) for _ in range(WORLD)]
+    dist.all_gather(got, cs_t)
+    return all(torch.equal(g, got[0]) for g in got)
+
+
+def steps(et, state, tokens, n, tag):
+    losses, times, equal = [], [], []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = et.step(state, {"tokens": tokens})
+        losses.append(float(m["loss"]))
+        torch.cuda.current_stream().synchronize()
+        times.append(time.perf_counter() - t0)
+        if WORLD > 1:
+            equal.append(same_on_both(checksums(state)))
+    event(tag, losses=losses, step_s=times, bit_equal=equal,
+          launches=_build.launch_counts(), grad_accum=et.grad_accum,
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return state
+
+
+if MODE == "a":
+    cfg, et, tokens, gen = cs._train_setup(cs._adamw)
+    state = et.init_state(gen)
+    e2e = cs._run_trainer(cfg, et, state, tokens, "train.dp.a")
+    event("trained", **{k: v for k, v in e2e.items() if k != "last_logs"})
+    dlrover_tpu_torch.shutdown()
+    sys.exit(0)
+
+cfg, et, tokens, gen = cs._train_setup(cs._adamw, n_layers=cs.DP_LAYERS,
+                                       microbatch=cs.DP_MICROBATCH)
+torch.cuda.reset_peak_memory_stats()
+state = et.init_state(gen)
+event("model", grad_accum=et.grad_accum, replicas=et.plan["num_replicas"],
+      init_equal=same_on_both(checksums(state)))
+state = steps(et, state, tokens, cs.DP_STEPS, "world2")
+
+# (c): the compressed collectives on this rank's gradient-sized tensor
+def contribution(rank):
+    g = torch.Generator(device="cuda").manual_seed(cs.DP_COLL_SEED + rank)
+    return torch.randn(cs.DP_COLL_SHAPE, generator=g, device="cuda")
+
+grad = contribution(RANK)
+sent, received = [], []
+quantize_any, dequantize_int8 = Q.quantize_any, Q.dequantize_int8
+
+
+def recording(x, block=Q.DEFAULT_BLOCK):
+    out = quantize_any(x, block)
+    sent.append((x.clone(), out[0].clone(), out[1].clone()))
+    return out
+
+
+def recording_dequantize(q, s, out_dtype=torch.float32):
+    out = dequantize_int8(q, s, out_dtype)
+    received.append((q.clone(), s.clone(), out_dtype, out.clone()))
+    return out
+
+
+coll = {}
+for name, fn in (("tree", lambda: Q.quantized_all_reduce_tree(
+                     {"w": grad}, block=cs.DP_COLL_BLOCK)["w"]),
+                 ("ring", lambda: Q.quantized_reduce_scatter(
+                     grad, block=cs.DP_COLL_BLOCK))):
+    Q.quantize_any, Q.dequantize_int8 = recording, recording_dequantize
+    torch.cuda.synchronize()
+    dist.barrier()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    Q.quantize_any, Q.dequantize_int8 = quantize_any, dequantize_int8
+    times = []
+    for _ in range(cs.DP_COLL_REPS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wire = sent[:]
+    sent.clear()
+    # each payload against the plain quantize of the tensor it was made
+    # of, on the same inputs (the plain version launches no kernel)
+    payload_equal = []
+    for x, q, s in wire:
+        flat = x.reshape(1, -1)
+        pad = (-flat.numel()) % cs.DP_COLL_BLOCK
+        flat = torch.nn.functional.pad(flat, (0, pad))
+        pq, ps = Q._quantize_plain(flat, cs.DP_COLL_BLOCK)
+        payload_equal.append(torch.equal(pq, q) and torch.equal(ps, s))
+    # each received payload's kernel 6 output against the plain
+    # dequantize of the same payload: both give the JAX kernel's bits
+    dequant_equal = [torch.equal(Q._dequantize_plain(q, s, dt), out)
+                     for q, s, dt, out in received]
+    dequant_shapes = [list(q.shape) for q, _, _, _ in received]
+    received.clear()
+    total = contribution(0) + contribution(1)
+    if name == "ring":
+        c = total.shape[0] // WORLD
+        total = total[RANK * c:(RANK + 1) * c]
+    rel = float((result - total).abs().max() / total.abs().max())
+    coll[name] = dict(rel_err=rel, payload_equal=payload_equal,
+                      dequant_equal=dequant_equal,
+                      dequant_shapes=dequant_shapes,
+                      hops=len(wire), launches=launches, first_s=first_s,
+                      times_s=times, median_s=sorted(times)[len(times) // 2],
+                      payload_bytes=sum(q.numel() + s.numel() * 4
+                                        for _, q, s in wire))
+    del result, total
+event("collectives", **coll)
+del grad
+
+# the world changes: rank 1 leaves, rank 0 goes on alone
+before = checksums(state)
+dist.barrier()
+dlrover_tpu_torch.shutdown()
+if RANK == 1:
+    event("left")
+    sys.exit(0)
+accum = et.grad_accum
+runtime.join_world(f"127.0.0.1:{find_free_port()}", 1, 0)
+WORLD = dist.get_world_size()
+t0 = time.perf_counter()
+state = et.on_world_change(state)
+event("world_change", world=WORLD, backend=dist.get_backend(),
+      grad_accum_before=accum, grad_accum=et.grad_accum,
+      replicas=et.plan["num_replicas"],
+      params_equal=bool(torch.equal(before, checksums(state))),
+      seconds=time.perf_counter() - t0)
+state = steps(et, state, tokens, cs.DP_MORE_STEPS, "world1")
+dlrover_tpu_torch.shutdown()
+'''
+
+
+def _dp_launch(root, args, mode, extra_env=None):
+    """The port's launcher on `args` in a subprocess, train.dp's worker
+    under it in `mode`."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DLROVER_TPU_FORCE_CPU", "DLROVER_TPU_JOB_NAME",
+                        "DLROVER_TPU_TORCH_DIST_BACKEND")}
+    pp = env.get("PYTHONPATH", "")
+    env.update(PYTHONPATH=repo + (os.pathsep + pp if pp else ""),
+               DP_SMOKE_OUT=root, DP_SMOKE_MODE=mode,
+               DLROVER_TPU_RUNTIME_METRICS_PATH=os.path.join(
+                   root, f"runtime_metrics_{mode}.json"),
+               DLROVER_TPU_CHIP_METRICS_PATH=os.path.join(
+                   root, f"chip_metrics_{mode}.json"),
+               **(extra_env or {}))
+    return subprocess.Popen(
+        [sys.executable, "-m", "dlrover_tpu_torch.trainer.elastic_run",
+         *args, os.path.join(root, "worker.py")], env=env, cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _dp_wait(procs, root, what):
+    """Wait for the launchers (killing them past DP_TIMEOUT_S); raise
+    with their output and their workers' logs unless all exit 0."""
+    import glob
+    import os
+
+    out = []
+    try:
+        for p in procs:
+            text = p.communicate(timeout=DP_TIMEOUT_S)[0]
+            out.append((p.returncode, text[-3000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rc != 0 for rc, _ in out):
+        workers = {os.path.relpath(f, root): _tail(f, 3000) for f in
+                   sorted(glob.glob(os.path.join(root, "logs_*", "*.log")))}
+        raise AssertionError(f"train.dp {what}: launchers {out}\n"
+                             f"workers {workers}")
+
+
+def _dp_events(root, mode, rank):
+    import os
+
+    path = os.path.join(root, f"events_{mode}_{rank}.jsonl")
+    with open(path) as f:
+        found = {}
+        for line in f:
+            e = json.loads(line)
+            found[e["event"]] = e
+    return found
+
+
+def _dp_reference(n_steps):
+    """The (b) model, params and tokens in this process, with no world:
+    one replica, accum TRAIN_GLOBAL_BATCH of one row; the losses of
+    `n_steps` steps."""
+    cfg, et, tokens, gen = _train_setup(_adamw, n_layers=DP_LAYERS,
+                                        microbatch=DP_MICROBATCH)
+    state = et.init_state(gen)
+    losses = []
+    for _ in range(n_steps):
+        state, m = et.step(state, {"tokens": tokens})
+        losses.append(float(m["loss"]))
+    grad_accum = et.grad_accum
+    del state, et
+    torch.cuda.empty_cache()
+    return losses, grad_accum
+
+
+def phase_train_dp(train, smi):
+    """Data-parallel training through the launcher a user runs (`python
+    -m dlrover_tpu_torch.trainer.elastic_run`, in subprocesses), every
+    rank on kernels 1-3, and the compressed collectives on kernels 5
+    and 6 over a real world of two ranks.
+
+    (a) `--nnodes 1`: the worker joins a world of one rank on NCCL and
+    runs the train phase's config (Llama-3-8B widths, 4 layers, global
+    batch 4 in microbatches of 2, 8 steps, the same seed) through
+    Trainer over ElasticTrainer over accelerate's reduced step. Checks:
+    every loss within TRAIN_LOSS_REL_TOL of train's (bit equality
+    reported: an all-reduce over one rank is a copy, and the weighted
+    sums are the one-process step's), flash launches by the train
+    formula, all wgmma, backend nccl.
+
+    (b) Two agents on this machine (`--nnodes 2`, node 0 hosting the
+    master at --master-addr's port), DLROVER_TPU_TORCH_DIST_BACKEND=gloo
+    (NCCL refuses two ranks on one card): the 1-layer model (1.27 B
+    params, ~24 GB a rank), global batch 4 at most 1 row a replica,
+    so each rank runs accum 2 of one row, DP_STEPS steps. Checks: both
+    ranks' params bit-equal after the init broadcast and each step (a
+    checksum all-gather), every loss within TRAIN_LOSS_REL_TOL of a
+    one-process run of the same model on the same global batch, flash
+    launches by the formula on each rank. Then rank 1 leaves, rank 0
+    joins a world of one and calls on_world_change: params bit-equal
+    across it, grad_accum doubled, DP_MORE_STEPS more steps with
+    finite, falling losses within the tolerance of the one-process
+    run's at those steps. The gloo all-reduce of ~5 GB a step goes
+    through the host: the step time is reported, it measures nothing
+    of the card.
+
+    (c) On the same two ranks, before the change: each rank's f32
+    gradient the size of w_gate from a seed per rank through
+    quantized_all_reduce_tree and quantized_reduce_scatter (block
+    256). Checks: every int8 payload and its scales byte-equal to the
+    plain quantize of the tensor it was made of, kernel 6's output on
+    every received payload ([2, L] in the tree, [1, L/2] in the ring's
+    hop) bit-equal to the plain dequantize of it, the sums within JAX's
+    tolerances of the f32 sum (0.02 tree, 0.15 ring, of the largest
+    |value|), kernels 5 and 6 launched once a leaf (tree) and once a
+    hop (ring) on each rank. Times reported.
+
+    Launches are counted in the workers, set to 0 just before each
+    driven path and read just after."""
+    import os
+    import shutil
+
+    from dlrover_tpu_torch.agent.ckpt_saver import shm_segment_paths
+    from dlrover_tpu_torch.common.messages import find_free_port
+
+    t_phase = time.perf_counter()
+    root = os.path.join(_smoke_out(), f"dp-{os.getpid()}")
+    jobs = [f"chip-smoke-dp-{os.getpid()}-{x}" for x in ("a", "b0", "b1")]
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "worker.py"), "w") as f:
+        f.write(DP_WORKER)
+    try:
+        # (a)
+        t0 = time.perf_counter()
+        _dp_wait([_dp_launch(root, [
+            "--nnodes", "1", "--max-restarts", "0", "--job-name", jobs[0],
+            "--log-dir", os.path.join(root, "logs_a")], "a")], root, "(a)")
+        a_wall = time.perf_counter() - t0
+        ea = _dp_events(root, "a", 0)
+        a = ea["trained"]
+        ref = train["losses"]
+        a_err = [abs(x - y) / abs(y) for x, y in zip(a["losses"], ref)]
+
+        # the one-process run (b) is held to
+        t0 = time.perf_counter()
+        ref_b, ref_accum = _dp_reference(DP_STEPS + DP_MORE_STEPS)
+        ref_s = time.perf_counter() - t0
+
+        # (b) and (c)
+        port = find_free_port()
+        t0 = time.perf_counter()
+        procs = [_dp_launch(root, [
+            "--nnodes", "2", "--node-id", str(n), "--max-restarts", "0",
+            "--master-addr", f"127.0.0.1:{port}", "--job-name", jobs[1 + n],
+            "--log-dir", os.path.join(root, f"logs_b{n}")], "b",
+            {"DLROVER_TPU_TORCH_DIST_BACKEND": "gloo"}) for n in (0, 1)]
+        _dp_wait(procs, root, "(b)")
+        b_wall = time.perf_counter() - t0
+        eb = [_dp_events(root, "b", r) for r in (0, 1)]
+        per_pass = DP_LAYERS * eb[0]["world2"]["grad_accum"] * DP_STEPS
+        want2 = dict(flash_fwd=2 * per_pass, flash_bwd_dq=per_pass,
+                     flash_bwd_dkv=per_pass)
+        wc = eb[0]["world_change"]
+        per_pass1 = DP_LAYERS * wc["grad_accum"] * DP_MORE_STEPS
+        want1 = dict(flash_fwd=2 * per_pass1, flash_bwd_dq=per_pass1,
+                     flash_bwd_dkv=per_pass1)
+        b_losses = [e["world2"]["losses"] for e in eb]
+        after = eb[0]["world1"]["losses"]
+        b_err = [abs(x - y) / abs(y) for x, y in
+                 zip(b_losses[0] + after, ref_b)]
+        coll = [e["collectives"] for e in eb]
+
+        def flash_ok(launches, want):
+            return (all(launches[k] == v for k, v in want.items())
+                    and all(launches[f"{k}_wgmma"] == launches[k]
+                            for k in want))
+
+        checks = dict(
+            a_losses_within_tol=len(a["losses"]) == TRAIN_STEPS
+            and all(e <= TRAIN_LOSS_REL_TOL for e in a_err),
+            a_backend_nccl=ea["init"]["backend"] == "nccl"
+            and ea["init"]["world"] == 1,
+            a_launches=flash_ok(a["launches"], dict(
+                flash_fwd=2 * TRAIN_LAYERS * a["grad_accum"] * TRAIN_STEPS,
+                flash_bwd_dq=TRAIN_LAYERS * a["grad_accum"] * TRAIN_STEPS,
+                flash_bwd_dkv=TRAIN_LAYERS * a["grad_accum"] * TRAIN_STEPS)),
+            b_backend_gloo=all(e["init"]["backend"] == "gloo"
+                               and e["init"]["world"] == 2 for e in eb),
+            b_accum_2_of_one_row=all(e["model"]["grad_accum"] == 2
+                                     and e["model"]["replicas"] == 2
+                                     for e in eb),
+            b_init_bit_equal=all(e["model"]["init_equal"] for e in eb),
+            b_bit_equal_every_step=all(
+                e["world2"]["bit_equal"] == [True] * DP_STEPS for e in eb),
+            b_ranks_same_losses=b_losses[0] == b_losses[1],
+            b_losses_within_tol=all(e <= TRAIN_LOSS_REL_TOL
+                                    for e in b_err[:DP_STEPS]),
+            b_launches=all(flash_ok(e["world2"]["launches"], want2)
+                           for e in eb),
+            change_params_bit_equal=wc["params_equal"],
+            change_accum_doubled=wc["grad_accum"]
+            == 2 * wc["grad_accum_before"] and wc["world"] == 1,
+            change_losses=len(after) == DP_MORE_STEPS
+            and bool(np.all(np.isfinite(after))) and after[-1] < after[0]
+            and all(e <= TRAIN_LOSS_REL_TOL for e in b_err[DP_STEPS:]),
+            change_launches=flash_ok(eb[0]["world1"]["launches"], want1),
+            rank1_left="left" in eb[1],
+            c_payloads_byte_equal=all(
+                all(c[k]["payload_equal"]) and c[k]["hops"] == 1
+                for c in coll for k in ("tree", "ring")),
+            c_dequant_bit_equal=all(
+                c[k]["dequant_equal"] == [True]
+                and c[k]["dequant_shapes"][0][0] == rows
+                for c in coll for k, rows in (("tree", 2), ("ring", 1))),
+            c_tree_within_tol=all(c["tree"]["rel_err"] < DP_TREE_REL_TOL
+                                  for c in coll),
+            c_ring_within_tol=all(c["ring"]["rel_err"] < DP_RING_REL_TOL
+                                  for c in coll),
+            c_launches=all(c[k]["launches"]["quant_int8"] == 1
+                           and c[k]["launches"]["dequant_int8"] == 1
+                           for c in coll for k in ("tree", "ring")),
+            libraries_prebuilt=all(
+                all(e["init"]["prebuilt"].values()) for e in [ea] + eb),
+        )
+        out = dict(
+            nvidia_smi=smi,
+            a=dict(losses=a["losses"], train_losses=ref,
+                   loss_rel_err=a_err, bit_equal_to_train=a["losses"] == ref,
+                   median_step_s=a["median_step_s"],
+                   train_median_step_s=train["median_step_s"],
+                   peak_mem_gb=a["peak_mem_gb"], launches=a["launches"],
+                   grad_accum=a["grad_accum"], backend=ea["init"]["backend"],
+                   launcher_wall_s=a_wall),
+            b=dict(losses=b_losses, after_change=after, reference=ref_b,
+                   reference_grad_accum=ref_accum, reference_s=ref_s,
+                   loss_rel_err=b_err,
+                   bit_equal_to_reference=b_losses[0] + after == ref_b,
+                   step_s=[e["world2"]["step_s"] for e in eb],
+                   step_s_after_change=eb[0]["world1"]["step_s"],
+                   peak_mem_gb=[e["world2"]["peak_mem_gb"] for e in eb],
+                   launches=[e["world2"]["launches"] for e in eb],
+                   launches_after_change=eb[0]["world1"]["launches"],
+                   world_change=wc, launchers_wall_s=b_wall),
+            c=dict(shape=list(DP_COLL_SHAPE), block=DP_COLL_BLOCK,
+                   ranks=coll),
+            phase_s=time.perf_counter() - t_phase,
+            checks=checks,
+        )
+        # every launch of the phase's driven paths, kernel by kernel
+        out["launches"] = {
+            k: a["launches"].get(k, 0)
+            + sum(e["world2"]["launches"].get(k, 0) for e in eb)
+            + eb[0]["world1"]["launches"].get(k, 0)
+            + sum(c[p]["launches"].get(k, 0) for c in coll
+                  for p in ("tree", "ring"))
+            for k in a["launches"]}
+        log("train.dp", **out)
+        if not all(checks.values()):
+            raise AssertionError(
+                f"train.dp: failed checks "
+                f"{[c for c, ok in checks.items() if not ok]}")
+        return out
+    finally:
+        for j in jobs:
+            for path in shm_segment_paths(j):
+                if os.path.exists(path):
+                    os.unlink(path)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # train.remat: (cfg.remat_policy, Strategy.remat) of each run; policy
 # "none" runs with cfg.remat off, no checkpoint at all (under cfg.remat
 # the model checkpoints "none" as "full", as JAX's does)
@@ -5587,6 +6086,10 @@ def main():
         phase_train_agent(phase_train(), smi)
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
+    if "--dp" in args:
+        phase_train_dp(phase_train(), smi)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
+        return 0
     if "--fleet" in args:
         cfg = llama.LlamaConfig.llama3_8b()
         params = llama.init_params(cfg, gen)
@@ -5649,6 +6152,7 @@ def main():
     ckpt = phase_train_ckpt(train)
     master_run = phase_train_master(train, smi)
     agent_run = phase_train_agent(train, smi)
+    dp_run = phase_train_dp(train, smi)
     train_int8 = phase_train_int8(train)
     remat_runs = phase_train_remat()
     phase_fp8_dot(gen)
@@ -5673,6 +6177,7 @@ def main():
                      "train.master.resume":
                          master_run["launches_resume"]["flash_fwd"],
                      "train.agent": agent_run["launches"]["flash_fwd"],
+                     "train.dp": dp_run["launches"]["flash_fwd"],
                      "train.int8_adam": train_int8["launches"]["flash_fwd"],
                      **{path: r["launches"]["flash_fwd"]
                         for path, r in remat_paths.items()}}
@@ -5682,6 +6187,7 @@ def main():
                           "train.master.resume":
                               master_run["launches_resume"][name],
                           "train.agent": agent_run["launches"][name],
+                          "train.dp": dp_run["launches"][name],
                           "train.int8_adam": train_int8["launches"][name],
                           **{path: r["launches"][name]
                              for path, r in remat_paths.items()}}
@@ -5698,7 +6204,8 @@ def main():
                      **{path: adapter_runs[path]["launches"]["quant_int8"]
                         for path in ("serve.adapters.int8",
                                      "serve.refresh.int8")},
-                     "train.int8_adam": train_int8["launches"]["quant_int8"]}
+                     "train.int8_adam": train_int8["launches"]["quant_int8"],
+                     "train.dp": dp_run["launches"]["quant_int8"]}
     dqmm_paths = {"serve.int8": e2e_int8,
                   "serve.int8_stochastic": e2e_stoch,
                   "serve.spec.int8": e2e_spec_int8,
@@ -5793,9 +6300,11 @@ def main():
         dict(name="dequantize_int8", route="cuda",
              source="dlrover_tpu_torch/csrc/dequant_int8.cu",
              replaces="dlrover_tpu/ops/quantization.py:55",
-             launches=train_int8["launches"]["dequant_int8"],
+             launches=train_int8["launches"]["dequant_int8"]
+             + dp_run["launches"]["dequant_int8"],
              launches_by_path={
-                 "train.int8_adam": train_int8["launches"]["dequant_int8"]},
+                 "train.int8_adam": train_int8["launches"]["dequant_int8"],
+                 "train.dp": dp_run["launches"]["dequant_int8"]},
              **{k: main_dequant[k] for k in keys},
              shape="[1, 525336576] int8 -> f32, block 256 (the embedding's "
                    "moment as the int8 AdamW holds it)",

@@ -4,8 +4,15 @@ counterpart of examples/train_tiny_llama.py.
 A small model trained through the full stack: `python -m
 dlrover_tpu_torch.trainer.elastic_run` starts a master and an agent,
 the agent supervises this script, and this script trains a tiny Llama
-with `accelerate()` on the card (on the CPU under
+with an `ElasticTrainer` on the card (on the CPU under
 DLROVER_TPU_FORCE_CPU=1), reporting steps so the agent can relay them.
+Under `--nnodes N` (N agents, one worker each) the workers join one
+`torch.distributed` world and train data-parallel: each takes its rows
+of the same global batch of 8, and one all-reduce a step keeps their
+states equal. Two agents on one machine, on the CPU:
+
+    python -m dlrover_tpu_torch.trainer.elastic_run --nnodes 2 \
+        --node-id 0 ... (one agent per rank; see README.md)
 
 Flags:
   --steps N          training steps (default 30)
@@ -35,8 +42,8 @@ def main():
     from dlrover_tpu_torch.agent.monitor import write_step_metrics
     from dlrover_tpu_torch.common.constants import NodeEnv
     from dlrover_tpu_torch.models import llama
-    from dlrover_tpu_torch.parallel.accelerate import Strategy, accelerate
-    from dlrover_tpu_torch.utils.platform import ensure_cpu_if_forced
+    from dlrover_tpu_torch import runtime
+    from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
 
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=30)
@@ -44,25 +51,29 @@ def main():
     p.add_argument("--ckpt-dir", default=None)
     args = p.parse_args()
 
-    device = ensure_cpu_if_forced()
     restart_count = int(os.environ.get(NodeEnv.RESTART_COUNT, "0"))
     # join the world the agent rendezvoused for us (no-op on single-node
     # runs); installs the membership watch so this process restarts
     # itself when the world changes
-    dlrover_tpu_torch.init()
+    ctx = dlrover_tpu_torch.init()
+    device = runtime.device()
     cfg = llama.LlamaConfig.tiny()
-    acc = accelerate(
-        init_params=lambda g: llama.init_params(cfg, g, device=device),
-        loss_fn=lambda pm, b: llama.loss_fn(cfg, pm, b),
-        optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-2),
-        strategy=Strategy(device=device),
+    # the global batch of 8 split over the world's ranks (every rank
+    # draws the same params and tokens from the same seeds)
+    et = ElasticTrainer(
+        lambda g: llama.init_params(cfg, g, device=device),
+        lambda pm, b: llama.loss_fn(cfg, pm, b),
+        lambda ps: torch.optim.Adam(ps, lr=1e-2),
+        global_batch_size=8, max_per_replica_batch=8, device=device,
     )
-    state = acc.init(torch.Generator(device=device).manual_seed(0))
+    print(f"world {et.acc.world_size} rank {et.acc.rank} backend "
+          f"{ctx.backend or 'none'} grad_accum {et.grad_accum}", flush=True)
+    state = et.init_state(torch.Generator(device=device).manual_seed(0))
     tokens = torch.randint(
         0, cfg.vocab_size, (8, 33), device=device,
         generator=torch.Generator(device=device).manual_seed(1),
     )
-    batch = acc.place_batch({"tokens": tokens})
+    batch = {"tokens": tokens}
 
     ckpt = None
     start_step = 0
@@ -85,7 +96,7 @@ def main():
         if step == args.crash_at_step and restart_count == 0:
             print(f"[demo] injected crash at step {step}", flush=True)
             os._exit(17)
-        state, metrics = acc.train_step(state, batch)
+        state, metrics = et.step(state, batch)
         loss = float(metrics["loss"])
         if first_loss is None:
             first_loss = loss

@@ -1,17 +1,18 @@
 """int8 block quantization: CUDA kernels for Hopper (csrc/quant_int8.cu,
 csrc/dequant_int8.cu, csrc/dqmm.cu) and their plain PyTorch versions.
 
-Counterpart of dlrover_tpu/ops/quantization.py but for its compressed
-collectives: `quantize_int8` (the `_quant_kernel`), `dequantize_int8`
-(the `_dequant_kernel`), `quantize_any` / `dequantize_any` (any shape,
-flattened and zero-padded to a block multiple: the int8 AdamW's
-moments), `stochastic_round_int8` (plain PyTorch, as JAX's is plain
-XLA), and for serving `QuantizedWeight`, `weight_quant_block`,
+Counterpart of dlrover_tpu/ops/quantization.py: `quantize_int8` (the
+`_quant_kernel`), `dequantize_int8` (the `_dequant_kernel`),
+`quantize_any` / `dequantize_any` (any shape, flattened and
+zero-padded to a block multiple: the int8 AdamW's moments),
+`stochastic_round_int8` (plain PyTorch, as JAX's is plain XLA), and
+for serving `QuantizedWeight`, `weight_quant_block`,
 `_dq_weight`, `quantized_matmul_reference`, `quantized_matmul` (the
-`_dqmm_kernel`) and `matmul_any`. The compressed collectives
-(`quantized_reduce_scatter`, `quantized_all_reduce_tree`) wait for the
-multi-GPU runtime. The JAX `block_m` argument is not taken: JAX ignores
-it too.
+`_dqmm_kernel`) and `matmul_any`; and the compressed collectives
+`quantized_reduce_scatter` and `quantized_all_reduce_tree` over a
+`torch.distributed` process group, whose int8 wire payloads kernels 5
+and 6 make and read. The JAX `block_m` argument is not taken: JAX
+ignores it too.
 
 Layout (as in the JAX package): a weight w [K, O] that activations
 contract over K is stored OUTPUT-MAJOR as q8 int8 [O, K] plus s8 f32
@@ -584,3 +585,123 @@ def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QuantizedWeight):
         return quantized_matmul(x, w)
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# compressed collectives (the quant_reduce equivalent)
+# ---------------------------------------------------------------------------
+#
+# JAX runs these inside shard_map over a mesh axis; here each rank of a
+# torch.distributed process group calls them with its own contribution.
+# The wire format is JAX's: the int8 payload and the f32 scales of
+# `quantize_any` (kernel 5 on the card), dequantized by kernel 6.
+
+
+def _group_or_world(group):
+    import torch.distributed as dist
+
+    if group is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "the compressed collectives need a torch.distributed world "
+                "(runtime.init() or init_process_group)")
+        group = dist.group.WORLD
+    return group
+
+
+def _ring_reduce_scatter_q(x: torch.Tensor, group, block: int
+                           ) -> torch.Tensor:
+    """Ring reduce-scatter with the int8 wire format (JAX
+    `_ring_reduce_scatter_q`): x [n_chunks * c, ...] is this rank's
+    input; returns this rank's reduced chunk [c, ...]. Each of the n-1
+    hops sends one quantized chunk to the next rank, which dequantizes
+    it and adds its own share of that chunk."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.runtime import wire_tensor
+
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    if x.shape[0] % n != 0:
+        raise ValueError(
+            f"ring reduce-scatter needs the local leading dim "
+            f"({x.shape[0]}) divisible by axis size ({n}); pad the "
+            "input (global leading dim must divide by n*n)"
+        )
+    chunks = x.shape[0] // n
+    nxt = dist.get_global_rank(group, (rank + 1) % n)
+    prv = dist.get_global_rank(group, (rank + n - 1) % n)
+
+    def chunk_at(i):
+        return x[i * chunks:(i + 1) * chunks]
+
+    # travelling-accumulator ring: rank r starts the accumulator for
+    # chunk (r-1); each hop the accumulator moves one rank forward and
+    # picks up that rank's local share, so after n-1 hops rank r holds
+    # the fully reduced chunk r
+    acc = chunk_at((rank + n - 1) % n)
+    for step in range(n - 1):
+        q, s, shape, pad = quantize_any(acc, block)
+        # under gloo a hop's payload travels through host copies
+        q, s = wire_tensor(q, group, p2p=True), wire_tensor(s, group, p2p=True)
+        rq, rs = torch.empty_like(q), torch.empty_like(s)
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, q, nxt, group),
+                dist.P2POp(dist.isend, s, nxt, group),
+                dist.P2POp(dist.irecv, rq, prv, group),
+                dist.P2POp(dist.irecv, rs, prv, group)]):
+            work.wait()
+        recv = dequantize_any(rq.to(x.device), rs.to(x.device), shape, pad)
+        idx = (rank + n - 2 - step) % n
+        acc = recv + chunk_at(idx)
+    return acc
+
+
+def quantized_reduce_scatter(
+    x: torch.Tensor, group=None, block: int = DEFAULT_BLOCK
+) -> torch.Tensor:
+    """Reduce-scatter over `group` (default: the world) with int8
+    payloads. Each rank passes its input [n*c, ...] (JAX's
+    `P(axis)`-sharded input's local shard) and gets its summed chunk
+    [c, ...], rank r chunk r."""
+    return _ring_reduce_scatter_q(x, _group_or_world(group), block)
+
+
+def quantized_all_reduce_tree(grads, group=None, block: int = DEFAULT_BLOCK):
+    """Compressed gradient all-reduce over a pytree of this rank's
+    contributions (JAX's leaf [n, ...] stacked over the mesh axis is
+    each rank's own leaf here). Each rank quantizes its leaf once (its
+    own scales), all-gathers the int8 payload and scales (1/4 the f32
+    wire bytes), dequantizes every contribution in one call and sums
+    them in f32. Returns the sum, the same on every rank. Every rank's
+    leaf must have the same shape (JAX's stacked leaf of the axis
+    size): ValueError otherwise, on every rank."""
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    group = _group_or_world(group)
+    n = dist.get_world_size(group)
+    leaves, spec = tree_flatten(grads)
+    shapes = [None] * n
+    dist.all_gather_object(shapes, [tuple(g.shape) for g in leaves],
+                           group=group)
+    for i, g in enumerate(leaves):
+        if any(s[i] != tuple(g.shape) for s in shapes):
+            raise ValueError(
+                f"leaf {i}: the ranks' contributions have shapes "
+                f"{[s[i] for s in shapes]}; each rank passes one of the "
+                "same shape")
+
+    def one(g):
+        q, s, shape, pad = quantize_any(g, block)
+        qg = [torch.empty_like(q) for _ in range(n)]
+        sg = [torch.empty_like(s) for _ in range(n)]
+        dist.all_gather(qg, q, group=group)
+        dist.all_gather(sg, s, group=group)
+        deq = dequantize_int8(torch.cat(qg), torch.cat(sg))
+        total = torch.sum(deq, dim=0)
+        if pad:
+            total = total[:-pad]
+        return total.reshape(shape)
+
+    return tree_unflatten([one(g) for g in leaves], spec)

@@ -12,10 +12,16 @@ The per-host agent exports the coordination env
 agent/training.py `_worker_env`) and `dlrover_tpu_torch.init()` consumes
 it: with more than one node it joins a `torch.distributed` world over
 TCP at the coordinator (the rank-0 agent's host and port), on gloo
-under DLROVER_TPU_FORCE_CPU=1 and on NCCL on the card; with one node it
-only records the context. A new rendezvous round means a fresh worker
-process (the agent restarts it), so `init()` is normally called once
-per process; `shutdown()` + `init()` re-inits in process.
+under DLROVER_TPU_FORCE_CPU=1 and on NCCL on the card (`device()`: the
+agent runs one worker a node, and a worker trains on one card); with
+one node it only records the context (`join_world` joins a world of
+one where a caller wants one). NCCL refuses two ranks on one card
+("Duplicate GPU detected"), so a world of several processes on a
+machine with one card (a test of the data-parallel path) needs gloo
+there: DLROVER_TPU_TORCH_DIST_BACKEND=gloo asks for it, and is logged;
+the backend never changes on its own. A new rendezvous round means a
+fresh worker process (the agent restarts it), so `init()` is normally
+called once per process; `shutdown()` + `init()` re-inits in process.
 
 Because workers cannot outlive their world (a peer's death leaves
 collectives hanging until a timeout fires), the worker also runs a
@@ -46,6 +52,8 @@ COMPILE_CACHE_ENV = "DLROVER_TPU_COMPILE_CACHE"
 # seconds a collective (and the world's join) may wait for a peer, so
 # a dead peer cannot hold a survivor for gloo's default 30 minutes
 DIST_TIMEOUT_SECS = 600.0
+# the one override of the backend: "gloo" on the card (see the module)
+DIST_BACKEND_ENV = "DLROVER_TPU_TORCH_DIST_BACKEND"
 
 
 class RuntimeContext:
@@ -118,9 +126,89 @@ def enable_compile_cache() -> Optional[str]:
 
 
 def _backend() -> str:
+    """gloo on the CPU, NCCL on the card, gloo on the card only where
+    DLROVER_TPU_TORCH_DIST_BACKEND=gloo asks for it."""
     from dlrover_tpu_torch.utils.platform import cpu_forced
 
+    want = os.environ.get(DIST_BACKEND_ENV, "")
+    if want:
+        if want != "gloo":
+            raise ValueError(
+                f"{DIST_BACKEND_ENV}={want!r}: the one override is 'gloo'")
+        if not cpu_forced():
+            logger.warning(
+                "%s=gloo: collectives on the card's tensors go through "
+                "gloo, not NCCL (several ranks on one card)",
+                DIST_BACKEND_ENV)
+        return "gloo"
     return "gloo" if cpu_forced() else "nccl"
+
+
+def wire_tensor(t, group, p2p: bool = False):
+    """The tensor a collective of `group` reads and writes for `t`, by
+    the group's backend: NCCL moves card tensors only, so a host tensor
+    (torch Adam keeps its step counts there) goes through a copy on the
+    card; gloo's all_reduce, broadcast and all_gather take tensors on
+    either device, but its send / recv (`p2p`) read a tensor's pointer
+    as host memory (torch 2.11's gloo fails on a card tensor with "Bad
+    address"), so a point-to-point payload goes through a host copy
+    (none where `t` is on the host already). Anything else is `t`."""
+    import torch
+    import torch.distributed as dist
+
+    backend = dist.get_backend(group)
+    if backend == "nccl" and t.device.type == "cpu":
+        return t.to(torch.device("cuda", torch.cuda.current_device()))
+    if backend == "gloo" and p2p:
+        return t.cpu()
+    return t
+
+
+def device():
+    """This worker's device: the CPU under DLROVER_TPU_FORCE_CPU=1, else
+    the card (one a worker), made the current CUDA device."""
+    import torch
+
+    from dlrover_tpu_torch.utils.platform import ensure_cpu_if_forced
+
+    dev = ensure_cpu_if_forced()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def join_world(addr: str, world_size: int, rank: int) -> RuntimeContext:
+    """`torch.distributed.init_process_group` over TCP at `addr`, on
+    `_backend()`, with DIST_TIMEOUT_SECS on the join and every
+    collective; what `init()` does for a job of several nodes, and what
+    a caller does for a world of one rank. The card is made the current
+    device first (NCCL's communicators bind to it)."""
+    import torch.distributed as dist
+
+    backend = _backend()
+    if backend == "nccl":
+        device()
+    logger.info(
+        "init_process_group(%s) coordinator=%s rank=%d/%d",
+        backend,
+        addr,
+        rank,
+        world_size,
+    )
+    dist.init_process_group(
+        backend=backend,
+        init_method=f"tcp://{addr}",
+        world_size=world_size,
+        rank=rank,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_SECS),
+    )
+    _ctx.initialized = True
+    _ctx.coordinator_addr = addr
+    _ctx.node_rank, _ctx.node_num = rank, world_size
+    _ctx.backend = backend
+    atexit.register(_shutdown_quietly)
+    return _ctx
 
 
 def init(
@@ -163,31 +251,11 @@ def init(
         os.environ.get("DLROVER_TPU_RDZV_ROUND", "0")
     )
     if num > 1 and addr:
-        import torch.distributed as dist
-
         if _ctx.initialized:
             if _ctx.coordinator_addr == addr and _ctx.node_num == num:
                 return _ctx  # idempotent
             shutdown()
-        backend = _backend()
-        logger.info(
-            "init_process_group(%s) coordinator=%s rank=%d/%d",
-            backend,
-            addr,
-            rank,
-            num,
-        )
-        dist.init_process_group(
-            backend=backend,
-            init_method=f"tcp://{addr}",
-            world_size=num,
-            rank=rank,
-            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_SECS),
-        )
-        _ctx.initialized = True
-        _ctx.coordinator_addr = addr
-        _ctx.backend = backend
-        atexit.register(_shutdown_quietly)
+        join_world(addr, num, rank)
     else:
         _ctx.initialized = False
         _ctx.coordinator_addr = None

@@ -17,8 +17,10 @@ Usage:
 
 import argparse
 import os
+import socket
 import sys
 import time
+from contextlib import closing
 from typing import List, Optional, Tuple
 
 from dlrover_tpu_torch.agent.training import ElasticLaunchConfig, launch_agent
@@ -82,6 +84,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _local_port(addr: str) -> int:
+    """The port of `addr` ("host:port") where its host is an address of
+    this machine (one a socket here can bind), else 0 (a free port): a
+    configured address without a port, with a port that is no number,
+    or naming another host (a stale MASTER_ADDR) gives 0."""
+    host, _, port = addr.rpartition(":")
+    if not host or not port.isdigit():
+        return 0
+    try:
+        with closing(socket.socket(
+                socket.AF_INET6 if ":" in host else socket.AF_INET)) as s:
+            s.bind((host.strip("[]"), 0))
+    except OSError:
+        return 0
+    return int(port)
+
+
 def _resolve_master(
     args, min_nodes: int, max_nodes: int, node_id: int
 ):
@@ -90,7 +109,11 @@ def _resolve_master(
     Reference `run` elastic_run.py:351: env/flag master wins if reachable;
     otherwise node 0 hosts a local master in-process (reference spawns a
     subprocess; in-process is equivalent and simpler to supervise since
-    the agent itself is already a daemon per host).
+    the agent itself is already a daemon per host). Node 0 binds that
+    master to the configured address's port where that address is this
+    machine's (`_local_port`; JAX's picks a free port), so the other
+    nodes' launchers, given the same --master-addr, find it: two agents
+    on one machine form a world of two that way.
     """
     addr = args.master_addr or os.environ.get(NodeEnv.MASTER_ADDR, "")
     if addr and addr_connected(addr):
@@ -111,6 +134,7 @@ def _resolve_master(
     from dlrover_tpu_torch.master.master import DistributedJobMaster
 
     master = DistributedJobMaster(
+        port=_local_port(addr),
         min_nodes=min_nodes,
         max_nodes=max_nodes,
         node_unit=args.node_unit,

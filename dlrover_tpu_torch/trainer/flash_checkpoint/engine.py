@@ -35,9 +35,15 @@ holds references to them), memory first, storage when shm is older or
 torn. With no agent on the host the engine runs the IPC server and the
 saver in-process (`local_saver`).
 
-Not ported: the peer replica (`replica_manager`, `CkptReplicaManager`
-needs the master's KV store) and the multi-host shard merge; both wait
-for the control plane and multi-GPU port (ROADMAP queue 1, item 9).
+With a `replica_manager` (`replica.CkptReplicaManager`) each staging is
+also shipped to the job master's KV store in the background, as in
+JAX: best-effort, one backup in flight and the newest parked behind it;
+a restore with an empty shm takes the replica before storage when it
+is at least as fresh. Storage restores a JAX checkpoint written by
+several processes (`#shard{proc}_{i}` keys, the shard table in each
+host's aux) by stitching every host's shards into the global array
+where they cover it; the port's own saves have plain keys, each rank's
+state being whole.
 """
 
 import contextlib
@@ -218,6 +224,82 @@ class _PlainUnpickler(pickle.Unpickler):
 
     def find_class(self, module, name):
         raise pickle.UnpicklingError(f"{module}.{name} is not a plain value")
+
+
+class _JaxAuxUnpickler(pickle.Unpickler):
+    """Reads a JAX aux for its plain values (paths, the shard table with
+    its slices): JAX's treedef, which needs jax to rebuild, loads as an
+    opaque value that runs nothing."""
+
+    def find_class(self, module, name):
+        if (module, name) == ("builtins", "slice"):
+            return slice
+        return _Opaque
+
+
+class _Opaque:
+    """Whatever a JAX aux pickles beside its plain values: built from
+    any arguments, holding nothing."""
+
+    def __new__(cls, *args, **kwargs):
+        return object.__new__(cls)
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+    def __call__(self, *args, **kwargs):
+        return _Opaque()
+
+
+def _jax_shards(raw: Optional[bytes]) -> Dict[str, Dict[str, Any]]:
+    """The shard table of a JAX aux ({path: {"shape", "dtype", "keys",
+    "indices"}}), {} for any other aux."""
+    if not raw:
+        return {}
+    try:
+        meta = _JaxAuxUnpickler(io.BytesIO(raw)).load()
+    except (pickle.UnpicklingError, EOFError, ValueError, TypeError,
+            AttributeError):
+        return {}
+    shards = meta.get("shards") if isinstance(meta, dict) else None
+    return shards if isinstance(shards, dict) else {}
+
+
+def _index_key(ix) -> tuple:
+    return tuple(
+        (s.start, s.stop, s.step) if isinstance(s, slice) else s
+        for s in ix
+    )
+
+
+def _stitch_shards(flat: Dict[str, np.ndarray],
+                   shards: Dict[str, Dict[str, Any]]) -> None:
+    """Replace each sharded leaf's `#shard` keys in `flat` by the global
+    array, in place (JAX `_reassemble_sharded`'s host stitch): only
+    where the distinct shard indices cover the shape, since stitching
+    some hosts' shards into zeros would make up a wrong array. The
+    port's state is whole on every rank, so it has no per-device
+    placement to fall back on: partial coverage raises JAX's
+    KeyError."""
+    for path, entry in shards.items():
+        present = [(k, ix) for k, ix in zip(entry["keys"], entry["indices"])
+                   if k in flat]
+        shape = tuple(entry["shape"])
+        total = int(np.prod(shape)) if shape else 1
+        seen = {_index_key(ix): flat[k].size for k, ix in present}
+        if not present or sum(seen.values()) < total:
+            raise KeyError(
+                f"cannot reassemble {path!r} on host: some shards were "
+                "staged on other hosts, and the port restores whole "
+                "arrays only"
+            )
+        out = np.zeros(shape, dtype=flat[present[0][0]].dtype)
+        for k, ix in present:
+            out[ix] = flat.pop(k)
+        flat[path] = out
 
 
 def _read_aux(raw: Optional[bytes]) -> Dict[str, Any]:
@@ -454,7 +536,11 @@ def unflatten_state(flat: Dict[str, np.ndarray], aux: Optional[bytes] = None,
     if target is not None:
         return train_state_from_numpy(target, flat, aux)
     dev = resolve_device(device)
-    dtypes = _read_aux(aux).get("dtypes", {})
+    meta = _read_aux(aux)
+    for path in meta.get("paths", ()):
+        if path not in flat:
+            raise KeyError(f"state leaf {path!r} missing from staged data")
+    dtypes = meta.get("dtypes", {})
     tree: Dict[str, Any] = {}
     for path, arr in flat.items():
         node = tree
@@ -483,15 +569,13 @@ class CheckpointEngine:
         replica_manager=None,
         max_to_keep: int = 0,
     ):
-        if replica_manager is not None:
-            raise NotImplementedError(
-                "the checkpoint replica (replica_manager) needs the "
-                "master's KV store, not ported yet (ROADMAP queue 1, "
-                "item 9); pass replica_manager=None"
-            )
         self.checkpoint_dir = checkpoint_dir
         # > 0: keep only the newest N committed step dirs
         self.max_to_keep = max_to_keep
+        self.replica_manager = replica_manager
+        self._replica_thread: Optional[threading.Thread] = None
+        self._backup_lock = threading.Lock()
+        self._pending_backup = None  # latest-wins parked backup
         self._staging_thread: Optional[threading.Thread] = None
         self._staging_error: Optional[BaseException] = None
         # what the last staging did (seconds in the staging thread from
@@ -499,8 +583,8 @@ class CheckpointEngine:
         self.last_staging_s = 0.0
         self.last_staged_bytes = 0
         self.pinned = False
-        # where the last `load` found its state: "memory", "storage" or
-        # None (nothing saved)
+        # where the last `load` found its state: "memory", "replica",
+        # "storage" or None (nothing saved)
         self.last_load_source: Optional[str] = None
         # on-device snapshot buffers, by path, reused by every async save
         self._snapshot: Dict[str, torch.Tensor] = {}
@@ -668,8 +752,56 @@ class CheckpointEngine:
                 stream.synchronize()
             self.shm_handler.publish(step, tensors, total,
                                      self.checkpoint_dir, aux)
+            flat = (self.shm_handler.load_flat_state()[1]
+                    if self.replica_manager is not None else None)
         self.last_staging_s = time.monotonic() - t0
         self.last_staged_bytes = total
+        if flat is not None:
+            self._queue_backup(step, flat, aux)
+
+    def _queue_backup(self, step: int, flat, aux: bytes) -> None:
+        """Ship the staged state to the replica in the background (the
+        reference backs up to a peer's shm asynchronously too). If the
+        previous backup is still in flight (a partition stalling its
+        RPCs, say), park this one in a latest-wins slot the backup
+        thread drains: never block the staging, never leave the replica
+        stale once the partition heals."""
+        with self._backup_lock:
+            if (self._replica_thread is None
+                    or not self._replica_thread.is_alive()):
+                self._pending_backup = None
+                self._replica_thread = threading.Thread(
+                    target=self._backup_drain, args=(step, flat, aux),
+                    name="ckpt-replica", daemon=True,
+                )
+                self._replica_thread.start()
+            else:
+                logger.info(
+                    "replica backup for step %d parked (previous still in "
+                    "flight; latest wins)", step,
+                )
+                self._pending_backup = (step, flat, aux)
+
+    def _backup_drain(self, step: int, flat, aux: bytes) -> None:
+        """Backup-thread body: ship the given state, then whatever newer
+        state was parked while shipping."""
+        while True:
+            try:
+                self.replica_manager.backup(step, flat, aux)
+            except Exception:  # noqa: BLE001 — replica is best-effort
+                logger.warning("replica backup for step %d failed", step,
+                               exc_info=True)
+            with self._backup_lock:
+                if self._pending_backup is None:
+                    # the exit decision and the saver's liveness check
+                    # share this lock: clear the slot here, so a save
+                    # racing this exit starts a fresh thread instead of
+                    # parking a backup nobody drains
+                    if self._replica_thread is threading.current_thread():
+                        self._replica_thread = None
+                    return
+                step, flat, aux = self._pending_backup
+                self._pending_backup = None
 
     def save_to_storage(self, step: int, state: Any) -> float:
         """Stage asynchronously and queue the persist once staged
@@ -703,29 +835,54 @@ class CheckpointEngine:
         self, step: Optional[int] = None, target: Any = None,
         device: DeviceLike = None,
     ) -> Tuple[int, Optional[Any]]:
-        """This host's files of `step` (default: the tracker's). One
-        host holds the whole state: the multi-host merge waits for the
-        multi-GPU port."""
+        """This host's files of `step` (default: the tracker's): each
+        rank's state is whole, so its own file holds all of it. A JAX
+        checkpoint written by several processes holds sharded leaves
+        (`#shard{proc}_{i}` keys): then every host's shard file and
+        shard table is read and each such leaf stitched whole (a
+        KeyError where the shards do not cover it)."""
         if step is None:
             step = read_tracker_step(self.storage, self.checkpoint_dir)
         if step < 0:
             return -1, None
         step_dir = os.path.join(self.checkpoint_dir, str(step))
-        blob = self.storage.read(
-            os.path.join(step_dir, f"host_{self.node_rank}.npz"))
+        own = f"host_{self.node_rank}.npz"
+        blob = self.storage.read(os.path.join(step_dir, own))
         if blob is None:
             return -1, None
         aux = self.storage.read(
             os.path.join(step_dir, f"aux_{self.node_rank}.pkl"))
         flat = _extract_npz(blob)
         del blob
+        shards = _jax_shards(aux)
+        if shards:
+            listing = self.storage.listdir(step_dir) or []
+            for name in sorted(listing):
+                if name.startswith("host_") and name.endswith(".npz") \
+                        and name != own:
+                    other = self.storage.read(os.path.join(step_dir, name))
+                    if other is not None:
+                        flat.update(_extract_npz(other))
+                elif name.startswith("aux_"):
+                    for path, entry in _jax_shards(self.storage.read(
+                            os.path.join(step_dir, name))).items():
+                        mine = shards.setdefault(path, dict(
+                            entry, keys=[], indices=[]))
+                        for k, ix in zip(entry["keys"], entry["indices"]):
+                            if k not in mine["keys"]:
+                                mine["keys"].append(k)
+                                mine["indices"].append(ix)
+            _stitch_shards(flat, shards)
         return step, unflatten_state(flat, aux, target, device)
 
     def load(
         self, target: Any = None, device: DeviceLike = None
     ) -> Tuple[int, Optional[Any]]:
-        """Memory-first restore: shm wins if its step >= the tracker's,
-        else storage; a torn or unreadable shm falls back to storage."""
+        """Memory-first restore: shm wins if its step >= the tracker's;
+        else the replica where it is at least as fresh as the tracker,
+        else storage, else an older replica (JAX's order). A torn or
+        unreadable shm, and a replica that fails or does not fit,
+        fall back to storage."""
         # this engine's own staging in flight would leave shm older
         self.wait_for_staging()
         shm_meta = self.shm_handler.get_meta()
@@ -741,13 +898,47 @@ class CheckpointEngine:
                 )
                 step, state = -1, None
         source = "memory" if state is not None else None
+        tried_replica = False
+        if state is None and self.replica_manager is not None:
+            # a respawned node: the replica is DRAM on the master; when it
+            # is at least as fresh as the tracker, take it before paying
+            # the storage round trip
+            rstep = self.replica_manager.peek_step()
+            if rstep >= 0 and rstep >= disk_step:
+                tried_replica = True
+                step, state = self._load_replica(target, device)
+                if state is not None:
+                    source = "replica"
+                    logger.info("restored step %d from replica (fresher "
+                                "than storage step %d)", step, disk_step)
         if state is None:
             step, state = self.load_from_storage(
                 disk_step if disk_step >= 0 else None, target, device
             )
             source = "storage" if state is not None else None
+        if (state is None and self.replica_manager is not None
+                and not tried_replica):
+            # storage had nothing readable: an older replica is still
+            # better than no state
+            step, state = self._load_replica(target, device)
+            if state is not None:
+                source = "replica"
+                logger.info("restored step %d from replica", step)
         self.last_load_source = source
         return step, state
+
+    def _load_replica(self, target, device) -> Tuple[int, Optional[Any]]:
+        """The replica's (step, state); (-1, None) where it does not fit
+        the target (KeyError / ValueError) or the master is out of reach
+        (ConnectionError / OSError): the caller falls through to storage
+        instead of failing the restore."""
+        try:
+            return self.replica_manager.restore_state(target=target,
+                                                      device=device)
+        except (KeyError, ValueError, ConnectionError, OSError) as e:
+            logger.warning("replica restore failed (%s); falling back to "
+                           "storage", e)
+            return -1, None
 
     def wait_for_persist(self, step: int, timeout: float = 60.0) -> bool:
         """Block until `step` is committed to storage (tests/shutdown)."""
@@ -759,12 +950,19 @@ class CheckpointEngine:
         return False
 
     def close(self):
-        """Let an in-flight staging land; with an in-process saver, let
-        it persist what was queued before stopping it and the IPC
-        server. The segment stays (it is the memory checkpoint)."""
+        """Let an in-flight staging and replica backup land; with an
+        in-process saver, let it persist what was queued before stopping
+        it and the IPC server. The segment stays (it is the memory
+        checkpoint)."""
         t = self._staging_thread
         if t is not None and t.is_alive():
             t.join(timeout=CheckpointConstant.SAVE_TIMEOUT_SECS)
+        # the drain clears its own slot under the lock as it exits
+        with self._backup_lock:
+            rt = self._replica_thread
+        if rt is not None and rt.is_alive():
+            # let an in-flight backup commit rather than die mid-write
+            rt.join(timeout=CheckpointConstant.SAVE_TIMEOUT_SECS)
         self._snapshot.clear()
         if self._local_saver is not None:
             self.event_queue.put(STOP_EVENT)

@@ -1,7 +1,9 @@
 """High-level training loop — counterpart of dlrover_tpu/trainer/trainer.py
 (reference atorch/atorch/trainer/atorch_trainer.py:136, `AtorchTrainer`).
 
-The loop drives an `ElasticTrainer` (a fixed global batch on one card):
+The loop drives an `ElasticTrainer` (a fixed global batch, on one card
+or data-parallel over the world `runtime.init()` joined: every rank
+runs this loop on the same global batches, as every JAX process does):
 epochs, resume of the latest flash checkpoint (memory first) with the
 skip of consumed batches, a logging window with `steps_per_sec`,
 periodic evaluation and saves (`save_steps`: the state staged to shm
@@ -168,9 +170,11 @@ class Trainer:
                     else None
                 )
                 if tok is not None and getattr(tok, "ndim", 0) >= 2:
-                    # the global batch is the per-host one: the port
-                    # trains in one process (JAX divides by its count)
-                    bsz = int(tok.shape[0])
+                    # train_data yields GLOBAL batches; the per-host
+                    # share is what the master's resource estimates
+                    # need (a host is a rank of the trainer's world,
+                    # JAX's `jax.process_count()`)
+                    bsz = int(tok.shape[0]) // self.et.acc.world_size
                     seq = int(tok.shape[1])
                 # no program profile (XLA's cost analysis in JAX): no
                 # FLOP count and no program stats, as JAX reports for

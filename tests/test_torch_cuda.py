@@ -362,6 +362,38 @@ def test_dequantize_any_on_the_card(gen):
     assert torch.equal(y.cpu(), want)
 
 
+def test_quantized_all_reduce_tree_over_one_nccl_rank(gen, monkeypatch):
+    """The compressed all-reduce over a world of one rank on NCCL: one
+    quantize and one dequantize launch a leaf, and the bytes of the
+    plain versions (over one rank the sum is the dequantized payload);
+    the reduce-scatter over one rank has no hop and returns its input.
+    The suite's conftest forces the CPU for every process, so this
+    test lifts that to join the world as a worker on the card does."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch import runtime
+    from dlrover_tpu_torch.common.messages import find_free_port
+
+    monkeypatch.delenv("DLROVER_TPU_FORCE_CPU", raising=False)
+    monkeypatch.delenv(runtime.DIST_BACKEND_ENV, raising=False)
+    x = torch.randn((333, 77), generator=gen, device="cuda")
+    runtime.join_world(f"127.0.0.1:{find_free_port()}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        before = _build.launch_counts()
+        out = tq.quantized_all_reduce_tree({"g": x}, block=256)["g"]
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        same = tq.quantized_reduce_scatter(x, block=256)
+    finally:
+        runtime.shutdown()
+    assert after["quant_int8"] - before["quant_int8"] == 1
+    assert after["dequant_int8"] - before["dequant_int8"] == 1
+    want = tq.dequantize_any(*tq.quantize_any(x.cpu(), 256))
+    assert out.shape == x.shape and torch.equal(out.cpu(), want)
+    assert torch.equal(same, x)
+
+
 def _int8_state(shapes, block, seed):
     """A nonzero Int8AdamState-like numpy state (count 5): quantized
     random moments in the [1, padded] layout."""

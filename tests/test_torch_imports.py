@@ -165,3 +165,24 @@ def test_module_level_scan_rule(tmp_path):
                    "def f():\n    import inner\n")
     assert list(_module_level_imports(src)) == ["os", "psutil", "grpc",
                                                 "a.b"]
+
+
+# data-parallel training's modules, and the worker script the CPU test of
+# that path runs in its four processes (it imports torch and the port)
+DATA_PARALLEL = ("parallel/mesh.py", "parallel/accelerate.py",
+                 "trainer/elastic/trainer.py", "trainer/trainer.py",
+                 "trainer/flash_checkpoint/replica.py",
+                 "trainer/flash_checkpoint/engine.py", "ops/quantization.py",
+                 "runtime.py", "examples/train_tiny_llama.py")
+
+
+@pytest.mark.parametrize("rel", DATA_PARALLEL)
+def test_data_parallel_module_scanned(rel):
+    path = ROOT / "dlrover_tpu_torch" / rel
+    assert path in FILES
+    assert not [n for _, n in _imports(path) if _banned(n)]
+
+
+def test_data_parallel_test_worker_imports_no_jax():
+    path = ROOT / "tests" / "_torch_dp_worker.py"
+    assert not [n for _, n in _imports(path) if _banned(n)]

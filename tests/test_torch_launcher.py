@@ -138,3 +138,18 @@ def test_launcher_crash_and_resume_from_the_agents_shm(tmp_path, monkeypatch):
     assert (ckpt / str(resumed[0])).is_dir()
     node = master.servicer.node_manager.get_node("worker", 0)
     assert node.status == NodeStatus.SUCCEEDED
+
+
+@pytest.mark.parametrize("addr, want", [
+    ("127.0.0.1:4321", 4321),
+    ("localhost:4321", 4321),
+    ("127.0.0.1", 0),            # no port
+    ("127.0.0.1:", 0),
+    ("127.0.0.1:http", 0),
+    ("192.0.2.1:4321", 0),       # TEST-NET-1: never this machine's
+])
+def test_local_port_of_the_configured_master(addr, want):
+    """Node 0 hosts its master at the configured port only where the
+    configured host is this machine; anything else takes a free port
+    (0), and no configured address makes the launcher raise."""
+    assert trun._local_port(addr) == want

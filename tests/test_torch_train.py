@@ -431,12 +431,14 @@ def test_trainer_keeps_training_when_chip_metrics_cannot_be_written(
 
 
 def test_not_ported_options_raise(tmp_path, monkeypatch):
-    """What ROADMAP queue 1 has not ported raises: a world change, the
-    checkpoint replica and the Orbax format (item 9). Fused cross
-    entropy (item 5), checkpoint save and resume (item 8), the named
-    remat policies (item 6) and the master client (ported since) work:
-    `resume` defaults to True as in JAX, a `master_client` reaches the
-    HangingDetector, every policy name resolves, and a loss under
+    """What ROADMAP queue 1 has not ported raises: the Orbax format (item
+    9) and a mesh with sharded state (item 13). Fused cross entropy
+    (item 5), checkpoint save and resume (item 8), the named remat
+    policies (item 6), the master client, a world change and the
+    checkpoint replica (ported since) work: `resume` defaults to True
+    as in JAX, a `master_client` reaches the HangingDetector, a world
+    change with no world keeps the state and the plan, an engine takes
+    a replica manager, every policy name resolves, and a loss under
     "proj" equals the plain one."""
     from dlrover_tpu_torch.trainer.flash_checkpoint import (
         CheckpointEngine,
@@ -465,12 +467,20 @@ def test_not_ported_options_raise(tmp_path, monkeypatch):
     trainer = Trainer(et, TrainingArguments(resume=False),
                       master_client=client)
     assert trainer._mc is client and trainer._hang._mc is client
-    with pytest.raises(NotImplementedError, match="item 9"):
-        et.on_world_change(None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CheckpointEngine(str(tmp_path), replica_manager=object())
+    state = et.init_state(torch.Generator().manual_seed(0))
+    plan = dict(et.plan)
+    assert et.on_world_change(state) is state and et.plan == plan
+    CheckpointEngine(str(tmp_path), replica_manager=object()).close()
     with pytest.raises(NotImplementedError, match="item 9"):
         OrbaxCheckpointer(str(tmp_path))
+    from dlrover_tpu_torch.parallel.mesh import MeshSpec
+
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ElasticTrainer(
+            lambda g: tllama.init_params(tcfg, g, device="cpu"),
+            lambda p, b: tllama.loss_fn(tcfg, p, b), _optimizer(),
+            global_batch_size=2, max_per_replica_batch=2, device="cpu",
+            mesh_spec=MeshSpec(fsdp=2))
     for name in ("dots", "dots_no_batch", "proj", "proj_mlp", "save_names",
                  "offload_names"):
         assert callable(remat.resolve_policy(name))
