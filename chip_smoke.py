@@ -26,7 +26,13 @@ Phases, one line each (any failure exits non-zero before the last line):
      and at the serving prompt buckets 128, 256, 512 and 1024, with the dense bf16
      matmul's time and the variant that ran beside it; at T = 8 the
      TMA-ring decode kernel, with the mma.sync decode kernel it replaced
-     timed on the same inputs);
+     timed on the same inputs); kernel.sharded: the two sharded kernel
+     sites at Llama-3-8B's heads on tp = 2 and 4 virtual shards of the
+     card (DLROVER_TPU_TORCH_FORCE_DEVICE_COUNT set inside the phase
+     only): sharded_flash_attention at B=1, S = 512 and 2048, and the
+     sharded paged attention at serve's decode shape, bf16 and int8
+     pools: each shard's output bit-equal to the tp=1 kernel's head
+     slice, tp launches a call, the time beside tp=1's;
   4. serve: ContinuousBatcher on Llama-3-8B at full width and depth
      (random weights from a seed), kv_layout="paged", greedy-serving 12
      requests; every request must finish, both attention kernels must
@@ -35,6 +41,21 @@ Phases, one line each (any failure exits non-zero before the last line):
      logits must match the
      plain attention path, and a reference-attention engine gives the
      greedy agreement;
+  4a. serve.tp2: serve's traffic through mesh_spec=2 on two virtual
+     shards of the card (wq/wk/wv split by head, the pool by KV head,
+     attention per shard, wo / MLP / logits once): streams equal
+     serve's byte for byte, kernel_path "kernel", paged TMA-ring and
+     flash wgmma launches twice serve's; TTFT, TPOT, tokens/s, peak
+     memory and weight bytes a shard beside serve's;
+  4b. serve.tp2.resize: the same traffic on the first 4 layers at tp=2,
+     shrunk to tp=1 after step 2 and grown back after step 3 (every
+     live request replayed each time): streams equal a tp=2 run with
+     the same replays and no resize; downtime_ms and replays of each
+     direction, the agreement with the uninterrupted run;
+  4c. serve.tp2.int8: the 4-layer traffic with weight_quant="int8" at
+     tp=2: "int8:reference", no dqmm launch, streams equal tp=1 int8's
+     on the plain product (agreement with tp=1 on the kernel
+     reported);
   5. serve.int8: the same traffic through weight_quant="int8" on the
      same weights; every flash forward must have taken the wgmma
      variant, the quantize kernel must have run once per layer slice and the dequant-matmul kernel on every product of every
@@ -311,6 +332,8 @@ train.master phases, no result line;
 train.agent phases, no result line;
 `python3 chip_smoke.py --dp` the card, build, train and train.dp
 phases, no result line;
+`python3 chip_smoke.py --tp` the card, build, kernel.sharded, serve and
+serve.tp2 phases (4a-4c), no result line;
 `python3 chip_smoke.py --fleet` the card, build and serve.fleet phases,
 then part (a)'s traffic through one replica and through two with a 0.5
 ms thread switch interval (reported only), no result line.
@@ -321,8 +344,10 @@ kernels (kernel 4 and kernel 7's decode variant) in one call, no result
 line.
 """
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -427,6 +452,13 @@ BWD_TOL_REASON = (
 # (B, S) of the attention kernel phases: B=1 at three lengths (S=512
 # is a serving prefill bucket) and the train path's microbatch, 2 x 2048
 FLASH_CASES = ((1, 77), (1, 512), (1, 2048), (2, 2048))
+# kernel.sharded / serve.tp2*: the head splits run as virtual shards
+TP_DEGREES = (2, 4)
+TP_FLASH_CASES = ((1, 512), (1, 2048))
+TP_LAYERS = 4      # serve.tp2.resize and serve.tp2.int8
+# serve.tp2.resize: shrink after step 2 (8 requests 16 tokens into their
+# decode), grow after step 3 (their replays 8 tokens further on)
+TP_RESIZE_AT = (2, 3)
 TRAIN_LAYERS = 4
 TRAIN_SEQ = 2048
 TRAIN_GLOBAL_BATCH = 4
@@ -480,7 +512,13 @@ TRAIN_TOL_REASON = (
 )
 
 
+T_START = time.perf_counter()
+
+
 def log(phase, **kw):
+    """One result line; `at_s` is the script's wall time at the line (a
+    phase's cost is the step from the line before it)."""
+    kw["at_s"] = time.perf_counter() - T_START
     print(f"[{phase}] " + json.dumps(kw, default=float), flush=True)
 
 
@@ -2595,6 +2633,422 @@ def phase_verify(params, cfg):
     return timing
 
 
+# ---- tensor-parallel serving: kernel.sharded, serve.tp2 and its resize
+# and int8 phases ------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _virtual_shards(n):
+    """DLROVER_TPU_TORCH_FORCE_DEVICE_COUNT=n for one phase: the serving
+    slice's n devices are n virtual shards of this one card, launched
+    one after another on its stream. Restored after the phase."""
+    from dlrover_tpu_torch import _device
+
+    name = _device.FORCE_DEVICE_COUNT_ENV
+    old = os.environ.get(name)
+    os.environ[name] = str(n)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def _virtual_mesh(tp, n_kv):
+    from dlrover_tpu_torch._device import local_devices
+    from dlrover_tpu_torch.parallel.mesh import serving_mesh
+
+    with _virtual_shards(tp):
+        mesh = serving_mesh(tp, devices=local_devices("cuda"),
+                            n_kv_heads=n_kv)
+    if not mesh.colocated:
+        raise AssertionError(f"tp={tp}: shards not on the one card")
+    return mesh
+
+
+def phase_kernel_sharded(gen):
+    """kernel.sharded: the two sharded kernel sites at Llama-3-8B's heads
+    (32 q / 8 KV of 128) on tp = 2 and 4 virtual shards of the card.
+    `sharded_flash_attention` (kernel 1 per shard) at B=1 S=512 and
+    S=2048, and the sharded paged attention (`_sharded_kernel`, kernel
+    4 per shard, each launch on the unsharded launch's work partition)
+    at serve's decode shape, bf16 and int8 pools: every shard's output
+    must be the tp=1 kernel's head slice bit for bit, tp launches a
+    call (each on the wgmma / TMA-ring variant), the error against the
+    plain version within the kernel's tolerance; each call's time
+    beside tp=1's (paged cold over L2-overflowing pool copies and
+    warm), the plain version's and the library's."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import paged_attention as pa
+
+    F = torch.nn.functional
+    h, kv, d = 32, 8, 128
+    scale = d ** -0.5
+    flash_rows, paged_rows = [], []
+    for tp in TP_DEGREES:
+        mesh = _virtual_mesh(tp, kv)
+        log("kernel.sharded.mesh", tp=tp, virtual_shards=True,
+            devices=[str(x) for x in mesh.devices])
+        for b, s in TP_FLASH_CASES:
+            q = torch.randn((b, s, h, d), generator=gen,
+                            device="cuda").bfloat16()
+            k = torch.randn((b, s, kv, d), generator=gen,
+                            device="cuda").bfloat16()
+            v = torch.randn((b, s, kv, d), generator=gen,
+                            device="cuda").bfloat16()
+            whole, _ = fa._fwd(q, k, v, True, scale)
+            qs, ks, vs = (mesh.split(x, 2) for x in (q, k, v))
+
+            def sharded():
+                return fa.sharded_flash_attention(qs, ks, vs, mesh, True,
+                                                  scale)
+
+            before = _build.launch_counts()
+            parts = sharded()
+            after = _build.launch_counts()
+            torch.cuda.synchronize()
+            got = torch.cat(parts, 2)
+            o_ref, _ = fa._fwd_plain(q, k, v, True, scale)
+            err = (got.float() - o_ref.float()).abs().max().item()
+            launches = _launched(before, after, "flash_fwd_wgmma")
+            checks = {
+                "bit-equal to the tp=1 kernel": torch.equal(got, whole),
+                "tp wgmma launches a call": (
+                    launches == tp
+                    and _launched(before, after, "flash_fwd") == tp),
+                "within FLASH_TOL of the plain version": err <= FLASH_TOL,
+            }
+            flops = 2.0 * b * h * d * s * (s + 1)
+            nbytes = (2 * (2 * b * s * h * d + 2 * b * s * kv * d)
+                      + 4 * b * h * s)
+            bms, by = bound_ms(flops, nbytes)
+            qt, kt, vt = ([x.transpose(1, 2) for x in xs]
+                          for xs in (qs, ks, vs))
+            row = dict(
+                tp=tp, B=b, S=s, launches=launches,
+                bit_equal=checks["bit-equal to the tp=1 kernel"],
+                max_abs_err=err, tol=FLASH_TOL,
+                ms=device_ms(sharded),
+                tp1_ms=device_ms(lambda: fa._fwd(q, k, v, True, scale)),
+                plain_ms=time_ms(lambda: [
+                    fa._fwd_plain(qi, ki, vi, True, scale)
+                    for qi, ki, vi in zip(qs, ks, vs)], 3),
+                library_ms=device_ms(lambda: [
+                    F.scaled_dot_product_attention(
+                        qi, ki, vi, is_causal=True, enable_gqa=True)
+                    for qi, ki, vi in zip(qt, kt, vt)]),
+                bound_ms=bms, bound_by=by)
+            log("kernel.sharded.flash", **row)
+            _raise_failed(f"kernel.sharded.flash tp={tp} S={s}", checks)
+            flash_rows.append(row)
+            del q, k, v, qs, ks, vs, qt, kt, vt, whole, parts, got
+        for quant in (False, True):
+            q, pages, table, lens, lengths = _paged_case(gen, quant)
+            b = q.shape[0]
+            whole = pa._kernel(q, pages, table, lens, scale)
+            qs = mesh.split(q, 1)
+            pools = mesh.split_pool(pages, 2)
+            before = _build.launch_counts()
+            parts = pa._sharded_kernel(qs, pools, table, lens, scale, mesh)
+            after = _build.launch_counts()
+            torch.cuda.synchronize()
+            got = torch.cat(parts, 1)
+            ref = pa._reference(q, pages, table, lens, scale)
+            err = (got.float() - ref.float()).abs().max().item()
+            launches = _launched(before, after, "paged_attention_tma")
+            checks = {
+                "bit-equal to the tp=1 kernel": torch.equal(got, whole),
+                "tp TMA-ring launches a call": (
+                    launches == tp
+                    and _launched(before, after, "paged_attention") == tp),
+                "within PAGED_TOL of the plain version": err <= PAGED_TOL,
+            }
+            cells = int(lengths.sum())
+            elem = 1 if quant else 2
+            live = (2 * cells * kv * d * elem
+                    + (2 * cells * kv * 2 if quant else 0))
+            nbytes = live + 2 * 2 * b * h * d + table.numel() * 4 + b * 4
+            bms, by = bound_ms(4.0 * cells * h * d, nbytes)
+            cold = cold_copies(
+                lambda: mesh.split_pool({n: t.clone()
+                                         for n, t in pages.items()}, 2),
+                live)
+            cold1 = cold_copies(
+                lambda: {n: t.clone() for n, t in pages.items()}, live)
+            row = dict(
+                tp=tp, pool="int8" if quant else "bf16", B=b,
+                live_cells=cells, launches=launches,
+                bit_equal=checks["bit-equal to the tp=1 kernel"],
+                max_abs_err=err, tol=PAGED_TOL,
+                ms=device_ms(cycling(
+                    lambda ps: pa._sharded_kernel(qs, ps, table, lens,
+                                                  scale, mesh), cold),
+                    calls=len(cold)),
+                warm_ms=device_ms(lambda: pa._sharded_kernel(
+                    qs, pools, table, lens, scale, mesh)),
+                tp1_ms=device_ms(cycling(
+                    lambda ps: pa._kernel(q, ps, table, lens, scale),
+                    cold1), calls=len(cold1)),
+                tp1_warm_ms=device_ms(
+                    lambda: pa._kernel(q, pages, table, lens, scale)),
+                plain_ms=time_ms(lambda: [
+                    pa._reference(qi, pi, table, lens, scale)
+                    for qi, pi in zip(qs, pools)], 3),
+                library_ms=None, bound_ms=bms, bound_by=by)
+            log("kernel.sharded.paged", **row)
+            _raise_failed(f"kernel.sharded.paged tp={tp} "
+                          f"{row['pool']}", checks)
+            paged_rows.append(row)
+            del q, pages, pools, cold, cold1, whole, parts, got
+            torch.cuda.empty_cache()
+    return flash_rows, paged_rows
+
+
+def _first_layers(cfg, params, n):
+    """The model cut to its first `n` layers: views of the stacked
+    weights, no copy."""
+    out = dict(params)
+    out["layers"] = {k: v[:n] for k, v in params["layers"].items()}
+    return dataclasses.replace(cfg, n_layers=n), out
+
+
+def phase_serve_tp2(params, cfg, serve):
+    """serve.tp2: serve's workload (Llama-3-8B, full width and depth,
+    paged, 8 slots, max_len 2048, 12 greedy requests of 50-1000 tokens,
+    max_new 32) through ContinuousBatcher(mesh_spec=2) on two virtual
+    shards of the card: wq/wk/wv split on their head columns, the page
+    pool on its KV heads, every attention per shard. The streams must
+    equal serve's byte for byte, kernel_path "kernel", the paged
+    TMA-ring and flash wgmma launches twice serve's (a launch a shard),
+    all on those variants; TTFT, TPOT, tokens/s, peak memory and the
+    weight bytes a shard beside serve's."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    max_new = 32
+    prompts = _prompts(cfg)
+    kw = dict(n_slots=8, max_len=2048, max_new_tokens=max_new, chunk=8,
+              kv_layout="paged", mesh_spec=2)
+    with _virtual_shards(2):
+        warm = ContinuousBatcher(cfg, params, **kw)
+        warm.generate_all([prompts[1][:40]])
+        del warm
+        torch.cuda.synchronize()
+        engine = ContinuousBatcher(cfg, params, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        outs, tm = _serve(engine, prompts, max_new)
+        torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    lens = [len(o) for o in outs]
+    base = serve["launches"]
+    checks = {
+        "virtual shards of one card": engine.mesh.colocated,
+        "kernel_path kernel": engine.kernel_path == "kernel",
+        "every request finished": lens == [max_new] * len(prompts),
+        "streams equal serve's": all(
+            np.array_equal(a, b) for a, b in zip(outs, serve["outs"])),
+        "paged_attention_tma 2x serve's": (
+            launches["paged_attention_tma"]
+            == 2 * base["paged_attention_tma"]),
+        "flash_fwd_wgmma 2x serve's": (
+            launches["flash_fwd_wgmma"] == 2 * base["flash_fwd_wgmma"]),
+        "every paged launch TMA": (
+            launches["paged_attention"] == launches["paged_attention_tma"]),
+        "every flash launch wgmma": (
+            launches["flash_fwd"] == launches["flash_fwd_wgmma"]),
+        "same dispatches as serve": (
+            engine.admissions == serve["admissions"]
+            and engine.decode_steps == serve["decode_steps"]),
+    }
+    e2e = dict(
+        requests=len(prompts), mesh_shape=engine.mesh_shape,
+        n_chips=engine.n_chips, virtual_shards=True,
+        kernel_path=engine.kernel_path, admissions=engine.admissions,
+        decode_steps=engine.decode_steps, launches=launches,
+        step_stats=engine.step_stats(),
+        weight_bytes_per_shard=engine.weight_bytes_device(),
+        **_timings(tm, lens))
+    e2e["serve"] = {k: serve[k] for k in (
+        "ttft_ms_mean", "ttft_ms_p50", "tpot_ms_mean", "tokens_per_s",
+        "peak_mem_gb", "weight_bytes")}
+    log("serve.tp2", checks=checks, **e2e)
+    _raise_failed("serve.tp2", checks)
+    del engine
+    torch.cuda.empty_cache()
+    e2e["outs"] = outs
+    return e2e
+
+
+def _preempt_all(engine):
+    """What a resize does to live requests, without re-forming: abandon
+    the in-flight dispatch, preempt every live slot for replay in
+    reverse slot order."""
+    engine.drain_inflight()
+    for slot in range(engine.n_slots - 1, -1, -1):
+        if engine.slot_req[slot] is not None and not engine.done[slot]:
+            engine._preempt_slot(slot)
+
+
+def _stepped(engine, prompts, max_new, at=(), event=None):
+    """Submit, then step to the end, calling `event(i)` after the
+    `at[i]`-th step; the streams in submission order."""
+    ids = [engine.submit(p, max_new=max_new) for p in prompts]
+    n = 0
+    while engine.has_work():
+        engine.step()
+        n += 1
+        if n in at:
+            event(at.index(n))
+    outs = [np.asarray(engine._requests[i].out, np.int64) for i in ids]
+    engine.generate_all([])
+    return outs
+
+
+def phase_serve_tp2_resize(params, cfg):
+    """serve.tp2.resize: serve's traffic on the first TP_LAYERS layers
+    at tp=2 (two virtual shards); after step 2 (8 requests 16 tokens
+    into their decode) the slice shrinks to tp=1, after step 3 (the
+    replays 8 tokens on) it grows back to tp=2. Every resize preempts
+    every live request for replay.
+    The streams must equal those of a tp=2 run that preempts the same
+    requests at the same steps without re-forming (the replays are the
+    same; only the slice differs), and the slice must be tp 1 between
+    the two; the agreement with the uninterrupted run is reported.
+    downtime_ms and the replayed count of each direction, and the
+    launches split by the slice they ran on (`launches_by_tp`: tp=2
+    before the shrink and after the grow, the sharded sites; tp=1
+    between, the unsharded ones)."""
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    lcfg, lparams = _first_layers(cfg, params, TP_LAYERS)
+    max_new = 32
+    prompts = _prompts(cfg)
+    kw = dict(n_slots=8, max_len=2048, max_new_tokens=max_new, chunk=8,
+              kv_layout="paged", mesh_spec=2)
+    from dlrover_tpu_torch.ops import _build
+
+    reports = []
+    with _virtual_shards(2):
+        plain = _stepped(ContinuousBatcher(lcfg, lparams, **kw), prompts,
+                         max_new)
+        oracle_eng = ContinuousBatcher(lcfg, lparams, **kw)
+        oracle = _stepped(oracle_eng, prompts, max_new, at=TP_RESIZE_AT,
+                          event=lambda i: _preempt_all(oracle_eng))
+        engine = ContinuousBatcher(lcfg, lparams, **kw)
+        _build.reset_launch_counts()
+        tps, marks = [], []
+
+        def resize(i):
+            marks.append(_build.launch_counts())
+            reports.append(engine.resize([1, 2][i]))
+            torch.cuda.synchronize()
+            tps.append(engine.mesh_tp)
+
+        got = _stepped(engine, prompts, max_new, at=TP_RESIZE_AT,
+                       event=resize)
+        torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    at_tp1 = {k: marks[1][k] - marks[0][k] for k in launches}
+    by_tp = {"2": {k: launches[k] - at_tp1[k] for k in launches},
+             "1": at_tp1}
+    same = [np.array_equal(a, b) for a, b in zip(got, oracle)]
+    same_plain = [np.array_equal(a, b) for a, b in zip(got, plain)]
+    prefix = [int(np.argmax(np.append(a != b, True)))
+              for a, b in zip(got, plain)]
+    checks = {
+        "shrink then grow": [r.direction for r in reports]
+        == ["shrink", "grow"] and tps == [1, 2],
+        "replayed live requests": all(r.replayed > 0 for r in reports),
+        "every request finished": [len(o) for o in got]
+        == [max_new] * len(prompts),
+        "streams equal the same replays without a resize": all(same),
+    }
+    row = dict(
+        layers=TP_LAYERS, virtual_shards=True,
+        resizes=[dict(direction=r.direction, old_tp=r.old_tp,
+                      new_tp=r.new_tp, replayed=r.replayed,
+                      downtime_ms=r.downtime_ms) for r in reports],
+        elastic_stats=engine.elastic_stats(), launches=launches,
+        launches_by_tp=by_tp, streams_equal_uninterrupted=sum(same_plain),
+        common_prefix_with_uninterrupted=prefix, checks=checks)
+    log("serve.tp2.resize", **row)
+    _raise_failed("serve.tp2.resize", checks)
+    del engine, oracle_eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_tp2_int8(params, cfg):
+    """serve.tp2.int8: serve's traffic on the first TP_LAYERS layers with
+    weight_quant="int8" at tp=2 (two virtual shards): the quantize
+    kernel at install (before the split), weight_quant_path
+    "int8:reference" and no dqmm launch (JAX's gate keeps tp > 1 on the
+    dequantize-then-product reference), every flash and paged launch on
+    its variant, and the greedy streams equal those of tp=1 int8 on the
+    same plain product (the dqmm kernel's plain version); the agreement
+    with tp=1 int8 on the kernel is reported."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import quantization as Q
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    lcfg, lparams = _first_layers(cfg, params, TP_LAYERS)
+    max_new = 32
+    prompts = _prompts(cfg)
+    kw = dict(n_slots=8, max_len=2048, max_new_tokens=max_new, chunk=8,
+              kv_layout="paged", weight_quant="int8")
+    eng1 = ContinuousBatcher(lcfg, lparams, **kw)
+    _build.reset_launch_counts()
+    kernel_outs = _stepped(eng1, prompts, max_new)
+    tp1_launches = _build.launch_counts()
+    real_gate = Q.use_quant_matmul_kernel
+    Q.use_quant_matmul_kernel = lambda tp=1: False
+    try:
+        ref_outs = _stepped(eng1, prompts, max_new)
+    finally:
+        Q.use_quant_matmul_kernel = real_gate
+    del eng1
+    with _virtual_shards(2):
+        _build.reset_launch_counts()
+        engine = ContinuousBatcher(lcfg, lparams, mesh_spec=2, **kw)
+        install = _build.launch_counts()
+        _build.reset_launch_counts()
+        outs = _stepped(engine, prompts, max_new)
+        torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    same_ref = [np.array_equal(a, b) for a, b in zip(outs, ref_outs)]
+    same_kernel = [np.array_equal(a, b) for a, b in zip(outs, kernel_outs)]
+    checks = {
+        "weight_quant_path int8:reference":
+            engine.weight_quant_path == "int8:reference",
+        "quantize kernel at install": install["quant_int8"] > 0,
+        "no dqmm launch": launches.get("dqmm", 0) == 0,
+        "tp=1 int8 on the kernel launched dqmm": tp1_launches["dqmm"] > 0,
+        "every flash launch wgmma": (
+            launches["flash_fwd"] == launches["flash_fwd_wgmma"]
+            == 2 * engine.admissions * TP_LAYERS),
+        "every paged launch TMA": (
+            launches["paged_attention"] == launches["paged_attention_tma"]
+            == 2 * engine.decode_steps * TP_LAYERS),
+        "streams equal tp=1 int8 on the plain product": all(same_ref),
+    }
+    row = dict(
+        layers=TP_LAYERS, virtual_shards=True,
+        weight_quant_path=engine.weight_quant_path,
+        install_launches={k: v for k, v in install.items() if v},
+        launches=launches, streams_equal_tp1_int8_kernel=sum(same_kernel),
+        weight_bytes_per_shard=engine.weight_bytes_device(), checks=checks)
+    log("serve.tp2.int8", **row)
+    _raise_failed("serve.tp2.int8", checks)
+    row["launches"]["quant_int8"] = install["quant_int8"]
+    del engine
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_serve_async(params, cfg, sync):
     """serve.async: the serve phase's traffic and engine at
     async_depth=1, the launch counts set to 0 just before that run and
@@ -3404,7 +3858,7 @@ def _check_engine_first_decodes(phase, params, cfg, seen, want_kinds,
             "scores over the bf16 cache) or from an earlier request's "
             "flash prefill (shared pages) where the cold side runs one "
             "flash prefill of this prompt; bf16 roundings carried "
-            "through 32 layers",
+            "through the layers",
         )
     torch.cuda.empty_cache()
 
@@ -6096,6 +6550,16 @@ def main():
         phase_serve_fleet(params, cfg, probes=True)
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
+    if "--tp" in args:
+        phase_kernel_sharded(gen)
+        cfg = llama.LlamaConfig.llama3_8b()
+        params = llama.init_params(cfg, gen)
+        e2e = phase_serve(params, cfg)
+        phase_serve_tp2(params, cfg, e2e)
+        phase_serve_tp2_resize(params, cfg)
+        phase_serve_tp2_int8(params, cfg)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
+        return 0
     if "--tier" in args:
         cfg = llama.LlamaConfig.llama3_8b()
         params = llama.init_params(cfg, gen)
@@ -6108,10 +6572,12 @@ def main():
         phase_serve_kv_tier(params, cfg, pressure_prompts, pressure,
                             kv_quant=True)
         phase_serve_handoff(params, cfg, e2e)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
     flash_rows = phase_flash(gen)
     bwd_rows = phase_flash_bwd(gen)
     paged_rows = phase_paged(gen)
+    sharded_flash_rows, sharded_paged_rows = phase_kernel_sharded(gen)
     quant_rows = phase_quant(gen)
     dequant_rows = phase_dequant(gen)
     phase_opt_int8()
@@ -6126,6 +6592,9 @@ def main():
     log("model", config="llama3_8b", params=llama.num_params(cfg),
         dtype=str(cfg.dtype), init_s=time.perf_counter() - t0)
     e2e = phase_serve(params, cfg)
+    e2e_tp2 = phase_serve_tp2(params, cfg, e2e)
+    tp2_resize = phase_serve_tp2_resize(params, cfg)
+    tp2_int8 = phase_serve_tp2_int8(params, cfg)
     e2e_int8 = phase_serve_int8(params, cfg, e2e)
     e2e_stoch = phase_serve_int8_stochastic(params, cfg, e2e_int8)
     e2e_spec = phase_serve_spec(params, cfg)
@@ -6159,7 +6628,10 @@ def main():
 
     main_flash = next(r for r in flash_rows if (r["B"], r["S"]) == (1, 512))
     main_bwd = next(r for r in bwd_rows if (r["B"], r["S"]) == (2, 2048))
-    serve_paths = {"serve": e2e, "serve.int8": e2e_int8,
+    tp_paths = {"serve.tp2": e2e_tp2, "serve.tp2.int8": tp2_int8}
+    serve_paths = {"serve": e2e, **tp_paths,
+                   "serve.tp2.resize": tp2_resize,
+                   "serve.int8": e2e_int8,
                    "serve.int8_stochastic": e2e_stoch,
                    "serve.spec": e2e_spec, "serve.spec.int8": e2e_spec_int8,
                    "serve.async": e2e_async, **adapter_runs,
@@ -6197,6 +6669,7 @@ def main():
     main_paged = paged_rows[0]
     main_quant = next(r for r in quant_rows if r["input"] == "bfloat16")
     quant_by_path = {"serve.int8": e2e_int8["launches"]["quant_int8"],
+                     "serve.tp2.int8": tp2_int8["launches"]["quant_int8"],
                      "serve.int8_stochastic": e2e_stoch["launches"][
                          "quant_int8"],
                      "serve.spec.int8": e2e_spec_int8["launches"][
@@ -6220,6 +6693,16 @@ def main():
                        if (r["T"], r["K"], r["O"]) == (40, 4096, 14336))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    main_sflash = next(r for r in sharded_flash_rows
+                       if (r["tp"], r["S"]) == (2, 512))
+    main_spaged = next(r for r in sharded_paged_rows
+                       if (r["tp"], r["pool"]) == (2, "bf16"))
+    tp_paths["serve.tp2.resize (its tp=2 steps)"] = dict(
+        launches=tp2_resize["launches_by_tp"]["2"])
+    sflash_by_path = {p: r["launches"]["flash_fwd"]
+                      for p, r in tp_paths.items()}
+    spaged_by_path = {p: r["launches"]["paged_attention"]
+                      for p, r in tp_paths.items()}
 
     def gate(name):
         # kernel.jax_gate_shapes' rows of this kernel (launches there are
@@ -6287,6 +6770,35 @@ def main():
                  for path, run in serve_paths.items()
                  if run["launches"].get("paged_attention_tma_int8")},
              jax_gate_shapes=gate("paged_attention")),
+        dict(name="flash_fwd_sharded", route="cuda",
+             source="dlrover_tpu_torch/csrc/flash_fwd.cu",
+             replaces="dlrover_tpu/ops/flash_attention.py:567",
+             launches=sum(sflash_by_path.values()),
+             launches_by_path=sflash_by_path, variant="wgmma",
+             tp1_ms=main_sflash["tp1_ms"],
+             **{k: main_sflash[k] for k in keys},
+             shape="tp=2 virtual shards of the card, B=1 S=512 H=32 KV=8 "
+                   "D=128 bf16 causal, a launch a shard (tp1_ms: the "
+                   "unsharded kernel; tp=4 and S=2048 in per_shape; "
+                   "launches: serve.tp2, serve.tp2.int8 and the tp=2 "
+                   "steps of serve.tp2.resize)",
+             per_shape=sharded_flash_rows),
+        dict(name="paged_attention_sharded", route="cuda",
+             source="dlrover_tpu_torch/csrc/paged_attention.cu",
+             replaces="dlrover_tpu/ops/paged_attention.py:287",
+             launches=sum(spaged_by_path.values()),
+             launches_by_path=spaged_by_path, variant="tma",
+             warm_ms=main_spaged["warm_ms"], tp1_ms=main_spaged["tp1_ms"],
+             tp1_warm_ms=main_spaged["tp1_warm_ms"],
+             **{k: main_spaged[k] for k in keys},
+             shape="tp=2 virtual shards of the card, B=8 H=32 KV=8 D=128 "
+                   "page 16, bf16 pool, a TMA-ring launch a shard on the "
+                   "unsharded launch's work partition (ms: cold, pool "
+                   "copies overflowing L2; tp1_*: the unsharded kernel; "
+                   "tp=4 and the int8 pool in per_variant; launches: "
+                   "serve.tp2, serve.tp2.int8 and the tp=2 steps of "
+                   "serve.tp2.resize)",
+             per_variant=sharded_paged_rows),
         dict(name="quantize_int8", route="cuda",
              source="dlrover_tpu_torch/csrc/quant_int8.cu",
              replaces="dlrover_tpu/ops/quantization.py:44",

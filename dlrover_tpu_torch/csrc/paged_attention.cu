@@ -53,7 +53,16 @@
 //    block that finds itself last at the end of its share merges the
 //    pieces by log-sum-exp in block order, 8 a round trip with every
 //    lane on its own values, and resets the counter: the same bits on
-//    every run, no second launch. Rows of length 0 are written as zeros.
+//    every run, no second launch. Rows of length 0 are written as zeros;
+//  - a head shard of a tensor-parallel serving slice (KV heads
+//    [g0, g0 + kvh) of `kv_all`, its own pool and queries) launches with
+//    the whole slice's unit sequence and grid and takes only its heads'
+//    units: every (row, head) run then falls to the blocks and warps,
+//    and is merged in the order, that the unsharded launch gives it, so
+//    the shard's output is its head slice of that launch, bit for bit.
+//    The ring counts only the units a block takes; the warp of a page
+//    follows its place in the whole share. kv_all = kvh, g0 = 0 is the
+//    unsharded launch.
 // Tried on the card and dropped (variants side by side in one call
 // each; PERF.md has the rankings): 64-bit share arithmetic and a
 // `__threadfence()` in every lane (the merges cost more than the
@@ -537,7 +546,7 @@ paged_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
                  const int* __restrict__ lengths,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ part,
                  int* __restrict__ counters, int n_b, int n_table, int kvh,
-                 float scale_log2) {
+                 int kv_all, int g0, float scale_log2) {
   using S = TpShape<NREP, HD, QUANT>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -566,7 +575,7 @@ paged_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
       const int i = base + lane;
       int len = 0;
       if (i < n_b) len = min(max(lengths[i], 0), n_table * TP_PS);
-      int v = (len + TP_PS - 1) / TP_PS * kvh;
+      int v = (len + TP_PS - 1) / TP_PS * kv_all;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
         const int up = __shfl_up_sync(0xffffffffu, v, off);
@@ -587,12 +596,14 @@ paged_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int u1 = share_start(blockIdx.x + 1, total, grid);
 
   if (warp == TP_CW) {
+    int n = 0;                                // units taken so far
     for (int base = u0; base < u1; base += 32) {
       const int u = base + lane;
       int b = 0, g = 0, p = 0, pages = 1, pid = 0;
       if (u < u1) {
-        tp_locate(u, cum, n_b, kvh, &b, &g, &p, &pages);
-        pid = table[(int64_t)b * n_table + p];
+        tp_locate(u, cum, n_b, kv_all, &b, &g, &p, &pages);
+        g -= g0;                              // the shard's own head
+        if (g >= 0 && g < kvh) pid = table[(int64_t)b * n_table + p];
       }
       const bool first = u == u0 || p == 0;
       const int cnt = min(32, u1 - base);
@@ -601,8 +612,8 @@ paged_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
         const int gj = __shfl_sync(0xffffffffu, g, j);
         const int pj = __shfl_sync(0xffffffffu, pid, j);
         const bool fj = __shfl_sync(0xffffffffu, (int)first, j);
+        if (gj < 0 || gj >= kvh) continue;    // another shard's unit
         if (lane == 0) {
-          const int n = base + j - u0;
           const int st = n % NS;
           if (n >= NS) mbar_wait(empty + st, (n / NS - 1) & 1);
           unsigned char* sb = smem + st * S::STAGE;
@@ -634,6 +645,7 @@ paged_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
                       q + ((int64_t)bj * h + gj * NREP) * HD,
                       NREP * HD * 2, full + st);
         }
+        ++n;
         __syncwarp();
       }
     }
@@ -655,7 +667,8 @@ paged_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
   float* mrg = reinterpret_cast<float*>(smem + S::MRG_OFF);
 
   int b = 0, g = 0, p = 0, pages = 1;
-  tp_locate(u0, cum, n_b, kvh, &b, &g, &p, &pages);
+  tp_locate(u0, cum, n_b, kv_all, &b, &g, &p, &pages);
+  g -= g0;
   // the rows this share cuts (at most its first and its last): each
   // writes its piece as it ends and lane 0 adds one to its counter;
   // whether this block was the last to do so is read at the share's end,
@@ -665,11 +678,22 @@ paged_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
   uint32_t qa[HD / 16][2];
   float acc[HD / 8][4];
   float m = -INFINITY, l = 0.f;
+  int nr = 0;                                 // ring stages taken
   for (int u = u0; u < u1; ++u) {
-    const int n = u - u0;
-    const int st = n % NS;
+    if (g < 0 || g >= kvh) {                  // another shard's unit
+      if (p + 1 < pages) {
+        ++p;
+      } else if (u + 1 < u1) {
+        tp_locate(u + 1, cum, n_b, kv_all, &b, &g, &p, &pages);
+        g -= g0;
+      }
+      continue;
+    }
+    const int n = u - u0;                     // the page's warp
+    const int st = nr % NS;
     unsigned char* sb = smem + st * S::STAGE;
-    mbar_wait(full + st, (n / NS) & 1);
+    mbar_wait(full + st, (nr / NS) & 1);
+    ++nr;
     if (u == u0 || p == 0) {
       const uint32_t* qs = reinterpret_cast<const uint32_t*>(sb + S::Q_OFF);
 #pragma unroll
@@ -832,11 +856,14 @@ paged_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
     bar_sync_n(1, TP_CW * 32);                // the states may be rewritten
     if (warp != 0) {
-      if (u + 1 < u1) tp_locate(u + 1, cum, n_b, kvh, &b, &g, &p, &pages);
+      if (u + 1 < u1) {
+        tp_locate(u + 1, cum, n_b, kv_all, &b, &g, &p, &pages);
+        g -= g0;
+      }
       continue;
     }
     const int row = b * kvh + g;
-    const int ur = cum[b] + g * pages;                 // the row's units
+    const int ur = cum[b] + (g0 + g) * pages;          // the row's units
     const int ue = ur + pages;
     __nv_bfloat16* dst = out + ((int64_t)b * h + g * NREP + g8) * HD;
     if (ur >= u0 && ue <= u1) {
@@ -876,7 +903,10 @@ paged_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
         cpg1 = pages;
       }
     }
-    if (u + 1 < u1) tp_locate(u + 1, cum, n_b, kvh, &b, &g, &p, &pages);
+    if (u + 1 < u1) {
+      tp_locate(u + 1, cum, n_b, kv_all, &b, &g, &p, &pages);
+      g -= g0;
+    }
   }
   if (warp != 0 || cut0 < 0) return;
 
@@ -967,8 +997,8 @@ template <int NREP, int HD, bool QUANT>
 int launch_tma(const void* q, const void* k, const void* v, const void* ks,
                const void* vs, const void* table, const void* lengths,
                void* out, void* part, void* counters, int b, int n_table,
-               int n_pages, int kvh, float scale, int grid,
-               cudaStream_t stream) {
+               int n_pages, int kvh, int kv_all, int g0, float scale,
+               int grid, cudaStream_t stream) {
   using S = TpShape<NREP, HD, QUANT>;
   CUtensorMap tm_k, tm_v;
   const CUtensorMapDataType type = QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
@@ -994,7 +1024,7 @@ int launch_tma(const void* q, const void* k, const void* v, const void* ks,
       tm_k, tm_v, (const __nv_bfloat16*)q, (const __nv_bfloat16*)ks,
       (const __nv_bfloat16*)vs, (const int*)table, (const int*)lengths,
       (__nv_bfloat16*)out, (float*)part, (int*)counters, b, n_table, kvh,
-      scale * 1.4426950408889634f);
+      kv_all, g0, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -1002,14 +1032,16 @@ template <int NREP, bool QUANT>
 int tma_by_hd(int hd, const void* q, const void* k, const void* v,
               const void* ks, const void* vs, const void* table,
               const void* lengths, void* out, void* part, void* counters,
-              int b, int n_table, int n_pages, int kvh, float scale,
-              int grid, cudaStream_t st) {
+              int b, int n_table, int n_pages, int kvh, int kv_all, int g0,
+              float scale, int grid, cudaStream_t st) {
   if (hd == 64)
     return launch_tma<NREP, 64, QUANT>(q, k, v, ks, vs, table, lengths, out,
-        part, counters, b, n_table, n_pages, kvh, scale, grid, st);
+        part, counters, b, n_table, n_pages, kvh, kv_all, g0, scale, grid,
+        st);
   if (hd == 128)
     return launch_tma<NREP, 128, QUANT>(q, k, v, ks, vs, table, lengths,
-        out, part, counters, b, n_table, n_pages, kvh, scale, grid, st);
+        out, part, counters, b, n_table, n_pages, kvh, kv_all, g0, scale, grid,
+        st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1018,16 +1050,20 @@ int tma_by_rep(int n_rep, int hd, const void* q, const void* k,
                const void* v, const void* ks, const void* vs,
                const void* table, const void* lengths, void* out, void* part,
                void* counters, int b, int n_table, int n_pages, int kvh,
-               float scale, int grid, cudaStream_t st) {
+               int kv_all, int g0, float scale, int grid, cudaStream_t st) {
   switch (n_rep) {
     case 1: return tma_by_hd<1, QUANT>(hd, q, k, v, ks, vs, table, lengths,
-        out, part, counters, b, n_table, n_pages, kvh, scale, grid, st);
+        out, part, counters, b, n_table, n_pages, kvh, kv_all, g0, scale, grid,
+        st);
     case 2: return tma_by_hd<2, QUANT>(hd, q, k, v, ks, vs, table, lengths,
-        out, part, counters, b, n_table, n_pages, kvh, scale, grid, st);
+        out, part, counters, b, n_table, n_pages, kvh, kv_all, g0, scale, grid,
+        st);
     case 4: return tma_by_hd<4, QUANT>(hd, q, k, v, ks, vs, table, lengths,
-        out, part, counters, b, n_table, n_pages, kvh, scale, grid, st);
+        out, part, counters, b, n_table, n_pages, kvh, kv_all, g0, scale, grid,
+        st);
     case 8: return tma_by_hd<8, QUANT>(hd, q, k, v, ks, vs, table, lengths,
-        out, part, counters, b, n_table, n_pages, kvh, scale, grid, st);
+        out, part, counters, b, n_table, n_pages, kvh, kv_all, g0, scale, grid,
+        st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1040,24 +1076,31 @@ int tma_by_rep(int n_rep, int hd, const void* q, const void* k,
 // (B <= 1024); n_rep in {1, 2, 4, 8}, hd in {64, 128}; `grid` blocks;
 // part [2 * grid, n_rep * hd + 16] f32 scratch for the rows a share's
 // edge cuts; counters [B * KV] int32, zero before the launch and zero
-// again after it. Launches on one device must not overlap (one stream):
+// again after it. A head shard passes its own q / out / pages (KV =
+// kvh heads) with the slice's KV heads `kv_all` and its first head
+// `g0`, and the unsharded launch's grid; kv_all = kvh, g0 = 0 else.
+// Launches on one device must not overlap (one stream):
 // they share the counters. One launch, no second kernel.
 extern "C" int paged_attention_tma_launch(
     int quant, const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* table, const void* lengths, void* out,
     void* part, void* counters, int b, int n_table, int n_pages, int kvh,
-    int n_rep, int hd, float scale, int grid, void* stream) {
+    int kv_all, int g0, int n_rep, int hd, float scale, int grid,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (b < 1 || b > TP_MAX_B || n_table < 1 || n_pages < 1 || kvh < 1 ||
       grid < 1 || part == nullptr || counters == nullptr ||
-      (uint64_t)b * kvh * n_table * (grid + 1) >= (1ull << 32) ||
+      kv_all < kvh || g0 < 0 || g0 + kvh > kv_all ||
+      (uint64_t)b * kv_all * n_table * (grid + 1) >= (1ull << 32) ||
       (quant && (kvh > TP_MAX_KV || ks == nullptr || vs == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (quant)
     return tma_by_rep<true>(n_rep, hd, q, k, v, ks, vs, table, lengths, out,
-        part, counters, b, n_table, n_pages, kvh, scale, grid, st);
+        part, counters, b, n_table, n_pages, kvh, kv_all, g0, scale, grid,
+        st);
   return tma_by_rep<false>(n_rep, hd, q, k, v, ks, vs, table, lengths, out,
-      part, counters, b, n_table, n_pages, kvh, scale, grid, st);
+      part, counters, b, n_table, n_pages, kvh, kv_all, g0, scale, grid,
+      st);
 }
 
 // dtype: 0 = float32 q/out, 1 = bfloat16 q/out. quant: 0 = pages of the

@@ -22,9 +22,25 @@ int (each row's bank slot), "scale": [S] f32}. Each layer takes its own
 [S, ...] slices and adds each row's delta inside the projections
 (`llama._slot_lora_delta`). With adapters=None every function computes
 exactly what it computes without the operand.
+
+Tensor-parallel serving (`mesh`, a parallel/mesh.ServingMesh of tp > 1;
+JAX's serving mesh and GSPMD): every entry JAX threads `mesh` through
+takes it here. Only the attention splits by head. Each layer computes
+q/k/v per shard from the replicated layer input (shards that share a
+device in one product over their adjacent wq/wk/wv columns, the
+`Sharded.whole` of parallel/sharding.py), writes each shard's heads
+into its own KV bank, attends per shard (the sharded flash and paged
+kernel sites), and gathers the outputs on the mesh's home device, where
+wo, the MLP, the norms and the logits run once, as at tp=1. A sharded
+cache, page pool or exact row is a list of per-shard dicts (the KV
+heads of shard i in entry i); the host-planned operands (positions,
+tables, lengths) are moved to each shard's device, a no-op where the
+shards share it. No contraction is ever split, so tp > 1 computes what
+tp = 1 computes, chunked by head; with mesh=None every function runs
+the one-device code unchanged.
 """
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 
@@ -43,8 +59,52 @@ from dlrover_tpu_torch.models.llama import (
 from dlrover_tpu_torch.ops import paged_attention as pa
 from dlrover_tpu_torch.ops.attention import dot_product_attention
 from dlrover_tpu_torch.ops.quantization import matmul_any
+from dlrover_tpu_torch.parallel.mesh import serving_mesh_tp
+from dlrover_tpu_torch.parallel.sharding import Sharded
 
 Cache = Dict[str, torch.Tensor]
+# a bank, pool or row: one dict, or one dict per head shard (tp > 1)
+AnyCache = Union[Cache, List[Cache]]
+
+
+def kv_shards(cache: AnyCache) -> List[Cache]:
+    """The per-shard dicts of a cache (a one-device cache is one shard)."""
+    return list(cache) if isinstance(cache, (list, tuple)) else [cache]
+
+
+def kv_read(cache: AnyCache, fn) -> Cache:
+    """`fn(array)` of every array of a cache, in the one-device layout:
+    a sharded cache's results concatenated on their KV-head axis (dim 3)
+    on the first shard's device."""
+    shards = kv_shards(cache)
+    if len(shards) == 1:
+        return {name: fn(arr) for name, arr in shards[0].items()}
+    dev = next(iter(shards[0].values())).device
+    return {name: torch.cat([fn(sh[name]).to(dev) for sh in shards], 3)
+            for name in shards[0]}
+
+
+def kv_write(cache: AnyCache, data: Cache, fn) -> None:
+    """`fn(array, piece)` for every array of a cache, with `data` (the
+    one-device layout) cut by head for each shard (`kv_split`)."""
+    for sh, piece in zip(kv_shards(cache), kv_split(data, cache)):
+        for name, arr in sh.items():
+            fn(arr, piece[name])
+
+
+def kv_split(cache: Cache, like: AnyCache) -> List[Cache]:
+    """A one-device cache cut on its KV-head axis the way `like` is
+    sharded, each piece on its shard's device (views where the devices
+    match)."""
+    shards = kv_shards(like)
+    if len(shards) == 1:
+        return [cache]
+    widths = [sh["k"].shape[3] for sh in shards]
+    out: List[Cache] = [{} for _ in shards]
+    for name, arr in cache.items():
+        for i, piece in enumerate(torch.split(arr, widths, 3)):
+            out[i][name] = piece.to(shards[i][name].device)
+    return out
 
 
 def _kv_dtypes(cfg, quant: bool):
@@ -64,15 +124,29 @@ def _zeros(shape, dtypes, dev) -> Cache:
     return out
 
 
+def _sharded_zeros(cfg, rows: int, cells: int, quant: bool, device,
+                   mesh) -> AnyCache:
+    """[L, rows, cells, KV, hd] buffers; with a mesh of tp > 1 one dict
+    per shard holding its KV / tp heads on its device
+    (`serving_kv_spec`)."""
+    tp = serving_mesh_tp(mesh)
+    dtypes = _kv_dtypes(cfg, quant)
+    if tp == 1:
+        shape = (cfg.n_layers, rows, cells, cfg.n_kv_heads, cfg.head_dim)
+        return _zeros(shape, dtypes, resolve_device(device))
+    shape = (cfg.n_layers, rows, cells, cfg.n_kv_heads // tp, cfg.head_dim)
+    return [_zeros(shape, dtypes, dev) for dev in mesh.devices]
+
+
 def init_kv_cache(
     cfg, batch: int, max_len: int, quant: bool = False,
-    device: DeviceLike = None,
-) -> Cache:
+    device: DeviceLike = None, mesh=None,
+) -> AnyCache:
     """Fixed-size cache buffers [L, B, M, KV, hd]; dtype follows the
     compute dtype. quant=True stores K/V as symmetric per-vector int8
-    plus one bf16 scale per [position, head]."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return _zeros(shape, _kv_dtypes(cfg, quant), resolve_device(device))
+    plus one bf16 scale per [position, head]. `mesh` (tp > 1): one dict
+    per head shard."""
+    return _sharded_zeros(cfg, batch, max_len, quant, device, mesh)
 
 
 def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,21 +210,36 @@ def _write_cache_and_attend(
     q, k, v, layer_cache, positions, start, head_dim,
     attn_impl: str = "auto",
     plain_causal: bool = False,
+    mesh=None,
 ):
     """Write this chunk's K/V into the cache at `start` and attend.
 
     `plain_causal` is the prefill fast path, asserted by the caller
     that owns the invariant (prefill(): start 0 and dense arange
     positions, so the chunk IS the whole valid prefix): plain causal
-    attention over the chunk — the flash kernel on the card."""
-    if "k_scale" in layer_cache:
-        kq, ks = _kv_quantize(k)
-        vq, vs = _kv_quantize(v)
-        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    else:
-        writes = {"k": k, "v": v}
-    for name, upd in writes.items():
-        _cache_write(layer_cache[name], upd, start)
+    attention over the chunk — the flash kernel on the card.
+
+    `mesh` (tp > 1): q/k/v and `layer_cache` are per-shard lists; each
+    shard writes its heads and attends on its own device (prefill
+    through the sharded flash site), and the output comes back
+    gathered on mesh.home, ready for wo."""
+    if serving_mesh_tp(mesh) > 1:
+        for i, dev in enumerate(mesh.devices):
+            st = _on(start, dev)
+            _write_kv(layer_cache[i], k[i], v[i],
+                      lambda arr, upd: _cache_write(arr, upd, st))
+        if plain_causal:
+            impl = "reference" if attn_impl == "reference" else "auto"
+            parts = dot_product_attention(q, k, v, causal=True, impl=impl,
+                                          tp=mesh.tp, mesh=mesh)
+        else:
+            parts = [_cached_attention(q[i], layer_cache[i],
+                                       positions.to(dev),
+                                       float(head_dim) ** -0.5)
+                     for i, dev in enumerate(mesh.devices)]
+        return mesh.gather(parts, 2), layer_cache
+    _write_kv(layer_cache, k, v, lambda arr, upd: _cache_write(arr, upd,
+                                                               start))
     if plain_causal:
         # honor an explicit 'reference'; otherwise 'auto' (the kernel
         # for CUDA tensors)
@@ -163,26 +252,110 @@ def _write_cache_and_attend(
     return attn, layer_cache
 
 
+def _write_kv(layer_cache, k, v, write) -> None:
+    """`write(arr, update)` of this chunk's K/V into each array of one
+    layer's cache (int8 caches: the quantized values and their
+    scales)."""
+    if "k_scale" in layer_cache:
+        kq, ks = _kv_quantize(k)
+        vq, vs = _kv_quantize(v)
+        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        writes = {"k": k, "v": v}
+    for name, upd in writes.items():
+        write(layer_cache[name], upd)
+
+
+def _on(x, dev):
+    """A host-planned operand (a tensor, a tuple of them, or a plain
+    number) on `dev`: the tensor itself where it is there already."""
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        return tuple(_on(t, dev) for t in x)
+    return x
+
+
+def _shard_lora(lora, i: int, dev):
+    """Shard i's (bank slices, idx, scale): its B columns, the
+    replicated A banks and the row indices on its device."""
+    if lora is None:
+        return None
+    bank, idx, scale = lora
+    return ({n: (a.shards[i] if isinstance(a, Sharded) else a.to(dev))
+             for n, a in bank.items()}, idx.to(dev), scale.to(dev))
+
+
+def _qkv_sharded(cfg, h, lp, positions, rope, lora, mesh):
+    """Per-shard q [B,S,H/tp,hd], k/v [B,S,KV/tp,hd] on their devices,
+    from the replicated `h`. On a colocated mesh the shards' adjacent
+    columns are one product on the stored whole (`Sharded.whole`): the
+    per-shard products in one call, bit for bit the unsharded one."""
+    tp = mesh.tp
+    qkv = [lp[n] for n in ("wq", "wk", "wv")]
+    if mesh.colocated and all(not isinstance(w, Sharded)
+                              or w.whole is not None for w in qkv):
+        lp_w = {n: (w.whole if isinstance(w, Sharded) else w)
+                for n, w in lp.items()}
+        lora_w = None
+        if lora is not None:
+            bank, idx, scale = lora
+            lora_w = ({n: (a.whole if isinstance(a, Sharded) else a)
+                       for n, a in bank.items()}, idx, scale)
+        q, k, v = _attn_qkv(cfg, h, lp_w, positions, rope, lora=lora_w,
+                            tp=tp)
+        return mesh.split(q, 2), mesh.split(k, 2), mesh.split(v, 2)
+    if not all(isinstance(w, Sharded) for w in qkv):
+        raise ValueError("a slice across devices needs wq/wk/wv placed "
+                         "by parallel/sharding.shard_tree")
+    heads = (cfg.n_heads // tp, cfg.n_kv_heads // tp)
+    qs, ks, vs = [], [], []
+    for i, dev in enumerate(mesh.devices):
+        lp_i = {n: lp[n].shards[i] for n in ("wq", "wk", "wv")}
+        q, k, v = _attn_qkv(cfg, h.to(dev), lp_i, positions.to(dev),
+                            _on(rope, dev), lora=_shard_lora(lora, i, dev),
+                            heads=heads, tp=tp)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    return qs, ks, vs
+
+
 def _block(cfg: LlamaConfig, x, layer_params, layer_cache, positions,
-           start, plain_causal: bool = False, rope=None, lora=None):
+           start, plain_causal: bool = False, rope=None, lora=None,
+           mesh=None):
     """One decoder block writing its K/V into the cache. `rope` is the
     forward's precomputed `_rope_tables` (computed here when None);
-    `lora` is (this layer's bank slices, idx, scale) or None."""
+    `lora` is (this layer's bank slices, idx, scale) or None. `mesh`
+    (tp > 1): `layer_cache` is a per-shard list, q/k/v are computed per
+    shard (`_qkv_sharded`), and wo, the MLP and the residuals run once
+    on the gathered heads."""
     lp = _compute_weights(cfg, layer_params)
     h = _rms_norm(x, layer_params["attn_norm"], cfg.norm_eps)
-    q, k, v = _attn_qkv(cfg, h, lp, positions, rope, lora=lora)
+    tp = serving_mesh_tp(mesh)
+    if tp > 1:
+        q, k, v = _qkv_sharded(cfg, h, lp, positions, rope, lora, mesh)
+    else:
+        q, k, v = _attn_qkv(cfg, h, lp, positions, rope, lora=lora)
     attn, layer_cache = _write_cache_and_attend(
         q, k, v, layer_cache, positions, start, cfg.head_dim,
-        attn_impl=cfg.attn_impl, plain_causal=plain_causal,
+        attn_impl=cfg.attn_impl, plain_causal=plain_causal, mesh=mesh,
     )
-    x = _attn_residual(cfg, x, attn, lp, lora=lora)
-    x = _mlp_residual(cfg, x, layer_params, lp)
+    x = _attn_residual(cfg, x, attn, lp, lora=lora, tp=tp)
+    x = _mlp_residual(cfg, x, layer_params, lp, tp=tp)
     return x, layer_cache
 
 
-def _logits(cfg, params, x):
+def _logits(cfg, params, x, tp: int = 1):
     x = _rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return matmul_any(x, _head_matrix(cfg, params)).float()
+    return matmul_any(x, _head_matrix(cfg, params), tp=tp).float()
+
+
+def _layer_cache(cache: AnyCache, layer: int):
+    """One layer's slices of a cache (of each shard's, when sharded)."""
+    if isinstance(cache, (list, tuple)):
+        return [{n: a[layer] for n, a in sh.items()} for sh in cache]
+    return {name: arr[layer] for name, arr in cache.items()}
 
 
 def _check_adapters(cfg, adapters) -> None:
@@ -201,36 +374,36 @@ def _layer_lora(adapters, layer: int):
 
 
 def _forward_cached(cfg, params, tokens, cache, positions, start,
-                    plain_causal: bool = False, adapters=None):
+                    plain_causal: bool = False, adapters=None, mesh=None):
     """tokens [B,S] -> logits [B,S,V], writing the cache at
     [start, start+S); `adapters` (module docstring) adds each row's
-    LoRA delta."""
+    LoRA delta; `mesh` (tp > 1) runs the head-sharded blocks over a
+    per-shard cache."""
     _check_adapters(cfg, adapters)
     x = params["embed"]["weight"].to(cfg.dtype)[tokens]
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for layer in range(cfg.n_layers):
-        layer_cache = {name: arr[layer] for name, arr in cache.items()}
         x, _ = _block(
-            cfg, x, _layer_params(params, layer), layer_cache, positions,
-            start, plain_causal=plain_causal, rope=rope,
-            lora=_layer_lora(adapters, layer),
+            cfg, x, _layer_params(params, layer), _layer_cache(cache, layer),
+            positions, start, plain_causal=plain_causal, rope=rope,
+            lora=_layer_lora(adapters, layer), mesh=mesh,
         )
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x, serving_mesh_tp(mesh)), cache
 
 
-def prefill(cfg, params, tokens, cache, adapters=None):
+def prefill(cfg, params, tokens, cache, adapters=None, mesh=None):
     """Fill the cache from a prompt [B, P]; returns (last-token logits,
     cache)."""
     b, p = tokens.shape
     positions = torch.arange(p, device=tokens.device).expand(b, p)
     logits, cache = _forward_cached(
         cfg, params, tokens, cache, positions, 0, plain_causal=p > 1,
-        adapters=adapters,
+        adapters=adapters, mesh=mesh,
     )
     return logits[:, -1], cache
 
 
-def decode_step(cfg, params, token, cache, pos, adapters=None):
+def decode_step(cfg, params, token, cache, pos, adapters=None, mesh=None):
     """One cached step -> (next-token logits [B,V], cache). `pos` is a
     scalar (all rows) or a [B] vector (each row at its own position)."""
     b = token.shape[0]
@@ -241,7 +414,7 @@ def decode_step(cfg, params, token, cache, pos, adapters=None):
         positions = pos.reshape(1, 1).expand(b, 1)
     logits, cache = _forward_cached(
         cfg, params, token[:, None], cache, positions, pos,
-        adapters=adapters,
+        adapters=adapters, mesh=mesh,
     )
     return logits[:, 0], cache
 
@@ -253,7 +426,7 @@ def _verify_positions(tokens, pos):
                                        device=tokens.device)[None, :]
 
 
-def verify_step(cfg, params, tokens, cache, pos, adapters=None):
+def verify_step(cfg, params, tokens, cache, pos, adapters=None, mesh=None):
     """Batched speculative verify: tokens [B, S] (the carry token and
     S-1 drafts) at positions pos[b] + [0, S) in ONE forward -> (logits
     [B, S, V], cache). Each row's K/V is written first, then every
@@ -264,26 +437,30 @@ def verify_step(cfg, params, tokens, cache, pos, adapters=None):
     engine over-allocates its bank by the draft width)."""
     positions = _verify_positions(tokens, pos)
     return _forward_cached(cfg, params, tokens, cache, positions,
-                           positions[:, 0], adapters=adapters)
+                           positions[:, 0], adapters=adapters, mesh=mesh)
 
 
-def prefill_into_slot(cfg, params, prompt, cache, slot: int, adapters=None):
+def prefill_into_slot(cfg, params, prompt, cache, slot: int, adapters=None,
+                      mesh=None):
     """Run a single-sequence prefill of `prompt` [P] (a pad tail is
     fine: the decode mask hides cells past the slot's position) and
     install its K/V into row `slot` of a multi-slot cache. `adapters`
     carries a 1-row idx (the admitted request's bank slot): an adapted
     request's prompt K/V comes from the adapted projections."""
     p = prompt.shape[0]
-    if cache["k"].shape[2] < p:
+    first = kv_shards(cache)[0]
+    if first["k"].shape[2] < p:
         raise ValueError(
-            f"prompt chunk {p} exceeds cache max_len {cache['k'].shape[2]}"
+            f"prompt chunk {p} exceeds cache max_len {first['k'].shape[2]}"
         )
     mini = init_kv_cache(
-        cfg, 1, p, quant="k_scale" in cache, device=prompt.device
+        cfg, 1, p, quant="k_scale" in first, device=prompt.device, mesh=mesh
     )
-    _, mini = prefill(cfg, params, prompt[None], mini, adapters=adapters)
-    for name, arr in cache.items():
-        arr[:, slot, :p] = mini[name][:, 0].to(arr.dtype)
+    _, mini = prefill(cfg, params, prompt[None], mini, adapters=adapters,
+                      mesh=mesh)
+    for sh, msh in zip(kv_shards(cache), kv_shards(mini)):
+        for name, arr in sh.items():
+            arr[:, slot, :p] = msh[name][:, 0].to(arr.dtype)
     return cache
 
 
@@ -299,19 +476,22 @@ def prefill_into_slot(cfg, params, prompt, cache, slot: int, adapters=None):
 # ---------------------------------------------------------------------------
 
 
-def exact_row_cache(cfg, max_len: int, device: DeviceLike = None) -> Cache:
+def exact_row_cache(cfg, max_len: int, device: DeviceLike = None,
+                    mesh=None) -> AnyCache:
     """A single-sequence full-precision cache row [L, 1, M, KV, hd]."""
-    return init_kv_cache(cfg, 1, max_len, quant=False, device=device)
+    return init_kv_cache(cfg, 1, max_len, quant=False, device=device,
+                         mesh=mesh)
 
 
 def prefill_exact_row(cfg, params, prompt, max_len: int,
-                      adapters=None) -> Cache:
+                      adapters=None, mesh=None) -> AnyCache:
     """Cold-admission prefill of `prompt` [P] into a fresh exact row.
     `adapters` (a 1-row idx) serves the paged cold admission of an
     adapted request; rows bound for the shared prefix pool pass None
     (published prefixes are base-model K/V by contract)."""
-    row = exact_row_cache(cfg, max_len, device=prompt.device)
-    _, row = prefill(cfg, params, prompt[None], row, adapters=adapters)
+    row = exact_row_cache(cfg, max_len, device=prompt.device, mesh=mesh)
+    _, row = prefill(cfg, params, prompt[None], row, adapters=adapters,
+                     mesh=mesh)
     return row
 
 
@@ -319,7 +499,8 @@ def _chunk_positions(start: int, n: int, device):
     return (int(start) + torch.arange(n, device=device))[None]
 
 
-def prefill_suffix_row(cfg, params, suffix, row: Cache, start: int) -> Cache:
+def prefill_suffix_row(cfg, params, suffix, row: AnyCache, start: int,
+                       mesh=None) -> AnyCache:
     """Warm-admission prefill: extend an exact row that holds K/V of
     positions [0, start) with `suffix` [S] at positions [start,
     start+S), in place. The suffix queries attend over the installed
@@ -327,12 +508,14 @@ def prefill_suffix_row(cfg, params, suffix, row: Cache, start: int) -> Cache:
     `_cached_attention` (each position is written before it is read),
     not flash. The caller keeps start + S within the row."""
     positions = _chunk_positions(start, suffix.shape[0], suffix.device)
-    _forward_cached(cfg, params, suffix[None], row, positions, start)
+    _forward_cached(cfg, params, suffix[None], row, positions, start,
+                    mesh=mesh)
     return row
 
 
-def prefill_chunk_into_slot(cfg, params, chunk, cache: Cache, slot: int,
-                            start: int, adapters=None) -> Cache:
+def prefill_chunk_into_slot(cfg, params, chunk, cache: AnyCache, slot: int,
+                            start: int, adapters=None,
+                            mesh=None) -> AnyCache:
     """Resume slot `slot`'s prefill at its write frontier: run `chunk`
     [C] (real tokens only, no pad tail) at positions [start, start+C),
     writing K/V straight into that row of the multi-slot bank, in place:
@@ -340,14 +523,15 @@ def prefill_chunk_into_slot(cfg, params, chunk, cache: Cache, slot: int,
     one blocking prefill writes; an int8 bank attends the dequantized
     earlier chunks). `adapters` carries the slot's 1-row idx."""
     positions = _chunk_positions(start, chunk.shape[0], chunk.device)
+    rows = [{name: arr[:, slot:slot + 1] for name, arr in sh.items()}
+            for sh in kv_shards(cache)]
     _forward_cached(cfg, params, chunk[None],
-                    {name: arr[:, slot:slot + 1]
-                     for name, arr in cache.items()},
-                    positions, start, adapters=adapters)
+                    rows if isinstance(cache, list) else rows[0],
+                    positions, start, adapters=adapters, mesh=mesh)
     return cache
 
 
-def install_exact_row(cache: Cache, row: Cache, slot: int) -> Cache:
+def install_exact_row(cache: AnyCache, row: AnyCache, slot: int) -> AnyCache:
     """Write an exact row into slot `slot` of the (possibly int8) slot
     bank, in place, quantizing on the way in when the bank is int8 (the
     cold write path's per-vector scheme on the same exact values). A
@@ -355,26 +539,31 @@ def install_exact_row(cache: Cache, row: Cache, slot: int) -> Cache:
     decode position mask until generation overwrites them. A row
     shorter than the bank (a bank over-allocated by the draft width)
     fills its leading cells, as the JAX package's dynamic_update_slice
-    does."""
-    if "k_scale" in cache:
-        kq, ks = _kv_quantize(row["k"])
-        vq, vs = _kv_quantize(row["v"])
-        row = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    for name, arr in cache.items():
-        src = row[name][:, 0]
-        arr[:, slot, :src.shape[1]] = src.to(arr.dtype)
+    does. A sharded bank takes a sharded row, shard by shard."""
+    for sh, rsh in zip(kv_shards(cache), kv_shards(row)):
+        if "k_scale" in sh:
+            kq, ks = _kv_quantize(rsh["k"])
+            vq, vs = _kv_quantize(rsh["v"])
+            rsh = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        for name, arr in sh.items():
+            src = rsh[name][:, 0]
+            arr[:, slot, :src.shape[1]] = src.to(arr.dtype)
     return cache
 
 
-def pool_take_row(pool: Cache, row: int) -> Cache:
-    """A copy of pool row `row` as a single-sequence exact cache."""
-    return {name: arr[:, row:row + 1].clone() for name, arr in pool.items()}
+def pool_take_row(pool: AnyCache, row: int) -> AnyCache:
+    """A copy of pool row `row` as a single-sequence exact cache (one per
+    shard when sharded)."""
+    rows = [{name: arr[:, row:row + 1].clone() for name, arr in sh.items()}
+            for sh in kv_shards(pool)]
+    return rows if isinstance(pool, list) else rows[0]
 
 
-def pool_put_row(pool: Cache, row_cache: Cache, row: int) -> Cache:
+def pool_put_row(pool: AnyCache, row_cache: AnyCache, row: int) -> AnyCache:
     """Publish an exact row into pool row `row` (whole-row write)."""
-    for name, arr in pool.items():
-        arr[:, row] = row_cache[name][:, 0].to(arr.dtype)
+    for sh, rsh in zip(kv_shards(pool), kv_shards(row_cache)):
+        for name, arr in sh.items():
+            arr[:, row] = rsh[name][:, 0].to(arr.dtype)
     return pool
 
 
@@ -391,13 +580,13 @@ def pool_put_row(pool: Cache, row_cache: Cache, row: int) -> Cache:
 
 def init_page_pool(
     cfg, n_pages: int, page_size: int, quant: bool = False,
-    device: DeviceLike = None,
-) -> Cache:
+    device: DeviceLike = None, mesh=None,
+) -> AnyCache:
     """The global page pool [L, n_pages, page_size, KV, hd] (+ per
     [page, cell, head] bf16 scales when quant — the same per-vector
-    int8 scheme as init_kv_cache)."""
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return _zeros(shape, _kv_dtypes(cfg, quant), resolve_device(device))
+    int8 scheme as init_kv_cache). `mesh` (tp > 1): one pool per head
+    shard, every shard holding every page of its heads."""
+    return _sharded_zeros(cfg, n_pages, page_size, quant, device, mesh)
 
 
 def _paged_view(layer_pool: Cache, table) -> Cache:
@@ -415,7 +604,7 @@ def _page_slots(table, positions, page_size: int):
 
 def _write_pages_and_attend(
     q, k, v, layer_pool, table, positions, head_dim,
-    attn_impl: str = "auto", slots=None,
+    attn_impl: str = "auto", slots=None, mesh=None,
 ):
     """Scatter this chunk's K/V into the rows' pages (row b, chunk
     position s -> pool[table[b, pos//ps], pos%ps]), in place, and
@@ -423,19 +612,15 @@ def _write_pages_and_attend(
     otherwise (and on the CPU) through the gathered dense view with the
     identical position-masked attention. Only done rows parked on the
     trash page collide in the scatter; no live mask reads those cells.
-    `slots` is the forward's precomputed `_page_slots`."""
+    `slots` is the forward's precomputed `_page_slots`. `mesh` (tp > 1):
+    q/k/v and `layer_pool` are per-shard lists (`_pages_sharded`)."""
+    if serving_mesh_tp(mesh) > 1:
+        return _pages_sharded(q, k, v, layer_pool, table, positions,
+                              head_dim, attn_impl, slots, mesh)
     if slots is None:
         slots = _page_slots(table, positions, layer_pool["k"].shape[1])
     pids, offs = slots
-    if "k_scale" in layer_pool:
-        kq, ks = _kv_quantize(k)
-        vq, vs = _kv_quantize(v)
-        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    else:
-        writes = {"k": k, "v": v}
-    for name, upd in writes.items():
-        arr = layer_pool[name]
-        arr[pids, offs] = upd.to(arr.dtype)
+    _write_kv(layer_pool, k, v, _page_write(pids, offs))
     # attn_impl='reference' pins the gathered-view formulation even
     # where use_kernel would take the kernel
     if q.shape[1] == 1 and attn_impl != "reference":
@@ -452,90 +637,135 @@ def _write_pages_and_attend(
     return attn, layer_pool
 
 
+def _page_write(pids, offs):
+    def write(arr, upd):
+        arr[pids, offs] = upd.to(arr.dtype)
+    return write
+
+
+def _pages_sharded(q, k, v, layer_pools, table, positions, head_dim,
+                   attn_impl, slots, mesh):
+    """`_write_pages_and_attend` per head shard: each shard scatters its
+    heads into its own pool through the one host-planned table; a
+    decode step attends through the sharded paged kernel site
+    (`paged_attention(..., mesh=)`) where JAX's gate takes it on the
+    per-shard shapes, otherwise each shard through its gathered view.
+    Returns the heads gathered on mesh.home."""
+    if slots is None:
+        slots = _page_slots(table, positions, layer_pools[0]["k"].shape[1])
+    for i, dev in enumerate(mesh.devices):
+        _write_kv(layer_pools[i], k[i], v[i], _page_write(*_on(slots, dev)))
+    scale = float(head_dim) ** -0.5
+    if q[0].shape[1] == 1 and attn_impl != "reference":
+        q1 = [qi[:, 0] for qi in q]
+        if pa.use_kernel(q1, layer_pools, table, tp=mesh.tp):
+            lengths = (positions[:, 0] + 1).to(torch.int32)
+            parts = pa.paged_attention(q1, layer_pools, table, lengths,
+                                       scale=scale, impl="kernel", mesh=mesh)
+            return mesh.gather(parts, 1)[:, None], layer_pools
+    parts = [_cached_attention(q[i], _paged_view(layer_pools[i],
+                                                 table.to(dev)),
+                               positions.to(dev), scale)
+             for i, dev in enumerate(mesh.devices)]
+    return mesh.gather(parts, 2), layer_pools
+
+
 def _block_paged(cfg, x, layer_params, layer_pool, table, positions,
-                 rope=None, slots=None, lora=None):
+                 rope=None, slots=None, lora=None, mesh=None):
     """Llama block over paged KV — identical projections/residuals to
-    `_block` (the per-slot `lora` deltas included); only the cache
-    write + attention differ."""
+    `_block` (the per-slot `lora` deltas included, per shard at tp > 1);
+    only the cache write + attention differ."""
     lp = _compute_weights(cfg, layer_params)
     h = _rms_norm(x, layer_params["attn_norm"], cfg.norm_eps)
-    q, k, v = _attn_qkv(cfg, h, lp, positions, rope, lora=lora)
+    tp = serving_mesh_tp(mesh)
+    if tp > 1:
+        q, k, v = _qkv_sharded(cfg, h, lp, positions, rope, lora, mesh)
+    else:
+        q, k, v = _attn_qkv(cfg, h, lp, positions, rope, lora=lora)
     attn, layer_pool = _write_pages_and_attend(
         q, k, v, layer_pool, table, positions, cfg.head_dim,
-        attn_impl=cfg.attn_impl, slots=slots,
+        attn_impl=cfg.attn_impl, slots=slots, mesh=mesh,
     )
-    x = _attn_residual(cfg, x, attn, lp, lora=lora)
-    x = _mlp_residual(cfg, x, layer_params, lp)
+    x = _attn_residual(cfg, x, attn, lp, lora=lora, tp=tp)
+    x = _mlp_residual(cfg, x, layer_params, lp, tp=tp)
     return x, layer_pool
 
 
 def _forward_paged(cfg, params, tokens, pool, table, positions,
-                   adapters=None):
+                   adapters=None, mesh=None):
     """tokens [B, S] -> logits [B, S, V] over the paged pool; the table
     is shared by every layer, and so is the optional `adapters`
-    operand's idx."""
+    operand's idx. `mesh` (tp > 1): a per-shard pool."""
     _check_adapters(cfg, adapters)
     x = params["embed"]["weight"].to(cfg.dtype)[tokens]
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    slots = _page_slots(table, positions, pool["k"].shape[2])
+    slots = _page_slots(table, positions, kv_shards(pool)[0]["k"].shape[2])
     for layer in range(cfg.n_layers):
-        layer_pool = {name: arr[layer] for name, arr in pool.items()}
         x, _ = _block_paged(
-            cfg, x, _layer_params(params, layer), layer_pool, table,
-            positions, rope=rope, slots=slots,
-            lora=_layer_lora(adapters, layer),
+            cfg, x, _layer_params(params, layer), _layer_cache(pool, layer),
+            table, positions, rope=rope, slots=slots,
+            lora=_layer_lora(adapters, layer), mesh=mesh,
         )
-    return _logits(cfg, params, x), pool
+    return _logits(cfg, params, x, serving_mesh_tp(mesh)), pool
 
 
-def paged_decode_step(cfg, params, token, pool, table, pos, adapters=None):
+def paged_decode_step(cfg, params, token, pool, table, pos, adapters=None,
+                      mesh=None):
     """One cached step over paged KV -> (logits [B, V], pool); `pos` is
     the [B] per-slot position vector."""
     pos = torch.as_tensor(pos, dtype=torch.long, device=token.device)
     logits, pool = _forward_paged(
         cfg, params, token[:, None], pool, table, pos[:, None],
-        adapters=adapters,
+        adapters=adapters, mesh=mesh,
     )
     return logits[:, 0], pool
 
 
-def paged_verify_step(cfg, params, tokens, pool, table, pos, adapters=None):
+def paged_verify_step(cfg, params, tokens, pool, table, pos, adapters=None,
+                      mesh=None):
     """The paged twin of `verify_step`: the K/V of tokens [B, S] goes
     straight into the rows' pages, and the queries attend through the
     gathered view (S > 1 never takes the paged-attention kernel). The
     engine sizes each request's page run for limit - 1 + draft_len
     cells, so the window lands in owned (or trash) pages."""
     return _forward_paged(cfg, params, tokens, pool, table,
-                          _verify_positions(tokens, pos), adapters=adapters)
+                          _verify_positions(tokens, pos), adapters=adapters,
+                          mesh=mesh)
 
 
-def paged_install_row(pool: Cache, row_cache: Cache, table_row, start: int,
-                      length: int) -> Cache:
+def paged_install_row(pool: AnyCache, row_cache: AnyCache, table_row,
+                      start: int, length: int) -> AnyCache:
     """Install cells [start, start+length) of an exact cache row into
     the pages `table_row` maps them to, in place — quantizing on the
     way in when the pool is int8 (per-vector scales make quantizing the
     slice equal to slicing the quantized whole, so the bytes match the
     dense bank's). The slice start clamps so the window fits the row,
-    as the JAX package's dynamic_slice does."""
-    ps = pool["k"].shape[2]
-    m = row_cache["k"].shape[2]
+    as the JAX package's dynamic_slice does. A sharded pool takes a
+    sharded row, or a one-device row it cuts by head (`kv_split`)."""
+    shards = kv_shards(pool)
+    ps = shards[0]["k"].shape[2]
+    rows = (kv_shards(row_cache) if isinstance(row_cache, list)
+            else kv_split(row_cache, pool))
+    m = rows[0]["k"].shape[2]
     dev = table_row.device
     positions = int(start) + torch.arange(length, device=dev)
     pids = table_row[positions // ps].long()
     offs = positions % ps
     st = min(max(int(start), 0), m - length)
-    src = {n: row_cache[n][:, 0, st:st + length] for n in ("k", "v")}
-    if "k_scale" in pool:
-        kq, ks = _kv_quantize(src["k"])
-        vq, vs = _kv_quantize(src["v"])
-        src = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    for name, arr in pool.items():
-        arr[:, pids, offs] = src[name].to(arr.dtype)
+    for sh, rsh in zip(shards, rows):
+        src = {n: rsh[n][:, 0, st:st + length] for n in ("k", "v")}
+        if "k_scale" in sh:
+            kq, ks = _kv_quantize(src["k"])
+            vq, vs = _kv_quantize(src["v"])
+            src = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        sdev = sh["k"].device
+        for name, arr in sh.items():
+            arr[:, pids.to(sdev), offs.to(sdev)] = src[name].to(arr.dtype)
     return pool
 
 
-def paged_prefill_chunk(cfg, params, chunk, pool: Cache, table_row,
-                        start: int, adapters=None) -> Cache:
+def paged_prefill_chunk(cfg, params, chunk, pool: AnyCache, table_row,
+                        start: int, adapters=None, mesh=None) -> AnyCache:
     """Paged twin of `prefill_chunk_into_slot`: run `chunk` [C] at
     positions [start, start+C), scattering its K/V through `table_row`
     [P], the slot's REAL page ids (never the trash-routed table a decode
@@ -545,15 +775,16 @@ def paged_prefill_chunk(cfg, params, chunk, pool: Cache, table_row,
     the slot's 1-row idx."""
     positions = _chunk_positions(start, chunk.shape[0], chunk.device)
     _forward_paged(cfg, params, chunk[None], pool, table_row[None],
-                   positions, adapters=adapters)
+                   positions, adapters=adapters, mesh=mesh)
     return pool
 
 
-def pool_copy_page(pool: Cache, src: int, dst: int) -> Cache:
-    """Copy physical page `src` onto `dst` in every layer, in place: the
-    device half of copy-on-write."""
-    for arr in pool.values():
-        arr[:, dst] = arr[:, src]
+def pool_copy_page(pool: AnyCache, src: int, dst: int) -> AnyCache:
+    """Copy physical page `src` onto `dst` in every layer (and shard), in
+    place: the device half of copy-on-write."""
+    for sh in kv_shards(pool):
+        for arr in sh.values():
+            arr[:, dst] = arr[:, src]
     return pool
 
 

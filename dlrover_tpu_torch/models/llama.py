@@ -248,15 +248,24 @@ def _compute_weights(cfg: LlamaConfig, layer_params) -> Dict:
     The LoRA merge site (models/lora.py): where `{k}_lora_a/b` leaves
     are present the effective weight W + (alpha/r) A@B is formed here,
     in the compute dtype, per layer, and the adapter leaves are
-    skipped. The casts stay differentiable."""
+    skipped. The casts stay differentiable. A head-sharded serving
+    weight (parallel/sharding.Sharded) is cast piece by piece, and its
+    merge adds each piece's columns of A@B."""
+    from dlrover_tpu_torch.parallel.sharding import Sharded
+
     out = {}
     for k, v in layer_params.items():
         if k.endswith("_norm") or "_lora_" in k:
             continue
-        if isinstance(v, QuantizedWeight):
+        if isinstance(v, Sharded):
+            v = v.map(lambda s: s if isinstance(s, QuantizedWeight)
+                      else s.to(cfg.dtype))
+        if isinstance(v, QuantizedWeight) or (
+                isinstance(v, Sharded)
+                and isinstance(v.shards[0], QuantizedWeight)):
             out[k] = v
             continue
-        w = v.to(cfg.dtype)
+        w = v if isinstance(v, Sharded) else v.to(cfg.dtype)
         a = layer_params.get(k + "_lora_a")
         if a is not None:
             b = layer_params[k + "_lora_b"]
@@ -265,7 +274,13 @@ def _compute_weights(cfg: LlamaConfig, layer_params) -> Dict:
             # values of that dtype then rounds once, as there
             scale = float(torch.tensor(cfg.lora_alpha / a.shape[-1],
                                        dtype=cfg.dtype))
-            w = w + scale * (a.to(cfg.dtype) @ b.to(cfg.dtype))
+            delta = scale * (a.to(cfg.dtype) @ b.to(cfg.dtype))
+            if isinstance(w, Sharded):
+                cols = torch.split(delta, w.widths(), dim=w.dim)
+                w = Sharded([p + c.to(p.device)
+                             for p, c in zip(w.shards, cols)], w.dim)
+            else:
+                w = w + delta
         out[k] = w
     return out
 
@@ -284,18 +299,31 @@ def _slot_lora_delta(h, a, b, idx, scale):
     return scale[idx].to(h.dtype)[:, None, None] * d
 
 
-def _attn_qkv(cfg: LlamaConfig, h, lp, positions, rope=None, lora=None):
+def _matmul(x, w, name: str, tp: int):
+    """A model product: `tagged_matmul` (the remat tag) at tp = 1; on a
+    serving slice (tp > 1, never under autograd) `matmul_any` with the
+    tp its int8 gate reads."""
+    if tp == 1:
+        return tagged_matmul(x, w, name)
+    return matmul_any(x, w, tp=tp)
+
+
+def _attn_qkv(cfg: LlamaConfig, h, lp, positions, rope=None, lora=None,
+              heads=None, tp: int = 1):
     """Projections + RoPE of one block: q [B,S,H,hd], k/v [B,S,KV,hd].
     `rope`: the forward's precomputed `_rope_tables`. `lora` (serving
     only): a (bank, idx, scale) triple of one layer's stacked adapter
     slices; each row's delta is added to the raw projections before
     RoPE (RoPE is linear, so that equals rotating the merged-weight
-    projection)."""
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    projection). On a serving slice (tp > 1) `lp` holds one shard's
+    wq/wk/wv columns, `lora` its B columns, and `heads` = (q heads, KV
+    heads) of the shard."""
+    H, KV = heads or (cfg.n_heads, cfg.n_kv_heads)
+    hd = cfg.head_dim
     b, s, _ = h.shape
-    hq = tagged_matmul(h, lp["wq"], "qkv_proj")
-    hk = tagged_matmul(h, lp["wk"], "qkv_proj")
-    hv = tagged_matmul(h, lp["wv"], "qkv_proj")
+    hq = _matmul(h, lp["wq"], "qkv_proj", tp)
+    hk = _matmul(h, lp["wk"], "qkv_proj", tp)
+    hv = _matmul(h, lp["wv"], "qkv_proj", tp)
     if lora is not None:
         bank, idx, scale = lora
         hq = hq + _slot_lora_delta(h, bank["wq_a"], bank["wq_b"], idx, scale)
@@ -309,26 +337,27 @@ def _attn_qkv(cfg: LlamaConfig, h, lp, positions, rope=None, lora=None):
     return q, k, v
 
 
-def _attn_residual(cfg: LlamaConfig, x, attn, lp, lora=None):
+def _attn_residual(cfg: LlamaConfig, x, attn, lp, lora=None, tp: int = 1):
     """Output projection + residual; `lora` adds each row's wo delta to
-    the projection (the triple of `_attn_qkv`)."""
+    the projection (the triple of `_attn_qkv`). `tp`: the serving
+    slice's size (the int8 gate of `matmul_any`)."""
     b, s, _ = x.shape
     attn = checkpoint_name(attn.reshape(b, s, cfg.n_heads * cfg.head_dim),
                            "attn_out")
-    o = tagged_matmul(attn, lp["wo"], "attn_proj")
+    o = _matmul(attn, lp["wo"], "attn_proj", tp)
     if lora is not None:
         bank, idx, scale = lora
         o = o + _slot_lora_delta(attn, bank["wo_a"], bank["wo_b"], idx, scale)
     return x + o
 
 
-def _mlp_residual(cfg: LlamaConfig, x, layer_params, lp):
+def _mlp_residual(cfg: LlamaConfig, x, layer_params, lp, tp: int = 1):
     """Dense SwiGLU feed-forward + residual."""
     _check_dense(cfg)
     h = _rms_norm(x, layer_params["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(tagged_matmul(h, lp["w_gate"], "mlp_gate"))
-    up = tagged_matmul(h, lp["w_up"], "mlp_up")
-    return x + tagged_matmul(gate * up, lp["w_down"], "mlp_down")
+    gate = F.silu(_matmul(h, lp["w_gate"], "mlp_gate", tp))
+    up = _matmul(h, lp["w_up"], "mlp_up", tp)
+    return x + _matmul(gate * up, lp["w_down"], "mlp_down", tp)
 
 
 def _head_matrix(cfg: LlamaConfig, params: Params):

@@ -20,7 +20,7 @@ Layout contract: public API takes [batch, seq, heads, head_dim].
 """
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -38,21 +38,38 @@ def heads_ok(h: int, kv: int, d: int) -> bool:
     return d % 8 == 0 and 32 <= d <= 512 and h % kv == 0
 
 
-def supports_shapes(q_shape, k_shape, segment_ids=None) -> bool:
+def per_shard_heads(h: int, kv: int, tp: int) -> Optional[Tuple[int, int]]:
+    """The (q heads, KV heads) one shard of a tp-way head split holds,
+    or None when the global counts do not split evenly (then no layout
+    exists and every kernel gate fails). The one divisibility check of
+    both gates, flash's and paged's (JAX `per_shard_heads` :63)."""
+    if tp > 1:
+        if h % tp != 0 or kv % tp != 0:
+            return None
+        return h // tp, kv // tp
+    return h, kv
+
+
+def supports_shapes(q_shape, k_shape, segment_ids=None, tp: int = 1) -> bool:
     """Whether the kernels (forward and backward) take q / k of these
-    [B, S, H, D] shapes: no `segment_ids`, the head gate, and either
-    equal q/k lengths or the single-query (q_len == 1) decode shape."""
+    GLOBAL [B, S, H, D] shapes: no `segment_ids`, the head gate, and
+    either equal q/k lengths or the single-query (q_len == 1) decode
+    shape. `tp` > 1 judges the per-shard head counts of a tp-way head
+    split, what each shard's kernel sees (JAX `supports(..., tp=)`)."""
     if segment_ids is not None:
+        return False
+    shard = per_shard_heads(q_shape[2], k_shape[2], tp)
+    if shard is None:
         return False
     s_q, s_k = q_shape[1], k_shape[1]
     if s_q != s_k and s_q != 1:
         return False
-    return heads_ok(q_shape[2], k_shape[2], q_shape[3])
+    return heads_ok(shard[0], shard[1], q_shape[3])
 
 
-def supports(q, k, segment_ids=None) -> bool:
+def supports(q, k, segment_ids=None, tp: int = 1) -> bool:
     """`supports_shapes` of two tensors."""
-    return supports_shapes(q.shape, k.shape, segment_ids)
+    return supports_shapes(q.shape, k.shape, segment_ids, tp)
 
 
 def _fwd_plain(q, k, v, causal: bool, scale: float):
@@ -340,3 +357,26 @@ def flash_attention(
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     return _Flash.apply(q, k, v, causal, float(scale))
+
+
+def sharded_flash_attention(q, k, v, mesh, causal: bool = True,
+                            scale: Optional[float] = None) -> List[torch.Tensor]:
+    """`flash_attention` over a serving mesh's "tp" head split (JAX
+    :567, shard_mapped there): each shard runs the unchanged kernel on
+    its own head slice, on its device, with no collective. q/k/v are
+    per-shard lists ([B, S, H/tp, D] and [B, S, KV/tp, D] on
+    mesh.devices[i]) or GLOBAL [B, S, H, D] tensors, which are split
+    here (`serving_head_specs`'s "qkv" layout, heads at dim 2). The
+    scale comes from the global head_dim, and the kernel variant
+    (`_fwd_variant`) depends on the sequence lengths and head_dim
+    only, so every shard runs the arithmetic the tp=1 kernel runs on
+    its heads. Returns the per-shard outputs; the caller gathers them
+    before the out-projection (models/decode.py)."""
+    from dlrover_tpu_torch.parallel.mesh import serving_head_specs
+
+    dim = serving_head_specs(mesh)["qkv"].split_dim()
+    parts = [mesh.shards(x, dim) for x in (q, k, v)]
+    if scale is None:
+        scale = float(parts[0][0].shape[-1]) ** -0.5
+    return [flash_attention(qi, ki, vi, causal=causal, scale=scale)
+            for qi, ki, vi in zip(*parts)]

@@ -52,43 +52,71 @@ _TMA_MAX_ROWS = 1024
 _TMA_MAX_KV_INT8 = 32
 _TMA_BLOCKS_PER_SM = 2
 _TMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                          ctypes.c_void_p])
 
 
-def supports(q, pages: Dict, table) -> bool:
+def supports(q, pages: Dict, table, tp: int = 1) -> bool:
     """Whether the kernels take these shapes: the JAX package's gate.
     `q` is the [B, H, hd] single-token query, `pages` the per-layer pool
     dict, `table` the [B, P] page table. The head_dim / GQA gate is
     flash's (head_dim a multiple of 8 in [32, 512], whole groups), pages
-    hold at least 8 cells, and the table has a row per query."""
-    b, h, d = q.shape
-    _, page_size, kv, _ = pages["k"].shape
-    return (fa.heads_ok(h, kv, d) and page_size >= 8
-            and table.ndim == 2 and table.shape[0] == b)
+    hold at least 8 cells, and the table has a row per query. `tp` > 1
+    judges the per-shard head counts of the GLOBAL shapes, what each
+    shard's kernel sees (JAX `supports(..., tp=)` :55)."""
+    return _gate(tuple(q.shape), tuple(pages["k"].shape),
+                 tuple(table.shape), tp)
 
 
-def takes_kernel(q_shape, pages_shape, table_shape, device) -> bool:
-    """impl="auto"'s choice on shapes: the JAX package's `use_kernel`
-    (its `supports` on the device). The kernel for a query on the card
-    with head_dim a multiple of 8 in [32, 512], whole GQA groups, pages
-    of at least 8 cells and a [B, P] table; the reference elsewhere,
-    as JAX serves those shapes through its reference. On the card this
-    equals `supports`: the kernels take every shape inside the gate."""
-    if torch.device(device).type != "cuda":
-        return False
+def _gate(q_shape, pages_shape, table_shape, tp: int) -> bool:
     b, h, d = q_shape
     _, page_size, kv, _ = pages_shape
-    return (d % 8 == 0 and 32 <= d <= 512 and h % kv == 0
-            and page_size >= 8
+    shard = fa.per_shard_heads(h, kv, tp)
+    if shard is None:
+        return False
+    return (fa.heads_ok(shard[0], shard[1], d) and page_size >= 8
             and len(table_shape) == 2 and table_shape[0] == b)
 
 
-def use_kernel(q, pages: Dict, table) -> bool:
-    """`takes_kernel` on the operands: the engine's dispatch. On the CPU
-    the reference, the byte-parity formulation that keeps the CPU
-    parity tests exact."""
-    return takes_kernel(q.shape, pages["k"].shape, table.shape, q.device)
+def takes_kernel(q_shape, pages_shape, table_shape, device,
+                 tp: int = 1) -> bool:
+    """impl="auto"'s choice on shapes: the JAX package's `use_kernel`
+    (its `supports` on the device, per shard at tp > 1). The kernel for
+    a query on the card with head_dim a multiple of 8 in [32, 512],
+    whole GQA groups, pages of at least 8 cells and a [B, P] table; the
+    reference elsewhere, as JAX serves those shapes through its
+    reference. On the card this equals `supports`: the kernels take
+    every shape inside the gate."""
+    if torch.device(device).type != "cuda":
+        return False
+    return _gate(tuple(q_shape), tuple(pages_shape), tuple(table_shape), tp)
+
+
+def use_kernel(q, pages: Dict, table, tp: int = 1) -> bool:
+    """`takes_kernel` on the operands: the engine's dispatch (JAX :89).
+    On the CPU the reference, the byte-parity formulation that keeps
+    the CPU parity tests exact. `q` / `pages` may be per-shard lists
+    (their global shapes are judged)."""
+    return takes_kernel(_global_q_shape(q), _global_pages_shape(pages),
+                        tuple(table.shape), _first(q).device, tp)
+
+
+def _first(x):
+    return x[0] if isinstance(x, (list, tuple)) else x
+
+
+def _global_q_shape(q):
+    if not isinstance(q, (list, tuple)):
+        return tuple(q.shape)
+    b, _, d = q[0].shape
+    return (b, sum(p.shape[1] for p in q), d)
+
+
+def _global_pages_shape(pages):
+    if not isinstance(pages, (list, tuple)):
+        return tuple(pages["k"].shape)
+    n, ps, _, d = pages[0]["k"].shape
+    return (n, ps, sum(p["k"].shape[2] for p in pages), d)
 
 
 def gather_pages(pages: Dict, table) -> Dict:
@@ -152,11 +180,19 @@ def tma_grid(b: int, kv: int, n_table: int, sms: int) -> int:
     return max(1, min(_TMA_BLOCKS_PER_SM * sms, b * kv * n_table))
 
 
-def _kernel(q, pages, table, lengths, scale, variant: str = "auto"):
+def _kernel(q, pages, table, lengths, scale, variant: str = "auto",
+            shard=None):
     """q [B, H, hd] -> [B, H, hd]: the CUDA kernel for CUDA tensors (the
     one `kernel_variant` picks; variant="split" asks for the split kernel
     where it would pick the TMA-ring one, to time the two on the same
-    inputs), its plain version (`_reference`) for CPU tensors."""
+    inputs), its plain version (`_reference`) for CPU tensors.
+
+    `shard` = (kv_all, g0): q and `pages` are one head shard (KV heads
+    [g0, g0 + KV) of a slice of kv_all). The kernel is chosen as for the
+    whole slice, and the TMA-ring one runs with the whole slice's work
+    partition (its grid and unit sequence, taking only this shard's
+    units), so the output is the unsharded launch's head slice bit for
+    bit; the split kernel works a head at a time anyway."""
     if not q.is_cuda:
         return _reference(q, pages, table, lengths, scale)
     if variant not in ("auto", "split"):
@@ -195,10 +231,14 @@ def _kernel(q, pages, table, lengths, scale, variant: str = "auto"):
         )
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be [{b}], got {tuple(lengths.shape)}")
+    kv_all, g0 = shard or (kv, 0)
+    if not 0 <= g0 <= kv_all - kv:
+        raise ValueError(f"shard heads [{g0}, {g0 + kv}) outside {kv_all}")
     if (variant == "auto" and kernel_variant(
-            q.dtype, page_size, kv, hd, b, quant, table.shape[1],
+            q.dtype, page_size, kv_all, hd, b, quant, table.shape[1],
             _build.sm_count(q.get_device()), h // kv) == "tma"):
-        return _kernel_tma(q, pages, table, lengths, scale, quant)
+        return _kernel_tma(q, pages, table, lengths, scale, quant,
+                           kv_all, g0)
     # the split over blocks covers a row's table capacity (lengths stay
     # on the device); splits past a row's length exit at once
     max_chunks = -(-table.shape[1] * page_size // _CHUNK)
@@ -230,8 +270,9 @@ def _kernel(q, pages, table, lengths, scale, variant: str = "auto"):
     return out
 
 
-def _kernel_tma(q, pages, table, lengths, scale, quant):
-    """The TMA-ring kernel on checked tensors (see `_kernel`)."""
+def _kernel_tma(q, pages, table, lengths, scale, quant, kv_all=None, g0=0):
+    """The TMA-ring kernel on checked tensors (see `_kernel`); `kv_all`
+    / `g0` place a head shard in its slice (default: unsharded)."""
     b, h, hd = q.shape
     n_pages, _, kv, _ = pages["k"].shape
     names = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
@@ -241,7 +282,8 @@ def _kernel_tma(q, pages, table, lengths, scale, quant):
             raise ValueError(f"paged TMA kernel: {name} must be 16-byte "
                              "aligned")
     dev = q.get_device()
-    grid = tma_grid(b, kv, table.shape[1], _build.sm_count(dev))
+    kv_all = kv if kv_all is None else kv_all
+    grid = tma_grid(b, kv_all, table.shape[1], _build.sm_count(dev))
     out = torch.empty_like(q)
     part = torch.empty((2 * grid, (h // kv) * hd + 16), dtype=torch.float32,
                        device=q.device)
@@ -255,8 +297,8 @@ def _kernel_tma(q, pages, table, lengths, scale, quant):
         pages["v_scale"].data_ptr() if quant else null,
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part.data_ptr(), counters.data_ptr(),
-        b, table.shape[1], n_pages, kv, h // kv, hd, float(scale), grid,
-        _build.current_stream(dev),
+        b, table.shape[1], n_pages, kv, kv_all, g0, h // kv, hd,
+        float(scale), grid, _build.current_stream(dev),
     )
     _build.count_launch(_NAME)
     _build.count_launch(_NAME_TMA)
@@ -267,19 +309,59 @@ def _kernel_tma(q, pages, table, lengths, scale, quant):
     return out
 
 
+def _sharded_kernel(q, pages, table, lengths, scale, mesh):
+    """`_kernel` over a serving mesh's "tp" head split (JAX :287,
+    shard_mapped there): shard i runs the unchanged kernel on its query
+    heads and its KV-head slice of the pool, on its device; the page
+    table and lengths are host-planned and read whole by every shard
+    (held once per device). No collective. q is a per-shard list of
+    [B, H/tp, hd] (or the global [B, H, hd], split here) and `pages` a
+    per-shard list of pool dicts (or the global dict, split on its KV
+    axis); returns the per-shard outputs. On one card the shards launch
+    one after another on its stream."""
+    q, pages = _shard_inputs(q, pages, mesh)
+    tables = mesh.broadcast(table)
+    lens = mesh.broadcast(lengths)
+    kv_all = sum(pi["k"].shape[2] for pi in pages)
+    out, g0 = [], 0
+    for qi, pi, ti, li in zip(q, pages, tables, lens):
+        out.append(_kernel(qi, pi, ti, li, scale, shard=(kv_all, g0)))
+        g0 += pi["k"].shape[2]
+    return out
+
+
+def _shard_inputs(q, pages, mesh):
+    """q and the pool as per-shard lists (`serving_head_specs`: q's
+    heads at dim 1, the pool's KV heads at dim 2)."""
+    from dlrover_tpu_torch.parallel.mesh import serving_head_specs
+
+    specs = serving_head_specs(mesh)
+    return (mesh.shards(q, specs["q1"].split_dim()),
+            mesh.split_pool(pages, specs["pool"].split_dim()))
+
+
 def paged_attention(
-    q: torch.Tensor,           # [B, H, hd] — one decode query per row
-    pages: Dict[str, torch.Tensor],
+    q,                         # [B, H, hd] — one decode query per row
+    pages,                     # the layer's pool dict
     table: torch.Tensor,       # [B, P] physical page ids
     lengths: torch.Tensor,     # [B] valid cells per row (query at len-1)
     scale: Optional[float] = None,
     impl: str = "auto",
-) -> torch.Tensor:
+    mesh=None,
+):
     """Single-query attention over paged KV. impl: "reference" (the
     dense-bank formulation over a gathered view), "kernel" (the CUDA
     kernels; their plain version on CPU tensors; raises on CUDA tensors
     outside JAX's gate, `supports`), or "auto" (kernel when
-    `use_kernel` passes, else reference)."""
+    `use_kernel` passes, else reference).
+
+    `mesh` (a serving mesh of tp > 1) runs it per head shard: the
+    kernel path through `_sharded_kernel`, the reference per shard.
+    `q` / `pages` are then per-shard lists (a list comes back) or the
+    global query and pool (the output comes back gathered)."""
+    tp = 1 if mesh is None else mesh.tp
+    if tp > 1:
+        return _paged_sharded(q, pages, table, lengths, scale, impl, mesh)
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if impl == "reference":
@@ -291,3 +373,20 @@ def paged_attention(
     if use_kernel(q, pages, table):
         return _kernel(q, pages, table, lengths, scale)
     return _reference(q, pages, table, lengths, scale)
+
+
+def _paged_sharded(q, pages, table, lengths, scale, impl, mesh):
+    if impl not in ("auto", "kernel", "reference"):
+        raise ValueError(f"unknown impl {impl!r}")
+    was_global = not isinstance(q, (list, tuple))
+    if scale is None:
+        scale = float(_first(q).shape[-1]) ** -0.5
+    q, pages = _shard_inputs(q, pages, mesh)
+    if impl == "kernel" or (
+            impl == "auto" and use_kernel(q, pages, table, tp=mesh.tp)):
+        out = _sharded_kernel(q, pages, table, lengths, scale, mesh)
+    else:
+        tables, lens = mesh.broadcast(table), mesh.broadcast(lengths)
+        out = [_reference(qi, pi, ti, li, scale)
+               for qi, pi, ti, li in zip(q, pages, tables, lens)]
+    return mesh.gather(out, 1) if was_global else out

@@ -565,25 +565,37 @@ def _dqmm_cuda(x: torch.Tensor, w: QuantizedWeight,
     return y
 
 
-def quantized_matmul(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
+def use_quant_matmul_kernel(tp: int = 1) -> bool:
+    """JAX's kernel-vs-reference gate for the fused dequant matmul
+    (:268): tp > 1 stays on the reference (dequantize, then one
+    product), where the weights are split over the output axis; JAX
+    names a per-shard kernel a follow-up. At tp = 1 the device decides:
+    the kernel for CUDA tensors, its plain version on the CPU."""
+    return tp == 1
+
+
+def quantized_matmul(x: torch.Tensor, w: QuantizedWeight,
+                     tp: int = 1) -> torch.Tensor:
     """Dequant-fused ``x @ dense(w)`` for an output-major quantized
     weight; x may carry leading batch dims ([..., K] -> [..., O]). The
-    kernel for CUDA tensors, its plain version for CPU tensors."""
+    kernel for CUDA tensors at tp = 1, the plain version for CPU
+    tensors and at tp > 1 (`use_quant_matmul_kernel`)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.is_cuda:
+    if x2.is_cuda and use_quant_matmul_kernel(tp):
         y = _dqmm_cuda(x2.contiguous(), w)
     else:
         y = quantized_matmul_reference(x2, w)
     return y.reshape(*lead, y.shape[-1])
 
 
-def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
+def matmul_any(x: torch.Tensor, w, tp: int = 1) -> torch.Tensor:
     """The models' one matmul dispatch: a dense weight takes ``x @ w``
     exactly as before (weight_quant="none" computes what it always
-    did); a QuantizedWeight takes the fused dequant path."""
+    did); a QuantizedWeight takes the fused dequant path (the reference
+    at tp > 1, as JAX's gate says)."""
     if isinstance(w, QuantizedWeight):
-        return quantized_matmul(x, w)
+        return quantized_matmul(x, w, tp=tp)
     return x @ w
 
 

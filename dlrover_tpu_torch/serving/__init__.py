@@ -1,5 +1,6 @@
-"""The serving stack on one card — the counterpart of
-dlrover_tpu/serving/, exporting the same public names:
+"""The serving stack — the counterpart of dlrover_tpu/serving/,
+exporting the same public names (an engine spans one device or a
+tensor-parallel slice, `mesh_spec`):
 
   gateway.py   — the stdlib HTTP front door: streaming NDJSON
                  generation, /healthz, Prometheus /metrics

@@ -23,7 +23,11 @@ the adapterless engine.
   page-locked host memory and copies without synchronizing the stream,
   ordered after any dispatch already enqueued (and eviction never takes
   a pinned slot, so no in-flight dispatch gathers a slot being
-  written).
+  written). On a tensor-parallel slice (`mesh`, tp > 1) the bank is
+  placed by `parallel/mesh.serving_adapter_specs` (JAX engine
+  `_adapter_bank_place`): wq/wk/wv's B banks split on their output
+  columns (parallel/sharding.Sharded), the A banks, the wo pair and the
+  scales replicated on the mesh's home device.
 """
 
 import collections
@@ -249,16 +253,49 @@ def _to_device(arr: np.ndarray, dtype: torch.dtype, device: torch.device):
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def place_adapter_bank(bank: Dict[str, torch.Tensor], mesh=None):
+    """The bank laid out over a serving mesh by `serving_adapter_specs`
+    (the split B banks as Sharded, the rest on mesh.home); the bank as
+    it is without a mesh of tp > 1."""
+    if mesh is None or mesh.tp == 1:
+        return bank
+    from dlrover_tpu_torch.parallel.mesh import serving_adapter_specs
+    from dlrover_tpu_torch.parallel.sharding import replicated, split_leaf
+
+    specs = serving_adapter_specs(mesh)
+    out = {}
+    for name, arr in bank.items():
+        dim = specs[name].split_dim()
+        out[name] = (replicated(arr, mesh) if dim is None
+                     else split_leaf(arr, mesh, dim))
+    return out
+
+
+def _bank_tensors(arr):
+    """The device tensors holding one bank array: itself, a sharded
+    array's whole, or its pieces."""
+    from dlrover_tpu_torch.parallel.sharding import Sharded
+
+    if not isinstance(arr, Sharded):
+        return [arr]
+    return [arr.whole] if arr.whole is not None else list(arr.shards)
+
+
 def _bank_slot_write(bank: Dict[str, torch.Tensor], update, slot: int):
     """Write one adapter's stacked slices into bank slot `slot`, in
     place (the bank is never reallocated). `update` holds each array's
-    [L, ...] slab as host numpy and the scale as a float."""
+    [L, ...] slab as host numpy and the scale as a float. A sharded B
+    bank takes each piece's columns of the slab."""
     for name, arr in bank.items():
-        if arr.ndim == 1:  # the scale vector
-            arr[slot].fill_(float(update[name]))
-        else:
-            arr[:, slot].copy_(_to_device(update[name], arr.dtype,
-                                          arr.device))
+        pieces = _bank_tensors(arr)
+        if pieces[0].ndim == 1:  # the scale vector
+            pieces[0][slot].fill_(float(update[name]))
+            continue
+        slabs = [update[name]]
+        if len(pieces) > 1:
+            slabs = np.split(update[name], len(pieces), axis=-1)
+        for t, slab in zip(pieces, slabs):
+            t[:, slot].copy_(_to_device(slab, t.dtype, t.device))
     return bank
 
 
@@ -275,6 +312,7 @@ class DeviceAdapterCache:
         cache_slots: int,
         dtype: Optional[torch.dtype] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         if cache_slots < 1:
             raise ValueError(
@@ -287,9 +325,10 @@ class DeviceAdapterCache:
         self._dims = _target_dims(cfg)
         self._dtype = dtype if dtype is not None else cfg.dtype
         self.device = resolve_device(device)
-        self.bank = init_adapter_bank(
+        self.mesh = mesh
+        self.bank = place_adapter_bank(init_adapter_bank(
             cfg, self.cache_slots, self.max_rank, self._dtype, self.device
-        )
+        ), mesh)
         # id -> device slot, insertion order == recency (LRU front)
         self._resident: "collections.OrderedDict[str, int]" = (
             collections.OrderedDict()
@@ -379,14 +418,21 @@ class DeviceAdapterCache:
         _bank_slot_write(self.bank, update, slot)
         self.uploads += 1
 
-    def rebuild(self) -> None:
+    def rebuild(self, mesh=False) -> None:
         """After an engine reset: zero the bank in place (a reset
         trusts no device state) and re-upload every resident adapter
         into its existing slot, so the id -> slot map survives. Ids
         unregistered since their upload are dropped (their slots free)
-        rather than served stale."""
+        rather than served stale. `mesh` (an elastic resize's new slice,
+        None for tp=1) re-mints the bank under that placement first."""
+        if mesh is not False:
+            self.mesh = mesh
+            self.bank = place_adapter_bank(init_adapter_bank(
+                self.cfg, self.cache_slots, self.max_rank, self._dtype,
+                self.device), mesh)
         for arr in self.bank.values():
-            arr.zero_()
+            for t in _bank_tensors(arr):
+                t.zero_()
         for adapter_id in list(self._resident):
             try:
                 rec = self.registry.get(adapter_id)
@@ -415,7 +461,8 @@ class DeviceAdapterCache:
 
     def bank_bytes(self) -> int:
         """Device bytes of the stacked bank (zero slot included)."""
-        return sum(a.numel() * a.element_size() for a in self.bank.values())
+        return sum(t.numel() * t.element_size()
+                   for a in self.bank.values() for t in _bank_tensors(a))
 
     def stats(self) -> Dict[str, int]:
         return {

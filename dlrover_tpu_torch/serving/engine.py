@@ -108,9 +108,16 @@ depth and only the call on which events surface moves.
 - mesh_spec: the serving slice's tp degree (an int, {"tp": n}, or an
   object with `.tensor`), validated as the JAX engine validates it
   (ValueError for a bool, extra axes, tp < 1, tp past the local device
-  count, tp not dividing the KV heads). tp=1 is the one-card engine;
-  tp > 1 raises NotImplementedError until tensor-parallel serving is
-  ported, and `resize` at one card is the tp=1 no-op.
+  count, tp not dividing the KV heads). tp=1 (mesh None) is the
+  one-device engine. tp > 1 serves on a `ServingMesh` of `tp` local
+  devices (`_device.local_devices`: the cards, or
+  DLROVER_TPU_TORCH_FORCE_DEVICE_COUNT virtual shards of one): wq/wk/wv
+  split on their head columns (`_shard_params`), the dense bank, page
+  pool, prefix pool and adapter B banks on their KV-head / output axis,
+  attention per shard through the sharded kernel sites, everything
+  else once on the mesh's home device (models/decode.py). Page tables,
+  slot mirrors and the packed fetch stay single on the home device.
+  `resize` (serving/elastic.py) re-forms the slice at another tp.
 """
 
 import dataclasses
@@ -122,7 +129,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dlrover_tpu_torch._device import DeviceLike, resolve_device, upload
+from dlrover_tpu_torch._device import (
+    DeviceLike,
+    local_devices,
+    resolve_device,
+    upload,
+)
 from dlrover_tpu_torch.models.decode import (
     _mask_top_k,
     _mask_top_p,
@@ -151,8 +163,16 @@ from dlrover_tpu_torch.ops.quantization import (
     QuantizedWeight,
     quantize_int8,
     stochastic_round_int8,
+    use_quant_matmul_kernel,
     weight_quant_block,
 )
+from dlrover_tpu_torch.parallel.mesh import (
+    PartitionSpec,
+    serving_mesh,
+    serving_mesh_spec,
+    serving_weight_quant_specs,
+)
+from dlrover_tpu_torch.parallel.sharding import Sharded, shard_tree
 from dlrover_tpu_torch.serving import kv_tier as _kv_tier
 from dlrover_tpu_torch.serving.adapters import DeviceAdapterCache
 from dlrover_tpu_torch.serving.paged_kv import (
@@ -171,6 +191,24 @@ from dlrover_tpu_torch.serving.speculative import SpeculativeDecoder
 _WQ_LAYER_WEIGHTS = frozenset(
     ("wq", "wk", "wv", "wo", "wqkv", "w_gate", "w_up", "w_down")
 )
+
+# The serving slice's param layout (the JAX engine's): ONLY the QKV
+# projections split, on their head (output) columns, so no contraction
+# is ever split; wo, the MLP, the embedding, the head and the norms are
+# replicated, run after the attention output is gathered. The int8
+# tree's q8 / s8 follow `serving_weight_quant_specs` (their output axis
+# is 1).
+_SERVING_PARAM_RULES = (
+    (r"layers/wq$", ("tp",)),
+    (r"layers/wk$", ("tp",)),
+    (r"layers/wv$", ("tp",)),
+)
+
+
+def _serving_param_rules():
+    return [(pat, PartitionSpec(None, None, *axes))
+            for pat, axes in _SERVING_PARAM_RULES] + list(
+                serving_weight_quant_specs())
 
 
 def _pad_bucket(n: int, lo: int = 16) -> int:
@@ -229,34 +267,6 @@ def _parse_mesh_tp(mesh_spec) -> int:
         f"mesh_spec must be an int tp degree, a {{'tp': n}} dict or "
         f"a MeshSpec, got {mesh_spec!r}"
     )
-
-
-def _local_device_count(device: torch.device) -> int:
-    """Devices a serving slice may span: the cards on CUDA, one on the
-    CPU."""
-    if device.type == "cuda":
-        return torch.cuda.device_count()
-    return 1
-
-
-def _check_serving_tp(tp: int, n_kv_heads: int, n_devices: int) -> None:
-    """The JAX package's `serving_mesh_spec` checks: 1 <= tp <= the
-    local device count, and tp divides the KV heads (the KV banks shard
-    the head axis)."""
-    if tp < 1:
-        raise ValueError(f"serving mesh tp must be >= 1, got {tp}")
-    if tp > n_devices:
-        raise ValueError(
-            f"serving mesh needs tp={tp} local devices, host has only "
-            f"{n_devices} — shrink mesh_spec or run on a larger slice"
-        )
-    if n_kv_heads % tp != 0:
-        raise ValueError(
-            f"n_kv_heads={n_kv_heads} is not divisible by tp={tp}: the "
-            f"KV cache shards the head axis, so tp must divide the KV "
-            f"head count — use tp in "
-            f"{[t for t in range(1, n_kv_heads + 1) if n_kv_heads % t == 0]}"
-        )
 
 
 def _wq_leaf_seed(seed: int, salt: int) -> int:
@@ -388,7 +398,7 @@ class ContinuousBatcher:
         swap_to_host: bool = True,   # preempted runs demote, not drop
         kv_tier_promote: str = "always",  # | "swap_only" | "never"
         kv_checksums: int = 0,   # 1 = content-verify KV in transit
-        mesh_spec=None,          # tp degree: None / 1 serve on one card
+        mesh_spec=None,          # tp degree | {"tp": n} | MeshSpec
         device: DeviceLike = None,
     ):
         if eos_id is not None and eos_id == pad_id:
@@ -454,21 +464,23 @@ class ContinuousBatcher:
         self.device = resolve_device(device)
         self.cfg = cfg
         # the serving slice: validated even at tp 1, so a bad knob fails
-        # here. tp 1 is the one-card engine; the constructed tp is also
-        # the largest a resize may grow back to (serving/elastic.py)
+        # here. tp 1 keeps mesh None (the one-device engine, bit for
+        # bit); the constructed tp is also the largest a resize may grow
+        # back to (serving/elastic.py)
+        self.mesh = None
         self.mesh_tp = 1
         if mesh_spec is not None:
             tp = _parse_mesh_tp(mesh_spec)
             n_kv = getattr(cfg, "n_kv_heads", None) or cfg.n_heads
-            _check_serving_tp(tp, n_kv, _local_device_count(self.device))
-            if tp > 1:
-                raise NotImplementedError(
-                    f"mesh_spec tp={tp}: tensor-parallel serving is not "
-                    "ported yet (ROADMAP queue 1 item 11 (i)); tp=1 "
-                    "serves on one card"
-                )
+            devices = local_devices(self.device)
+            serving_mesh_spec(tp, n_kv_heads=n_kv, n_devices=len(devices))
             self.mesh_tp = tp
+            if tp > 1:
+                self.mesh = serving_mesh(tp, devices=devices,
+                                         n_kv_heads=n_kv)
         self._full_tp = self.mesh_tp
+        self._elastic_resize = {"shrink": 0, "grow": 0}
+        self._elastic_downtime_ms = 0.0
         # fault injection: on_engine_step(chaos_tag, n) at every step()
         self.chaos = chaos
         self.chaos_tag = chaos_tag
@@ -499,7 +511,7 @@ class ContinuousBatcher:
         # refreshes arrive as DENSE trees: they validate against the
         # tree the engine was constructed with, before quantization
         self._refresh_skeleton = _tree_signature(params)
-        self.params = self._quantize_params(params)
+        self.params = self._shard_params(self._quantize_params(params))
         self.n_slots = n_slots
         self.max_len = max_len
         self.max_new = max_new_tokens
@@ -517,6 +529,8 @@ class ContinuousBatcher:
         # max_len-2) must find them inside its row; the cells past
         # max_len-1 are dead by the position mask
         bank_len = max_len + spec_draft_len
+        self.spec_draft_len = spec_draft_len
+        self.cache = None
         if self._paged:
             # auto page size: the largest power of two <= 16 dividing
             # the bank length (and the prefix block, so a matched prefix
@@ -554,26 +568,8 @@ class ContinuousBatcher:
             self.n_pages = n_pages
             self.swap_headroom = max(0, swap_headroom)
             self._pages_per_slot = per_slot
-            self.allocator = PageAllocator(n_pages, page_size)
-            self.page_pool = init_page_pool(
-                cfg, n_pages, page_size, quant=kv_quant, device=self.device
-            )
-            # all rows start on the trash page; the chunk routes done
-            # rows there itself, so the host writes rows only at
-            # admission and copy-on-write
-            self._table = torch.zeros(
-                (n_slots, per_slot), dtype=torch.int32, device=self.device
-            )
-            self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
-            # published radix row -> its ref-counted page run
-            self._row_pages: Dict[int, List[int]] = {}
             self._swap_preemptions = 0
             self._swap_resumes = 0
-            self.cache = None
-        else:
-            self.cache = init_kv_cache(
-                cfg, n_slots, bank_len, quant=kv_quant, device=self.device
-            )
         # interleaved chunked prefill: a slot mid-prefill is occupied on
         # the host (done False) and frozen in the dispatches (done True)
         # until its frontier reaches the prompt end
@@ -595,8 +591,6 @@ class ContinuousBatcher:
         self.pool = None
         self._prefix_rows = prefix_cache_rows
         self._prefix_block = prefix_block
-        # pool row pinned per slot while its request is in flight
-        self._slot_row: List[Optional[int]] = [None] * n_slots
         # the host-DRAM KV tier: none at kv_tier_bytes=0, and then no
         # path below changes
         self.kv_tier: Optional[_kv_tier.HostKVTier] = None
@@ -608,11 +602,9 @@ class ContinuousBatcher:
                 chaos_tag=f"{chaos_tag}#kvtier",
                 checksums=bool(kv_checksums),
             )
-        if prefix_cache_rows > 0:
-            self.prefix_cache = self._make_prefix_cache()
-            self.pool = init_kv_cache(
-                cfg, prefix_cache_rows, max_len, device=self.device
-            )
+        # the banks: the page pool with its allocator and tables, or the
+        # dense bank; the prefix cache and its pool
+        self._new_kv_state()
         # the engine seed only SEEDS per-request generators (one draw
         # per admission); sampling runs on the per-slot generators
         self._seed_gen = torch.Generator().manual_seed(seed)
@@ -632,7 +624,6 @@ class ContinuousBatcher:
         self._next_idx = 0
         # speculative decoding: host drafter + adaptive controller
         self.spec: Optional[SpeculativeDecoder] = None
-        self.spec_draft_len = spec_draft_len
         self._spec_knobs = (spec_ngram_max, spec_ngram_min,
                             spec_accept_threshold, spec_probe_interval)
         self._make_spec()
@@ -644,7 +635,7 @@ class ContinuousBatcher:
         if adapter_registry is not None:
             self._adapter_cache = DeviceAdapterCache(
                 cfg, adapter_registry, adapter_cache_slots,
-                device=self.device,
+                device=self.device, mesh=self.mesh,
             )
         # the dispatch pipeline: the one dispatch not yet harvested, and
         # the page-locked buffer its outputs are copied into (one buffer
@@ -780,12 +771,15 @@ class ContinuousBatcher:
         return out
 
     def weight_bytes_device(self) -> int:
-        """Served-weight bytes on the device: every tensor leaf of the
-        served tree (a QuantizedWeight counts its q8 and s8) times its
-        element size."""
+        """Served-weight bytes resident per shard (the JAX engine's "per
+        chip"): every tensor leaf of the served tree (a QuantizedWeight
+        counts its q8 and s8) times its element size, a head-sharded
+        leaf counting one shard's piece."""
         def walk(node):
             if isinstance(node, dict):
                 return sum(walk(v) for v in node.values())
+            if isinstance(node, Sharded):
+                return node.nbytes_per_shard()
             if isinstance(node, QuantizedWeight):
                 return walk(node.q8) + walk(node.s8)
             return node.numel() * node.element_size()
@@ -794,12 +788,14 @@ class ContinuousBatcher:
     @property
     def weight_quant_path(self) -> str:
         """Which matmul body the quantized weights run: "int8:kernel"
-        (the fused dequant-matmul kernel, on the card) or
-        "int8:reference" (its plain version, on the CPU); "none" when
-        quantization is off."""
+        (the fused dequant-matmul kernel, on the card at tp 1) or
+        "int8:reference" (its plain version: on the CPU, and at tp > 1,
+        where JAX's gate `use_quant_matmul_kernel` keeps the reference);
+        "none" when quantization is off."""
         if self.weight_quant == "none":
             return "none"
-        kind = "kernel" if self.device.type == "cuda" else "reference"
+        kind = ("kernel" if self.device.type == "cuda"
+                and use_quant_matmul_kernel(self.mesh_tp) else "reference")
         return f"{self.weight_quant}:{kind}"
 
     def weight_quant_stats(self) -> Dict[str, float]:
@@ -900,7 +896,7 @@ class ContinuousBatcher:
         try:
             self._check_refresh_tree(params)
             self.drain_inflight()
-            self.params = self._quantize_params(params)
+            self.params = self._shard_params(self._quantize_params(params))
             self._weight_version = old_version + 1
         except Exception:
             self.params = old_params
@@ -925,6 +921,53 @@ class ContinuousBatcher:
 
     # -- serving slice ----------------------------------------------------
 
+    def _shard_params(self, params):
+        """Lay the served weights out over the serving mesh (JAX
+        `_shard_params` :1846): wq/wk/wv (and their q8 / s8) split on
+        their head columns, everything else replicated on the home
+        device (`_SERVING_PARAM_RULES`). Without a mesh, a tree that was
+        sharded is gathered back to one device (a resize to tp 1);
+        otherwise the tree itself."""
+        if self.mesh is None and not _has_sharded(params):
+            return params
+        return shard_tree(params, self.mesh, _serving_param_rules())
+
+    def _new_kv_state(self) -> None:
+        """Fresh KV state at the current slice (JAX `_shard_bank` of the
+        fresh banks): the page pool with its allocator, tables and page
+        runs, or the dense bank; the prefix cache and its pool."""
+        cfg = self.cfg
+        if self._paged:
+            self.allocator = PageAllocator(self.n_pages, self.page_size)
+            self.page_pool = init_page_pool(
+                cfg, self.n_pages, self.page_size, quant=self._kv_quant,
+                device=self.device, mesh=self.mesh,
+            )
+            # all rows start on the trash page; the chunk routes done
+            # rows there itself, so the host writes rows only at
+            # admission and copy-on-write
+            self._table = torch.zeros(
+                (self.n_slots, self._pages_per_slot), dtype=torch.int32,
+                device=self.device,
+            )
+            self._slot_pages: List[List[int]] = [
+                [] for _ in range(self.n_slots)]
+            # published radix row -> its ref-counted page run
+            self._row_pages: Dict[int, List[int]] = {}
+        else:
+            self.cache = init_kv_cache(
+                cfg, self.n_slots, self.max_len + self.spec_draft_len,
+                quant=self._kv_quant, device=self.device, mesh=self.mesh,
+            )
+        if self._prefix_rows > 0:
+            self.prefix_cache = self._make_prefix_cache()
+            self.pool = init_kv_cache(
+                cfg, self._prefix_rows, self.max_len, device=self.device,
+                mesh=self.mesh,
+            )
+        # pool row pinned per slot while its request is in flight
+        self._slot_row: List[Optional[int]] = [None] * self.n_slots
+
     @property
     def mesh_shape(self) -> Dict[str, int]:
         """The replica's slice shape (heartbeat payload)."""
@@ -938,18 +981,22 @@ class ContinuousBatcher:
     @property
     def kernel_path(self) -> str:
         """Which attention body the per-token paged decode step runs:
-        "kernel" (the paged-attention kernel) or "reference" (the
-        gathered dense view), decided on the shapes as the decode step
-        decides it (`paged_attention.takes_kernel`). The dense layout
-        and attn_impl="reference" always take the reference."""
+        "kernel" (the paged-attention kernel, per head shard at tp > 1)
+        or "reference" (the gathered dense view), decided on the global
+        shapes as the decode step decides it (`paged_attention.
+        takes_kernel`, the per-shard gate at tp > 1; JAX
+        `_probe_kernel_path` :1699). The dense layout and
+        attn_impl="reference" always take the reference."""
         if not self._paged or getattr(self.cfg, "attn_impl",
                                       "auto") == "reference":
             return "reference"
         cfg = self.cfg
         q_shape = (self.n_slots, cfg.n_heads, cfg.head_dim)
-        pages_shape = tuple(self.page_pool["k"].shape[1:])
+        pages_shape = (self.n_pages, self.page_size, cfg.n_kv_heads,
+                       cfg.head_dim)
         table_shape = tuple(self._table.shape)
-        if _pa.takes_kernel(q_shape, pages_shape, table_shape, self.device):
+        if _pa.takes_kernel(q_shape, pages_shape, table_shape, self.device,
+                            tp=self.mesh_tp):
             return "kernel"
         return "reference"
 
@@ -973,9 +1020,10 @@ class ContinuousBatcher:
         return self.device_health()["chips_up"]
 
     def resize(self, n_chips: Optional[int] = None):
-        """Re-form at the largest valid tp <= `n_chips` (default: what
-        device_health reports), serving/elastic.py. On one card the
-        target clamps to tp 1: a reported no-op."""
+        """Re-form the slice live at the largest valid tp <= `n_chips`
+        (default: what device_health reports), never past the
+        constructed tp, preempting every live request for replay
+        (serving/elastic.py). At the current tp a reported no-op."""
         from dlrover_tpu_torch.serving import elastic
 
         if n_chips is None:
@@ -983,17 +1031,17 @@ class ContinuousBatcher:
         return elastic.resize(self, n_chips)
 
     def elastic_stats(self) -> Dict[str, float]:
-        """The JAX engine's elastic counters: the refresh outcomes, the
-        replays and the version. A resize at one card never re-forms,
-        so its fields stay 0 and tp = full_tp = 1."""
+        """The JAX engine's elastic counters: resizes by direction and
+        their downtime, the refresh outcomes, the replays (of resizes
+        and live refreshes), the version and the slice's tp."""
         return {
-            "resize_shrink": 0.0,
-            "resize_grow": 0.0,
+            "resize_shrink": float(self._elastic_resize["shrink"]),
+            "resize_grow": float(self._elastic_resize["grow"]),
             "refresh_committed": float(self._elastic_refresh["committed"]),
             "refresh_deferred": float(self._elastic_refresh["deferred"]),
             "refresh_rolled_back": float(
                 self._elastic_refresh["rolled_back"]),
-            "resize_downtime_ms": 0.0,
+            "resize_downtime_ms": self._elastic_downtime_ms,
             "replayed_requests": float(self._elastic_replayed),
             "weight_version": float(self._weight_version),
             "tp": float(self.mesh_tp),
@@ -1115,12 +1163,13 @@ class ContinuousBatcher:
             bucket = min(_pad_bucket(p), self.max_len)
             prefill_into_slot(self.cfg, self.params,
                               self._pad_to(req.prompt, bucket), self.cache,
-                              slot, adapters=self._adapter_args([slot]))
+                              slot, adapters=self._adapter_args([slot]),
+                              mesh=self.mesh)
         elif self.prefix_cache is None:
             bucket = min(_pad_bucket(p), self.max_len)
             prefill_into_slot(self.cfg, self.params,
                               self._pad_to(req.prompt, bucket), self.cache,
-                              slot)
+                              slot, mesh=self.mesh)
         else:
             self._admit_with_prefix(slot, req, p)
         self.admissions += 1
@@ -1186,7 +1235,7 @@ class ContinuousBatcher:
             bucket = min(_pad_bucket(p), self.max_len)
             work = prefill_exact_row(self.cfg, self.params,
                                      self._pad_to(req.prompt, bucket),
-                                     self.max_len)
+                                     self.max_len, mesh=self.mesh)
             install_exact_row(self.cache, work, slot)
             pc.record_admission(0)
         else:
@@ -1203,7 +1252,7 @@ class ContinuousBatcher:
                                       _pad_bucket(p - start))
                 work = prefill_suffix_row(self.cfg, self.params, suffix,
                                           pool_take_row(self.pool, row),
-                                          start)
+                                          start, mesh=self.mesh)
                 install_exact_row(self.cache, work, slot)
             pc.record_admission(start)
         # publish at admission, not retire: the next request of this
@@ -1557,7 +1606,8 @@ class ContinuousBatcher:
         elif start > 0:
             suffix = self._pad_to(req.prompt[start:], _pad_bucket(p - start))
             work = prefill_suffix_row(self.cfg, self.params, suffix,
-                                      pool_take_row(self.pool, row), start)
+                                      pool_take_row(self.pool, row), start,
+                                      mesh=self.mesh)
             paged_install_row(self.page_pool, work, table_row, start,
                               suffix.shape[0])
             pc.record_admission(start)
@@ -1566,6 +1616,7 @@ class ContinuousBatcher:
             row_cache = prefill_exact_row(
                 self.cfg, self.params, self._pad_to(req.prompt, bucket),
                 self.max_len, adapters=self._adapter_args([slot]),
+                mesh=self.mesh,
             )
             # `work` stays None: this row must never publish
             paged_install_row(self.page_pool, row_cache, table_row, 0,
@@ -1574,7 +1625,7 @@ class ContinuousBatcher:
             bucket = min(_pad_bucket(p), self.max_len)
             work = prefill_exact_row(self.cfg, self.params,
                                      self._pad_to(req.prompt, bucket),
-                                     self.max_len)
+                                     self.max_len, mesh=self.mesh)
             paged_install_row(self.page_pool, work, table_row, 0, bucket)
             if pc is not None:
                 pc.record_admission(0)
@@ -1923,8 +1974,10 @@ class ContinuousBatcher:
                     events = self._harvest()
         except Exception:
             # a raising step orphans its in-flight dispatch: its events
-            # must never surface later
-            self._inflight = None
+            # must never surface later, and its draws are taken back (a
+            # replay after a live resize redraws them, as JAX's key
+            # mirror does)
+            self.drain_inflight()
             raise
         self._stat_host_ms += (
             (time.perf_counter() - t0) * 1e3 - self._wait_this_step
@@ -1993,11 +2046,12 @@ class ContinuousBatcher:
             if self._paged:
                 logits, _ = paged_decode_step(
                     self.cfg, self.params, tok, self.page_pool, table, pos,
-                    adapters=ad,
+                    adapters=ad, mesh=self.mesh,
                 )
             else:
                 logits, _ = decode_step(
-                    self.cfg, self.params, tok, self.cache, pos, adapters=ad
+                    self.cfg, self.params, tok, self.cache, pos, adapters=ad,
+                    mesh=self.mesh,
                 )
             tok, pos, done, nxt = self._advance(logits, tok, pos, done, limit)
             emitted.append(nxt)
@@ -2028,10 +2082,12 @@ class ContinuousBatcher:
         ad1 = self._adapter_args([slot])
         if self._paged:
             paged_prefill_chunk(self.cfg, self.params, ptoks, self.page_pool,
-                                self._table[slot], start, adapters=ad1)
+                                self._table[slot], start, adapters=ad1,
+                                mesh=self.mesh)
         else:
             prefill_chunk_into_slot(self.cfg, self.params, ptoks, self.cache,
-                                    slot, start, adapters=ad1)
+                                    slot, start, adapters=ad1,
+                                    mesh=self.mesh)
         # the slots mid-prefill DURING this dispatch, captured before the
         # flip: harvest must read their fetched done as the freeze
         self._dispatch_chunk(pf_mask=self._prefilling.copy())
@@ -2079,10 +2135,11 @@ class ContinuousBatcher:
         if self._paged:
             logits, _ = paged_verify_step(self.cfg, self.params, tokens,
                                           self.page_pool, table, pos,
-                                          adapters=ad)
+                                          adapters=ad, mesh=self.mesh)
         else:
             logits, _ = verify_step(self.cfg, self.params, tokens,
-                                    self.cache, pos, adapters=ad)
+                                    self.cache, pos, adapters=ad,
+                                    mesh=self.mesh)
         self.verify_steps += 1
         self._enqueue_fetch(
             _Inflight("spec", dlens=dlens, was_live=~self.done,
@@ -2395,23 +2452,7 @@ class ContinuousBatcher:
         the adapter bank rebuilt from the registry.
         Request indices stay monotonic, so a stale event can never name
         a new request."""
-        if self._paged:
-            self.allocator = PageAllocator(self.n_pages, self.page_size)
-            self.page_pool = init_page_pool(
-                self.cfg, self.n_pages, self.page_size,
-                quant=self._kv_quant, device=self.device,
-            )
-            self._table = torch.zeros(
-                (self.n_slots, self._pages_per_slot), dtype=torch.int32,
-                device=self.device,
-            )
-            self._slot_pages = [[] for _ in range(self.n_slots)]
-            self._row_pages = {}
-        else:
-            self.cache = init_kv_cache(
-                self.cfg, self.n_slots, self.max_len + self.spec_draft_len,
-                quant=self._kv_quant, device=self.device,
-            )
+        self._new_kv_state()
         self.tok[:] = self.pad_id
         self.pos[:] = 0
         self.limit[:] = 0
@@ -2435,16 +2476,16 @@ class ContinuousBatcher:
         self._prefill_ready = []
         self._step_no = 0
         self.slot_req = [None] * self.n_slots
-        self._slot_row = [None] * self.n_slots
         self._queue.clear()
         self._requests.clear()
         self._pending.clear()
-        if self.prefix_cache is not None:
-            self.prefix_cache = self._make_prefix_cache()
-            self.pool = init_kv_cache(
-                self.cfg, self._prefix_rows, self.max_len, device=self.device
-            )
         self._make_spec()
+
+
+def _has_sharded(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_sharded(v) for v in tree.values())
+    return isinstance(tree, Sharded)
 
 
 def _draw_rows(probs: torch.Tensor, gens: List[Optional[torch.Generator]]):

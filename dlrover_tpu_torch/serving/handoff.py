@@ -27,6 +27,12 @@ fault injector's `maybe_corrupt`. The coordinator verifies a stamped
 package before any target enqueues it (a mismatch sends the request
 back to replay on its prefill replica), and adoption verifies it again
 and raises KVIntegrityError on a mismatch.
+
+A package is always in the one-device layout: an export from a
+tensor-parallel slice gathers its head shards, an adoption cuts the
+cells back by head (models/decode.py `kv_read` / `kv_write`), so the
+bytes and the checksum equal tp=1's and packages move between replicas
+of any tp.
 """
 
 import dataclasses
@@ -38,6 +44,7 @@ import torch
 
 from dlrover_tpu_torch._device import upload
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.models.decode import kv_read, kv_write
 from dlrover_tpu_torch.serving.engine import _pad_bucket
 from dlrover_tpu_torch.serving.health import (
     KVIntegrityError,
@@ -113,15 +120,14 @@ def export_run(engine, idx: int, transport: str = "device") -> KVHandoff:
         ids = np.full(_pad_bucket(n_ship, lo=4), TRASH_PAGE, np.int64)
         ids[:n_ship] = run[:n_ship]
         ids_dev = engine._upload(ids)
-        data = {name: arr[:, ids_dev] for name, arr in engine.page_pool.items()}
+        data = kv_read(engine.page_pool,
+                       lambda arr: arr[:, ids_dev.to(arr.device)])
         page_size = engine.page_size
     else:
         bank_len = engine.max_len + engine.spec_draft_len
         w = min(_pad_bucket(p), bank_len)
-        data = {
-            name: arr[:, slot:slot + 1, :w].clone()
-            for name, arr in engine.cache.items()
-        }
+        data = kv_read(engine.cache,
+                       lambda arr: arr[:, slot:slot + 1, :w].clone())
         page_size, n_ship = 0, 0
     checksum = ""
     if transport == "host":
@@ -228,15 +234,21 @@ def adopt_into_slot(engine, slot: int, pkg: KVHandoff) -> None:
         ids = np.full(m, TRASH_PAGE, np.int64)
         ids[:pkg.n_ship] = adopted
         ids_dev = upload(ids, dev)
-        for name, arr in engine.page_pool.items():
-            arr[:, ids_dev] = _on_device(pkg.data[name], dev).to(arr.dtype)
+
+        def put(arr, src):
+            arr[:, ids_dev.to(arr.device)] = src.to(arr.dtype)
+
+        kv_write(engine.page_pool,
+                 {n: _on_device(v, dev) for n, v in pkg.data.items()}, put)
         run = adopted + own
         engine._table[slot] = engine._table_row(run)
         engine._slot_pages[slot] = run
     else:
-        for name, arr in engine.cache.items():
-            src = _on_device(pkg.data[name], dev)
+        def put(arr, src):
             arr[:, slot:slot + 1, :src.shape[2]] = src.to(arr.dtype)
+
+        kv_write(engine.cache,
+                 {n: _on_device(v, dev) for n, v in pkg.data.items()}, put)
 
 
 # ---- the coordinator -----------------------------------------------------

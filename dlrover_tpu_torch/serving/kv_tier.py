@@ -26,6 +26,12 @@ the port's counterpart of dlrover_tpu/serving/kv_tier.py.
 Entries are keyed by the chained blake2b digests of
 `affinity.prefix_digest_chain`. With kv_tier_bytes=0 (the default) the
 engine builds no HostKVTier and none of this runs.
+
+On a tensor-parallel slice the device pools are sharded by KV head
+(models/decode.py); a demotion gathers the shards into the one-device
+layout ([L, rows, cells, KV, hd]) and a promotion cuts the stored bytes
+back by head, so an entry's bytes, its checksum and `kv_tier_stats()`
+are tp=1's, and entries outlive an elastic resize.
 """
 
 import logging
@@ -39,7 +45,12 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch._device import upload
-from dlrover_tpu_torch.models.decode import paged_install_row
+from dlrover_tpu_torch.models.decode import (
+    kv_read,
+    kv_shards,
+    kv_write,
+    paged_install_row,
+)
 from dlrover_tpu_torch.serving.affinity import (
     MAX_PUBLISHED_DIGESTS,
     prefix_digest_chain,
@@ -135,10 +146,8 @@ def snapshot_row(pool, row: int, w: int) -> Dict[str, Any]:
     """D2H start of a prefix demotion: gather pool row `row`'s leading
     `w` cells ([L, 1, w, ...]) into fresh device tensors and start their
     host copies."""
-    return {
-        name: _start_host_copy(arr[:, row:row + 1, :w].clone())
-        for name, arr in pool.items()
-    }
+    staged = kv_read(pool, lambda arr: arr[:, row:row + 1, :w].clone())
+    return {name: _start_host_copy(t) for name, t in staged.items()}
 
 
 def snapshot_pages(page_pool, ids: Sequence[int]) -> Dict[str, Any]:
@@ -147,24 +156,23 @@ def snapshot_pages(page_pool, ids: Sequence[int]) -> Dict[str, Any]:
     m = _bucket(len(ids))
     padded = np.full(m, TRASH_PAGE, np.int64)
     padded[:len(ids)] = ids
-    first = next(iter(page_pool.values()))
+    first = next(iter(kv_shards(page_pool)[0].values()))
     ids_dev = upload(padded, first.device)
-    return {
-        name: _start_host_copy(arr[:, ids_dev])
-        for name, arr in page_pool.items()
-    }
+    staged = kv_read(page_pool, lambda arr: arr[:, ids_dev.to(arr.device)])
+    return {name: _start_host_copy(t) for name, t in staged.items()}
 
 
 def upload_row(pool, ent: "TierEntry", row: int) -> Dict[str, torch.Tensor]:
     """H2D of a prefix promotion: upload the stored exact-dtype row and
     write it into pool row `row`. Returns the uploaded device row, which
     a paged engine installs into pages without a second PCIe trip."""
-    dev: Dict[str, torch.Tensor] = {}
-    for name, host in ent.data.items():
-        arr = pool[name]
-        src = _to_device(host, arr.device)
-        dev[name] = src
+    home = next(iter(kv_shards(pool)[0].values())).device
+    dev = {name: _to_device(host, home) for name, host in ent.data.items()}
+
+    def put(arr, src):
         arr[:, row:row + 1, :src.shape[2]] = src.to(arr.dtype)
+
+    kv_write(pool, dev, put)
     return dev
 
 
@@ -183,11 +191,15 @@ def upload_pages(page_pool, ent: "TierEntry", ids: Sequence[int]):
     m = next(iter(ent.data.values())).shape[1]
     padded = np.full(m, TRASH_PAGE, np.int64)
     padded[:len(ids)] = ids
-    first = next(iter(page_pool.values()))
+    first = next(iter(kv_shards(page_pool)[0].values()))
     ids_dev = upload(padded, first.device)
-    for name, host in ent.data.items():
-        arr = page_pool[name]
-        arr[:, ids_dev] = _to_device(host, arr.device).to(arr.dtype)
+    data = {name: _to_device(host, first.device)
+            for name, host in ent.data.items()}
+
+    def put(arr, src):
+        arr[:, ids_dev.to(arr.device)] = src.to(arr.dtype)
+
+    kv_write(page_pool, data, put)
     return page_pool
 
 

@@ -258,8 +258,8 @@ class RequestScheduler:
         elastic_resize: bool = True,
     ):
         self.engine = engine
-        # chip loss mid-pump resizes the engine live (elastic.py:
-        # on one card the tp=1 no-op) instead of crashing the replica; off => ChipLost takes the
+        # chip loss mid-pump resizes the engine live (elastic.py)
+        # instead of crashing the replica; off => ChipLost takes the
         # plain crash/failover path like any other engine failure
         self.elastic_resize = elastic_resize
         self.slo = slo or SloConfig()
@@ -814,8 +814,8 @@ class RequestScheduler:
                     events = []
             except ChipLost as exc:
                 # the replica is ALIVE but its slice shrank: resize
-                # live at the surviving tp (on one card the tp=1
-                # no-op) instead of crashing the whole replica. In-flight requests are
+                # live at the surviving tp instead of crashing the
+                # whole replica. In-flight requests are
                 # preempted to the engine queue and replayed
                 # byte-identically (serving/elastic.py); the
                 # scheduler's _running map keeps its entries — the

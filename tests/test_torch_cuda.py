@@ -2147,3 +2147,83 @@ def test_launcher_crash_and_resume_on_the_card(gen, tmp_path):
     assert "injected crash at step 10" in out
     assert "restore source: memory" in r.stdout, out[-3000:]
     assert "done: restart_count=1" in r.stdout
+
+
+# ---- tensor-parallel serving: the sharded kernel sites ------------------
+
+
+def _virtual_mesh(tp):
+    from dlrover_tpu_torch.parallel.mesh import ServingMesh
+
+    return ServingMesh([torch.device("cuda", torch.cuda.current_device())]
+                       * tp)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_sharded_paged_kernel_equals_the_tp1_head_slices(gen, quant, tp):
+    """Kernel 4 per head shard (`paged_attention(..., mesh=)`): each
+    shard's launch takes the unsharded launch's work partition, so the
+    shards' outputs are its head slices bit for bit; one launch a
+    shard, all on the TMA-ring kernel."""
+    q, pages, tab, lens = _paged_tma_case(gen, quant)
+    whole = tpa.paged_attention(q, pages, tab, lens, impl="kernel")
+    mesh = _virtual_mesh(tp)
+    before = _build.launch_counts()
+    parts = tpa.paged_attention(list(mesh.split(q, 1)),
+                                [{n: p for n, p in zip(pages, ps)}
+                                 for ps in zip(*(mesh.split(t, 2)
+                                                 for t in pages.values()))],
+                                tab, lens, impl="kernel", mesh=mesh)
+    after = _build.launch_counts()
+    torch.cuda.synchronize()
+    assert after["paged_attention_tma"] == before["paged_attention_tma"] + tp
+    assert torch.equal(torch.cat(parts, 1), whole)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sharded_flash_kernel_equals_the_tp1_head_slices(gen, tp):
+    q = torch.randn((1, 300, 32, 128), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((1, 300, 8, 128), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((1, 300, 8, 128), generator=gen, device="cuda").bfloat16()
+    whole = tfa.flash_attention(q, k, v, causal=True)
+    before = _build.launch_counts()
+    parts = tfa.sharded_flash_attention(q, k, v, _virtual_mesh(tp))
+    after = _build.launch_counts()
+    torch.cuda.synchronize()
+    assert after["flash_fwd_wgmma"] == before["flash_fwd_wgmma"] + tp
+    assert torch.equal(torch.cat(parts, 2), whole)
+
+
+def test_tp2_paged_engine_on_the_card_equals_tp1(gen, monkeypatch):
+    """A tp=2 engine on two virtual shards of the card: greedy streams
+    equal the tp=1 engine's, the paged kernel launches twice a layer
+    and step, the int8 weights stay off kernel 7."""
+    from dlrover_tpu_torch import _device
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    monkeypatch.setenv(_device.FORCE_DEVICE_COUNT_ENV, "2")
+    cfg = llama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                 attn_impl="auto", dtype=torch.bfloat16)
+    params = llama.init_params(cfg, gen)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 250, size=n).tolist() for n in (20, 37, 9)]
+    kw = dict(n_slots=2, max_len=64, max_new_tokens=8, chunk=4,
+              kv_layout="paged", page_size=16)
+    outs, paged = {}, {}
+    for tp in (1, 2):
+        eng = ContinuousBatcher(cfg, params, mesh_spec=tp, **kw)
+        assert eng.kernel_path == "kernel"
+        _build.reset_launch_counts()
+        outs[tp] = [list(map(int, o)) for o in eng.generate_all(prompts)]
+        paged[tp] = (_build.launch_counts()["paged_attention_tma"],
+                     eng.decode_steps * cfg.n_layers)
+    assert outs[2] == outs[1]
+    assert paged[1][0] == paged[1][1] and paged[2][0] == 2 * paged[2][1]
+    q8 = ContinuousBatcher(cfg, params, mesh_spec=2, weight_quant="int8",
+                           **kw)
+    assert q8.weight_quant_path == "int8:reference"
+    _build.reset_launch_counts()
+    q8.generate_all(prompts[:1])
+    assert _build.launch_counts().get("dqmm", 0) == 0

@@ -186,3 +186,21 @@ def test_data_parallel_module_scanned(rel):
 def test_data_parallel_test_worker_imports_no_jax():
     path = ROOT / "tests" / "_torch_dp_worker.py"
     assert not [n for _, n in _imports(path) if _banned(n)]
+
+
+# the tensor-parallel serving slice's modules (the slice, its placement,
+# the sharded kernel sites, the head-sharded decode and the resize)
+TENSOR_PARALLEL = ("_device.py", "parallel/mesh.py", "parallel/sharding.py",
+                   "ops/flash_attention.py", "ops/paged_attention.py",
+                   "ops/attention.py", "ops/quantization.py",
+                   "models/decode.py", "models/llama.py",
+                   "serving/adapters.py", "serving/engine.py",
+                   "serving/elastic.py", "serving/kv_tier.py",
+                   "serving/handoff.py")
+
+
+@pytest.mark.parametrize("rel", TENSOR_PARALLEL)
+def test_tensor_parallel_module_scanned(rel):
+    path = ROOT / "dlrover_tpu_torch" / rel
+    assert path in FILES
+    assert not [n for _, n in _imports(path) if _banned(n)]

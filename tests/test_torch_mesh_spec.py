@@ -8,9 +8,9 @@ of this process has 8 virtual CPU devices, so its one-device verdict is
 the reference's own `_parse_mesh_tp` + `serving_mesh_spec(...,
 n_devices=1)`, which the test first holds to the JAX engine wherever the
 device count does not change the verdict. With more devices than the
-slice, tp > 1 raises NotImplementedError in the port (tensor-parallel
-serving is not ported) where JAX builds a mesh, and the invalid cases
-still raise JAX's ValueError.
+slice (DLROVER_TPU_TORCH_FORCE_DEVICE_COUNT=8, the counterpart of the
+forced host devices), tp > 1 builds a tensor-parallel slice where JAX
+builds a mesh, and the invalid cases still raise JAX's ValueError.
 
 At tp=1 the port serves its default path: greedy streams equal the JAX
 engine's, and `mesh_shape`, `n_chips` and `kernel_path` equal JAX's."""
@@ -27,6 +27,7 @@ import torch
 from dlrover_tpu.models import llama as jllama
 from dlrover_tpu.parallel.mesh import serving_mesh_spec
 from dlrover_tpu.serving import engine as jeng
+from dlrover_tpu_torch import _device
 from dlrover_tpu_torch.models import llama as tllama
 from dlrover_tpu_torch.serving import engine as teng
 
@@ -85,15 +86,20 @@ def test_knob_matrix_as_jax_on_one_device(model, mesh_spec):
 
 
 def test_tp_above_one_with_enough_devices(model, monkeypatch):
-    """Past the device check, tp > 1 is item 11 (i): the port refuses it
-    where JAX builds a mesh; tp not dividing the KV heads, or past the
-    devices, raises JAX's ValueError first."""
+    """With eight devices (DLROVER_TPU_TORCH_FORCE_DEVICE_COUNT=8, as
+    JAX's eight forced host devices) tp=2 builds a slice in the port
+    where JAX builds a mesh, with the same slice properties; tp not
+    dividing the KV heads, or past the devices, raises JAX's
+    ValueError."""
     jcfg, jparams, tcfg, tparams = model
-    monkeypatch.setattr(teng, "_local_device_count", lambda device: 8)
+    monkeypatch.setenv(_device.FORCE_DEVICE_COUNT_ENV, "8")
     assert _jax_verdict(2, jcfg.n_kv_heads, 8) == ("ok", 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        teng.ContinuousBatcher(tcfg, tparams, device="cpu", mesh_spec=2,
+    j = jeng.ContinuousBatcher(jcfg, jparams, mesh_spec=2, **ENGINE)
+    t = teng.ContinuousBatcher(tcfg, tparams, device="cpu", mesh_spec=2,
                                **ENGINE)
+    assert t.mesh_tp == j.mesh_tp == 2
+    assert t.mesh_shape == j.mesh_shape and t.n_chips == j.n_chips == 2
+    assert t.mesh.tp == 2 and t.mesh.axis_names == j.mesh.axis_names
     for tp in (3, 16):
         want = _jax_verdict(tp, jcfg.n_kv_heads, 8)
         assert want[0] == "ValueError"
@@ -102,8 +108,14 @@ def test_tp_above_one_with_enough_devices(model, monkeypatch):
             **ENGINE)) == want
 
 
-def test_local_device_count():
-    assert teng._local_device_count(torch.device("cpu")) == 1
+def test_local_device_count(monkeypatch):
+    """`_device.local_devices` (which replaced the engine's device
+    count): one CPU, or the forced count of it."""
+    cpu = torch.device("cpu")
+    monkeypatch.delenv(_device.FORCE_DEVICE_COUNT_ENV, raising=False)
+    assert _device.local_devices(cpu) == [cpu]
+    monkeypatch.setenv(_device.FORCE_DEVICE_COUNT_ENV, "8")
+    assert _device.local_devices(cpu) == [cpu] * 8
 
 
 @pytest.mark.parametrize("attn_impl", ["reference", "auto"])

@@ -268,9 +268,9 @@ def test_engine_serves_the_rounded_weights(model, monkeypatch):
     used = set()
     real = tq.quantized_matmul
 
-    def spy(x, w):
+    def spy(x, w, **kw):
         used.add(id(w))
-        return real(x, w)
+        return real(x, w, **kw)
 
     monkeypatch.setattr(tq, "quantized_matmul", spy)
     got = [[int(t) for t in o] for o in eng.generate_all(prompts)]
