@@ -283,6 +283,29 @@ Phases, one line each (any failure exits non-zero before the last line):
      exactly twice a param leaf and step, the moments must take at most
      0.254x of AdamW's bytes and the peak memory must stay below
      train's;
+  22a. train.lora: the same workload with lora.inject (rank 16, alpha
+     32, wq/wk/wv/wo) after the same base and lora_optimizer(AdamW):
+     exact flash launches (all wgmma), every base leaf bit-equal after
+     the 8 steps, wq_lora_b moved, the loss fell, the train state's keys
+     JAX's for that optimizer (moments for the adapters only), and the
+     adapter-only checkpoint (save_to_storage, a fresh engine's load,
+     load_adapters onto a base injected afresh) giving logits bit-equal
+     to the trained params'; step time, peak and moment bytes beside
+     train's;
+  22b. rl.ppo: PpoTrainer(rollout_engine="continuous") over that LoRA
+     actor (lora_optimizer(Adam 1e-4)), the default ref copy and JAX's
+     test critic (embedding -> value) at width 4096: 8 prompts of
+     32-192 tokens, max_len 256, temperature 1, minibatches of 4 over
+     2 epochs, kl_coef 0.1, two steps (the second rollout through
+     update_params): exact flash launches (all wgmma), prompts kept,
+     tokens in vocab, metrics finite, the actor's base bit-equal to the
+     ref's copy and its adapters moved, and the engine's own
+     first-decode logits in step 2 within 5% of the largest logit of
+     llama.apply on the actor after step 1; rollout seconds and
+     tokens/s, admissions, update seconds a minibatch, peak, moment
+     bytes, the PPO metrics; after the path, greedy rollouts through
+     both engines (rows equal, reported) and a decode step on the f32
+     tree and on a bf16 copy;
   23. train.remat: the train workload (4 steps each) under the model's
      remat policies "full", "proj", "proj_mlp" and "none" (the model's
      remat off), and with the model's remat off under
@@ -332,6 +355,8 @@ train.master phases, no result line;
 train.agent phases, no result line;
 `python3 chip_smoke.py --dp` the card, build, train and train.dp
 phases, no result line;
+`python3 chip_smoke.py --rl` the card, build, train, train.lora and
+rl.ppo phases, no result line;
 `python3 chip_smoke.py --tp` the card, build, kernel.sharded, serve and
 serve.tp2 phases (4a-4c), no result line;
 `python3 chip_smoke.py --fleet` the card, build and serve.fleet phases,
@@ -467,6 +492,22 @@ TRAIN_STEPS = 8
 TRAIN_SEED = SEED + 2         # params and tokens of both train phases
 TRAIN_LR = 1e-4
 TRAIN_WD = 1e-4
+# train.lora / rl.ppo: adapters of rank 16 (alpha 32) on the attention
+# projections; rl.ppo's traffic: RL_PROMPTS prompts of 32-192 tokens
+# (numpy seed RL_SEED) in a 256-token buffer, minibatches of 4 over 2
+# epochs, 2 PPO steps, +1 per generated RL_TARGET token
+LORA_RANK = 16
+LORA_ALPHA = 32.0
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+RL_PROMPTS = 8
+RL_PROMPT_LENS = (32, 192)
+RL_MAX_LEN = 256
+RL_MINIBATCH = 4
+RL_EPOCHS = 2
+RL_KL = 0.1
+RL_STEPS = 2
+RL_TARGET = 3
+RL_SEED = SEED + 4
 # the moment rule of opt.int8_adam (card against CPU): int8 levels
 # equal or one apart in at most 0.1% of the entries, scales within
 # 1e-6 relative, params within 2^-20 relative plus lr x 2^-6
@@ -3784,7 +3825,8 @@ def _watch_first_decodes(engine):
     step that samples a request's first token) for the first admission
     of each kind: "warm" (a prefix hit with a suffix prefill), "full_hit"
     (the whole prompt cached: copy-on-write of the frontier page, no
-    prefill), "cold" and "chunked" (prefilled by interleaved chunks).
+    prefill), "cold" and "chunked" (prefilled by interleaved chunks);
+    without a prefix cache every admission is cold.
     The engine's `_admit`, `_flip_to_decode` and `_advance` are wrapped
     on the instance; the cost is one host check a step and one logits
     row copied for each kind. Returns {kind: (prompt, logits [V])}."""
@@ -3794,10 +3836,13 @@ def _watch_first_decodes(engine):
                             engine._advance)
 
     def watch_admit(slot, req):
-        before = pc.stats()
+        before = pc.stats() if pc is not None else None
         admit(slot, req)
         if engine._prefilling[slot]:
             return  # a chunked admission: its first decode follows the flip
+        if pc is None:   # no prefix cache: every admission is cold
+            watch(slot, "cold")
+            return
         after = pc.stats()
         reused = after["tokens_reused"] - before["tokens_reused"]
         if after["hits"] == before["hits"]:
@@ -4307,18 +4352,20 @@ def _smoke_out():
 
 
 def _train_setup(optimizer, fused_ce=False, n_layers=TRAIN_LAYERS,
-                 microbatch=TRAIN_MICROBATCH):
+                 microbatch=TRAIN_MICROBATCH, lora_cfg=None):
     """The train phases' model, ElasticTrainer over `optimizer` (a
     factory), batch and the generator to draw the params from next:
     every phase draws the tokens and then the params from one fixed
     seed, so all start from the same point (train.dp's two-rank run
     cuts the depth to `n_layers` and the largest replica batch to
-    `microbatch`). The ElasticTrainer trains over the world this
-    process joined, if any. The Trainer's step and card metrics files
-    are pointed into smoke_out/ beside this script."""
+    `microbatch`; with a `lora_cfg` the adapters are injected after the
+    base is drawn, from the same generator, so the base is train's).
+    The ElasticTrainer trains over the world this process joined, if
+    any. The Trainer's step and card metrics files are pointed into
+    smoke_out/ beside this script."""
     import os
 
-    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.models import llama, lora
     from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
 
     out = _smoke_out()
@@ -4332,8 +4379,17 @@ def _train_setup(optimizer, fused_ce=False, n_layers=TRAIN_LAYERS,
     tokens = torch.randint(0, cfg.vocab_size,
                            (TRAIN_GLOBAL_BATCH, TRAIN_SEQ + 1),
                            generator=gen, device="cuda")
+
+    def init(g):
+        params = llama.init_params(cfg, g, dtype=cfg.param_dtype)
+        if lora_cfg is not None:
+            params = lora.inject(cfg, params, lora_cfg, g)[1]
+        return params
+
+    if lora_cfg is not None:
+        cfg = dataclasses.replace(cfg, lora_alpha=lora_cfg.alpha)
     et = ElasticTrainer(
-        lambda g: llama.init_params(cfg, g, dtype=cfg.param_dtype),
+        init,
         lambda p, b: llama.loss_fn(cfg, p, b),
         optimizer,
         global_batch_size=TRAIN_GLOBAL_BATCH,
@@ -4554,6 +4610,414 @@ def phase_train_int8(train):
     del state, et, opt
     torch.cuda.empty_cache()
     return e2e
+
+
+def _lora_config():
+    from dlrover_tpu_torch.models import lora
+
+    return lora.LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA,
+                           targets=LORA_TARGETS)
+
+
+def _adapter_count(cfg):
+    """Adapter params of `_lora_config()` on `cfg`: r x (in + out) per
+    target and layer."""
+    widths = {"wq": (cfg.dim, cfg.n_heads * cfg.head_dim),
+              "wk": (cfg.dim, cfg.n_kv_heads * cfg.head_dim),
+              "wv": (cfg.dim, cfg.n_kv_heads * cfg.head_dim),
+              "wo": (cfg.n_heads * cfg.head_dim, cfg.dim)}
+    return cfg.n_layers * LORA_RANK * sum(sum(widths[t])
+                                          for t in LORA_TARGETS)
+
+
+def _lora_state_keys(state):
+    """The keys JAX's `flatten_state` gives a train state of this tree
+    under `lora_optimizer(optax.adamw(...))`: the params, the step, and
+    the inner transform's count and moments of the adapter leaves only
+    (tests/test_torch_lora_train.py holds the port's keys to JAX's)."""
+    from dlrover_tpu_torch.models import lora
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        state_leaves,
+    )
+
+    pre = "opt_state/inner_states/lora/inner_state/0/"
+    params = state_leaves(state["params"])
+    return ({"params/" + p for p in params} | {"step", pre + "count"}
+            | {f"{pre}{m}/{p}" for m in ("mu", "nu") for p in params
+               if lora.is_adapter_path(p)})
+
+
+def phase_train_lora(train):
+    """`train` with LoRA: the same model, base params, tokens and steps,
+    with `lora.inject(rank 16, alpha 32, wq/wk/wv/wo)` after the base is
+    drawn and `lora_optimizer(AdamW(lr 1e-4, weight decay 1e-4))`: the
+    8 Trainer steps with the launch counts set to 0 just before and read
+    just after (exact flash counts, all wgmma). Checks: every base leaf
+    bit-equal after the steps, wq_lora_b moved, the loss fell, the train
+    state's keys are JAX's for this optimizer (no moment for a frozen
+    leaf), and the adapter-only checkpoint (`save_to_storage` of
+    `adapter_state_dict`, a fresh engine's `load`, `load_adapters` onto
+    the base injected afresh from another seed) gives logits on one
+    microbatch bit-equal to the trained params'. The checkpoint
+    directory and segments are removed in a `finally`."""
+    import os
+    import shutil
+
+    from dlrover_tpu_torch.agent.ckpt_saver import shm_segment_paths
+    from dlrover_tpu_torch.models import llama, lora
+    from dlrover_tpu_torch.trainer.flash_checkpoint import CheckpointEngine
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        state_leaves,
+    )
+
+    lc = _lora_config()
+    cfg, et, tokens, gen = _train_setup(lora.lora_optimizer(_adamw),
+                                        lora_cfg=lc)
+    state = et.init_state(gen)
+    params = state["params"]
+    b0 = params["layers"]["wq_lora_b"].detach().clone()
+    opt = state["opt_state"]
+    e2e = _run_trainer(cfg, et, state, tokens, "train.lora")
+    # the base drawn again from the seed (a copy held through the steps
+    # would count in their peak)
+    _, _, _, gen = _train_setup(_adamw)
+    base = state_leaves(llama.init_params(cfg, gen, dtype=cfg.param_dtype))
+    leaves = state_leaves(params)
+    n_adapter = _adapter_count(cfg)
+    checks = dict(
+        base_bit_equal=all(torch.equal(leaves[p], t)
+                           for p, t in base.items()),
+        wq_lora_b_moved=not torch.equal(params["layers"]["wq_lora_b"], b0),
+        loss_fell=e2e["losses"][-1] < e2e["losses"][0],
+        jax_state_keys=set(state_leaves(state)) == _lora_state_keys(state),
+        adapter_count=sum(t.numel() for p, t in leaves.items()
+                          if lora.is_adapter_path(p)) == n_adapter,
+        moments_adapters_only=len(opt.state) == 2 * len(LORA_TARGETS),
+    )
+    del base, b0, leaves
+
+    # the adapter-only checkpoint through the flash checkpoint engine
+    root = os.path.join(_smoke_out(), f"lora-{os.getpid()}")
+    jobs = [f"chip-smoke-lora-{os.getpid()}-{i}" for i in range(2)]
+    rt = {}
+    try:
+        eng = CheckpointEngine(root, job_name=jobs[0])
+        try:
+            t0 = time.perf_counter()
+            eng.save_to_storage(TRAIN_STEPS, lora.adapter_state_dict(params))
+            checks["adapters_persisted"] = eng.wait_for_persist(
+                TRAIN_STEPS, timeout=120)
+            rt["save_s"] = time.perf_counter() - t0
+            rt["staged_bytes"] = eng.last_staged_bytes
+        finally:
+            eng.close()
+        eng = CheckpointEngine(root, job_name=jobs[1])
+        try:
+            t0 = time.perf_counter()
+            step, restored = eng.load(device="cuda")
+            rt["load_s"] = time.perf_counter() - t0
+            rt["source"] = eng.last_load_source
+        finally:
+            eng.close()
+        checks["adapters_restored_step"] = step == TRAIN_STEPS
+        frozen = {k: v for k, v in params.items() if k != "layers"}
+        frozen["layers"] = {k: v for k, v in params["layers"].items()
+                            if not lora.is_adapter_path(k)}
+        fresh = lora.inject(cfg, frozen, lc, torch.Generator(
+            device="cuda").manual_seed(TRAIN_SEED + 7))[1]
+        reloaded = lora.load_adapters(fresh, restored)
+        micro = tokens[:TRAIN_MICROBATCH]
+        with torch.no_grad():
+            want = llama.apply(cfg, params, micro)
+            got = llama.apply(cfg, reloaded, micro)
+            checks["adapter_roundtrip_logits_bit_equal"] = torch.equal(
+                got, want)
+            rt["logits_max_abs_diff"] = (got - want).abs().max().item()
+        del want, got, fresh, reloaded, restored
+    finally:
+        for job in jobs:
+            for path in shm_segment_paths(job):
+                if os.path.exists(path):
+                    os.unlink(path)
+        shutil.rmtree(root, ignore_errors=True)
+    moment_bytes = _state_bytes(opt)
+    e2e.update(
+        lora=dict(rank=lc.rank, alpha=lc.alpha, targets=list(lc.targets)),
+        adapter_params=n_adapter, moment_bytes=moment_bytes,
+        adamw_moment_bytes=train["opt_state_bytes"],
+        moment_bytes_ratio=moment_bytes / train["opt_state_bytes"],
+        adamw_median_step_s=train["median_step_s"],
+        step_ratio=e2e["median_step_s"] / train["median_step_s"],
+        adamw_peak_mem_gb=train["peak_mem_gb"],
+        adapter_checkpoint=rt, checks=checks)
+    log("train.lora", **e2e)
+    if not all(checks.values()):
+        raise AssertionError(f"train.lora: failed checks {checks}")
+    del state, et, opt, params
+    torch.cuda.empty_cache()
+    return e2e
+
+
+def _rl_prompts(cfg):
+    """RL_PROMPTS prompts of 32-192 random tokens (numpy seed RL_SEED)
+    in a [B, RL_MAX_LEN] buffer, and their lengths."""
+    rng = np.random.default_rng(RL_SEED)
+    lens = rng.integers(RL_PROMPT_LENS[0], RL_PROMPT_LENS[1] + 1,
+                        size=RL_PROMPTS)
+    prompts = np.zeros((RL_PROMPTS, RL_MAX_LEN), np.int64)
+    for b, n in enumerate(lens):
+        prompts[b, :n] = rng.integers(0, cfg.vocab_size, size=n)
+    return (torch.from_numpy(prompts).cuda(),
+            torch.from_numpy(lens.astype(np.int64)).cuda())
+
+
+def phase_rl_ppo(train):
+    """PPO over a LoRA actor, rolled out through the continuous batcher
+    (`PpoTrainer(rollout_engine="continuous")`): the actor is `train`'s
+    model and base params (f32 storage, bf16 compute, remat "full")
+    with `train.lora`'s adapters and `lora_optimizer(Adam 1e-4)`; the
+    ref is the default detached copy; the critic is JAX's test critic
+    (embedding -> value, tests/test_rl_ppo.py) at width 4096 and vocab
+    128256, its value head drawn from the seed (JAX's zeros would leave
+    every advantage 0 on the first rollout: no target token drawn, no
+    KL yet); the reward +1 per generated RL_TARGET. RL_PROMPTS prompts of
+    32-192 tokens, max_len 256, temperature 1, minibatch 4, 2 epochs,
+    kl_coef 0.1, two `step`s (the second rollout goes through
+    `update_params`), with the launch counts set to 0 just before and
+    read just after. Checks: the rows keep their prompts, tokens in
+    vocab, every metric finite, the actor's base bit-equal to the ref's
+    copy and its adapters moved, exact flash launches all on wgmma, and
+    (deciding) the engine's own first-decode logits of step 2's first
+    request within 5% of the largest logit of `llama.apply` on the
+    actor's params after step 1. After the path: greedy rollouts of the
+    same prompts through the continuous engine and the lockstep cached
+    sampler (rows equal, reported: bf16 on two paths may flip a near
+    tie), and one decode step timed on the actor's f32 tree and on a
+    bf16 copy."""
+    from dlrover_tpu_torch.models import decode as dec
+    from dlrover_tpu_torch.models import llama, lora
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.rl import ModelEngine, PpoConfig, PpoTrainer
+    from dlrover_tpu_torch.rl.generate import sample_tokens_cached
+    from dlrover_tpu_torch.rl.model_engine import ModelSpec
+    from torch.utils._pytree import tree_map
+
+    lc = _lora_config()
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS,
+                                      lora_alpha=lc.alpha)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    # the train phases draw their tokens first: the same base follows
+    torch.randint(0, cfg.vocab_size, (TRAIN_GLOBAL_BATCH, TRAIN_SEQ + 1),
+                  generator=gen, device="cuda")
+    actor = lora.inject(cfg, llama.init_params(cfg, gen,
+                                               dtype=cfg.param_dtype),
+                        lc, gen)[1]
+    critic = {"embed": torch.randn((cfg.vocab_size, cfg.dim), generator=gen,
+                                   device="cuda") * 0.1,
+              "v": torch.randn((cfg.dim,), generator=gen,
+                               device="cuda") * 0.1}
+
+    def reward(tokens, prompt_lens):
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        return ((tokens == RL_TARGET)
+                & (pos >= prompt_lens[:, None])).sum(dim=1).float()
+
+    engine = ModelEngine(
+        actor=ModelSpec(lambda p, t: llama.apply(cfg, p, t), actor,
+                        trainable=True, model_cfg=cfg),
+        critic=ModelSpec(lambda p, t: p["embed"][t] @ p["v"], critic,
+                         trainable=True),
+        reward_fn=reward)
+    ppo_cfg = PpoConfig(max_len=RL_MAX_LEN, temperature=1.0,
+                        minibatch_size=RL_MINIBATCH, epochs=RL_EPOCHS,
+                        kl_coef=RL_KL, rollout_engine="continuous")
+    trainer = PpoTrainer(
+        engine, ppo_cfg, actor_opt=lora.lora_optimizer(
+            lambda ps: torch.optim.Adam(ps, lr=1e-4, betas=(0.9, 0.999),
+                                        eps=1e-8)),
+        device="cuda")
+    prompts, lens = _rl_prompts(cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # host-clock instruments around the trainer's own methods
+    rec = {"rollout_s": [], "experience_s": [], "update_s": [], "exps": [],
+           "engine": [], "ratio_mean": []}
+    rollout, make_exp, update = (trainer._continuous_rollout,
+                                 trainer.make_experience, trainer._update_fn)
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    def timed_rollout(*a, **kw):
+        out = timed(rollout, "rollout_s")(*a, **kw)
+        cb = trainer._cb
+        rec["engine"].append(dict(
+            admissions=cb.admissions, decode_steps=cb.decode_steps,
+            weight_version=cb.weight_version,
+            prefill=cb.prefill_stats(), step_stats=cb.step_stats()))
+        return out
+
+    def recorded_update(batch):
+        m = timed(update, "update_s")(batch)
+        rec["ratio_mean"].append(float(m["ratio_mean"]))
+        return m
+
+    def recorded_experience(*a, **kw):
+        exp = timed(make_exp, "experience_s")(*a, **kw)
+        rec["exps"].append(exp)
+        return exp
+
+    trainer._continuous_rollout = timed_rollout
+    trainer.make_experience = recorded_experience
+    trainer._update_fn = recorded_update
+
+    adapter_keys = [k for k in actor["layers"] if lora.is_adapter_path(k)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.step(prompts, lens, torch.Generator(
+        device="cuda").manual_seed(RL_SEED))]
+    after1 = {k: actor["layers"][k].detach().clone() for k in adapter_keys}
+    seen = _watch_first_decodes(trainer._cb)
+    metrics.append(trainer.step(prompts, lens, torch.Generator(
+        device="cuda").manual_seed(RL_SEED + 1)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    exps = rec["exps"]
+    n_mb = RL_EPOCHS * (RL_PROMPTS // RL_MINIBATCH)
+    admissions = rec["engine"][-1]["admissions"]
+    layers = cfg.n_layers
+    want = dict(
+        flash_fwd=layers * (admissions + RL_STEPS * (2 + 2 * n_mb)),
+        flash_bwd_dq=layers * RL_STEPS * n_mb,
+        flash_bwd_dkv=layers * RL_STEPS * n_mb)
+    p_np, l_np = prompts.cpu().numpy(), lens.cpu().numpy()
+    generated = [int(e.mask.sum()) for e in exps]
+    ref = engine.ref.params
+    frozen = [k for k in actor["layers"] if not lora.is_adapter_path(k)]
+    prompt_kept = all(np.array_equal(e.tokens[b, :n], p_np[b, :n])
+                      for e in exps for b, n in enumerate(l_np))
+
+    # the deciding check: the engine served the actor updated by step 1
+    first_prompt, lk = seen["cold"]
+    with torch.no_grad():
+        p1 = lora.load_adapters(actor, {"layers": after1})
+        tok = torch.tensor([first_prompt], device="cuda")
+        lr = llama.apply(cfg, p1, tok)[0, -1]
+        l0 = llama.apply(cfg, ref, tok)[0, -1]
+    served = dict(
+        prompt_len=len(first_prompt),
+        max_abs_err=(lk - lr).abs().max().item(),
+        ref_max_abs=lr.abs().max().item(),
+        tol=LOGITS_REL_TOL * lr.abs().max().item(),
+        argmax_equal=bool(lk.argmax() == lr.argmax()),
+        vs_initial_actor_max_abs=(lk - l0).abs().max().item(),
+        tol_reason="bf16 compute on both sides; the engine's decode "
+                   "step recomputes the last prompt token over its "
+                   "cache where apply runs the whole prompt through "
+                   "flash")
+    del p1, lr, l0
+    checks = dict(
+        launches_exact=all(launches[k] == v for k, v in want.items()),
+        wgmma=all(launches[f"{k}_wgmma"] == launches[k] for k in want),
+        rows_keep_prompts=prompt_kept,
+        tokens_in_vocab=all(0 <= e.tokens.min() and e.tokens.max()
+                            < cfg.vocab_size for e in exps),
+        metrics_finite=all(np.isfinite(v) for m in metrics
+                           for v in m.values()),
+        base_bit_equal_to_ref=all(torch.equal(actor["layers"][k],
+                                              ref["layers"][k])
+                                  for k in frozen)
+        and all(torch.equal(actor[k][n], ref[k][n])
+                for k in ("embed", "final_norm", "lm_head")
+                for n in actor[k]),
+        adapters_moved=all(not torch.equal(actor["layers"][k],
+                                           ref["layers"][k])
+                           for k in adapter_keys),
+        second_rollout_updated_params=rec["engine"][-1][
+            "weight_version"] == 1,
+        engine_serves_updated_actor=served["max_abs_err"] <= served["tol"],
+    )
+    rollout_tok_s = [g / s for g, s in zip(generated, rec["rollout_s"])]
+    out = dict(
+        config="llama3_8b", n_layers=layers, lora=dict(
+            rank=lc.rank, alpha=lc.alpha, targets=list(lc.targets)),
+        prompts=RL_PROMPTS, prompt_lens=l_np.tolist(), max_len=RL_MAX_LEN,
+        temperature=ppo_cfg.temperature, minibatch=RL_MINIBATCH,
+        epochs=RL_EPOCHS, kl_coef=RL_KL, steps=RL_STEPS, setup_s=setup_s,
+        wall_s=wall, rollout_s=rec["rollout_s"],
+        generated_tokens=generated, rollout_tokens_per_s=rollout_tok_s,
+        experience_s=rec["experience_s"], update_s_per_minibatch=rec[
+            "update_s"], median_update_s=float(np.median(rec["update_s"])),
+        ratio_mean_per_minibatch=rec["ratio_mean"],
+        engine=rec["engine"], peak_mem_gb=peak,
+        actor_moment_bytes=_state_bytes(trainer.actor_opt_state),
+        critic_moment_bytes=_state_bytes(trainer.critic_opt_state),
+        adapter_params=_adapter_count(cfg), metrics=metrics,
+        target_tokens=[int(((e.tokens[:, 1:] == RL_TARGET)
+                            & (e.mask > 0)).sum()) for e in exps],
+        launches=launches, want_launches=want, first_decode=served)
+    del seen, lk
+
+    # after the path: greedy rollouts through both engines, and the cost
+    # of serving the f32 tree (every decode step casts it to bf16)
+    trainer._cb = None
+    torch.cuda.empty_cache()
+    trainer.cfg = dataclasses.replace(ppo_cfg, temperature=0.0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cont = rollout(cfg, prompts, lens, torch.Generator(
+            device="cuda").manual_seed(0))
+        t1 = time.perf_counter()
+        lock, _ = sample_tokens_cached(cfg, actor, prompts, lens,
+                                       RL_MAX_LEN, greedy=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        cache = dec.init_kv_cache(cfg, RL_PROMPTS, RL_MAX_LEN,
+                                  device="cuda")
+        tok = prompts[:, 0]
+        pos = lens - 1
+        bf16 = tree_map(lambda t: t.to(cfg.dtype), actor)
+        step_ms = {"host_clock": {}, "device": {}}
+        for name, tree in (("f32_tree", actor), ("bf16_tree", bf16),
+                           ("bf16_tree_again", bf16),
+                           ("f32_tree_again", actor)):
+            def one(tree=tree):
+                dec.decode_step(cfg, tree, tok, cache, pos)
+            step_ms["host_clock"][name] = time_ms(one, iters=10)
+            step_ms["device"][name] = device_ms(one, calls=3, replays=5)
+        del bf16, cache
+    trainer._cb = None
+    # generated tokens each row's two greedy rollouts share before their
+    # first difference
+    same = (cont == lock).cpu().numpy()
+    shared = [int(np.argmin(np.append(same[b, n:], False)))
+              for b, n in enumerate(l_np)]
+    out.update(
+        greedy=dict(rows_equal=int(same.all(axis=1).sum()),
+                    rows=RL_PROMPTS, shared_prefix_tokens=shared,
+                    generated_per_row=[RL_MAX_LEN - int(n) for n in l_np],
+                    continuous_s=t1 - t0, lockstep_cached_s=t2 - t1),
+        decode_step_ms=step_ms, checks=checks)
+    log("rl.ppo", **out)
+    if not all(checks.values()):
+        raise AssertionError(f"rl.ppo: failed checks {checks}")
+    del trainer, engine, actor, critic, ref, exps
+    torch.cuda.empty_cache()
+    return out
 
 
 def _fused_vs_unfused(cfg, params, micro):
@@ -6540,6 +7004,12 @@ def main():
         phase_train_agent(phase_train(), smi)
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
+    if "--rl" in args:
+        train = phase_train()
+        phase_train_lora(train)
+        phase_rl_ppo(train)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
+        return 0
     if "--dp" in args:
         phase_train_dp(phase_train(), smi)
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
@@ -6623,6 +7093,8 @@ def main():
     agent_run = phase_train_agent(train, smi)
     dp_run = phase_train_dp(train, smi)
     train_int8 = phase_train_int8(train)
+    train_lora = phase_train_lora(train)
+    rl_run = phase_rl_ppo(train)
     remat_runs = phase_train_remat()
     phase_fp8_dot(gen)
 
@@ -6651,6 +7123,8 @@ def main():
                      "train.agent": agent_run["launches"]["flash_fwd"],
                      "train.dp": dp_run["launches"]["flash_fwd"],
                      "train.int8_adam": train_int8["launches"]["flash_fwd"],
+                     "train.lora": train_lora["launches"]["flash_fwd"],
+                     "rl.ppo": rl_run["launches"]["flash_fwd"],
                      **{path: r["launches"]["flash_fwd"]
                         for path, r in remat_paths.items()}}
     bwd_by_path = {name: {"train": train["launches"][name],
@@ -6661,6 +7135,8 @@ def main():
                           "train.agent": agent_run["launches"][name],
                           "train.dp": dp_run["launches"][name],
                           "train.int8_adam": train_int8["launches"][name],
+                          "train.lora": train_lora["launches"][name],
+                          "rl.ppo": rl_run["launches"][name],
                           **{path: r["launches"][name]
                              for path, r in remat_paths.items()}}
                    for name in ("flash_bwd_dq", "flash_bwd_dkv")}

@@ -15,6 +15,10 @@ whole buffer under the position mask (the dense bank), or over the
 page pool (decode through the paged-attention kernel on the card, the
 gathered dense view otherwise).
 
+`generate` samples a batch from one prompt tensor: a prefill, then
+one `decode_step` a token (greedy, temperature, top-k / top-p, eos with
+a pad tail), as JAX's one compiled scan does.
+
 Multi-adapter LoRA serving (serving/adapters.py): every forward below
 that JAX's takes `adapters` on takes an optional `adapters` operand,
 {"bank": {"<t>_a": [L, S, in, r], "<t>_b": [L, S, r, out]}, "idx": [B]
@@ -40,7 +44,7 @@ tp = 1 computes, chunked by head; with mesh=None every function runs
 the one-device code unchanged.
 """
 
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -356,6 +360,14 @@ def _layer_cache(cache: AnyCache, layer: int):
     if isinstance(cache, (list, tuple)):
         return [{n: a[layer] for n, a in sh.items()} for sh in cache]
     return {name: arr[layer] for name, arr in cache.items()}
+
+
+def _check_positional_capacity(cfg, max_len: int) -> None:
+    """JAX refuses a decode longer than GPT's learned position table
+    (its gathers would clamp to the last row). RoPE, the Llama family's
+    positions and the only family the port has, computes any position:
+    nothing to refuse until `gpt.py` is ported (ROADMAP queue 1 item
+    13)."""
 
 
 def _check_adapters(cfg, adapters) -> None:
@@ -811,6 +823,86 @@ def _mask_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
         dim=-1, keepdim=True
     )
     return torch.where(logits < kth, float("-inf"), logits)
+
+
+def generate(
+    cfg,
+    params,
+    prompt: torch.Tensor,
+    max_new_tokens: int,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    max_len: Optional[int] = None,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    eos_id: Optional[int] = None,
+    pad_id: int = 0,
+    kv_quant: bool = False,
+) -> torch.Tensor:
+    """Greedy or temperature sampling over the KV cache: a prefill of
+    `prompt` [B, P], then one `decode_step` a token. Returns [B, P +
+    max_new_tokens] on the prompt's device.
+
+    `top_k > 0` and / or `top_p < 1` filter the tempered distribution
+    before each draw (temperature first, then the filters, HF / vLLM's
+    order); greedy decoding (temperature <= 0) ignores them. `eos_id`
+    stops each row at its first eos: the eos is emitted, every later
+    position is `pad_id`, and the output keeps its static shape. Draws
+    come from `generator` (default: a fresh one seeded 0 on the
+    prompt's device) where JAX splits a key: greedy rows equal JAX's,
+    sampled rows follow the same distribution with other draws."""
+    b, p = prompt.shape
+    m = max_len or (p + max_new_tokens)
+    if m < p + max_new_tokens:
+        raise ValueError(
+            f"max_len {m} < prompt {p} + new {max_new_tokens}"
+        )
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if eos_id is not None and eos_id == pad_id:
+        raise ValueError(
+            f"eos_id and pad_id must differ (both {eos_id}): the pad "
+            "tail would re-trigger the done mask's eos detection"
+        )
+    _check_positional_capacity(cfg, p + max_new_tokens)
+    if max_new_tokens == 0:
+        return prompt
+    dev = prompt.device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def sample(logits):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(prompt.dtype)
+        logits = logits.float() / temperature
+        if 0 < top_k < logits.shape[-1]:
+            logits = _mask_top_k(logits, top_k)
+        if top_p < 1.0:
+            logits = _mask_top_p(logits, top_p)
+        return categorical(torch.softmax(logits, dim=-1),
+                           generator).to(prompt.dtype)
+
+    def emit(raw, done):
+        """Finished rows emit pad; a fresh eos marks its row done after
+        being emitted itself."""
+        if eos_id is None:
+            return raw, done
+        tok = torch.where(done, torch.full_like(raw, pad_id), raw)
+        return tok, done | (tok == eos_id)
+
+    with torch.no_grad():
+        cache = init_kv_cache(cfg, b, m, quant=kv_quant, device=dev)
+        logits, cache = prefill(cfg, params, prompt, cache)
+        tok, done = emit(sample(logits), torch.zeros(b, dtype=torch.bool,
+                                                     device=dev))
+        out = [tok]
+        for t in range(max_new_tokens - 1):
+            logits, cache = decode_step(cfg, params, tok, cache, p + t)
+            tok, done = emit(sample(logits), done)
+            out.append(tok)
+    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
 
 
 def categorical(probs: torch.Tensor, generator=None) -> torch.Tensor:

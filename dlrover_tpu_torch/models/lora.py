@@ -9,21 +9,26 @@ dlrover_tpu/models/lora.py (the parts serving and the merge use).
   KV-cache decoder both take their weights from.
 - `merge` folds the adapters into the base weights for good (merge to
   full, PEFT's merge_and_unload).
+- Freezing is an optimizer concern, not a graph one: `lora_optimizer`
+  builds the inner optimizer on the adapter leaves alone, so the base
+  gets no update and no moment state (the memory LoRA saves).
+- An adapter-only checkpoint is the `adapter_state_dict` sub-tree saved
+  through the flash checkpoint engine, restored with `load_adapters`.
 
 PEFT semantics kept: A ~ N(0, 1/r), B = 0 (the delta starts at exactly
 zero), the delta scaled by alpha / rank. lora_dropout is not
 implemented (the weight-level merge has no activation hook): pass 0.
 
-Not ported yet: `lora_labels` / `lora_optimizer` (the frozen-base
-optimizer) and `lora_partition_rules` (sharding) — LoRA training,
-ROADMAP queue 1.
+Not ported yet: `lora_partition_rules` (sharded adapter state waits for
+the port's sharded training, ROADMAP queue 1 item 13).
 """
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.utils._pytree import tree_leaves, tree_map_with_path
 
 Params = Dict[str, Any]
 
@@ -105,6 +110,58 @@ def inject(
     return dataclasses.replace(cfg, lora_alpha=lora.alpha), out
 
 
+def lora_labels(params: Params):
+    """A tree of `params`' structure with "lora" at every adapter leaf and
+    "frozen" everywhere else (the labels JAX's `optax.multi_transform`
+    takes)."""
+    from dlrover_tpu_torch.optim.mup import path_str
+
+    return tree_map_with_path(
+        lambda path, _: "lora" if is_adapter_path(path_str(path))
+        else "frozen", params)
+
+
+class LoraOptimizer:
+    """The optimizer factory `lora_optimizer` returns. Unlike a plain
+    factory (`list of param leaves -> torch.optim.Optimizer`) it needs
+    the labels, so it is called with the leaves and the param tree they
+    come from (`parallel.accelerate.make_optimizer` does so for every
+    factory that sets `takes_params`)."""
+
+    takes_params = True
+
+    def __init__(self, base: Callable[[List[torch.Tensor]],
+                                      torch.optim.Optimizer]):
+        self.base = base
+
+    def __call__(self, leaves: List[torch.Tensor],
+                 params: Params) -> torch.optim.Optimizer:
+        labels = dict(zip((id(t) for t in tree_leaves(params)),
+                          tree_leaves(lora_labels(params))))
+        adapters = [p for p in leaves if labels.get(id(p)) == "lora"]
+        if not adapters:
+            raise ValueError(
+                "lora_optimizer: the params hold no adapter leaf to train "
+                "(lora.inject them first)")
+        opt = self.base(adapters)
+        # the key JAX's multi_transform files the inner state under
+        # (`opt_state/inner_states/lora/inner_state/...`): the flash
+        # checkpoint engine reads it off the optimizer
+        opt.multi_transform_label = "lora"
+        return opt
+
+
+def lora_optimizer(base) -> LoraOptimizer:
+    """Wrap an optimizer factory: the adapters train, everything else is
+    frozen, with no optimizer state for it (JAX `multi_transform` with
+    `set_to_zero` for the base). The inner optimizer is built on the
+    adapter leaves alone, so no update, weight decay included, ever
+    touches a frozen leaf; the gradients of frozen leaves may still be
+    taken (accelerate reports the global norm over all of them, as
+    JAX's does)."""
+    return LoraOptimizer(base)
+
+
 def adapter_state_dict(params: Params) -> Params:
     """The adapter-only sub-tree: what an adapter checkpoint holds and
     what the serving AdapterRegistry registers."""
@@ -167,3 +224,13 @@ def merge(cfg, params: Params) -> Params:
     out = dict(params)
     out["layers"] = layers
     return out
+
+
+def lora_partition_rules():
+    """Sharding rules for the adapter leaves: they wait for the port's
+    sharded training state (ROADMAP queue 1 item 13); the port's
+    training state is whole on every rank."""
+    raise NotImplementedError(
+        "lora_partition_rules: sharded training state is not ported yet "
+        "(ROADMAP queue 1 item 13); the port's state is whole on every "
+        "rank")

@@ -38,7 +38,11 @@ optimizer holds the param tensors); `trainer/flash_checkpoint` saves
 it under the paths JAX's `flatten_state` gives the JAX state and
 restores it in place. The optimizer is a factory `params ->
 torch.optim.Optimizer`, called on the list of param leaves (the tree's
-flatten order). The counterpart of
+flatten order); a factory that sets `takes_params` (`models/lora.py`
+`lora_optimizer`, which labels the leaves by their paths) is called
+with the leaves and the param tree (`make_optimizer`). Gradients are
+taken for every leaf, also those such an optimizer leaves frozen:
+`grad_norm` is the norm over all of them, as JAX's is. The counterpart of
 `optax.adamw(1e-4)` is `torch.optim.AdamW(params, lr=1e-4, betas=(0.9,
 0.999), eps=1e-8, weight_decay=1e-4)`: torch's default weight decay is
 1e-2, optax's 1e-4.
@@ -133,6 +137,16 @@ def param_leaves(params) -> List[torch.Tensor]:
     the optimizer updates and the gradients are taken for."""
     return [x for x in tree_leaves(params)
             if isinstance(x, torch.Tensor) and x.is_floating_point()]
+
+
+def make_optimizer(factory: OptimizerFactory, params) -> torch.optim.Optimizer:
+    """The optimizer `factory` builds for `params`: called on the param
+    leaves, and also on the tree where the factory sets `takes_params`
+    (it needs the leaves' paths)."""
+    leaves = param_leaves(params)
+    if getattr(factory, "takes_params", False):
+        return factory(leaves, params)
+    return factory(leaves)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -266,7 +280,9 @@ def accelerate(
         leaves = param_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        state = {"params": params, "opt_state": optimizer(leaves), "step": 0}
+        state = {"params": params, "opt_state": make_optimizer(optimizer,
+                                                               params),
+                 "step": 0}
         if strategy.loss_scale:
             state["loss_scale"] = amp.init_loss_scale(device=device)
         if group is not None:

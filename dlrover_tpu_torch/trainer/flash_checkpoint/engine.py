@@ -14,7 +14,10 @@ layout: torch's Adam / AdamW `exp_avg` / `exp_avg_sq` / `step` to
 `mu` / `nu` / `count` (zeros and 0 before the first step, where torch
 has no state yet); the port's chain optimizers (`optim/`) keep optax's
 own state names, each under `opt_state/0/<name>/<param path>` with
-their `count`. numpy has no bfloat16: a bf16 leaf is staged as its
+their `count`; `lora_optimizer`'s state (adapter leaves only) goes
+under `opt_state/inner_states/lora/inner_state/0/...`, where optax's
+`multi_transform` files it. Any other tree of tensors (an adapter-only
+sub-tree) is saved as its leaves by path. numpy has no bfloat16: a bf16 leaf is staged as its
 16-bit pattern (uint16), its dtype kept in `aux`, the port's own plain
 description of the leaves (paths, shapes, dtype names; never a JAX
 treedef).
@@ -160,11 +163,27 @@ def _opt_count(opt: torch.optim.Optimizer) -> int:
     return 0
 
 
+def _opt_prefix(opt: torch.optim.Optimizer) -> str:
+    """Where JAX's `flatten_state` files the optimizer's state: under
+    `opt_state/0` for one optax chain over every param, under
+    `opt_state/inner_states/<label>/inner_state/0` for the trained
+    transform of a `multi_transform` (`models/lora.py`
+    `lora_optimizer`: the frozen transform holds no state, so it has no
+    key)."""
+    label = getattr(opt, "multi_transform_label", None)
+    if label is None:
+        return "opt_state/0"
+    return f"opt_state/inner_states/{label}/inner_state/0"
+
+
 def state_leaves(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The train state as {JAX flatten_state path: tensor}: live tensors
     of the state where it has them, new ones (the optimizer's zero
     moments before its first step, the counts) where it does not. In
-    JAX's flatten order."""
+    JAX's flatten order. Any other tree of tensors (an adapter-only
+    sub-tree, say) is its leaves by path, as JAX flattens any pytree."""
+    if "opt_state" not in state:
+        return {p: t.detach() for p, t in _param_paths(state)}
     params = _param_paths(state["params"])
     by_id = {id(t): p for p, t in params}
     out: Dict[str, torch.Tensor] = {}
@@ -173,15 +192,15 @@ def state_leaves(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out["loss_scale/scale"] = ls.scale
         out["loss_scale/good_steps"] = ls.good_steps
     opt = state["opt_state"]
-    out["opt_state/0/count"] = torch.tensor(_opt_count(opt),
-                                            dtype=torch.int32)
+    pre = _opt_prefix(opt)
+    out[f"{pre}/count"] = torch.tensor(_opt_count(opt), dtype=torch.int32)
     opt_params = sorted(
         ((by_id[id(p)], p) for p in _opt_params(opt)), key=lambda x: x[0]
     )
     for key, field in _opt_layout(opt):
         for path, p in opt_params:
             t = opt.state.get(p, {}).get(key)
-            out[f"opt_state/0/{field}/{path}"] = (
+            out[f"{pre}/{field}/{path}"] = (
                 torch.zeros_like(p) if t is None else t
             )
     for path, t in params:
@@ -486,11 +505,12 @@ def _restore(state: Dict[str, Any], leaves: _Leaves) -> Dict[str, Any]:
         _check(leaves.spec("params/" + path), t, "params/" + path)
         pairs.append((t.detach(), "params/" + path))
     opt = state["opt_state"]
-    count = int(leaves.tensor("opt_state/0/count"))
+    pre = _opt_prefix(opt)
+    count = int(leaves.tensor(f"{pre}/count"))
     created = []  # (param, key, path): moments torch has not made yet
     for key, field in _opt_layout(opt):
         for p in _opt_params(opt):
-            path = f"opt_state/0/{field}/{by_id[id(p)]}"
+            path = f"{pre}/{field}/{by_id[id(p)]}"
             cur = opt.state.get(p, {}).get(key)
             _check(leaves.spec(path), p if cur is None else cur, path)
             if cur is None:   # torch's Adam before its first step
@@ -903,7 +923,7 @@ class CheckpointEngine:
             # a respawned node: the replica is DRAM on the master; when it
             # is at least as fresh as the tracker, take it before paying
             # the storage round trip
-            rstep = self.replica_manager.peek_step()
+            rstep = self._peek_replica()
             if rstep >= 0 and rstep >= disk_step:
                 tried_replica = True
                 step, state = self._load_replica(target, device)
@@ -926,6 +946,17 @@ class CheckpointEngine:
                 logger.info("restored step %d from replica", step)
         self.last_load_source = source
         return step, state
+
+    def _peek_replica(self) -> int:
+        """The replica's step, -1 where the master is out of reach: the
+        restore then falls through to storage. Unlike the JAX engine,
+        whose `peek_step` call outside its try fails the restore."""
+        try:
+            return self.replica_manager.peek_step()
+        except (ConnectionError, OSError) as e:
+            logger.warning("replica step unreadable (%s); falling back to "
+                           "storage", e)
+            return -1
 
     def _load_replica(self, target, device) -> Tuple[int, Optional[Any]]:
         """The replica's (step, state); (-1, None) where it does not fit

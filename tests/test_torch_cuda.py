@@ -2227,3 +2227,114 @@ def test_tp2_paged_engine_on_the_card_equals_tp1(gen, monkeypatch):
     _build.reset_launch_counts()
     q8.generate_all(prompts[:1])
     assert _build.launch_counts().get("dqmm", 0) == 0
+
+
+def _lora_llama(gen):
+    """A small Llama (head_dim 64: the wgmma kernels) with f32 params,
+    bf16 compute, remat "full", and rank-8 adapters on wq/wk/wv/wo."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.models import lora as tlora
+
+    cfg = tllama.LlamaConfig.tiny(dim=256, n_heads=4, n_kv_heads=2,
+                                  mlp_dim=512, vocab_size=512,
+                                  attn_impl="auto", remat=True)
+    base = tllama.init_params(cfg, gen, dtype=torch.float32)
+    return tlora.inject(cfg, base, tlora.LoraConfig(rank=8, alpha=16.0),
+                        gen)
+
+
+def test_lora_train_steps_keep_the_base_on_the_card(gen):
+    """Three `accelerate` steps of lora_optimizer(AdamW) on the card:
+    every base leaf bit-equal, the adapters moved, moments for the
+    adapter leaves only, each flash kernel launched as often as the
+    path calls it (all wgmma), the loss finite and falling."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.models import lora as tlora
+    from dlrover_tpu_torch.parallel.accelerate import accelerate
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        state_leaves,
+    )
+
+    cfg, params = _lora_llama(gen)
+    base = {p: t.clone() for p, t in state_leaves(params).items()
+            if not tlora.is_adapter_path(p)}
+    b0 = params["layers"]["wq_lora_b"].clone()
+    acc = accelerate(
+        lambda g: params, lambda p, b: tllama.loss_fn(cfg, p, b),
+        tlora.lora_optimizer(lambda ps: torch.optim.AdamW(
+            ps, lr=1e-3, weight_decay=1e-4)))
+    state = acc.init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen,
+                           device="cuda")
+    _build.reset_launch_counts()
+    losses = []
+    for _ in range(3):
+        state, m = acc.train_step(state, {"tokens": tokens})
+        losses.append(m["loss"].item())
+    counts = _build.launch_counts()
+    after = state_leaves(state["params"])
+    assert all(torch.equal(after[p], t) for p, t in base.items())
+    assert not torch.equal(state["params"]["layers"]["wq_lora_b"], b0)
+    assert len(state["opt_state"].state) == 8
+    n = 3 * cfg.n_layers
+    assert (counts["flash_fwd"], counts["flash_bwd_dq"],
+            counts["flash_bwd_dkv"]) == (2 * n, n, n)
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[k + "_wgmma"] == counts[k]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_ppo_step_over_a_lora_actor_on_the_card(gen):
+    """Two `PpoTrainer.step`s through the continuous engine on the card
+    over a small LoRA Llama actor (lora_optimizer(Adam)), the default
+    ref and an embedding -> value critic: prompts kept, tokens in vocab,
+    metrics finite, the base bit-equal to the ref's copy and the
+    adapters moved, the second rollout on the updated params, and the
+    flash kernels launched on the path (every admission's prefill, the
+    logprob forwards, the update's forward, remat and backward)."""
+    from dlrover_tpu_torch.models import llama as tllama
+    from dlrover_tpu_torch.models import lora as tlora
+    from dlrover_tpu_torch.rl import ModelEngine, PpoConfig, PpoTrainer
+    from dlrover_tpu_torch.rl.model_engine import ModelSpec
+
+    cfg, actor = _lora_llama(gen)
+    critic = {"embed": torch.randn((cfg.vocab_size, 16), generator=gen,
+                                   device="cuda") * 0.1,
+              "v": torch.randn((16,), generator=gen, device="cuda") * 0.1}
+    engine = ModelEngine(
+        actor=ModelSpec(lambda p, t: tllama.apply(cfg, p, t), actor,
+                        trainable=True, model_cfg=cfg),
+        critic=ModelSpec(lambda p, t: p["embed"][t] @ p["v"], critic,
+                         trainable=True),
+        reward_fn=lambda t, n: (t == 3).sum(dim=1).float())
+    trainer = PpoTrainer(
+        engine, PpoConfig(max_len=48, minibatch_size=2, epochs=2,
+                          rollout_engine="continuous"),
+        actor_opt=tlora.lora_optimizer(
+            lambda ps: torch.optim.Adam(ps, lr=1e-3)), device="cuda")
+    lens = torch.tensor([5, 17, 9, 30], device="cuda")
+    prompts = torch.randint(1, cfg.vocab_size, (4, 48), generator=gen,
+                            device="cuda")
+    _build.reset_launch_counts()
+    exps = []
+    make = trainer.make_experience
+    trainer.make_experience = lambda *a: exps.append(make(*a)) or exps[-1]
+    for seed in (0, 1):
+        m = trainer.step(prompts, lens,
+                         torch.Generator(device="cuda").manual_seed(seed))
+        assert all(np.isfinite(v) for v in m.values())
+    counts = _build.launch_counts()
+    for e in exps:
+        for b, n in enumerate(lens.tolist()):
+            assert np.array_equal(e.tokens[b, :n],
+                                  prompts[b, :n].cpu().numpy())
+        assert 0 <= e.tokens.min() and e.tokens.max() < cfg.vocab_size
+    ref = engine.ref.params["layers"]
+    for k, v in actor["layers"].items():
+        assert torch.equal(v, ref[k]) != tlora.is_adapter_path(k), k
+    assert trainer._cb.weight_version == 1
+    layers, n_mb = cfg.n_layers, 2 * 2 * 2
+    assert counts["flash_fwd"] == layers * (8 + 2 * 2 + 2 * n_mb)
+    assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == layers * n_mb
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[k + "_wgmma"] == counts[k]

@@ -204,3 +204,29 @@ def test_tensor_parallel_module_scanned(rel):
     path = ROOT / "dlrover_tpu_torch" / rel
     assert path in FILES
     assert not [n for _, n in _imports(path) if _banned(n)]
+
+
+# LoRA training and the RLHF package (the frozen-base optimizer, its
+# checkpoint layout, generate, the samplers, the engine and PPO)
+POST_TRAINING = ("models/lora.py", "models/decode.py",
+                 "parallel/accelerate.py",
+                 "trainer/flash_checkpoint/engine.py", "rl/__init__.py",
+                 "rl/replay_buffer.py", "rl/generate.py",
+                 "rl/model_engine.py", "rl/ppo.py", "rl/serve.py")
+
+
+@pytest.mark.parametrize("rel", POST_TRAINING)
+def test_post_training_module_scanned(rel):
+    path = ROOT / "dlrover_tpu_torch" / rel
+    assert path in FILES
+    assert not [n for _, n in _imports(path) if _banned(n)]
+
+
+def test_rl_exports_equal_jax():
+    import dlrover_tpu.rl as jrl
+    import dlrover_tpu_torch.rl as trl
+
+    assert trl.__all__ == jrl.__all__
+    for name in trl.__all__:
+        module = getattr(trl, name).__module__
+        assert module.startswith("dlrover_tpu_torch."), (name, module)
