@@ -306,9 +306,9 @@ Phases, one line each (any failure exits non-zero before the last line):
      bytes, the PPO metrics; after the path, greedy rollouts through
      both engines (rows equal, reported) and a decode step on the f32
      tree and on a bf16 copy;
-  23. train.remat: the train workload (4 steps each) under the model's
-     remat policies "full", "proj", "proj_mlp" and "none" (the model's
-     remat off), and with the model's remat off under
+  23. train.remat: the train workload at 2 layers (4 steps each) under
+     the model's remat policies "full", "proj", "proj_mlp" and "none"
+     (the model's remat off), and with the model's remat off under
      Strategy(remat="full"): median step,
      tokens/s, MFU and peak memory of each; losses finite and falling,
      exact flash launch counts (all wgmma), peaks none >= proj_mlp >=
@@ -317,7 +317,24 @@ Phases, one line each (any failure exits non-zero before the last line):
      4096], w [4096, 14336], bf16) forward and backward for 4 steps from
      a zero state: y, dx and dw against the same products on the fp8
      values upcast to f32, the amax histories, and its time beside the
-     bf16 product's.
+     bf16 product's;
+  25. the model families (also alone: `--families`): kernel.families
+     (every kernel at the shapes the families give it against its plain
+     version, with SDPA's time where there is one: flash forward and
+     backward at head_dim 64 with 25 heads causal and 16 non-causal,
+     paged at KV group 1 on bf16 and int8 pools, the GPT-2 XL int8
+     install's quantize launches bytes-equal, the four GPT-2 XL dqmm
+     products at T = 8 and 1024); serve.gpt2_xl (GPT-2 XL at 48 layers,
+     12 greedy requests of 50-900 tokens, paged, max_len 1024: exact
+     flash and paged launches, all wgmma / TMA, the first decode within
+     5% of plain attention) and serve.gpt2_xl.int8 (weight bytes <=
+     0.55x, every dqmm launch on `dqmm_ws` or `dqmm_decode_tma`, greedy
+     agreement with bf16 reported); serve.moe (the MoE Llama at
+     Mixtral-8x7B widths, 2 layers, max_len 2048; aux loss and dropped
+     share a call kind); train.gpt2_xl (48 layers, 8 steps of 4 x 1025,
+     MFU from 6N + 12LSD), train.moe (1 layer), train.bert_large
+     (non-causal flash launches counted, then a padded batch with none)
+     and train.cnn (no kernel): exact launches, falling losses.
 Between the kernel phases and the serving ones, kernel.jax_gate_shapes
 runs every shape the wider kernel variants cover under the dispatch a
 user calls (flash at head_dim 384 and 512, forward and backward; paged
@@ -359,6 +376,8 @@ phases, no result line;
 rl.ppo phases, no result line;
 `python3 chip_smoke.py --tp` the card, build, kernel.sharded, serve and
 serve.tp2 phases (4a-4c), no result line;
+`python3 chip_smoke.py --families` the card, build and phase 25, no
+result line;
 `python3 chip_smoke.py --fleet` the card, build and serve.fleet phases,
 then part (a)'s traffic through one replica and through two with a 0.5
 ms thread switch interval (reported only), no result line.
@@ -544,6 +563,41 @@ FUSED_TOL_REASON = (
     "to bf16 before the head's backward products, and the differences "
     "carry through the backward of 4 bf16 layers"
 )
+# the model families (`--families`): GPT-2 XL at full width and depth,
+# served on FAM_REQUESTS greedy prompts of 50-900 tokens (numpy seed
+# SEED + 1) at max_len 1024 through 8 slots, pages of 16, max_new 32, and
+# trained 8 steps of 4 x 1025 tokens; the MoE Llama at Mixtral-8x7B's
+# widths (written here: no preset in either package), served at 2 layers
+# on prompts of 50-1000 tokens at max_len 2048 and trained at 1 layer;
+# BERT-large MLM at B=8, S=512, 15% of the positions masked; the MNIST
+# CNN on random images
+FAM_REQUESTS = 12
+FAM_SLOTS = 8
+FAM_MAX_NEW = 32
+FAM_SEED = SEED + 9
+GPT_MAX_LEN = 1024
+GPT_PROMPT_MAX = 900
+MOE_MAX_LEN = 2048
+MOE_PROMPT_MAX = 1000
+# 2 serve layers, then train.remat at 2: the time cuts, taken in that
+# order once a whole run from `git archive` passed 1100 s of its 1200
+MOE_SERVE_LAYERS = 2
+MOE_TRAIN_LAYERS = 1
+MIXTRAL_8X7B = dict(vocab_size=32000, dim=4096, n_heads=32, n_kv_heads=8,
+                    mlp_dim=14336, max_seq_len=32768, rope_theta=1e6,
+                    n_experts=8, moe_top_k=2)
+FAM_TRAIN_STEPS = 8
+FAM_TRAIN_BATCH = 4
+FAM_TRAIN_SEQ = 1024
+BERT_BATCH = 8
+BERT_SEQ = 512
+BERT_MASK_FRAC = 0.15
+BERT_MASK_ID = 103           # [MASK] in BERT's WordPiece vocabulary
+CNN_BATCH = 128
+CNN_LR = 1e-3
+# GPT-2 XL's int8 products as (K, O): blocks 64 (K = 1600) and 256
+GPT2_XL_DQMM = (((1600, 4800), "wqkv"), ((1600, 1600), "wo"),
+                ((1600, 6400), "w_up"), ((6400, 1600), "w_down"))
 TRAIN_TOL_REASON = (
     "loss within 1e-3 relative, each gradient within 5e-2 of its norm "
     "(L2 of the difference): bf16 compute on both sides, but the flash "
@@ -878,10 +932,10 @@ def phase_flash_bwd(gen):
     return rows
 
 
-def _paged_case(gen, quant):
+def _paged_case(gen, quant, h=32, kv=8, hd=128, per_slot=128):
     from dlrover_tpu_torch.models import decode as dec
 
-    b, h, kv, hd, ps, per_slot = 8, 32, 8, 128, 16, 128
+    b, ps = 8, 16
     n_pages = b * per_slot + 1
     rng = np.random.default_rng(SEED)
     lengths = rng.integers(50, per_slot * ps + 1, size=b).astype(np.int32)
@@ -6645,6 +6699,9 @@ def phase_train_dp(train, smi):
 REMAT_RUNS = (("full", "none"), ("proj", "none"), ("proj_mlp", "none"),
               ("none", "none"), (None, "full"))
 REMAT_STEPS = 4
+# the policies are compared at one depth: 2 layers, the second time cut
+# (TRAIN_LAYERS = 4 before)
+REMAT_LAYERS = 2
 
 
 def _remat_run(policy, strategy_remat):
@@ -6671,7 +6728,7 @@ def _remat_run(policy, strategy_remat):
 
     layer_remat = policy not in (None, "none")
     cfg = llama.LlamaConfig.llama3_8b(
-        n_layers=TRAIN_LAYERS, remat=layer_remat,
+        n_layers=REMAT_LAYERS, remat=layer_remat,
         remat_policy=policy if layer_remat else "full")
     gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     tokens = torch.randint(0, cfg.vocab_size,
@@ -6735,10 +6792,10 @@ def _remat_run(policy, strategy_remat):
 
 
 def phase_train_remat():
-    """train.remat: the train phase's model (Llama-3-8B at full width, 4
-    layers, f32 params, bf16 compute, 2 microbatches of 2 x 2048, AdamW)
-    under the model's remat policies "full", "proj", "proj_mlp" and
-    "none", and once with the model's remat off under
+    """train.remat: the train phase's model at REMAT_LAYERS layers
+    (Llama-3-8B at full width, f32 params, bf16 compute, 2 microbatches
+    of 2 x 2048, AdamW) under the model's remat policies "full", "proj",
+    "proj_mlp" and "none", and once with the model's remat off under
     `Strategy(remat="full")` (the whole loss recomputed), REMAT_STEPS
     steps each: median step, tokens/s, MFU (remat not credited), peak
     memory, and one microbatch's saved activations and forward + backward
@@ -6847,6 +6904,769 @@ def phase_fp8_dot(gen):
     del x, w, g, gb, xl, wl
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the model families (`--families`, and last in the plain run)
+# ---------------------------------------------------------------------------
+
+
+def _fam_prompts(vocab, hi):
+    """FAM_REQUESTS prompts of 50-`hi` tokens (numpy seed SEED + 1), the
+    first at `hi`."""
+    rng = np.random.default_rng(SEED + 1)
+    lengths = rng.integers(50, hi + 1, size=FAM_REQUESTS)
+    lengths[0] = hi
+    return [rng.integers(1, vocab, size=int(m)).tolist() for m in lengths]
+
+
+def _fam_flash_row(gen, shape, b, s, h, causal):
+    """Kernel 1 at a family's shape (head_dim 64, MHA) against
+    `_fwd_plain`: one launch, on the wgmma variant."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    d = 64
+    scale = d ** -0.5
+    variant = fa._fwd_variant(b, s, s, h, h, d, causal)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    before = _build.launch_counts()
+    o, lse = fa._fwd(q, k, v, causal, scale)
+    after = _build.launch_counts()
+    o_ref, lse_ref = fa._fwd_plain(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    if not (variant == "wgmma"
+            and _launched(before, after, "flash_fwd_wgmma") == 1
+            and err <= FLASH_TOL and lse_err <= 1e-3):
+        raise AssertionError(
+            f"flash_fwd at {shape}: variant {variant}, max_abs_err {err} "
+            f"(tol {FLASH_TOL}), lse err {lse_err}")
+    pairs = s * (s + 1) / 2 if causal else s * s
+    flops = 4.0 * b * h * d * pairs
+    bms, by = bound_ms(flops, 2 * 4 * b * s * h * d + 4 * b * h * s)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row = dict(
+        kernel="flash_fwd", shape=shape, B=b, S=s, H=h, KV=h, D=d,
+        causal=causal, variant=variant, max_abs_err=err, lse_err=lse_err,
+        tol=FLASH_TOL, tol_reason=TOL_REASON,
+        ms=device_ms(lambda: fa._fwd(q, k, v, causal, scale)),
+        plain_ms=time_ms(lambda: fa._fwd_plain(q, k, v, causal, scale), 3),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)),
+        bound_ms=bms, bound_by=by)
+    log("kernel.families", **row)
+    return row
+
+
+def _fam_flash_bwd_row(gen, shape, b, s, h, causal):
+    """Kernels 2 and 3 at a family's training shape against
+    `_bwd_plain`: one launch each, on the wgmma variants. `ms` is the
+    whole backward, `library_ms` SDPA's backward (its forward and
+    backward captured together, less its forward)."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    d = 64
+    scale = d ** -0.5
+    variant = fa._bwd_variant(b, s, s, h, h, d, causal)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                               device="cuda").bfloat16() for _ in range(4))
+    o, lse = fa._fwd(q, k, v, causal, scale)
+    delta = fa._delta(o, do)
+    before = _build.launch_counts()
+    got = fa._bwd(q, k, v, o, lse, do, causal, scale)
+    after = _build.launch_counts()
+    want = fa._bwd_plain(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    errs, tols = {}, {}
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = (x.float() - y.float()).abs().max().item()
+        tols[name] = BWD_REL_TOL * y.float().abs().max().item()
+    if not (variant == "wgmma"
+            and _launched(before, after, "flash_bwd_dq_wgmma") == 1
+            and _launched(before, after, "flash_bwd_dkv_wgmma") == 1
+            and all(errs[n] <= tols[n] for n in errs)):
+        raise AssertionError(
+            f"flash backward at {shape}: variant {variant}, errs {errs}, "
+            f"tols {tols}")
+    del got, want
+    pairs = s * (s + 1) / 2 if causal else s * s
+    fwd_flops = 4.0 * b * h * d * pairs
+    qo = 2 * b * s * h * d
+    rows_b = 4 * b * h * s
+    bms, by = bound_ms(2.5 * fwd_flops, 8 * qo + 2 * rows_b)
+    dq_bms, dq_by = bound_ms(1.5 * fwd_flops, 5 * qo + 2 * rows_b)
+    dkv_bms, dkv_by = bound_ms(2.0 * fwd_flops, 6 * qo + 2 * rows_b)
+    lib_g = do.transpose(1, 2)
+
+    def leaves():
+        return [x.transpose(1, 2).detach().requires_grad_()
+                for x in (q, k, v)]
+
+    def lib_fwd(qkv=None):
+        return F.scaled_dot_product_attention(*(qkv or leaves()),
+                                              is_causal=causal)
+
+    def lib_fwd_bwd():
+        qkv = leaves()
+        return torch.autograd.grad(lib_fwd(qkv), qkv, lib_g)
+
+    lib_fwd_ms = device_ms(lib_fwd)
+    lib_fwd_bwd_ms = device_ms(lib_fwd_bwd)
+    row = dict(
+        kernel="flash_bwd", shape=shape, B=b, S=s, H=h, KV=h, D=d,
+        causal=causal, variant=variant, max_abs_err=max(errs.values()),
+        errs=errs, tols=tols, tol_reason=BWD_TOL_REASON,
+        ms=device_ms(lambda: fa._bwd(q, k, v, o, lse, do, causal, scale)),
+        dq_ms=device_ms(lambda: fa._bwd_dq_cuda(
+            q, k, v, do, lse, delta, causal, scale, variant)),
+        dkv_ms=device_ms(lambda: fa._bwd_dkv_cuda(
+            q, k, v, do, lse, delta, causal, scale, variant)),
+        plain_ms=time_ms(
+            lambda: fa._bwd_plain(q, k, v, o, lse, do, causal, scale), 3),
+        library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+        library_fwd_bwd_ms=lib_fwd_bwd_ms, library_fwd_ms=lib_fwd_ms,
+        bound_ms=bms, bound_by=by, dq_bound_ms=dq_bms, dq_bound_by=dq_by,
+        dkv_bound_ms=dkv_bms, dkv_bound_by=dkv_by)
+    log("kernel.families", **row)
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return row
+
+
+def _fam_paged_row(gen, quant):
+    """Kernel 4 at GPT-2 XL's decode shape (8 rows, 25 heads over 25 KV
+    heads of 64, pages of 16, rows of up to 1024 cells), bf16 or int8
+    pool: one launch on the TMA-ring kernel; `ms` cold (pool copies
+    that overflow L2), `warm_ms` one pool."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import paged_attention as pa
+
+    q, pages, table, lens, lengths = _paged_case(
+        gen, quant, h=25, kv=25, hd=64, per_slot=GPT_MAX_LEN // 16)
+    b, h, hd = q.shape
+    scale = hd ** -0.5
+    cells = int(lengths.sum())
+    live = 2 * cells * h * hd * (1 if quant else 2) + (
+        2 * cells * h * 2 if quant else 0)
+    ref = pa._reference(q, pages, table, lens, scale)
+    before = _build.launch_counts()
+    ker = pa._kernel(q, pages, table, lens, scale)
+    after = _build.launch_counts()
+    torch.cuda.synchronize()
+    err = (ker.float() - ref.float()).abs().max().item()
+    if not (_launched(before, after, "paged_attention_tma") == 1
+            and err <= PAGED_TOL):
+        raise AssertionError(
+            f"paged kernel at gpt2_xl (quant={quant}): launches {before} "
+            f"-> {after}, max_abs_err {err} (tol {PAGED_TOL})")
+    pools = cold_copies(lambda: {n: t.clone() for n, t in pages.items()},
+                        live)
+    bms, by = bound_ms(4.0 * cells * h * hd,
+                       live + 2 * 2 * b * h * hd + table.numel() * 4 + 4 * b)
+
+    def run(pool):
+        return pa._kernel(q, pool, table, lens, scale)
+
+    row = dict(
+        kernel="paged_attention", shape="gpt2_xl decode",
+        pool="int8" if quant else "bf16", B=b, H=h, KV=h, D=hd, page=16,
+        live_cells=cells, variant="tma", max_abs_err=err, tol=PAGED_TOL,
+        tol_reason=TOL_REASON,
+        ms=device_ms(cycling(run, pools), calls=len(pools)),
+        warm_ms=device_ms(lambda: run(pages)),
+        plain_ms=time_ms(lambda: pa._reference(q, pages, table, lens,
+                                               scale), 5),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    log("kernel.families", **row)
+    del pages, pools
+    torch.cuda.empty_cache()
+    return row
+
+
+def _fam_dqmm_rows(gen):
+    """The GPT-2 XL int8 install's kernel-5 launches (bytes equal to the
+    plain quantizer) and kernel 7 at its four products, T = 8 (decode,
+    the TMA-ring kernel) and 1024 (a prefill bucket, the prefill
+    kernel), K = 1600 at block 64 not a multiple of the 256-value stage,
+    O = 4800 and 1600 not multiples of 128."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    rows = []
+    for (k, o), names in GPT2_XL_DQMM:
+        block = tq.weight_quant_block(k)
+        w = (torch.randn((o, k), generator=gen, device="cuda")
+             * k ** -0.5).bfloat16()
+        q8, s8 = tq.quantize_int8(w, block)
+        q_ref, s_ref = tq._quantize_plain(w, block)
+        torch.cuda.synchronize()
+        if not (torch.equal(q8, q_ref) and torch.equal(s8, s_ref)):
+            raise AssertionError(f"quant kernel bytes differ at {names}")
+        n = o * k
+        bms, by = bound_ms(3.0 * n, 2 * n + n + 4 * (n // block),
+                           PEAK_F32_FLOPS)
+        row = dict(kernel="quantize_int8", shape=f"gpt2_xl {names}",
+                   input="bfloat16", O=o, K=k, block=block, max_abs_err=0.0,
+                   tol=0.0, tol_reason="bytes equal to the plain version",
+                   ms=device_ms(lambda: tq.quantize_int8(w, block)),
+                   plain_ms=time_ms(lambda: tq._quantize_plain(w, block), 5),
+                   library_ms=None, bound_ms=bms, bound_by=by)
+        log("kernel.families", **row)
+        rows.append(row)
+        qws = cold_copies(
+            lambda: tq.QuantizedWeight(*tq.quantize_int8(w, block), block),
+            n)
+        qw = qws[0]
+        dense = tq._dq_weight(qw.q8, qw.s8, block, torch.bfloat16)
+        for t, want_var in ((8, "dqmm_decode_tma"), (1024, "dqmm_ws")):
+            x = torch.randn((t, k), generator=gen, device="cuda").bfloat16()
+            before = _build.launch_counts()
+            y = tq.quantized_matmul(x, qw)
+            after = _build.launch_counts()
+            ref = tq.quantized_matmul_reference(x, qw)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = DQMM_REL_TOL * ref.float().abs().max().item()
+            if not (_launched(before, after, want_var) == 1
+                    and torch.isfinite(y).all() and err <= tol):
+                raise AssertionError(
+                    f"dqmm at gpt2_xl {names} T={t}: launches {before} -> "
+                    f"{after}, max_abs_err {err} (tol {tol})")
+            bms, by = bound_ms(2.0 * t * k * o, n + 4 * o * (k // block)
+                               + 2 * t * k + 2 * t * o)
+            row = dict(
+                kernel="dqmm", shape=f"gpt2_xl {names}", T=t, K=k, O=o,
+                block=block, variant=want_var.replace("dqmm_", ""),
+                max_abs_err=err, tol=tol, tol_reason=DQMM_TOL_REASON,
+                ms=device_ms(cycling(lambda qq: tq.quantized_matmul(x, qq),
+                                     qws), calls=max(10, len(qws))),
+                plain_ms=time_ms(
+                    lambda: tq.quantized_matmul_reference(x, qw), 3),
+                dense_ms=device_ms(lambda: x @ dense.t()),
+                library_ms=None, bound_ms=bms, bound_by=by)
+            log("kernel.families", **row)
+            rows.append(row)
+        del w, qws, qw, dense
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernel_families(gen):
+    """Every kernel at the shapes the family paths give it, before the
+    engine and trainer phases use them."""
+    rows = [
+        _fam_flash_row(gen, "gpt2_xl prefill", 1, GPT_MAX_LEN, 25, True),
+        _fam_flash_row(gen, "gpt2_xl train", FAM_TRAIN_BATCH,
+                       FAM_TRAIN_SEQ, 25, True),
+        _fam_flash_row(gen, "bert_large train", BERT_BATCH, BERT_SEQ, 16,
+                       False),
+        _fam_flash_bwd_row(gen, "gpt2_xl train", FAM_TRAIN_BATCH,
+                           FAM_TRAIN_SEQ, 25, True),
+        _fam_flash_bwd_row(gen, "bert_large train", BERT_BATCH, BERT_SEQ,
+                           16, False),
+        _fam_paged_row(gen, False),
+        _fam_paged_row(gen, True),
+    ]
+    return rows + _fam_dqmm_rows(gen)
+
+
+@contextlib.contextmanager
+def _moe_recorder(rec):
+    """Record (S, moe_aux_loss, moe_dropped_frac) of every `moe_mlp`
+    call (models/llama.py looks the function up at each call)."""
+    from dlrover_tpu_torch.models import moe
+
+    orig = moe.moe_mlp
+
+    def recording(cfg, params, x, compute_dtype=torch.bfloat16):
+        y, m = orig(cfg, params, x, compute_dtype)
+        rec.append((x.shape[1], m["moe_aux_loss"].detach(),
+                    m["moe_dropped_frac"].detach()))
+        return y, m
+
+    moe.moe_mlp = recording
+    try:
+        yield rec
+    finally:
+        moe.moe_mlp = orig
+
+
+@contextlib.contextmanager
+def _moe_routing(picks, replay=False):
+    """Pin one pass's MoE routing to another's. Without replay, append
+    each gating call's expert picks (`moe._top_k_masks`) to `picks` in
+    call order; with replay, route the i-th call by picks[i] in place of
+    its own, and yield the calls, the tokens, the tokens whose own picks
+    differ and the largest top-k margin (gap between consecutive sorted
+    gates) among those."""
+    from dlrover_tpu_torch.models import moe
+
+    orig = moe._top_k_masks
+    stats = {"calls": 0, "tokens": 0, "tokens_rerouted": 0,
+             "rerouted_max_margin": 0.0}
+
+    def pick(gates, k):
+        own = orig(gates, k)
+        if not replay:
+            picks.append(own)
+            return own
+        forced = picks[stats["calls"]]
+        stats["calls"] += 1
+        differ = torch.zeros(gates.shape[:-1], dtype=torch.bool,
+                             device=gates.device)
+        for o, f in zip(own, forced):
+            differ |= (o != f).any(dim=-1)
+        top = torch.sort(gates, dim=-1, descending=True).values[..., :k + 1]
+        margin = (top[..., :-1] - top[..., 1:]).min(dim=-1).values
+        stats["tokens"] += differ.numel()
+        n = int(differ.sum())
+        stats["tokens_rerouted"] += n
+        if n:
+            stats["rerouted_max_margin"] = max(
+                stats["rerouted_max_margin"], float(margin[differ].max()))
+        return forced
+
+    moe._top_k_masks = pick
+    try:
+        yield stats
+    finally:
+        moe._top_k_masks = orig
+
+
+def _moe_summary(rec):
+    """Mean aux loss and dropped share of the recorded calls, split into
+    calls over one position (decode) and over more (prefill, training)."""
+    out = {}
+    for kind, keep in (("multi", lambda s: s > 1), ("single",
+                                                     lambda s: s == 1)):
+        sel = [(a, d) for s, a, d in rec if keep(s)]
+        if sel:
+            out[f"{kind}_position_calls"] = len(sel)
+            out[f"{kind}_moe_aux_loss_mean"] = float(
+                torch.stack([a for a, _ in sel]).float().mean())
+            out[f"{kind}_moe_dropped_frac_mean"] = float(
+                torch.stack([d for _, d in sel]).float().mean())
+    return out
+
+
+def _fam_serve(phase, cfg, params, prompts, max_len, weight_quant="none",
+               moe_rec=None):
+    """`prompts` greedy through the paged engine (8 slots, pages of 16,
+    chunk 8), launch counts set to 0 just before the engine is built and
+    read after the last step: every prefill on the wgmma flash forward,
+    every decode on the TMA paged kernel, and with int8 weights every
+    product on kernel 7 (prefill products on the prefill kernel, decode
+    ones on the TMA-ring decode kernel) after one kernel-5 launch a
+    layer slice of each quantized weight."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops.quantization import QuantizedWeight
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    kw = dict(n_slots=FAM_SLOTS, max_len=max_len, max_new_tokens=FAM_MAX_NEW,
+              chunk=8, kv_layout="paged", page_size=16,
+              weight_quant=weight_quant)
+    warm = ContinuousBatcher(cfg, params, **kw)
+    warm.generate_all([prompts[1][:40]])
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = ContinuousBatcher(cfg, params, **kw)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    quant_launches = _build.launch_counts()["quant_int8"]
+    ctx = (_moe_recorder(moe_rec) if moe_rec is not None
+           else contextlib.nullcontext())
+    with ctx:
+        outs, tm = _serve(engine, prompts, FAM_MAX_NEW)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    lens = [len(o) for o in outs]
+    toks = np.concatenate(outs)
+    if lens != [FAM_MAX_NEW] * len(prompts) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{phase}: token counts {lens}, ids in "
+                             f"[{toks.min()}, {toks.max()}]")
+    L = cfg.n_layers
+    want = dict(flash_fwd=engine.admissions * L,
+                paged_attention=engine.decode_steps * L)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{phase}: launches {launches}, want {want}")
+    _check_wgmma(phase, launches)
+    _check_paged_tma(phase, launches)
+    e2e = dict(requests=len(prompts),
+               prompt_lens=[len(p) for p in prompts], max_new=FAM_MAX_NEW,
+               n_slots=FAM_SLOTS, max_len=max_len,
+               admissions=engine.admissions,
+               decode_steps=engine.decode_steps, launches=launches,
+               install_s=install_s,
+               weight_bytes=engine.weight_bytes_device(),
+               step_stats=engine.step_stats(), **_timings(tm, lens))
+    if weight_quant != "none":
+        per_forward = sum(isinstance(w, QuantizedWeight)
+                          for w in engine.params["layers"].values()) * L
+        by_variant = dict(
+            ws=launches["dqmm_ws"], decode_tma=launches["dqmm_decode_tma"],
+            other=(launches["dqmm"] - launches["dqmm_ws"]
+                   - launches["dqmm_decode_tma"]))
+        want_variant = dict(ws=engine.admissions * per_forward,
+                            decode_tma=engine.decode_steps * per_forward,
+                            other=0)
+        if (by_variant != want_variant or quant_launches != per_forward
+                or engine.weight_quant_path != "int8:kernel"):
+            raise AssertionError(
+                f"{phase}: dqmm launches by variant {by_variant}, want "
+                f"{want_variant}; quant launches at install "
+                f"{quant_launches}, want {per_forward}; path "
+                f"{engine.weight_quant_path}")
+        e2e.update(dqmm_launches_by_variant=by_variant,
+                   quant_launches_at_install=quant_launches,
+                   weight_quant_path=engine.weight_quant_path,
+                   weight_quant_stats=engine.weight_quant_stats())
+    del engine
+    torch.cuda.empty_cache()
+    e2e["outs"] = outs
+    return e2e
+
+
+def _log_e2e(phase, e2e):
+    log(phase, **{k: v for k, v in e2e.items() if k != "outs"})
+
+
+def phase_serve_gpt2_xl(gen):
+    """GPT-2 XL at full width and depth (48 layers, random bf16 weights
+    from the generator) through the paged engine, then with
+    weight_quant="int8" on the same weights."""
+    from dlrover_tpu_torch.models import gpt
+
+    cfg = gpt.GptConfig.gpt2_xl()
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    log("model.gpt2_xl", params=gpt.num_params(cfg), n_layers=cfg.n_layers,
+        heads=cfg.n_heads, head_dim=cfg.head_dim, vocab=cfg.vocab_size,
+        dtype=str(cfg.dtype), init_s=time.perf_counter() - t0)
+    prompts = _fam_prompts(cfg.vocab_size, GPT_PROMPT_MAX)
+    bf16 = _fam_serve("serve.gpt2_xl", cfg, params, prompts, GPT_MAX_LEN)
+    _log_e2e("serve.gpt2_xl", bf16)
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    _check_first_decode(
+        "serve.gpt2_xl.first_decode_logits",
+        _first_decode_logits(cfg, params, prompts[0], GPT_MAX_LEN),
+        _first_decode_logits(ref_cfg, params, prompts[0], GPT_MAX_LEN),
+        "5% of the largest logit: bf16 roundings of the two attention "
+        "paths carried through 48 layers")
+    int8 = _fam_serve("serve.gpt2_xl.int8", cfg, params, prompts,
+                      GPT_MAX_LEN, weight_quant="int8")
+    ratio = int8["weight_bytes"] / bf16["weight_bytes"]
+    int8.update(
+        bf16_weight_bytes=bf16["weight_bytes"], weight_bytes_ratio=ratio,
+        bf16_greedy_streams_identical=sum(
+            int(np.array_equal(a, b)) for a, b in zip(int8["outs"],
+                                                      bf16["outs"])),
+        bf16_greedy_token_agreement=float(np.mean(
+            np.concatenate(int8["outs"]) == np.concatenate(bf16["outs"]))))
+    _log_e2e("serve.gpt2_xl.int8", int8)
+    if not ratio <= 0.55:
+        raise AssertionError(f"serve.gpt2_xl.int8: weight bytes {ratio} of "
+                             "bf16's, want <= 0.55")
+    del params
+    torch.cuda.empty_cache()
+    return bf16, int8
+
+
+def _mixtral(n_layers):
+    from dlrover_tpu_torch.models import llama
+
+    return llama.LlamaConfig(n_layers=n_layers, **MIXTRAL_8X7B)
+
+
+def phase_serve_moe(gen):
+    """The MoE Llama at Mixtral-8x7B's widths, cut to MOE_SERVE_LAYERS
+    layers (random bf16 weights), through the paged engine at max_len
+    2048 on prompts of 50-1000 tokens; the MoE layers' aux loss and
+    dropped share recorded on every call."""
+    from dlrover_tpu_torch.models import llama
+
+    cfg = _mixtral(MOE_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    log("model.moe", config="mixtral_8x7b widths", n_layers=cfg.n_layers,
+        params=llama.num_params(cfg), n_experts=cfg.n_experts,
+        top_k=cfg.moe_top_k, dtype=str(cfg.dtype),
+        init_s=time.perf_counter() - t0)
+    prompts = _fam_prompts(cfg.vocab_size, MOE_PROMPT_MAX)
+    rec = []
+    e2e = _fam_serve("serve.moe", cfg, params, prompts, MOE_MAX_LEN,
+                     moe_rec=rec)
+    e2e.update(moe=_moe_summary(rec))
+    _log_e2e("serve.moe", e2e)
+    # the plain pass routes by the kernel pass's expert picks: top-k is
+    # discontinuous, and a near-tie that a bf16 rounding moves reroutes
+    # a token and, through the capacity's slot order, drops others
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    picks = []
+    with _moe_routing(picks):
+        lk = _first_decode_logits(cfg, params, prompts[0], MOE_MAX_LEN)
+    with _moe_routing(picks, replay=True) as routing:
+        lr = _first_decode_logits(ref_cfg, params, prompts[0], MOE_MAX_LEN)
+    if routing["calls"] != len(picks):
+        raise AssertionError(f"serve.moe: the plain pass made "
+                             f"{routing['calls']} gating calls, the "
+                             f"kernel pass {len(picks)}")
+    unpinned = _first_decode_logits(ref_cfg, params, prompts[0], MOE_MAX_LEN)
+    log("serve.moe.routing", **routing,
+        unpinned_max_abs_err=(lk - unpinned).abs().max().item())
+    _check_first_decode(
+        "serve.moe.first_decode_logits", lk, lr,
+        f"5% of the largest logit: bf16 roundings of the two attention "
+        f"paths carried through {MOE_SERVE_LAYERS} layers, the plain pass "
+        f"routed by the kernel pass's expert picks")
+    del params
+    torch.cuda.empty_cache()
+    return e2e
+
+
+def _fam_train(phase, et, state, batches, want, flops_tok=None,
+               moe_rec=None):
+    """len(batches) Trainer steps, launch counts set to 0 just before
+    and read just after: exactly `want` (every flash launch on its
+    wgmma variant), finite and falling losses."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.trainer.trainer import (
+        Trainer,
+        TrainerCallback,
+        TrainingArguments,
+    )
+
+    class Record(TrainerCallback):
+        def __init__(self):
+            self.ends, self.losses, self.aux = [], [], []
+
+        def on_step_end(self, trainer, state, metrics):
+            self.ends.append(time.perf_counter())
+            if "moe_aux_loss" in metrics:
+                self.aux.append(float(metrics["moe_aux_loss"]))
+
+        def on_log(self, trainer, state, logs):
+            self.losses.append(logs["loss"])
+
+    rec = Record()
+    trainer = Trainer(et, TrainingArguments(
+        max_steps=len(batches), logging_steps=1, save_steps=0,
+        resume=False), train_data=batches, callbacks=[rec])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    ctx = (_moe_recorder(moe_rec) if moe_rec is not None
+           else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with ctx:
+        state = trainer.train(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{phase}: launches {launches}, want {want}")
+    _check_wgmma(phase, launches, tuple(k for k, v in want.items()
+                                        if k.startswith("flash") and v))
+    losses = rec.losses
+    if not (len(losses) == len(batches) and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{phase}: losses {losses}, not finite or "
+                             "not falling")
+    steps_s = np.diff([t0] + rec.ends)
+    step_s = float(np.median(steps_s[1:]))
+    first = next(iter(batches[0].values()))
+    tokens = int(np.prod(first.shape))
+    out = dict(steps=len(batches), losses=losses, step_s=steps_s.tolist(),
+               median_step_s=step_s, wall_s=wall,
+               tokens_per_step=tokens, tokens_per_s=tokens / step_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches)
+    if flops_tok is not None:
+        out.update(flops_per_token=flops_tok,
+                   mfu=flops_tok * tokens / step_s / PEAK_BF16_FLOPS,
+                   mfu_formula="(6 N + 12 L S D) x tokens / step / 989 "
+                               "TFLOP/s")
+    if rec.aux:
+        out["moe_aux_loss"] = rec.aux
+    return out, state
+
+
+def _fam_trainer(init, loss_fn, batch, lr=TRAIN_LR, wd=TRAIN_WD):
+    from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
+
+    n = next(iter(batch.values())).shape[0]
+    return ElasticTrainer(
+        init, loss_fn,
+        lambda ps: torch.optim.AdamW(ps, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=wd),
+        global_batch_size=n, max_per_replica_batch=n)
+
+
+def phase_train_gpt2_xl():
+    """GPT-2 XL, all 48 layers: f32 params, bf16 compute, remat (a
+    checkpoint a layer), AdamW(1e-4), 8 steps of 4 x 1025 tokens."""
+    from dlrover_tpu_torch.models import gpt
+
+    cfg = gpt.GptConfig.gpt2_xl()
+    assert cfg.remat
+    gen = torch.Generator(device="cuda").manual_seed(FAM_SEED)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (FAM_TRAIN_BATCH, FAM_TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens}
+    et = _fam_trainer(lambda g: gpt.init_params(cfg, g,
+                                                dtype=cfg.param_dtype),
+                      lambda p, b: gpt.loss_fn(cfg, p, b), batch)
+    state = et.init_state(gen)
+    per = cfg.n_layers * FAM_TRAIN_STEPS
+    out, state = _fam_train(
+        "train.gpt2_xl", et, state, [batch] * FAM_TRAIN_STEPS,
+        dict(flash_fwd=2 * per, flash_bwd_dq=per, flash_bwd_dkv=per),
+        flops_tok=gpt.flops_per_token(cfg, FAM_TRAIN_SEQ))
+    out.update(config="gpt2_xl", n_layers=cfg.n_layers,
+               params=gpt.num_params(cfg), batch=FAM_TRAIN_BATCH,
+               seq=FAM_TRAIN_SEQ, param_dtype=str(cfg.param_dtype),
+               compute_dtype=str(cfg.dtype), remat="full a layer")
+    log("train.gpt2_xl", **out)
+    del state, et
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_moe():
+    """The MoE Llama at Mixtral-8x7B's widths, MOE_TRAIN_LAYERS layer:
+    f32 params, bf16 compute, remat, AdamW(1e-4), 8 steps of 4 x 1025
+    tokens; the aux loss rides the loss, its value and the dropped
+    share are reported."""
+    from dlrover_tpu_torch.models import llama
+
+    cfg = _mixtral(MOE_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(FAM_SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (FAM_TRAIN_BATCH, FAM_TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens}
+    et = _fam_trainer(lambda g: llama.init_params(cfg, g,
+                                                  dtype=cfg.param_dtype),
+                      lambda p, b: llama.loss_fn(cfg, p, b), batch)
+    state = et.init_state(gen)
+    per = cfg.n_layers * FAM_TRAIN_STEPS
+    rec = []
+    out, state = _fam_train(
+        "train.moe", et, state, [batch] * FAM_TRAIN_STEPS,
+        dict(flash_fwd=2 * per, flash_bwd_dq=per, flash_bwd_dkv=per),
+        moe_rec=rec)
+    out.update(config="mixtral_8x7b widths", n_layers=cfg.n_layers,
+               params=llama.num_params(cfg), batch=FAM_TRAIN_BATCH,
+               seq=FAM_TRAIN_SEQ, moe=_moe_summary(rec))
+    if not all(np.isfinite(out.get("moe_aux_loss", [np.nan]))):
+        raise AssertionError(f"train.moe: aux losses {out.get('moe_aux_loss')}")
+    log("train.moe", **out)
+    del state, et
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_bert_large():
+    """BERT-large MLM at S = 512, B = 8, 15% of the positions masked: 8
+    unpadded steps (the non-causal flash forward and both backward
+    kernels once a layer a step), then one step on a padded batch
+    (padding rides segment_ids: the reference attention, no flash
+    launch)."""
+    from dlrover_tpu_torch.models import bert
+    from dlrover_tpu_torch.ops import _build
+
+    cfg = bert.BertConfig.large()
+    gen = torch.Generator(device="cuda").manual_seed(FAM_SEED + 2)
+    labels = torch.randint(1000, cfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                           generator=gen, device="cuda")
+    mask = (torch.rand((BERT_BATCH, BERT_SEQ), generator=gen,
+                       device="cuda") < BERT_MASK_FRAC)
+    batch = {"tokens": torch.where(mask, BERT_MASK_ID, labels),
+             "labels": labels, "mlm_mask": mask.float()}
+    et = _fam_trainer(lambda g: bert.init_params(cfg, g),
+                      lambda p, b: bert.mlm_loss_fn(cfg, p, b), batch)
+    state = et.init_state(gen)
+    per = cfg.n_layers * FAM_TRAIN_STEPS
+    out, state = _fam_train(
+        "train.bert_large", et, state, [batch] * FAM_TRAIN_STEPS,
+        dict(flash_fwd=per, flash_bwd_dq=per, flash_bwd_dkv=per),
+        flops_tok=bert.flops_per_token(cfg, BERT_SEQ))
+    pad = torch.ones((BERT_BATCH, BERT_SEQ), dtype=torch.int32,
+                     device="cuda")
+    pad[:, BERT_SEQ * 3 // 4:] = 0
+    _build.reset_launch_counts()
+    state, m = et.step(state, dict(batch, attention_mask=pad))
+    torch.cuda.synchronize()
+    padded = _build.launch_counts()
+    if padded["flash_fwd"] or padded["flash_bwd_dq"] or not np.isfinite(
+            float(m["loss"])):
+        raise AssertionError(f"train.bert_large padded batch: launches "
+                             f"{padded}, loss {float(m['loss'])}")
+    out.update(config="bert_large", params=bert.num_params(cfg),
+               batch=BERT_BATCH, seq=BERT_SEQ, mask_frac=BERT_MASK_FRAC,
+               masked_tokens=int(mask.sum()),
+               padded_batch=dict(loss=float(m["loss"]),
+                                 flash_launches=padded["flash_fwd"]))
+    log("train.bert_large", **out)
+    del state, et
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_cnn():
+    """The MNIST CNN preset on random images (B = CNN_BATCH), 8 AdamW
+    steps on one batch: the loss falls. No kernel of the port runs (the
+    convolutions are cuDNN's, as JAX's are XLA's)."""
+    from dlrover_tpu_torch.models import cnn
+
+    cfg = cnn.CnnConfig.mnist()
+    gen = torch.Generator(device="cuda").manual_seed(FAM_SEED + 3)
+    batch = {"images": torch.randn((CNN_BATCH, cfg.image_size,
+                                    cfg.image_size, cfg.in_channels),
+                                   generator=gen, device="cuda"),
+             "labels": torch.randint(0, cfg.n_classes, (CNN_BATCH,),
+                                     generator=gen, device="cuda")}
+    et = _fam_trainer(lambda g: cnn.init_params(cfg, g),
+                      lambda p, b: cnn.loss_fn(cfg, p, b), batch,
+                      lr=CNN_LR, wd=0.0)
+    state = et.init_state(gen)
+    out, state = _fam_train("train.cnn", et, state,
+                            [batch] * FAM_TRAIN_STEPS, {})
+    if any(out["launches"].values()):
+        raise AssertionError(f"train.cnn launched {out['launches']}")
+    out.update(config="mnist", params=cnn.num_params(cfg), batch=CNN_BATCH)
+    log("train.cnn", **out)
+    del state, et
+    return out
+
+
+def phase_families(gen):
+    """The model families' phases, each path's launch counts set to 0
+    just before it and read just after (the kernel phase first)."""
+    torch.cuda.empty_cache()
+    rows = phase_kernel_families(gen)
+    gpt_serve, gpt_int8 = phase_serve_gpt2_xl(gen)
+    moe_serve = phase_serve_moe(gen)
+    return dict(
+        rows=rows, serve={"serve.gpt2_xl": gpt_serve,
+                          "serve.gpt2_xl.int8": gpt_int8,
+                          "serve.moe": moe_serve},
+        train={"train.gpt2_xl": phase_train_gpt2_xl(),
+               "train.moe": phase_train_moe(),
+               "train.bert_large": phase_train_bert_large(),
+               "train.cnn": phase_train_cnn()})
 
 
 def phase_profile(params, cfg, weight_quant="none"):
@@ -7030,6 +7850,10 @@ def main():
         phase_serve_tp2_int8(params, cfg)
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
+    if "--families" in args:
+        phase_families(gen)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
+        return 0
     if "--tier" in args:
         cfg = llama.LlamaConfig.llama3_8b()
         params = llama.init_params(cfg, gen)
@@ -7097,6 +7921,7 @@ def main():
     rl_run = phase_rl_ppo(train)
     remat_runs = phase_train_remat()
     phase_fp8_dot(gen)
+    fam = phase_families(gen)
 
     main_flash = next(r for r in flash_rows if (r["B"], r["S"]) == (1, 512))
     main_bwd = next(r for r in bwd_rows if (r["B"], r["S"]) == (2, 2048))
@@ -7140,6 +7965,12 @@ def main():
                           **{path: r["launches"][name]
                              for path, r in remat_paths.items()}}
                    for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    flash_by_path.update({path: run["launches"]["flash_fwd"] for path, run
+                          in {**fam["serve"], **fam["train"]}.items()})
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        bwd_by_path[name].update({path: run["launches"][name]
+                                  for path, run in fam["train"].items()})
+    serve_paths.update(fam["serve"])
     paged_by_path = {path: run["launches"]["paged_attention"]
                      for path, run in serve_paths.items()}
     main_paged = paged_rows[0]
@@ -7154,12 +7985,15 @@ def main():
                         for path in ("serve.adapters.int8",
                                      "serve.refresh.int8")},
                      "train.int8_adam": train_int8["launches"]["quant_int8"],
-                     "train.dp": dp_run["launches"]["quant_int8"]}
+                     "train.dp": dp_run["launches"]["quant_int8"],
+                     "serve.gpt2_xl.int8": fam["serve"]["serve.gpt2_xl.int8"][
+                         "launches"]["quant_int8"]}
     dqmm_paths = {"serve.int8": e2e_int8,
                   "serve.int8_stochastic": e2e_stoch,
                   "serve.spec.int8": e2e_spec_int8,
                   "serve.adapters.int8": adapter_runs["serve.adapters.int8"],
-                  "serve.refresh.int8": adapter_runs["serve.refresh.int8"]}
+                  "serve.refresh.int8": adapter_runs["serve.refresh.int8"],
+                  "serve.gpt2_xl.int8": fam["serve"]["serve.gpt2_xl.int8"]}
     main_dequant = dequant_rows[0]
     main_dqmm = next(r for r in dqmm_rows
                      if (r["T"], r["K"], r["O"]) == (8, 4096, 14336))
@@ -7185,6 +8019,10 @@ def main():
         # the comparison's, not a main path's)
         return [r for r in gate_rows if r["kernel"] == name]
 
+    def family(name):
+        # kernel.families' rows: the model families' shapes
+        return [r for r in fam["rows"] if r["kernel"] == name]
+
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_fwd.cu",
@@ -7196,7 +8034,8 @@ def main():
              shape="B=1 S=512 H=32 KV=8 D=128 bf16 causal (the train "
                    "path's B=2 S=2048 in per_shape; mma_ms: the mma.sync "
                    "variant on the same inputs)",
-             per_shape=flash_rows, jax_gate_shapes=gate("flash_fwd")),
+             per_shape=flash_rows, jax_gate_shapes=gate("flash_fwd"),
+             family_shapes=family("flash_fwd")),
         dict(name="flash_bwd_dq", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:276",
@@ -7211,7 +8050,8 @@ def main():
                    "path's microbatch (plain_ms and library_ms: the whole "
                    "backward; mma_ms: the mma.sync kernel on the same "
                    "inputs)",
-             per_shape=bwd_rows, jax_gate_shapes=gate("flash_bwd_dq")),
+             per_shape=bwd_rows, jax_gate_shapes=gate("flash_bwd_dq"),
+             family_shapes=family("flash_bwd")),
         dict(name="flash_bwd_dkv", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:328",
@@ -7226,7 +8066,8 @@ def main():
              shape="B=2 S=2048 H=32 KV=8 D=128 bf16 causal, the train "
                    "path's microbatch (plain_ms and library_ms: the whole "
                    "backward; mma_ms: the mma.sync kernel on the same "
-                   "inputs)", jax_gate_shapes=gate("flash_bwd_dkv")),
+                   "inputs)", jax_gate_shapes=gate("flash_bwd_dkv"),
+             family_shapes=family("flash_bwd")),
         dict(name="paged_attention", route="cuda",
              source="dlrover_tpu_torch/csrc/paged_attention.cu",
              replaces="dlrover_tpu/ops/paged_attention.py:160",
@@ -7245,7 +8086,8 @@ def main():
                  path: run["launches"]["paged_attention_tma_int8"]
                  for path, run in serve_paths.items()
                  if run["launches"].get("paged_attention_tma_int8")},
-             jax_gate_shapes=gate("paged_attention")),
+             jax_gate_shapes=gate("paged_attention"),
+             family_shapes=family("paged_attention")),
         dict(name="flash_fwd_sharded", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_fwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:567",
@@ -7284,7 +8126,8 @@ def main():
              shape="[14336, 4096] bf16 -> int8, block 256 (one w_gate "
                    "layer, output-major; the embedding's f32 moment as "
                    "[1, 525336576] in per_input)",
-             per_input=quant_rows, jax_gate_shapes=gate("quantize_int8")),
+             per_input=quant_rows, jax_gate_shapes=gate("quantize_int8"),
+             family_shapes=family("quantize_int8")),
         dict(name="dequantize_int8", route="cuda",
              source="dlrover_tpu_torch/csrc/dequant_int8.cu",
              replaces="dlrover_tpu/ops/quantization.py:55",
@@ -7324,7 +8167,8 @@ def main():
                    "weight at T=1024 on the prefill kernel (dqmm_ws); "
                    "verify_*: at T=40, a verify of 8 slots x 5 positions "
                    "(dqmm_ws)",
-             per_shape=dqmm_rows, jax_gate_shapes=gate("dqmm")),
+             per_shape=dqmm_rows, jax_gate_shapes=gate("dqmm"),
+             family_shapes=family("dqmm")),
     ]
     log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)

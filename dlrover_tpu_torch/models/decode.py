@@ -1,5 +1,5 @@
-"""KV-cache autoregressive decoding for the Llama family — counterpart
-of dlrover_tpu/models/decode.py (the dense slot bank and the paged
+"""KV-cache autoregressive decoding for the Llama and GPT-2 families —
+counterpart of dlrover_tpu/models/decode.py (the dense slot bank and the paged
 pool that the serving engine drives).
 
 Where the JAX package scans the stacked layers, this loops over them;
@@ -49,6 +49,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from dlrover_tpu_torch._device import DeviceLike, resolve_device
+from dlrover_tpu_torch.models import gpt as _gpt
 from dlrover_tpu_torch.models.llama import (
     LlamaConfig,
     _attn_qkv,
@@ -346,11 +347,45 @@ def _block(cfg: LlamaConfig, x, layer_params, layer_cache, positions,
         attn_impl=cfg.attn_impl, plain_causal=plain_causal, mesh=mesh,
     )
     x = _attn_residual(cfg, x, attn, lp, lora=lora, tp=tp)
-    x = _mlp_residual(cfg, x, layer_params, lp, tp=tp)
+    x, _aux = _mlp_residual(cfg, x, layer_params, lp, tp=tp)
     return x, layer_cache
 
 
+def _block_gpt(cfg, x, lp, layer_cache, positions, start,
+               plain_causal: bool = False):
+    """GPT-2 pre-LN block writing its K/V into the cache, built from
+    models/gpt.py's own pieces (the positions were consumed at the
+    embedding)."""
+    q, k, v = _gpt._attn_qkv(cfg, x, lp)
+    attn, layer_cache = _write_cache_and_attend(
+        q, k, v, layer_cache, positions, start, cfg.head_dim,
+        attn_impl=cfg.attn_impl, plain_causal=plain_causal,
+    )
+    x = _gpt._attn_residual(cfg, x, attn, lp)
+    return _gpt._mlp_residual(cfg, x, lp), layer_cache
+
+
+def _is_gpt(cfg) -> bool:
+    return isinstance(cfg, _gpt.GptConfig)
+
+
+def _embed(cfg, params, tokens, positions):
+    """The family's input embedding in the compute dtype. GPT adds its
+    learned positions, gathered with JAX's clamp to the table (the
+    engine's verify window may reach past a slot's cap; those cells
+    are never read)."""
+    if _is_gpt(cfg):
+        pos = positions.clamp(0, cfg.max_seq_len - 1)
+        return (params["wte"].to(cfg.dtype)[tokens]
+                + params["wpe"].to(cfg.dtype)[pos])
+    return params["embed"]["weight"].to(cfg.dtype)[tokens]
+
+
 def _logits(cfg, params, x, tp: int = 1):
+    """Final norm and head: GPT's LayerNorm and tied `wte`, Llama's
+    RMSNorm and `_head_matrix`."""
+    if _is_gpt(cfg):
+        return _gpt.final_logits(cfg, params, x, tp)
     x = _rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return matmul_any(x, _head_matrix(cfg, params), tp=tp).float()
 
@@ -363,18 +398,23 @@ def _layer_cache(cache: AnyCache, layer: int):
 
 
 def _check_positional_capacity(cfg, max_len: int) -> None:
-    """JAX refuses a decode longer than GPT's learned position table
-    (its gathers would clamp to the last row). RoPE, the Llama family's
-    positions and the only family the port has, computes any position:
-    nothing to refuse until `gpt.py` is ported (ROADMAP queue 1 item
-    13)."""
+    """GPT's LEARNED position table stops at max_seq_len: decoding past
+    it would reuse wpe[-1] (JAX clamps the gather) and emit garbage.
+    RoPE (Llama) computes any position, so no bound applies there."""
+    if _is_gpt(cfg) and max_len > cfg.max_seq_len:
+        raise ValueError(
+            f"decode length {max_len} exceeds the GPT position table "
+            f"(max_seq_len={cfg.max_seq_len}); positions would clamp "
+            "and produce wrong logits"
+        )
 
 
 def _check_adapters(cfg, adapters) -> None:
-    """JAX refuses adapters on its GPT family (a fused wqkv has no
-    per-target bank). The port has no GPT family yet (ROADMAP queue 1
-    item 13, `gpt.py`): every config it serves takes adapters, so there
-    is nothing to refuse until that lands."""
+    if adapters is not None and _is_gpt(cfg):
+        raise ValueError(
+            "multi-adapter serving targets the llama attention "
+            "projections; GPT's fused qkv has no per-target bank"
+        )
 
 
 def _layer_lora(adapters, layer: int):
@@ -390,9 +430,16 @@ def _forward_cached(cfg, params, tokens, cache, positions, start,
     """tokens [B,S] -> logits [B,S,V], writing the cache at
     [start, start+S); `adapters` (module docstring) adds each row's
     LoRA delta; `mesh` (tp > 1) runs the head-sharded blocks over a
-    per-shard cache."""
+    per-shard cache. Family dispatch: Llama (RoPE, GQA, RMSNorm) or
+    GPT-2 (learned positions, pre-LN, the head tied to wte)."""
     _check_adapters(cfg, adapters)
-    x = params["embed"]["weight"].to(cfg.dtype)[tokens]
+    x = _embed(cfg, params, tokens, positions)
+    if _is_gpt(cfg):
+        for layer in range(cfg.n_layers):
+            x, _ = _block_gpt(cfg, x, _layer_params(params, layer),
+                              _layer_cache(cache, layer), positions, start,
+                              plain_causal=plain_causal)
+        return _logits(cfg, params, x), cache
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for layer in range(cfg.n_layers):
         x, _ = _block(
@@ -699,19 +746,38 @@ def _block_paged(cfg, x, layer_params, layer_pool, table, positions,
         attn_impl=cfg.attn_impl, slots=slots, mesh=mesh,
     )
     x = _attn_residual(cfg, x, attn, lp, lora=lora, tp=tp)
-    x = _mlp_residual(cfg, x, layer_params, lp, tp=tp)
+    x, _aux = _mlp_residual(cfg, x, layer_params, lp, tp=tp)
     return x, layer_pool
+
+
+def _block_gpt_paged(cfg, x, lp, layer_pool, table, positions, slots=None):
+    """GPT-2 block over paged KV: `_block_gpt` with the page write and
+    the paged attention."""
+    q, k, v = _gpt._attn_qkv(cfg, x, lp)
+    attn, layer_pool = _write_pages_and_attend(
+        q, k, v, layer_pool, table, positions, cfg.head_dim,
+        attn_impl=cfg.attn_impl, slots=slots,
+    )
+    x = _gpt._attn_residual(cfg, x, attn, lp)
+    return _gpt._mlp_residual(cfg, x, lp), layer_pool
 
 
 def _forward_paged(cfg, params, tokens, pool, table, positions,
                    adapters=None, mesh=None):
     """tokens [B, S] -> logits [B, S, V] over the paged pool; the table
     is shared by every layer, and so is the optional `adapters`
-    operand's idx. `mesh` (tp > 1): a per-shard pool."""
+    operand's idx. `mesh` (tp > 1): a per-shard pool. The family
+    dispatch of `_forward_cached`."""
     _check_adapters(cfg, adapters)
-    x = params["embed"]["weight"].to(cfg.dtype)[tokens]
-    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x = _embed(cfg, params, tokens, positions)
     slots = _page_slots(table, positions, kv_shards(pool)[0]["k"].shape[2])
+    if _is_gpt(cfg):
+        for layer in range(cfg.n_layers):
+            x, _ = _block_gpt_paged(cfg, x, _layer_params(params, layer),
+                                    _layer_cache(pool, layer), table,
+                                    positions, slots=slots)
+        return _logits(cfg, params, x), pool
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for layer in range(cfg.n_layers):
         x, _ = _block_paged(
             cfg, x, _layer_params(params, layer), _layer_cache(pool, layer),

@@ -23,13 +23,14 @@ tensors JAX's does.
 import dataclasses
 import math
 from functools import partial
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from dlrover_tpu_torch._device import DeviceLike, resolve_device
+from dlrover_tpu_torch.models import moe as _moe
 from dlrover_tpu_torch.ops.attention import dot_product_attention
 from dlrover_tpu_torch.ops.fused_ce import fused_cross_entropy
 from dlrover_tpu_torch.ops.quantization import QuantizedWeight, matmul_any
@@ -41,10 +42,13 @@ from dlrover_tpu_torch.parallel.remat import (
 
 Params = Dict[str, Any]
 
-_LAYER_KEYS = (
-    "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
-    "w_gate", "w_up", "w_down",
-)
+_ATTN_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
+_DENSE_MLP_KEYS = ("w_gate", "w_up", "w_down")
+_MOE_KEYS = ("router", "we_gate", "we_up", "we_down")
+
+
+def _mlp_keys(cfg) -> Tuple[str, ...]:
+    return _MOE_KEYS if cfg.n_experts > 0 else _DENSE_MLP_KEYS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,10 +74,21 @@ class LlamaConfig:
     # logits are never formed
     fused_ce: bool = False
     tie_embeddings: bool = False
-    n_experts: int = 0                    # MoE is not ported; must be 0
+    # MoE (0 experts = the dense SwiGLU MLP; models/moe.py)
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
     # LoRA delta scale (alpha; the rank comes from the adapter's shape),
     # read only where adapter leaves are present (models/lora.py)
     lora_alpha: float = 16.0
+
+    @property
+    def moe(self) -> "_moe.MoeConfig":
+        return _moe.MoeConfig(
+            n_experts=self.n_experts,
+            top_k=self.moe_top_k,
+            capacity_factor=self.moe_capacity_factor,
+        )
 
     @property
     def head_dim(self) -> int:
@@ -107,13 +122,6 @@ class LlamaConfig:
         return cls(**defaults)
 
 
-def _check_dense(cfg: LlamaConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE llama is not ported yet (dense SwiGLU only)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -127,10 +135,12 @@ def init_params(
     (which must live on that device) in the JAX package's layout and
     scales: normal / sqrt(fan_in) matmul weights, 0.02 * normal
     embedding, unit norm scales, stored in `dtype` (default `cfg.dtype`,
-    what serving stores; training passes `cfg.param_dtype`). Not the
-    JAX package's numbers — its init draws from jax.random; parity
-    tests carry JAX params across with `params_from_numpy`."""
-    _check_dense(cfg)
+    what serving stores; training passes `cfg.param_dtype`). An MoE
+    config (`n_experts` > 0) holds the expert-stacked `router`,
+    `we_gate`, `we_up` and `we_down` (models/moe.py `init_moe_mlp`) in
+    place of the dense MLP. Not the JAX package's numbers — its init
+    draws from jax.random; parity tests carry JAX params across with
+    `params_from_numpy`."""
     dev = resolve_device(device)
     L, D, M = cfg.n_layers, cfg.dim, cfg.mlp_dim
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -143,19 +153,26 @@ def init_params(
     def dense(shape, fan_in):
         return normal(shape, 1.0 / math.sqrt(fan_in))
 
+    # drawn in this order: a seed gives the dense model the same weights
+    # whatever the MoE branch draws
+    embed = normal((cfg.vocab_size, D), 0.02)
+    layers = {
+        "attn_norm": torch.ones((L, D), device=dev, dtype=dt),
+        "wq": dense((L, D, H * hd), D),
+        "wk": dense((L, D, KV * hd), D),
+        "wv": dense((L, D, KV * hd), D),
+        "wo": dense((L, H * hd, D), H * hd),
+        "mlp_norm": torch.ones((L, D), device=dev, dtype=dt),
+    }
+    if cfg.n_experts > 0:
+        layers.update(_moe.init_moe_mlp(generator, cfg.moe, D, M, n_layers=L,
+                                        dtype=dt, device=dev))
+    else:
+        layers.update(w_gate=dense((L, D, M), D), w_up=dense((L, D, M), D),
+                      w_down=dense((L, M, D), M))
     params = {
-        "embed": {"weight": normal((cfg.vocab_size, D), 0.02)},
-        "layers": {
-            "attn_norm": torch.ones((L, D), device=dev, dtype=dt),
-            "wq": dense((L, D, H * hd), D),
-            "wk": dense((L, D, KV * hd), D),
-            "wv": dense((L, D, KV * hd), D),
-            "wo": dense((L, H * hd, D), H * hd),
-            "mlp_norm": torch.ones((L, D), device=dev, dtype=dt),
-            "w_gate": dense((L, D, M), D),
-            "w_up": dense((L, D, M), D),
-            "w_down": dense((L, M, D), M),
-        },
+        "embed": {"weight": embed},
+        "layers": layers,
         "final_norm": {"scale": torch.ones((D,), device=dev, dtype=dt)},
     }
     if not cfg.tie_embeddings:
@@ -173,8 +190,8 @@ def params_from_numpy(
     applies before each use; numpy float32 -> bfloat16 rounds to nearest
     even, as jnp's astype does) on `device`. A wider storage dtype
     computes the same thing (every use casts to `cfg.dtype`) and keeps
-    the values the JAX engine's int8 install quantizes."""
-    _check_dense(cfg)
+    the values the JAX engine's int8 install quantizes. An MoE tree
+    carries its expert-stacked leaves (`_mlp_keys`)."""
     dev = resolve_device(device)
     dtype = cfg.dtype if dtype is None else dtype
 
@@ -184,12 +201,13 @@ def params_from_numpy(
         )
 
     layers = tree["layers"]
-    missing = [k for k in _LAYER_KEYS if k not in layers]
+    keys = _ATTN_KEYS + _mlp_keys(cfg)
+    missing = [k for k in keys if k not in layers]
     if missing:
         raise ValueError(f"param tree lacks layers/{missing}")
     params = {
         "embed": {"weight": conv(tree["embed"]["weight"])},
-        "layers": {k: conv(layers[k]) for k in _LAYER_KEYS
+        "layers": {k: conv(layers[k]) for k in keys
                    + tuple(sorted(k for k in layers if "_lora_" in k))},
         "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
     }
@@ -202,6 +220,18 @@ def layer_params(params: Params, layer: int) -> Dict[str, Any]:
     """One layer's slice of the stacked weights (views, no copy; a
     QuantizedWeight slices its q8 and s8)."""
     return {k: v[layer] for k, v in params["layers"].items()}
+
+
+def layer_slices(params: Params, n_layers: int) -> List[Dict[str, Any]]:
+    """Every layer's slice of the stacked weights, for a forward that
+    autograd records: one `unbind` a stacked tensor, whose backward
+    stacks the layers' gradients once. Indexing layer by layer instead
+    gives each slice a backward that writes a zero gradient of the whole
+    stack, L^2 of its bytes a step. Other leaves are indexed."""
+    cols = {k: (v.unbind(0) if isinstance(v, torch.Tensor)
+                else [v[i] for i in range(n_layers)])
+            for k, v in params["layers"].items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +285,8 @@ def _compute_weights(cfg: LlamaConfig, layer_params) -> Dict:
 
     out = {}
     for k, v in layer_params.items():
-        if k.endswith("_norm") or "_lora_" in k:
+        # the MoE leaves are cast inside models/moe.py `moe_mlp`
+        if k.endswith("_norm") or "_lora_" in k or k in _MOE_KEYS:
             continue
         if isinstance(v, Sharded):
             v = v.map(lambda s: s if isinstance(s, QuantizedWeight)
@@ -352,12 +383,19 @@ def _attn_residual(cfg: LlamaConfig, x, attn, lp, lora=None, tp: int = 1):
 
 
 def _mlp_residual(cfg: LlamaConfig, x, layer_params, lp, tp: int = 1):
-    """Dense SwiGLU feed-forward + residual."""
-    _check_dense(cfg)
+    """Dense SwiGLU or MoE feed-forward + residual -> (x, the layer's
+    MoE aux loss, or None for the dense MLP). The MoE branch
+    routes the [B, S] tokens of this call (models/moe.py: its capacity
+    follows S) over the layer's own (uncast) expert leaves, as JAX's."""
     h = _rms_norm(x, layer_params["mlp_norm"], cfg.norm_eps)
+    if cfg.n_experts > 0:
+        ff, metrics = _moe.moe_mlp(cfg.moe, {k: layer_params[k]
+                                             for k in _MOE_KEYS},
+                                   h, compute_dtype=cfg.dtype)
+        return x + ff, metrics["moe_aux_loss"]
     gate = F.silu(_matmul(h, lp["w_gate"], "mlp_gate", tp))
     up = _matmul(h, lp["w_up"], "mlp_up", tp)
-    return x + _matmul(gate * up, lp["w_down"], "mlp_down", tp)
+    return x + _matmul(gate * up, lp["w_down"], "mlp_down", tp), None
 
 
 def _head_matrix(cfg: LlamaConfig, params: Params):
@@ -377,8 +415,9 @@ def _head_matrix(cfg: LlamaConfig, params: Params):
 # ---------------------------------------------------------------------------
 
 
-def _layer(cfg: LlamaConfig, x, layer_params, positions, rope=None):
-    """One decoder block on [B, S, D] activations."""
+def _layer_aux(cfg: LlamaConfig, x, layer_params, positions, rope=None):
+    """One decoder block on [B, S, D] activations -> (x, its MoE aux
+    loss, or None for a dense model)."""
     lp = _compute_weights(cfg, layer_params)
     h = _rms_norm(x, layer_params["attn_norm"], cfg.norm_eps)
     q, k, v = _attn_qkv(cfg, h, lp, positions, rope)
@@ -387,17 +426,24 @@ def _layer(cfg: LlamaConfig, x, layer_params, positions, rope=None):
     return _mlp_residual(cfg, x, layer_params, lp)
 
 
+def _layer(cfg: LlamaConfig, x, layer_params, positions, rope=None):
+    """One decoder block on [B, S, D] activations."""
+    return _layer_aux(cfg, x, layer_params, positions, rope)[0]
+
+
 def apply(
     cfg: LlamaConfig,
     params: Params,
     tokens: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
-) -> torch.Tensor:
+    return_aux: bool = False,
+):
     """Forward pass: tokens [B, S] int -> logits [B, S, vocab] f32, or
-    with return_hidden the post-final-norm hidden states [B, S, D]. One
-    device, dense layers: no pipeline, no MoE (JAX `apply` :428)."""
-    _check_dense(cfg)
+    with return_hidden the post-final-norm hidden states [B, S, D]; with
+    return_aux also the per-layer MoE aux losses summed (zero for a
+    dense model), under every remat policy too. One device: no pipeline
+    (JAX `apply` :428)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -405,18 +451,21 @@ def apply(
     # the embedding's gradient is summed in f32 instead of in cfg.dtype
     x = F.embedding(tokens, params["embed"]["weight"]).to(cfg.dtype)
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    body = partial(_layer, cfg)
+    body = partial(_layer_aux, cfg)
     if cfg.remat:
         # JAX checkpoints the layer under every name: "none" resolves to
         # policy=None there, which saves nothing, as "full" does here
         body = apply_remat(body, cfg.remat_policy
                            if cfg.remat_policy != "none" else "full")
-    for i in range(cfg.n_layers):
-        x = body(x, layer_params(params, i), positions, rope)
+    aux = x.new_zeros((), dtype=torch.float32) if return_aux else None
+    for lp in layer_slices(params, cfg.n_layers):
+        x, layer_aux = body(x, lp, positions, rope)
+        if aux is not None and layer_aux is not None:
+            aux = aux + layer_aux
     x = _rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    if return_hidden:
-        return x
-    return matmul_any(x, _head_matrix(cfg, params)).float()
+    out = x if return_hidden else matmul_any(
+        x, _head_matrix(cfg, params)).float()
+    return (out, aux) if return_aux else out
 
 
 def loss_fn(
@@ -435,33 +484,48 @@ def loss_fn(
     tokens = batch["tokens"]
     targets = tokens[:, 1:]
     mask = batch.get("loss_mask")
+    moe = cfg.n_experts > 0
+    aux = None
     if cfg.fused_ce:
-        hidden = apply(cfg, params, tokens[:, :-1], return_hidden=True)
+        hidden = apply(cfg, params, tokens[:, :-1], return_hidden=True,
+                       return_aux=moe)
+        if moe:
+            hidden, aux = hidden
         m = mask[:, 1:] if mask is not None else None
         loss_sum, weight = fused_cross_entropy(
             hidden, _head_matrix(cfg, params), targets, m
         )
         weight = weight.clamp_min(1.0)
         loss = loss_sum / weight
-        return loss, {"loss": loss, "loss_weight": weight}
-    logits = apply(cfg, params, tokens[:, :-1])
-    nll = F.cross_entropy(
-        logits.flatten(0, 1), targets.flatten().long(), reduction="none"
-    ).view(targets.shape)
-    if mask is not None:
-        m = mask[:, 1:].to(nll.dtype)
-        weight = m.sum().clamp_min(1.0)
-        loss = (nll * m).sum() / weight
     else:
-        loss = nll.mean()
-        weight = torch.tensor(float(nll.numel()), device=nll.device)
-    return loss, {"loss": loss, "loss_weight": weight}
+        logits = apply(cfg, params, tokens[:, :-1], return_aux=moe)
+        if moe:
+            logits, aux = logits
+        nll = F.cross_entropy(
+            logits.flatten(0, 1), targets.flatten().long(), reduction="none"
+        ).view(targets.shape)
+        if mask is not None:
+            m = mask[:, 1:].to(nll.dtype)
+            weight = m.sum().clamp_min(1.0)
+            loss = (nll * m).sum() / weight
+        else:
+            loss = nll.mean()
+            weight = torch.tensor(float(nll.numel()), device=nll.device)
+    metrics = {"loss": loss, "loss_weight": weight}
+    if moe:
+        loss = loss + aux
+        metrics["moe_aux_loss"] = aux
+    return loss, metrics
 
 
 def num_params(cfg: LlamaConfig) -> int:
     L, D, M, V = cfg.n_layers, cfg.dim, cfg.mlp_dim, cfg.vocab_size
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    per_layer = D * H * hd + 2 * D * KV * hd + H * hd * D + 3 * D * M + 2 * D
+    if cfg.n_experts > 0:
+        mlp = cfg.n_experts * 3 * D * M + D * cfg.n_experts
+    else:
+        mlp = 3 * D * M
+    per_layer = D * H * hd + 2 * D * KV * hd + H * hd * D + mlp + 2 * D
     total = V * D + L * per_layer + D
     if not cfg.tie_embeddings:
         total += D * V

@@ -356,7 +356,10 @@ def flash_attention(
         )
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
-    return _Flash.apply(q, k, v, causal, float(scale))
+    # the kernels read dense [B, S, H, D] operands; the q / k / v of a
+    # fused qkv product (GPT-2, BERT) are strided views of it
+    return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal, float(scale))
 
 
 def sharded_flash_attention(q, k, v, mesh, causal: bool = True,

@@ -364,6 +364,9 @@ def paged_attention(
         return _paged_sharded(q, pages, table, lengths, scale, impl, mesh)
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
+    # the kernels read a dense [B, H, hd] query; a fused qkv product's q
+    # (GPT-2) is a strided view of it
+    q = q.contiguous()
     if impl == "reference":
         return _reference(q, pages, table, lengths, scale)
     if impl == "kernel":

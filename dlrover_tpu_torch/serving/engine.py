@@ -1,6 +1,9 @@
 """Continuous-batching generation engine — counterpart of the
 `ContinuousBatcher` in dlrover_tpu/serving/engine.py, the subset that
-serves colocated dense and paged traffic synchronously.
+serves colocated dense and paged traffic synchronously, for the Llama
+family (dense or MoE) and for GPT-2 (models/decode.py's family
+dispatch; GPT at tp > 1 raises NotImplementedError, and GPT takes no
+adapters, as in JAX).
 
 - A bank of `n_slots` rows, each at its OWN position: a dense KV bank
   [L, n_slots, max_len, KV, hd] (kv_layout="dense") or a global page
@@ -136,6 +139,8 @@ from dlrover_tpu_torch._device import (
     upload,
 )
 from dlrover_tpu_torch.models.decode import (
+    _check_positional_capacity,
+    _is_gpt,
     _mask_top_k,
     _mask_top_p,
     categorical,
@@ -461,6 +466,7 @@ class ContinuousBatcher:
                 f"weight_refresh_mode must be 'live', 'defer' or "
                 f"'raise', got {weight_refresh_mode!r}"
             )
+        _check_positional_capacity(cfg, max_len)
         self.device = resolve_device(device)
         self.cfg = cfg
         # the serving slice: validated even at tp 1, so a bad knob fails
@@ -474,6 +480,10 @@ class ContinuousBatcher:
             n_kv = getattr(cfg, "n_kv_heads", None) or cfg.n_heads
             devices = local_devices(self.device)
             serving_mesh_spec(tp, n_kv_heads=n_kv, n_devices=len(devices))
+            if tp > 1 and _is_gpt(cfg):
+                raise NotImplementedError(
+                    "GPT serving at tp > 1 is not ported (ROADMAP queue 1, "
+                    "item 13: GPT at tp > 1)")
             self.mesh_tp = tp
             if tp > 1:
                 self.mesh = serving_mesh(tp, devices=devices,

@@ -2338,3 +2338,187 @@ def test_ppo_step_over_a_lora_actor_on_the_card(gen):
     assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == layers * n_mb
     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert counts[k + "_wgmma"] == counts[k]
+
+
+# ---------------------------------------------------------------------------
+# the model families' shapes: GPT-2 XL (25 heads of 64, KV group 1),
+# BERT-large (16 heads of 64, non-causal), the GPT-2 XL int8 products
+# (K = 1600 at block 64, not a multiple of the 256-value stage; O =
+# 4800 and 1600, not multiples of 128)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,s,h,causal", [(1, 1024, 25, True),
+                                          (2, 512, 16, False),
+                                          (1, 77, 25, True)],
+                         ids=["gpt2_xl", "bert_large", "gpt2_xl-ragged"])
+def test_flash_fwd_bwd_at_the_family_shapes(gen, b, s, h, causal):
+    """Forward and both backward kernels on their wgmma variants at
+    head_dim 64, MHA (group 1)."""
+    q, k, v = _flash_case(gen, b, s, h, h, 64)
+    _check_wgmma(q, k, v, causal)
+    _check_bwd(gen, b, s, s, h, h, 64, causal, "wgmma")
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_tma_kernel_at_the_gpt2_xl_shape(gen, quant):
+    """GPT-2 XL decode: 25 query heads over 25 KV heads (group 1) of 64,
+    pages of 16, on the TMA-ring kernel."""
+    rng = np.random.default_rng(5)
+    b, h, hd, ps, per_row = 8, 25, 64, 16, 64
+    n_pages = b * per_row + 1
+    lengths = rng.integers(1, per_row * ps + 1, size=b).astype(np.int32)
+    table = rng.permutation(np.arange(1, n_pages)).astype(np.int32)[
+        : b * per_row].reshape(b, per_row).copy()
+    k = torch.randn((n_pages, ps, h, hd), generator=gen, device="cuda")
+    v = torch.randn((n_pages, ps, h, hd), generator=gen, device="cuda")
+    if quant:
+        kq, ks = tdec._kv_quantize(k)
+        vq, vs = tdec._kv_quantize(v)
+        pages = {"k": kq, "v": vq, "k_scale": ks.bfloat16(),
+                 "v_scale": vs.bfloat16()}
+    else:
+        pages = {"k": k.bfloat16(), "v": v.bfloat16()}
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").bfloat16()
+    tab, lens = torch.from_numpy(table).cuda(), torch.from_numpy(
+        lengths).cuda()
+    assert tpa.kernel_variant(q.dtype, ps, h, hd, b, quant,
+                              n_table=per_row, n_rep=1) == "tma"
+    before = _build.launch_counts()
+    ker = tpa.paged_attention(q, pages, tab, lens, impl="kernel")
+    after = _build.launch_counts()
+    ref = tpa.paged_attention(q, pages, tab, lens, impl="reference")
+    torch.cuda.synchronize()
+    assert after["paged_attention_tma"] == before["paged_attention_tma"] + 1
+    assert (ker.float() - ref.float()).abs().max().item() < TOL
+
+
+# (K, O, block) of GPT-2 XL's quantized products: wqkv, wo, w_up (block
+# 64 by `weight_quant_block(1600)`), w_down (block 256)
+GPT2_XL_WEIGHTS = ((1600, 4800, 64), (1600, 1600, 64), (1600, 6400, 64),
+                   (6400, 1600, 256))
+
+
+@pytest.mark.parametrize("k,o,block", GPT2_XL_WEIGHTS,
+                         ids=["wqkv", "wo", "w_up", "w_down"])
+def test_dqmm_and_quantize_at_the_gpt2_xl_shapes(gen, k, o, block):
+    """The install's quantize kernel bytes equal to the plain version's,
+    and the dequant-matmul at T = 8 (the TMA-ring decode kernel) and T =
+    1024 (the prefill kernel) within DQMM_TOL of the plain version."""
+    assert tq.weight_quant_block(k) == block
+    w = torch.randn((o, k), generator=gen, device="cuda") * k ** -0.5
+    q8, s8 = tq.quantize_int8(w.bfloat16(), block)
+    q_ref, s_ref = tq._quantize_plain(w.bfloat16(), block)
+    torch.cuda.synchronize()
+    assert torch.equal(q8, q_ref) and torch.equal(s8, s_ref)
+    qw = tq.QuantizedWeight(q8, s8, block)
+    _check_decode_tma(gen, qw, (8,))
+    x = torch.randn((1024, k), generator=gen, device="cuda").bfloat16()
+    before = _build.launch_counts()
+    y = tq.quantized_matmul(x, qw)
+    after = _build.launch_counts()
+    ref = tq.quantized_matmul_reference(x, qw)
+    torch.cuda.synchronize()
+    assert after["dqmm_ws"] == before["dqmm_ws"] + 1
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= DQMM_TOL * ref.float().abs().max().item()
+
+
+def test_gpt_engine_on_the_card_takes_the_kernels(gen):
+    """A small GPT (head_dim 64) through the paged int8 engine: every
+    prefill on the wgmma flash forward, every decode on the TMA paged
+    kernel, every product on kernel 7; first logits within 5% of the
+    largest of plain attention on the same weights."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models import decode as dec
+    from dlrover_tpu_torch.models import gpt
+    from dlrover_tpu_torch.serving.engine import ContinuousBatcher
+
+    cfg = gpt.GptConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
+                        max_seq_len=256)
+    params = gpt.init_params(cfg, gen)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (40, 90, 7)]
+    _build.reset_launch_counts()
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=256,
+                            max_new_tokens=6, kv_layout="paged",
+                            weight_quant="int8")
+    outs = eng.generate_all(prompts)
+    c = _build.launch_counts()
+    assert [len(o) for o in outs] == [6, 6, 6]
+    assert c["flash_fwd"] == c["flash_fwd_wgmma"] == eng.admissions * 2
+    assert c["paged_attention"] == c["paged_attention_tma"] > 0
+    assert c["dqmm"] == c["dqmm_ws"] + c["dqmm_decode_tma"] > 0
+    tok = torch.tensor([prompts[1]], device="cuda")
+    ref = dataclasses.replace(cfg, attn_impl="reference")
+    got, _ = dec.prefill(cfg, params, tok,
+                         dec.init_kv_cache(cfg, 1, 96))
+    want, _ = dec.prefill(ref, params, tok, dec.init_kv_cache(cfg, 1, 96))
+    err = (got - want).abs().max().item()
+    assert err <= 0.05 * want.abs().max().item()
+
+
+def test_bert_train_step_takes_the_non_causal_kernels(gen):
+    """An unpadded BERT batch launches the non-causal flash forward and
+    both backward kernels once a layer (wgmma); a padded batch launches
+    none (the reference through segment_ids)."""
+    from dlrover_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
+                          mlp_dim=512, max_seq_len=128)
+    params = bert.init_params(cfg, gen)
+    for p in params["layers"].values():
+        p.requires_grad_(True)
+    toks = torch.randint(0, 512, (2, 128), generator=gen, device="cuda")
+    batch = {"tokens": toks, "labels": toks,
+             "mlm_mask": torch.ones((2, 128), device="cuda")}
+    _build.reset_launch_counts()
+    loss, _ = bert.mlm_loss_fn(cfg, params, batch)
+    loss.backward()
+    c = _build.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert c[name] == c[name + "_wgmma"] == 2, (name, c)
+    _build.reset_launch_counts()
+    mask = torch.ones((2, 128), dtype=torch.int32, device="cuda")
+    mask[1, 100:] = 0
+    loss, _ = bert.mlm_loss_fn(cfg, params, dict(batch, attention_mask=mask))
+    loss.backward()
+    assert _build.launch_counts()["flash_fwd"] == 0
+    assert torch.isfinite(loss)
+
+
+def test_flash_and_paged_take_the_views_of_a_fused_qkv(gen):
+    """GPT-2's and BERT's q / k / v are chunks of one fused projection,
+    strided views: `flash_attention` (forward and backward) and
+    `paged_attention` take them, on the kernels, with the results of
+    dense copies."""
+    qkv = torch.randn((2, 128, 3 * 4 * 64), generator=gen,
+                      device="cuda").bfloat16().requires_grad_()
+    q, k, v = (t.reshape(2, 128, 4, 64) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    before = _build.launch_counts()
+    o = tfa.flash_attention(q, k, v, causal=False)
+    o.float().sum().backward()
+    after = _build.launch_counts()
+    assert after["flash_fwd_wgmma"] == before["flash_fwd_wgmma"] + 1
+    assert after["flash_bwd_dq_wgmma"] == before["flash_bwd_dq_wgmma"] + 1
+    dense = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+    o2 = tfa.flash_attention(*dense, causal=False)
+    o2.float().sum().backward()
+    assert torch.equal(o, o2)
+    want = torch.cat([t.grad.reshape(2, 128, -1) for t in dense], dim=-1)
+    assert torch.equal(qkv.grad, want)
+    pages = {"k": torch.randn((5, 16, 4, 64), generator=gen,
+                              device="cuda").bfloat16(),
+             "v": torch.randn((5, 16, 4, 64), generator=gen,
+                              device="cuda").bfloat16()}
+    table = torch.arange(1, 5, dtype=torch.int32, device="cuda")[None]
+    table = table.expand(2, 4).contiguous()
+    lens = torch.tensor([30, 64], dtype=torch.int32, device="cuda")
+    q1 = q[:, 0].detach()
+    assert not q1.is_contiguous()
+    got = tpa.paged_attention(q1, pages, table, lens, impl="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpa.paged_attention(q1.contiguous(), pages,
+                                                table, lens, impl="kernel"))

@@ -249,7 +249,12 @@ def test_init_params_layout_and_device():
     assert p["lm_head"]["weight"].shape == (64, 256)
     p2 = tllama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(p["layers"]["w_up"], p2["layers"]["w_up"])
-    with pytest.raises(NotImplementedError):
-        tllama.init_params(
-            tllama.LlamaConfig.tiny(n_experts=4), g, device="cpu"
-        )
+    # an MoE config holds the expert-stacked MLP (models/moe.py) in
+    # place of the dense one, in the JAX layout
+    moe = tllama.init_params(
+        tllama.LlamaConfig.tiny(n_experts=4), g, device="cpu"
+    )["layers"]
+    assert "w_gate" not in moe
+    assert moe["router"].shape == (2, 64, 4)
+    assert moe["we_gate"].shape == moe["we_up"].shape == (2, 4, 64, 128)
+    assert moe["we_down"].shape == (2, 4, 128, 64)
