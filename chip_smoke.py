@@ -33,6 +33,12 @@ Phases, one line each (any failure exits non-zero before the last line):
      sharded paged attention at serve's decode shape, bf16 and int8
      pools: each shard's output bit-equal to the tp=1 kernel's head
      slice, tp launches a call, the time beside tp=1's;
+     kernel.seq_sharded: kernels 1-3 on Ulysses' head shards (B=2
+     S=2048, 16 q / 4 KV heads of 128 a shard at sp=2): O, LSE, dQ, dK
+     and dV of each shard against the unsharded call's head slice (bit
+     equality, else the flash tolerance of the plain version with the
+     reason), one wgmma launch of each kernel a shard, times beside the
+     unsharded call's and SDPA's on the same shard;
   4. serve: ContinuousBatcher on Llama-3-8B at full width and depth
      (random weights from a seed), kv_layout="paged", greedy-serving 12
      requests; every request must finish, both attention kernels must
@@ -218,8 +224,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      them, and the first
      microbatch's loss and gradients must match the same model with
      plain attention;
-  21. train.ckpt: the train workload with fused_ce=True through flash
-     checkpoint: fused against unfused loss and gradients on one
+  21. train.ckpt: the train workload, cut to 1 layer, with
+     fused_ce=True through flash checkpoint: fused against unfused loss and gradients on one
      microbatch (each loss's time and peak memory); the snapshot
      buffers and the page-locked shm segment prepared, then 8 Trainer
      steps saving to memory every 2 steps and to disk at the end
@@ -230,8 +236,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      unlinked, bit-equal again: the losses of steps 9 and 10 must equal
      the uninterrupted run's bit for bit. The segment and the
      checkpoint directory are removed whatever happens;
-  21a. train.master: the train workload fed through the port's job
-     master in this process (LocalJobMaster over the stdlib transport,
+  21a. train.master: the train workload, cut to 1 layer, fed through
+     the port's job master in this process (LocalJobMaster over the stdlib transport,
      MasterClient, an ElasticDataset over IndexShardingClient reading
      {"tokens": row} samples of a seeded token array, batches into
      Trainer(master_client=...)): 8 steps, every index read exactly
@@ -245,8 +251,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      covers the epoch, only at-least-once repeats, step 5's loss
      against the uninterrupted run's; RPC round trips (p50 / p99),
      master start and restart seconds, median step against train's;
-  21b. train.agent: the train workload through the port's launcher in
-     a subprocess (`elastic_run.main` under an outside wrapper that
+  21b. train.agent: train.ckpt's workload (1 layer, fused_ce), through the
+     port's launcher in a subprocess (`elastic_run.main` under an outside wrapper that
      records the master, the spawns and the persists): the agent
      supervises a worker that runs init(), the train setup and a
      Trainer with memory saves every 2 steps; attempt 0 dies at the top
@@ -254,7 +260,7 @@ Phases, one line each (any failure exits non-zero before the last line):
      failure and respawns it, and attempt 1 resumes from the agent's
      shared memory and finishes: launcher exit 0, one failure, node
      SUCCEEDED, each attempt's exact flash launches (all wgmma), losses
-     within 1e-3 of train's, the resume from memory at the last step
+     within 1e-3 of train.ckpt's (bit equality reported), the resume from memory at the last step
      published before the crash, no nvcc in the worker, no CUDA context
      in the launcher, the node check's isolated bench healthy, and a
      script exiting 5 under --max-restarts 1 making the launcher exit
@@ -276,6 +282,20 @@ Phases, one line each (any failure exits non-zero before the last line):
      plain dequantize, the sums within JAX's tolerances (0.02 tree,
      0.15 ring),
      kernels 5 and 6 once a leaf or hop; step and collective times;
+  21d. train.sharded (also after kernel.seq_sharded: `--sharded`): run
+     by train.dp (b)'s two ranks in the same launch, before their
+     data=2 steps, which it is held to (the same 1-layer model, seed
+     and global batch 4 at 1 row a microbatch): MeshSpec(fsdp=2) for
+     3 steps (losses and grad_norm within rtol 1e-5 of data=2's, each
+     rank's params + moments half of data=2's, peak below), the
+     sharded flash checkpoint after its step 1 (each rank stages half
+     of data=2's bytes; steps 2 and 3 are the uninterrupted run),
+     Ulysses and ring over MeshSpec(seq=2) for 2 each while it persists
+     (losses and grad_norm within 1e-4 of data=2's; Ulysses' flash
+     launches exact at 16 heads, all wgmma; ring none); after (b)'s
+     world change rank 0 restores onto fsdp=1 from storage and steps
+     twice: losses within rtol 1e-5 of fsdp=2's steps 2 and 3; step
+     and collective seconds of each mode;
   22. train.int8_adam: the same workload from the same params and
      tokens with int8_adam (int8 block-quantized moments) in place of
      AdamW; the losses must be finite and fall, step 1's loss must
@@ -368,10 +388,18 @@ result line; `python3 chip_smoke.py --sched` the card, build, serve and
 serve.int8 phases and phases 5a and 19a, no result line;
 `python3 chip_smoke.py --master` the card, build, train and
 train.master phases, no result line;
-`python3 chip_smoke.py --agent` the card, build, train and
+`python3 chip_smoke.py --agent` the card, build, train, train.ckpt and
 train.agent phases, no result line;
 `python3 chip_smoke.py --dp` the card, build, train and train.dp
-phases, no result line;
+phases without train.sharded, no result line;
+`python3 chip_smoke.py --sharded` the card, build, kernel.seq_sharded,
+train and train.dp phases, train.sharded in train.dp (b)'s launch, no
+result line;
+`python3 chip_smoke.py --depth-ab` the card, build and train phases,
+kernel.seq_sharded, train.dp with and without train.sharded, then
+train.ckpt, train.master and train.agent at 4 layers and at their cut
+depth: the seconds the cuts free beside the new phases' (depth_ab), no
+result line;
 `python3 chip_smoke.py --rl` the card, build, train, train.lora and
 rl.ppo phases, no result line;
 `python3 chip_smoke.py --tp` the card, build, kernel.sharded, serve and
@@ -504,6 +532,11 @@ TP_LAYERS = 4      # serve.tp2.resize and serve.tp2.int8
 # decode), grow after step 3 (their replays 8 tokens further on)
 TP_RESIZE_AT = (2, 3)
 TRAIN_LAYERS = 4
+# the depth of the later training phases, cut from TRAIN_LAYERS to make
+# room for train.sharded (each keeps its checks; bytes follow the depth)
+CKPT_LAYERS = 1                   # train.ckpt
+MASTER_LAYERS = 1                 # train.master
+AGENT_LAYERS = CKPT_LAYERS        # train.agent: held to train.ckpt
 TRAIN_SEQ = 2048
 TRAIN_GLOBAL_BATCH = 4
 TRAIN_MICROBATCH = 2
@@ -2902,6 +2935,142 @@ def phase_kernel_sharded(gen):
     return flash_rows, paged_rows
 
 
+SEQ_SP = 2                        # kernel.seq_sharded, train.sharded
+SEQ_SHARD_CASE = (2, 2048)        # (B, S): the train phase's microbatch
+
+
+def phase_kernel_seq_sharded(gen):
+    """kernel.seq_sharded: kernels 1-3 where Ulysses runs them, on a head
+    shard at the full sequence (parallel/sequence.py; JAX
+    `ulysses_attention` :83 calls the flash attention on H/sp local
+    heads). Llama-3-8B's attention (32 q / 8 KV heads of 128, causal,
+    bf16) at B=2 S=2048 and sp=2: each shard's 16 q / 4 KV heads
+    through the forward kernel and both backward kernels, held to the
+    matching head slice of the unsharded call's O, LSE, dQ, dK and dV.
+    The kernels' grids run one (batch, head) at a time, so a shard is
+    expected bit-equal to its slice; where it is not, it must be within
+    the flash tolerances of the plain version, and the reason is
+    printed. Device times per shard call beside the unsharded call and
+    SDPA on the same shard."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    b, s = SEQ_SHARD_CASE
+    h, kv, d, sp = 32, 8, 128, SEQ_SP
+    hs, kvs = h // sp, kv // sp
+    scale = d ** -0.5
+
+    def rand(heads):
+        return torch.randn((b, s, heads, d), generator=gen,
+                           device="cuda").bfloat16()
+
+    q, k, v, do = rand(h), rand(kv), rand(kv), rand(h)
+    o, lse = fa._fwd(q, k, v, True, scale)
+    dq, dk, dv = fa._bwd(q, k, v, o, lse, do, True, scale)
+    full_ms = device_ms(lambda: fa._fwd(q, k, v, True, scale))
+    full_bwd_ms = device_ms(lambda: fa._bwd(q, k, v, o, lse, do, True,
+                                            scale))
+    rows = []
+    for i in range(sp):
+        hq, hk = slice(i * hs, (i + 1) * hs), slice(i * kvs, (i + 1) * kvs)
+        qi, doi = q[:, :, hq].contiguous(), do[:, :, hq].contiguous()
+        ki, vi = k[:, :, hk].contiguous(), v[:, :, hk].contiguous()
+        if (fa._fwd_variant(b, s, s, hs, kvs, d, True) != "wgmma"
+                or fa._bwd_variant(b, s, s, hs, kvs, d, True) != "wgmma"):
+            raise AssertionError("kernel.seq_sharded: a head shard leaves "
+                                 "the wgmma variants")
+        before = _build.launch_counts()
+        oi, lsei = fa._fwd(qi, ki, vi, True, scale)
+        dqi, dki, dvi = fa._bwd(qi, ki, vi, oi, lsei, doi, True, scale)
+        after = _build.launch_counts()
+        torch.cuda.synchronize()
+        pairs = {"o": (oi, o[:, :, hq]), "lse": (lsei, lse[:, hq]),
+                 "dq": (dqi, dq[:, :, hq]), "dk": (dki, dk[:, :, hk]),
+                 "dv": (dvi, dv[:, :, hk])}
+        bit_equal = {n: bool(torch.equal(x, y)) for n, (x, y)
+                     in pairs.items()}
+        o_ref, lse_ref = fa._fwd_plain(qi, ki, vi, True, scale)
+        want = fa._bwd_plain(qi, ki, vi, o_ref, lse_ref, doi, True, scale)
+        errs = {"o": (oi.float() - o_ref.float()).abs().max().item()}
+        tols = {"o": FLASH_TOL}
+        for n, x, y in zip(("dq", "dk", "dv"), (dqi, dki, dvi), want):
+            errs[n] = (x.float() - y.float()).abs().max().item()
+            tols[n] = BWD_REL_TOL * y.float().abs().max().item()
+        launched = {n: _launched(before, after, n) for n in (
+            "flash_fwd", "flash_fwd_wgmma", "flash_bwd_dq",
+            "flash_bwd_dq_wgmma", "flash_bwd_dkv", "flash_bwd_dkv_wgmma")}
+        checks = {
+            "one wgmma launch of each kernel":
+                all(v == 1 for v in launched.values()),
+            "each output bit-equal to the unsharded slice, or within "
+            "the flash tolerance of the plain version": all(
+                bit_equal[n] or (n in errs and errs[n] <= tols[n])
+                for n in pairs),
+            "finite": all(torch.isfinite(x).all() for x, _ in
+                          pairs.values()),
+        }
+        fwd_flops = 2.0 * b * hs * d * s * (s + 1)
+        qo_bytes, kv_bytes = 2 * b * s * hs * d, 2 * b * s * kvs * d
+        row_bytes = 4 * b * hs * s
+        bms, by = bound_ms(fwd_flops, 2 * qo_bytes + 2 * kv_bytes
+                           + row_bytes)
+        bwd_bms, bwd_by = bound_ms(2.5 * fwd_flops, 4 * qo_bytes
+                                   + 4 * kv_bytes + 2 * row_bytes)
+        dq_bms, dq_by = bound_ms(1.5 * fwd_flops, 3 * qo_bytes
+                                 + 2 * kv_bytes + 2 * row_bytes)
+        dkv_bms, dkv_by = bound_ms(2.0 * fwd_flops, 2 * qo_bytes
+                                   + 4 * kv_bytes + 2 * row_bytes)
+        delta = fa._delta(oi, doi)
+        lib_g = doi.transpose(1, 2)
+
+        def leaves():
+            return [x.transpose(1, 2).detach().requires_grad_()
+                    for x in (qi, ki, vi)]
+
+        def lib_fwd(qkv=None):
+            return F.scaled_dot_product_attention(
+                *(qkv or leaves()), is_causal=True, enable_gqa=True)
+
+        def lib_fwd_bwd():
+            qkv = leaves()
+            return torch.autograd.grad(lib_fwd(qkv), qkv, lib_g)
+
+        lib_fwd_ms = device_ms(lib_fwd)
+        row = dict(
+            shard=i, sp=sp, B=b, S=s, H=hs, KV=kvs, D=d,
+            launches=launched, bit_equal=bit_equal,
+            max_abs_err=max(errs.values()), errs=errs, tols=tols,
+            tol_reason=None if all(bit_equal.values()) else (
+                "a shard's launch covers fewer heads than the unsharded "
+                "one; " + BWD_TOL_REASON),
+            ms=device_ms(lambda: fa._fwd(qi, ki, vi, True, scale)),
+            unsharded_ms=full_ms,
+            dq_ms=device_ms(lambda: fa._bwd_dq_cuda(
+                qi, ki, vi, doi, lsei, delta, True, scale, "wgmma")),
+            dkv_ms=device_ms(lambda: fa._bwd_dkv_cuda(
+                qi, ki, vi, doi, lsei, delta, True, scale, "wgmma")),
+            bwd_ms=device_ms(lambda: fa._bwd(qi, ki, vi, oi, lsei, doi,
+                                             True, scale)),
+            unsharded_bwd_ms=full_bwd_ms,
+            plain_ms=time_ms(lambda: fa._fwd_plain(qi, ki, vi, True,
+                                                   scale), 3),
+            plain_bwd_ms=time_ms(lambda: fa._bwd_plain(
+                qi, ki, vi, o_ref, lse_ref, doi, True, scale), 3),
+            library_ms=lib_fwd_ms,
+            library_bwd_ms=device_ms(lib_fwd_bwd) - lib_fwd_ms,
+            bound_ms=bms, bound_by=by, bwd_bound_ms=bwd_bms,
+            bwd_bound_by=bwd_by, dq_bound_ms=dq_bms, dq_bound_by=dq_by,
+            dkv_bound_ms=dkv_bms, dkv_bound_by=dkv_by)
+        log("kernel.seq_sharded", **row)
+        _raise_failed(f"kernel.seq_sharded shard {i}", checks)
+        rows.append(row)
+        del qi, ki, vi, doi, oi, lsei, dqi, dki, dvi, o_ref, want
+    del q, k, v, do, o, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _first_layers(cfg, params, n):
     """The model cut to its first `n` layers: views of the stacked
     weights, no copy."""
@@ -4406,7 +4575,8 @@ def _smoke_out():
 
 
 def _train_setup(optimizer, fused_ce=False, n_layers=TRAIN_LAYERS,
-                 microbatch=TRAIN_MICROBATCH, lora_cfg=None):
+                 microbatch=TRAIN_MICROBATCH, lora_cfg=None, mesh_spec=None,
+                 seq_parallel="none"):
     """The train phases' model, ElasticTrainer over `optimizer` (a
     factory), batch and the generator to draw the params from next:
     every phase draws the tokens and then the params from one fixed
@@ -4415,7 +4585,8 @@ def _train_setup(optimizer, fused_ce=False, n_layers=TRAIN_LAYERS,
     `microbatch`; with a `lora_cfg` the adapters are injected after the
     base is drawn, from the same generator, so the base is train's).
     The ElasticTrainer trains over the world this process joined, if
-    any. The Trainer's step and card metrics files are pointed into
+    any (over `mesh_spec`'s layout of it, with llama's partition rules,
+    where one is given). The Trainer's step and card metrics files are pointed into
     smoke_out/ beside this script."""
     import os
 
@@ -4427,7 +4598,8 @@ def _train_setup(optimizer, fused_ce=False, n_layers=TRAIN_LAYERS,
         out, "runtime_metrics.json")
     os.environ["DLROVER_TPU_CHIP_METRICS_PATH"] = os.path.join(
         out, "chip_metrics.json")
-    cfg = llama.LlamaConfig.llama3_8b(n_layers=n_layers, fused_ce=fused_ce)
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=n_layers, fused_ce=fused_ce,
+                                      seq_parallel=seq_parallel)
     assert cfg.remat and cfg.remat_policy == "full"
     gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     tokens = torch.randint(0, cfg.vocab_size,
@@ -4448,6 +4620,8 @@ def _train_setup(optimizer, fused_ce=False, n_layers=TRAIN_LAYERS,
         optimizer,
         global_batch_size=TRAIN_GLOBAL_BATCH,
         max_per_replica_batch=microbatch,
+        mesh_spec=mesh_spec,
+        rules=None if mesh_spec is None else llama.partition_rules(cfg),
     )
     return cfg, et, tokens, gen
 
@@ -5249,7 +5423,8 @@ def phase_train_ckpt(train):
     saver.start()
     checkpointers = []
     try:
-        cfg, et, tokens, gen = _train_setup(_adamw, fused_ce=True)
+        cfg, et, tokens, gen = _train_setup(_adamw, fused_ce=True,
+                                            n_layers=CKPT_LAYERS)
         state = et.init_state(gen)
         fused = _fused_vs_unfused(
             cfg, state["params"], {"tokens": tokens[:TRAIN_MICROBATCH]})
@@ -5287,7 +5462,8 @@ def phase_train_ckpt(train):
         torch.cuda.empty_cache()
 
         # (3) restore into a fresh trainer, (4) continue
-        _, et2, _, _ = _train_setup(_adamw, fused_ce=True)
+        _, et2, _, _ = _train_setup(_adamw, fused_ce=True,
+                                    n_layers=CKPT_LAYERS)
         state2 = et2.init_state(
             torch.Generator(device="cuda").manual_seed(CKPT_RESTORE_SEED))
         if not _bit_mismatch(state2, ref):
@@ -5363,7 +5539,8 @@ def phase_train_ckpt(train):
             persist_s=persist_s, staged_bytes=staged_bytes,
             staged_gb=staged_bytes / 2**30, pinned=pinned,
             shm_dir=shm, shm_capacity_bytes=shm_du.total,
-            shm_free_bytes=shm_du.free, depth_cut="none",
+            shm_free_bytes=shm_du.free,
+            depth_cut=f"{TRAIN_LAYERS} -> {CKPT_LAYERS} layers",
             checkpoint_dir=root, restore=rec.out,
             uninterrupted_losses_9_10=on_losses,
             resumed_losses_9_10=rec.losses,
@@ -5506,7 +5683,7 @@ def phase_train_master(train, smi):
             self.losses.append(logs["loss"])
 
     def check_launches(what, launches, steps, grad_accum):
-        per_pass = TRAIN_LAYERS * grad_accum * steps
+        per_pass = MASTER_LAYERS * grad_accum * steps
         want = dict(flash_fwd=2 * per_pass, flash_bwd_dq=per_pass,
                     flash_bwd_dkv=per_pass)
         if any(launches[k] != v for k, v in want.items()):
@@ -5545,7 +5722,7 @@ def phase_train_master(train, smi):
         saver = AsyncCheckpointSaver(job_name=job, master_client=client)
         saver.start()
         rows = _master_rows(
-            llama.LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS))
+            llama.LlamaConfig.llama3_8b(n_layers=MASTER_LAYERS))
         n = len(rows)
 
         def dataset(name, reads):
@@ -5557,7 +5734,7 @@ def phase_train_master(train, smi):
                                   master_client=client)
 
         # (1) the uninterrupted run
-        cfg, et, _, gen = _train_setup(_adamw)
+        cfg, et, _, gen = _train_setup(_adamw, n_layers=MASTER_LAYERS)
         state = et.init_state(gen)
         state_params = sum(t.numel() for t in tree_leaves(state["params"]))
         reads_u, rec_u = [], Record()
@@ -5595,7 +5772,7 @@ def phase_train_master(train, smi):
         # (2) the interrupted run: MASTER_RESUME_AT steps on a new master
         m1, _ = start_master()
         client.register_node(rank=0)
-        cfg, et, _, gen = _train_setup(_adamw)
+        cfg, et, _, gen = _train_setup(_adamw, n_layers=MASTER_LAYERS)
         state = et.init_state(gen)
         ck = Checkpointer(ckpt_dir, job_name=job)
         closers.append(ck)
@@ -5640,7 +5817,7 @@ def phase_train_master(train, smi):
         if new_session == session:
             raise AssertionError("train.master: no session change")
         client.register_node(rank=0)
-        cfg, et, _, _ = _train_setup(_adamw)
+        cfg, et, _, _ = _train_setup(_adamw, n_layers=MASTER_LAYERS)
         state = et.init_state(
             torch.Generator(device="cuda").manual_seed(CKPT_RESTORE_SEED))
         rec_r2 = Record()
@@ -5820,7 +5997,8 @@ from dlrover_tpu_torch.trainer.trainer import (
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 t0 = time.time()
-cfg, et, tokens, gen = cs._train_setup(cs._adamw)
+cfg, et, tokens, gen = cs._train_setup(
+    cs._adamw, fused_ce=True, n_layers=int(os.environ["AGENT_SMOKE_LAYERS"]))
 state = et.init_state(gen)
 torch.cuda.synchronize()
 event("model", grad_accum=et.grad_accum, n_layers=cfg.n_layers,
@@ -6001,15 +6179,16 @@ def _tail(path, n=4000):
         return ""
 
 
-def phase_train_agent(train, smi):
+def phase_train_agent(train, smi, ckpt):
     """The train workload through the launcher a user runs, `python -m
     dlrover_tpu_torch.trainer.elastic_run --nnodes 1 --max-restarts 2
     --log-dir <out>/agent_logs <worker>`, in a subprocess of this
     script: node 0 finds no master and starts the port's
     DistributedJobMaster, the agent rendezvouses and spawns the worker,
     which runs `dlrover_tpu_torch.init()` (the membership watch), builds
-    the train phase's setup (same seed, model, tokens and AdamW) and
-    drives Trainer(master_client=MasterClient.singleton()) for
+    train.ckpt's setup (the train phase's seed, tokens and AdamW,
+    fused_ce=True, the model cut to AGENT_LAYERS = CKPT_LAYERS) and drives
+    Trainer(master_client=MasterClient.singleton()) for
     TRAIN_STEPS steps with memory saves every CKPT_SAVE_STEPS. Attempt 0
     dies with os._exit(17) at the top of step AGENT_CRASH_STEP, right
     after a save dispatched its staging; the agent persists the last
@@ -6018,8 +6197,9 @@ def phase_train_agent(train, smi):
     finishes. Checks: the launcher exits 0 after two attempts
     (RESTART_COUNT 0 and 1), one failure at the master, node SUCCEEDED;
     each attempt's flash launches by the train formula for the steps it
-    ran, all wgmma; every loss within TRAIN_LOSS_REL_TOL of train's at
-    the same step (bit equality reported), falling; the resume from
+    ran, all wgmma; every loss within TRAIN_LOSS_REL_TOL of train.ckpt's
+    uninterrupted run at the same step (the same model, seed and tokens
+    in one process: bit equality reported), falling; the resume from
     memory at the last step published before the crash; the kernel
     libraries found built (no nvcc in the worker); the launcher made no
     CUDA context; the node check's isolated bench healthy on the card;
@@ -6049,10 +6229,15 @@ def phase_train_agent(train, smi):
     env.update(
         PYTHONPATH=repo + (os.pathsep + pp if pp else ""),
         AGENT_SMOKE_OUT=root, AGENT_SMOKE_CRASH_STEP=str(AGENT_CRASH_STEP),
+        AGENT_SMOKE_LAYERS=str(AGENT_LAYERS),
         DLROVER_TPU_RUNTIME_METRICS_PATH=os.path.join(
             root, "runtime_metrics.json"),
         DLROVER_TPU_CHIP_METRICS_PATH=os.path.join(root, "chip_metrics.json"))
     logs = os.path.join(root, "agent_logs")
+    if AGENT_LAYERS != CKPT_LAYERS:
+        raise ValueError("train.agent is held to train.ckpt's losses: "
+                         "AGENT_LAYERS must equal CKPT_LAYERS")
+    ref = ckpt["losses"]
     try:
         t0 = time.perf_counter()
         healthy, bench_s = run_bench_isolated()
@@ -6099,7 +6284,7 @@ def phase_train_agent(train, smi):
         launches = {0: crash["launches"], 1: trained["launches"]}
         grad_accum = one(0, "model")["grad_accum"]
         for a in (0, 1):
-            per_pass = TRAIN_LAYERS * grad_accum * ran[a]
+            per_pass = AGENT_LAYERS * grad_accum * ran[a]
             want = dict(flash_fwd=2 * per_pass, flash_bwd_dq=per_pass,
                         flash_bwd_dkv=per_pass)
             if any(launches[a][k] != v for k, v in want.items()):
@@ -6109,7 +6294,6 @@ def phase_train_agent(train, smi):
                          ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
         losses = {a: {e["step"]: e["loss"] for e in of(a, "loss")}
                   for a in (0, 1)}
-        ref = train["losses"]
         loss_err = {f"{a}:{s}": abs(v - ref[s - 1]) / abs(ref[s - 1])
                     for a in (0, 1) for s, v in losses[a].items()}
         every = [losses[0][s] for s in sorted(losses[0])] + [
@@ -6181,9 +6365,10 @@ def phase_train_agent(train, smi):
             launches={k: launches[0][k] + launches[1][k]
                       for k in launches[0]},
             losses={str(a): losses[a] for a in (0, 1)},
-            train_losses=ref, loss_rel_err=loss_err,
+            reference_losses=ref,
+            loss_rel_err=loss_err,
             loss_rel_tol=TRAIN_LOSS_REL_TOL,
-            bit_equal_to_train=all(e == 0.0 for e in loss_err.values()),
+            bit_equal_to_reference=all(e == 0.0 for e in loss_err.values()),
             time_to_recover=recover, step_time=steps,
             prepare_s=[e["seconds"] for e in events
                        if e["event"] == "prepare"],
@@ -6291,20 +6476,22 @@ def same_on_both(cs_t):
 
 
 def steps(et, state, tokens, n, tag):
-    losses, times, equal = [], [], []
+    losses, norms, times, equal, peaks = [], [], [], [], []
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     for _ in range(n):
         t0 = time.perf_counter()
         state, m = et.step(state, {"tokens": tokens})
         losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
         torch.cuda.current_stream().synchronize()
         times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         if WORLD > 1:
             equal.append(same_on_both(checksums(state)))
-    event(tag, losses=losses, step_s=times, bit_equal=equal,
-          launches=_build.launch_counts(), grad_accum=et.grad_accum,
-          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    event(tag, losses=losses, grad_norms=norms, step_s=times,
+          bit_equal=equal, launches=_build.launch_counts(),
+          grad_accum=et.grad_accum, peaks=peaks, peak_mem_gb=peaks[-1])
     return state
 
 
@@ -6316,6 +6503,10 @@ if MODE == "a":
     dlrover_tpu_torch.shutdown()
     sys.exit(0)
 
+SHARDED = os.environ.get("DP_SMOKE_SHARDED") == "1"
+if SHARDED:
+    # train.sharded (a)-(c) on this world, before its data=2 reference
+    cs._sharded_modes(event, OUT, os.environ["DP_SMOKE_SJOB"])
 cfg, et, tokens, gen = cs._train_setup(cs._adamw, n_layers=cs.DP_LAYERS,
                                        microbatch=cs.DP_MICROBATCH)
 torch.cuda.reset_peak_memory_stats()
@@ -6323,6 +6514,8 @@ state = et.init_state(gen)
 event("model", grad_accum=et.grad_accum, replicas=et.plan["num_replicas"],
       init_equal=same_on_both(checksums(state)))
 state = steps(et, state, tokens, cs.DP_STEPS, "world2")
+event("world2_bytes", stored_bytes=cs._stored_bytes(state),
+      staged_bytes=cs._staged_bytes(state))
 
 # (c): the compressed collectives on this rank's gradient-sized tensor
 def contribution(rank):
@@ -6419,6 +6612,10 @@ event("world_change", world=WORLD, backend=dist.get_backend(),
       params_equal=bool(torch.equal(before, checksums(state))),
       seconds=time.perf_counter() - t0)
 state = steps(et, state, tokens, cs.DP_MORE_STEPS, "world1")
+if SHARDED:
+    # train.sharded (d): the sharded checkpoint onto fsdp=1, alone
+    del state, et
+    cs._sharded_restore(event, OUT, os.environ["DP_SMOKE_SJOB"])
 dlrover_tpu_torch.shutdown()
 '''
 
@@ -6498,7 +6695,7 @@ def _dp_reference(n_steps):
     return losses, grad_accum
 
 
-def phase_train_dp(train, smi):
+def phase_train_dp(train, smi, sharded=True):
     """Data-parallel training through the launcher a user runs (`python
     -m dlrover_tpu_torch.trainer.elastic_run`, in subprocesses), every
     rank on kernels 1-3, and the compressed collectives on kernels 5
@@ -6540,6 +6737,11 @@ def phase_train_dp(train, smi):
     |value|), kernels 5 and 6 launched once a leaf (tree) and once a
     hop (ring) on each rank. Times reported.
 
+    With `sharded` (the default), (b)'s ranks first run train.sharded's
+    fsdp=2, Ulysses and ring modes, and rank 0 restores its sharded
+    checkpoint at the end (`_sharded_report`, its own log line and
+    checks; the result under "sharded").
+
     Launches are counted in the workers, set to 0 just before each
     driven path and read just after."""
     import os
@@ -6551,6 +6753,7 @@ def phase_train_dp(train, smi):
     t_phase = time.perf_counter()
     root = os.path.join(_smoke_out(), f"dp-{os.getpid()}")
     jobs = [f"chip-smoke-dp-{os.getpid()}-{x}" for x in ("a", "b0", "b1")]
+    sjob = f"chip-smoke-sharded-{os.getpid()}"
     os.makedirs(root, exist_ok=True)
     with open(os.path.join(root, "worker.py"), "w") as f:
         f.write(DP_WORKER)
@@ -6578,7 +6781,9 @@ def phase_train_dp(train, smi):
             "--nnodes", "2", "--node-id", str(n), "--max-restarts", "0",
             "--master-addr", f"127.0.0.1:{port}", "--job-name", jobs[1 + n],
             "--log-dir", os.path.join(root, f"logs_b{n}")], "b",
-            {"DLROVER_TPU_TORCH_DIST_BACKEND": "gloo"}) for n in (0, 1)]
+            {"DLROVER_TPU_TORCH_DIST_BACKEND": "gloo",
+             "DP_SMOKE_SHARDED": "1" if sharded else "0",
+             "DP_SMOKE_SJOB": sjob}) for n in (0, 1)]
         _dp_wait(procs, root, "(b)")
         b_wall = time.perf_counter() - t0
         eb = [_dp_events(root, "b", r) for r in (0, 1)]
@@ -6684,13 +6889,423 @@ def phase_train_dp(train, smi):
             raise AssertionError(
                 f"train.dp: failed checks "
                 f"{[c for c, ok in checks.items() if not ok]}")
+        if sharded:
+            out["sharded"] = sh = _sharded_report(eb, smi)
+            if not all(sh["checks"].values()):
+                raise AssertionError(
+                    f"train.sharded: failed checks "
+                    f"{[c for c, ok in sh['checks'].items() if not ok]}")
         return out
     finally:
-        for j in jobs:
+        for j in jobs + [f"{sjob}-0", f"{sjob}-1"]:
             for path in shm_segment_paths(j):
                 if os.path.exists(path):
                     os.unlink(path)
         shutil.rmtree(root, ignore_errors=True)
+
+
+# train.sharded: the sharded state and sequence parallelism, run by
+# train.dp (b)'s two gloo ranks in the same launch, before their own
+# data=2 steps, which are the reference: the same model (DP_LAYERS
+# layer), seed, tokens and global batch (TRAIN_GLOBAL_BATCH rows, at
+# most DP_MICROBATCH a microbatch)
+SH_STEPS = 3                      # (a) fsdp=2 steps, held to data=2's
+SH_SAVE_AT = 1                    # (d) fsdp=2 saves after this step
+SH_MORE_STEPS = SH_STEPS - SH_SAVE_AT  # (d) fsdp=2's after the save
+SH_SP_STEPS = 2                   # (b) Ulysses, (c) ring
+SH_RESTORE_SEED = TRAIN_SEED + 11  # (d) the fresh state restored into
+SH_EXACT_RTOL = 1e-5              # fsdp against data; the restore
+# Ulysses and ring against data=2, loss and grad_norm: bf16 attention
+# summed in another order (flash on H/2 heads, the ring's chunks); the
+# card's readings are at most 2.3e-5 (NVIDIA H100 80GB HBM3, 700 W)
+SH_SP_RTOL = 1e-4
+SH_MEM_RTOL = 1e-3                # stored bytes: half of data=2's
+_SH_COLL = {}                     # a step's collective seconds by call
+
+
+def _stored_bytes(state):
+    """Bytes of the params and the optimizer's moments this rank holds."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        state_leaves,
+    )
+
+    ts = list(state_leaves(state["params"]).values())
+    ts += [v for p in state["opt_state"].state.values() for v in p.values()
+           if torch.is_tensor(v) and v.dim() > 0]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _staged_bytes(state):
+    """Bytes a flash checkpoint of `state` stages on this rank."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        state_leaves,
+    )
+
+    return sum(t.numel() * t.element_size()
+               for t in state_leaves(state).values())
+
+
+@contextlib.contextmanager
+def _timed_collectives():
+    """Sum each collective's host seconds into _SH_COLL by call (gloo
+    blocks until the payload is through) while inside."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch import runtime
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            _SH_COLL[name] = _SH_COLL.get(name, 0.0) + (
+                time.perf_counter() - t0)
+            return out
+        return call
+
+    saved = [(runtime, n, getattr(runtime, n)) for n in (
+        "all_gather_dim", "reduce_scatter_dim", "all_to_all_dim0",
+        "ring_shift")]
+    saved += [(dist, n, getattr(dist, n)) for n in ("all_reduce",
+                                                    "broadcast")]
+    for mod, n, fn in saved:
+        setattr(mod, n, timed(n, fn))
+    try:
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def _sharded_steps(et, state, tokens, n, save=None):
+    """n steps; `save(state)` before step SH_SAVE_AT + 1 where given.
+    peaks: the peak memory so far after each step."""
+    out = dict(losses=[], grad_norms=[], step_s=[], coll_s=[], peaks=[])
+    for i in range(n):
+        if save is not None and i == SH_SAVE_AT:
+            save(state)
+        _SH_COLL.clear()
+        t0 = time.perf_counter()
+        state, m = et.step(state, {"tokens": tokens})
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        torch.cuda.current_stream().synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["coll_s"].append(dict(_SH_COLL))
+        out["peaks"].append(torch.cuda.max_memory_allocated() / 2**30)
+    return state, out
+
+
+def _sharded_run(event, tag, spec, sp, n, save=None):
+    """A fresh ElasticTrainer over `spec` (the model at train.dp (b)'s
+    setup, llama's partition rules, seq_parallel `sp`), n steps; the
+    event `tag` with what they showed."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        state_leaves,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, et, tokens, gen = _train_setup(_adamw, n_layers=DP_LAYERS,
+                                      microbatch=DP_MICROBATCH,
+                                      mesh_spec=spec, seq_parallel=sp)
+    state = et.init_state(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    with _timed_collectives():
+        state, out = _sharded_steps(et, state, tokens, n, save)
+    out.update(init_s=init_s, launches=_build.launch_counts(),
+               grad_accum=et.grad_accum,
+               # the peak before a save allocates its snapshot on the card
+               peak_mem_gb=out["peaks"][SH_SAVE_AT - 1],
+               stored_bytes=_stored_bytes(state),
+               staged_bytes=_staged_bytes(state),
+               pieces={p: list(t.shape) for p, t in
+                       state_leaves(state["params"]).items()})
+    event(tag, **out)
+    return et, state, tokens
+
+
+def _sharded_modes(event, out_dir, job):
+    """train.sharded (a)-(c) on this rank of train.dp (b)'s world of
+    two: fsdp=2 (saving the sharded flash checkpoint after step
+    SH_SAVE_AT), then Ulysses and ring over seq=2 while the save
+    persists; the engine closed (its snapshot freed) before the caller's
+    data=2 run."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel.mesh import MeshSpec
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        CheckpointEngine,
+    )
+
+    rank = dist.get_rank()
+    event("sh_begin")
+    eng = CheckpointEngine(os.path.join(out_dir, "sharded_ckpt"),
+                           job_name=f"{job}-{rank}", node_rank=rank,
+                           num_nodes=2)
+    saved = {}
+
+    def save(state):
+        saved["t0"] = t0 = time.perf_counter()
+        saved["blocked_s"] = eng.save_to_storage(SH_SAVE_AT, state)
+        eng.wait_for_staging()
+        saved["staging_s"] = time.perf_counter() - t0
+
+    try:
+        et, state, _ = _sharded_run(event, "fsdp2", MeshSpec(fsdp=2),
+                                    "none", SH_STEPS, save)
+        del et, state
+        for sp in ("ulysses", "ring"):
+            et, state, _ = _sharded_run(event, sp, MeshSpec(seq=2), sp,
+                                        SH_SP_STEPS)
+            del et, state
+        persisted = eng.wait_for_persist(SH_SAVE_AT, timeout=600)
+        event("fsdp2_save", blocked_s=saved["blocked_s"],
+              staging_s=saved["staging_s"],
+              staged_bytes=eng.last_staged_bytes, persisted=persisted,
+              persisted_by_s=time.perf_counter() - saved["t0"])
+    finally:
+        eng.close()
+    torch.cuda.empty_cache()
+    event("sh_end")
+
+
+def _sharded_restore(event, out_dir, job):
+    """train.sharded (d) on rank 0, alone in its world of one after
+    train.dp (b)'s world change: a fresh state over fsdp=1 from another
+    seed, the sharded checkpoint loaded onto it (storage: both ranks'
+    files stitched), SH_MORE_STEPS steps."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.parallel.mesh import MeshSpec
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        CheckpointEngine,
+    )
+
+    event("sh_restore_begin")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, et, tokens, _ = _train_setup(_adamw, n_layers=DP_LAYERS,
+                                    microbatch=DP_MICROBATCH,
+                                    mesh_spec=MeshSpec(fsdp=1))
+    state = et.init_state(torch.Generator(device="cuda").manual_seed(
+        SH_RESTORE_SEED))
+    eng = CheckpointEngine(os.path.join(out_dir, "sharded_ckpt"),
+                           job_name=f"{job}-0", node_rank=0)
+    try:
+        t0 = time.perf_counter()
+        step, state = eng.load(target=state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        source = eng.last_load_source
+    finally:
+        eng.close()
+    _build.reset_launch_counts()
+    state, out = _sharded_steps(et, state, tokens, SH_MORE_STEPS)
+    out.update(step=step, source=source, load_s=load_s,
+               launches=_build.launch_counts(), grad_accum=et.grad_accum,
+               world=dist.get_world_size(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    event("restored", **out)
+    event("sh_restore_end")
+
+
+def _sharded_report(eb, smi):
+    """train.sharded's checks and figures from train.dp (b)'s events
+    (`eb`, by rank): the sharded state and sequence parallelism over a
+    world of two processes on the card (gloo: NCCL refuses two ranks on
+    one card), at Llama-3-8B width and DP_LAYERS layer, f32 params,
+    bf16 compute, remat "full", held to the same launch's data=2 steps.
+
+    (a) MeshSpec(fsdp=2) (each rank stores half of each split leaf and
+    of its moments, gathers a layer at a time in each microbatch,
+    reduce-scatters its gradient) for SH_STEPS steps: every step's loss
+    and grad_norm within rtol 1e-5 of data=2's; each rank's params +
+    moments half of data=2's (within 0.1%); peak memory up to step
+    SH_SAVE_AT below data=2's at that step. (b) MeshSpec(seq=2) with
+    seq_parallel="ulysses" and (c) "ring", SH_SP_STEPS each: every
+    step's loss and grad_norm within SH_SP_RTOL of data=2's; Ulysses'
+    flash launches exact (each rank: 2 forward (one the remat
+    recompute) and one of each backward kernel a layer and
+    microbatch), every one on its wgmma variant at 16 heads; ring
+    launches none. (d) fsdp=2 saves the sharded flash checkpoint after
+    step SH_SAVE_AT (each rank stages its pieces: half of data=2's
+    bytes), so its later steps are the uninterrupted run; both ranks
+    persist while (b) and (c) run; after train.dp (b)'s world change,
+    rank 0 loads the checkpoint onto fsdp=1 into a fresh state and
+    steps SH_MORE_STEPS times: losses within rtol 1e-5 of fsdp=2's
+    after the save. Reported: each mode's step seconds and collective
+    seconds by call (gloo through the host: they measure the harness,
+    not the card), init seconds, peak memory, staging seconds, and the
+    host seconds the sharded work added to the launch. Launches are
+    counted in the workers, set to 0 just before each driven run and
+    read just after."""
+    data, fsdp = [e["world2"] for e in eb], [e["fsdp2"] for e in eb]
+    uly, ring = [e["ulysses"] for e in eb], [e["ring"] for e in eb]
+    save = [e["fsdp2_save"] for e in eb]
+    data_bytes = [e["world2_bytes"] for e in eb]
+    rest = eb[0]["restored"]
+    ref, ref_norm = data[0]["losses"], data[0]["grad_norms"]
+
+    def rel(xs, ys):
+        return [abs(x - y) / abs(y) for x, y in zip(xs, ys)]
+
+    fsdp_err = rel(fsdp[0]["losses"], ref)
+    norm_err = rel(fsdp[0]["grad_norms"], ref_norm)
+    sp_err = {m: dict(loss=rel(r[0]["losses"], ref),
+                      grad_norm=rel(r[0]["grad_norms"], ref_norm))
+              for m, r in (("ulysses", uly), ("ring", ring))}
+    cont = fsdp[0]["losses"][SH_SAVE_AT:]
+    rest_err = rel(rest["losses"], cont)
+    per = DP_LAYERS * uly[0]["grad_accum"] * SH_SP_STEPS
+    want_uly = dict(flash_fwd=2 * per, flash_bwd_dq=per, flash_bwd_dkv=per)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def wgmma_all(launches):
+        return all(launches.get(f"{k}_wgmma", 0) == launches.get(k, 0)
+                   for k in names)
+
+    def half(x, y):
+        return abs(x / y - 0.5) <= 0.5 * SH_MEM_RTOL
+
+    checks = dict(
+        fsdp_losses_rtol_1e5=len(fsdp_err) == SH_STEPS
+        and max(fsdp_err) <= SH_EXACT_RTOL,
+        fsdp_grad_norm_rtol_1e5=len(norm_err) == SH_STEPS
+        and max(norm_err) <= SH_EXACT_RTOL,
+        ranks_same_losses=all(r[0]["losses"] == r[1]["losses"]
+                              for r in (fsdp, uly, ring)),
+        fsdp_stores_half=all(half(f["stored_bytes"], d["stored_bytes"])
+                             for f, d in zip(fsdp, data_bytes)),
+        fsdp_peak_below_data=all(
+            f["peak_mem_gb"] < d["peaks"][SH_SAVE_AT - 1]
+            for f, d in zip(fsdp, data)),
+        ulysses_within_tol=all(len(e) == SH_SP_STEPS
+                               and max(e) <= SH_SP_RTOL
+                               for e in sp_err["ulysses"].values()),
+        ring_within_tol=all(len(e) == SH_SP_STEPS and max(e) <= SH_SP_RTOL
+                            for e in sp_err["ring"].values()),
+        ulysses_launches=all(
+            all(u["launches"].get(k, 0) == v for k, v in want_uly.items())
+            and wgmma_all(u["launches"]) for u in uly),
+        ring_no_flash=all(r["launches"].get("flash_fwd", 0) == 0
+                          for r in ring),
+        staged_half=all(half(sv["staged_bytes"], d["staged_bytes"])
+                        for sv, d in zip(save, data_bytes)),
+        persisted=all(sv["persisted"] for sv in save),
+        restore_from_storage=rest["source"] == "storage"
+        and rest["step"] == SH_SAVE_AT and rest["world"] == 1,
+        restore_losses_rtol_1e5=len(rest["losses"]) == SH_MORE_STEPS
+        and max(rest_err) <= SH_EXACT_RTOL,
+        all_wgmma=all(wgmma_all(r[i]["launches"]) for r in (fsdp, uly)
+                      for i in (0, 1)) and wgmma_all(rest["launches"]),
+    )
+
+    def mode(runs):
+        return dict(losses=runs[0]["losses"],
+                    grad_norms=runs[0]["grad_norms"],
+                    step_s=[r["step_s"] for r in runs],
+                    coll_s=[r.get("coll_s") for r in runs],
+                    init_s=[r.get("init_s") for r in runs],
+                    peaks_by_step=[r["peaks"] for r in runs],
+                    grad_accum=runs[0]["grad_accum"],
+                    launches=[r["launches"] for r in runs])
+
+    sharded_s = [e["sh_end"]["t"] - e["sh_begin"]["t"] for e in eb]
+    restore_s = (eb[0]["sh_restore_end"]["t"]
+                 - eb[0]["sh_restore_begin"]["t"])
+    out = dict(
+        nvidia_smi=smi, layers=DP_LAYERS, global_batch=TRAIN_GLOBAL_BATCH,
+        seq=TRAIN_SEQ, data2=mode(data), fsdp2=mode(fsdp),
+        ulysses=mode(uly), ring=mode(ring),
+        stored_gb=dict(data2=[d["stored_bytes"] / 2**30 for d in data_bytes],
+                       fsdp2=[f["stored_bytes"] / 2**30 for f in fsdp]),
+        peak_mem_gb=dict(data2=[d["peaks"][SH_SAVE_AT - 1] for d in data],
+                         fsdp2=[f["peak_mem_gb"] for f in fsdp]),
+        staged_gb=dict(data2=[d["staged_bytes"] / 2**30
+                              for d in data_bytes],
+                       fsdp2=[sv["staged_bytes"] / 2**30 for sv in save]),
+        fsdp_loss_rel_err=fsdp_err, fsdp_grad_norm_rel_err=norm_err,
+        sp_rel_err=sp_err, sp_rel_tol=SH_SP_RTOL, save_at=SH_SAVE_AT,
+        save=[{k: v for k, v in sv.items() if k != "t"} for sv in save],
+        continuation=dict(losses=cont,
+                          step_s=fsdp[0]["step_s"][SH_SAVE_AT:]),
+        restore=dict(losses=rest["losses"], rel_err=rest_err,
+                     step=rest["step"], source=rest["source"],
+                     load_s=rest["load_s"], step_s=rest["step_s"],
+                     grad_accum=rest["grad_accum"],
+                     peak_mem_gb=rest["peak_mem_gb"]),
+        # host seconds the sharded work added to train.dp (b)'s launch
+        modes_s=sharded_s, restore_s=restore_s,
+        added_s=max(sharded_s) + restore_s,
+        checks=checks)
+    # every launch of the sharded runs, kernel by kernel
+    runs = [r for pair in (fsdp, uly, ring) for r in pair] + [rest]
+    out["launches"] = {k: sum(r["launches"].get(k, 0) for r in runs)
+                       for k in runs[0]["launches"]}
+    out["ulysses_launches"] = {k: sum(u["launches"].get(k, 0) for u in uly)
+                               for k in uly[0]["launches"]}
+    log("train.sharded", **out)
+    return out
+
+
+def phase_depth_ab(smi):
+    """depth_ab (`--depth-ab`): the seconds the depth cuts free and the
+    seconds the new phases take, in one run. After the train phase,
+    kernel.seq_sharded, and train.dp with and without train.sharded in
+    its launch; then train.ckpt, train.master and train.agent at
+    TRAIN_LAYERS (the depth before the cuts) and at their cut depth,
+    back to back. Each phase's seconds are the steps of `at_s` across
+    it; train.sharded's are the difference of the two train.dp runs.
+    Reported, with whether the freed seconds cover the new ones."""
+    global CKPT_LAYERS, MASTER_LAYERS, AGENT_LAYERS
+    cut = (CKPT_LAYERS, MASTER_LAYERS, AGENT_LAYERS)
+    train = phase_train()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dp, runs = {}, {}
+    t0 = time.perf_counter()
+    phase_kernel_seq_sharded(gen)
+    seq_s = time.perf_counter() - t0
+    # with first: a first launch's costs land on the new phase's side
+    for with_sharded in (True, False):
+        t0 = time.perf_counter()
+        runs[with_sharded] = phase_train_dp(train, smi, sharded=with_sharded)
+        dp[with_sharded] = time.perf_counter() - t0
+    secs = {}
+    try:
+        for name, layers in (("full", (TRAIN_LAYERS,) * 3), ("cut", cut)):
+            CKPT_LAYERS, MASTER_LAYERS, AGENT_LAYERS = layers
+            row = {}
+            t0 = time.perf_counter()
+            ckpt = phase_train_ckpt(train)
+            row["train.ckpt"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            phase_train_master(train, smi)
+            row["train.master"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            phase_train_agent(train, smi, ckpt)
+            row["train.agent"] = time.perf_counter() - t0
+            secs[name] = dict(layers=list(layers), seconds=row,
+                              total_s=sum(row.values()))
+    finally:
+        CKPT_LAYERS, MASTER_LAYERS, AGENT_LAYERS = cut
+    new = {"kernel.seq_sharded": seq_s,
+           "train.sharded": dp[True] - dp[False]}
+    freed = secs["full"]["total_s"] - secs["cut"]["total_s"]
+    out = dict(nvidia_smi=smi, depths=secs, freed_s=freed, new_s=new,
+               new_total_s=sum(new.values()),
+               train_dp_s=dict(without_sharded=dp[False],
+                               with_sharded=dp[True]),
+               sharded_added_s_in_workers=runs[True]["sharded"]["added_s"],
+               freed_covers_new=freed >= sum(new.values()))
+    log("depth_ab", **out)
+    return out
 
 
 # train.remat: (cfg.remat_policy, Strategy.remat) of each run; policy
@@ -7821,7 +8436,8 @@ def main():
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
     if "--agent" in args:
-        phase_train_agent(phase_train(), smi)
+        train = phase_train()
+        phase_train_agent(train, smi, phase_train_ckpt(train))
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
     if "--rl" in args:
@@ -7830,8 +8446,17 @@ def main():
         phase_rl_ppo(train)
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
-    if "--dp" in args:
+    if "--depth-ab" in args:
+        phase_depth_ab(smi)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
+        return 0
+    if "--sharded" in args:
+        phase_kernel_seq_sharded(gen)
         phase_train_dp(phase_train(), smi)
+        log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
+        return 0
+    if "--dp" in args:
+        phase_train_dp(phase_train(), smi, sharded=False)
         log("total", wall_s=time.perf_counter() - t_start, nvidia_smi=smi)
         return 0
     if "--fleet" in args:
@@ -7872,6 +8497,7 @@ def main():
     bwd_rows = phase_flash_bwd(gen)
     paged_rows = phase_paged(gen)
     sharded_flash_rows, sharded_paged_rows = phase_kernel_sharded(gen)
+    seq_rows = phase_kernel_seq_sharded(gen)
     quant_rows = phase_quant(gen)
     dequant_rows = phase_dequant(gen)
     phase_opt_int8()
@@ -7914,8 +8540,9 @@ def main():
     train = phase_train()
     ckpt = phase_train_ckpt(train)
     master_run = phase_train_master(train, smi)
-    agent_run = phase_train_agent(train, smi)
+    agent_run = phase_train_agent(train, smi, ckpt)
     dp_run = phase_train_dp(train, smi)
+    sharded_run = dp_run["sharded"]
     train_int8 = phase_train_int8(train)
     train_lora = phase_train_lora(train)
     rl_run = phase_rl_ppo(train)
@@ -7947,6 +8574,7 @@ def main():
                          master_run["launches_resume"]["flash_fwd"],
                      "train.agent": agent_run["launches"]["flash_fwd"],
                      "train.dp": dp_run["launches"]["flash_fwd"],
+                     "train.sharded": sharded_run["launches"]["flash_fwd"],
                      "train.int8_adam": train_int8["launches"]["flash_fwd"],
                      "train.lora": train_lora["launches"]["flash_fwd"],
                      "rl.ppo": rl_run["launches"]["flash_fwd"],
@@ -7959,6 +8587,7 @@ def main():
                               master_run["launches_resume"][name],
                           "train.agent": agent_run["launches"][name],
                           "train.dp": dp_run["launches"][name],
+                          "train.sharded": sharded_run["launches"][name],
                           "train.int8_adam": train_int8["launches"][name],
                           "train.lora": train_lora["launches"][name],
                           "rl.ppo": rl_run["launches"][name],
@@ -8019,6 +8648,22 @@ def main():
         # the comparison's, not a main path's)
         return [r for r in gate_rows if r["kernel"] == name]
 
+    uly = sharded_run["ulysses_launches"]
+
+    def seq_shard(name, ms, plain, lib, bound, by):
+        # the kernel on Ulysses' head shard (kernel.seq_sharded's shard
+        # 0; every shard in per_shard) and its launches at 16 heads in
+        # train.sharded's Ulysses steps, both ranks
+        r = seq_rows[0]
+        return dict(heads=r["H"], kv_heads=r["KV"], B=r["B"], S=r["S"],
+                    launches=uly[name], wgmma_launches=uly[f"{name}_wgmma"],
+                    ms=r[ms], unsharded_ms=r[
+                        "unsharded_ms" if name == "flash_fwd"
+                        else "unsharded_bwd_ms"],
+                    plain_ms=r[plain], library_ms=r[lib], bound_ms=r[bound],
+                    bound_by=r[by], bit_equal=r["bit_equal"],
+                    max_abs_err=r["max_abs_err"], per_shard=seq_rows)
+
     def family(name):
         # kernel.families' rows: the model families' shapes
         return [r for r in fam["rows"] if r["kernel"] == name]
@@ -8035,7 +8680,9 @@ def main():
                    "path's B=2 S=2048 in per_shape; mma_ms: the mma.sync "
                    "variant on the same inputs)",
              per_shape=flash_rows, jax_gate_shapes=gate("flash_fwd"),
-             family_shapes=family("flash_fwd")),
+             family_shapes=family("flash_fwd"),
+             seq_sharded=seq_shard("flash_fwd", "ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")),
         dict(name="flash_bwd_dq", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:276",
@@ -8051,7 +8698,10 @@ def main():
                    "backward; mma_ms: the mma.sync kernel on the same "
                    "inputs)",
              per_shape=bwd_rows, jax_gate_shapes=gate("flash_bwd_dq"),
-             family_shapes=family("flash_bwd")),
+             family_shapes=family("flash_bwd"),
+             seq_sharded=seq_shard("flash_bwd_dq", "dq_ms", "plain_bwd_ms",
+                                   "library_bwd_ms", "dq_bound_ms",
+                                   "dq_bound_by")),
         dict(name="flash_bwd_dkv", route="cuda",
              source="dlrover_tpu_torch/csrc/flash_bwd.cu",
              replaces="dlrover_tpu/ops/flash_attention.py:328",
@@ -8067,7 +8717,10 @@ def main():
                    "path's microbatch (plain_ms and library_ms: the whole "
                    "backward; mma_ms: the mma.sync kernel on the same "
                    "inputs)", jax_gate_shapes=gate("flash_bwd_dkv"),
-             family_shapes=family("flash_bwd")),
+             family_shapes=family("flash_bwd"),
+             seq_sharded=seq_shard("flash_bwd_dkv", "dkv_ms",
+                                   "plain_bwd_ms", "library_bwd_ms",
+                                   "dkv_bound_ms", "dkv_bound_by")),
         dict(name="paged_attention", route="cuda",
              source="dlrover_tpu_torch/csrc/paged_attention.cu",
              replaces="dlrover_tpu/ops/paged_attention.py:160",

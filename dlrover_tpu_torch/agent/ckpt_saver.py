@@ -123,7 +123,8 @@ def shm_segment_paths(job_name: str, node_rank: int = 0) -> List[str]:
 def _check_room(path: str, size: int):
     """Raise ShmCapacityError where the shm directory cannot hold a slot
     file of `size` bytes (the bytes the file holds already count as
-    room). The file is sparse, so without this check a host short of
+    room; a rank of sharded state stages its own pieces only, so `size`
+    is its share). The file is sparse, so without this check a host short of
     memory would fail only at the write, by SIGBUS."""
     try:
         held = os.stat(path).st_blocks * 512
@@ -263,6 +264,13 @@ class SharedMemoryHandler:
                 "cudaHostRegister of %d bytes of %s failed (%s); copies "
                 "into it stay pageable", seg.size, seg.path, err,
             )
+            # the failed call stays the runtime's last error on this
+            # thread, which the check after the thread's next kernel
+            # launch would raise: take it here (a launch that raises it)
+            try:
+                torch.zeros(1, device="cuda")
+            except Exception:  # noqa: BLE001 - the error just logged
+                pass
             return False
         self._pinned[slot] = addr
         return True

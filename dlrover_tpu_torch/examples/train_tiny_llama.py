@@ -21,6 +21,12 @@ Flags:
   --ckpt-dir DIR     enable flash checkpointing: stage to the agent's
                      shm every step, persist to DIR every 5 steps,
                      resume on restart (memory first)
+  --fsdp N           the world's MeshSpec(data=world/(N*seq), fsdp=N,
+                     seq=seq): each rank stores 1/N of the split leaves
+                     (llama.partition_rules) and of their moments
+  --seq N            cut the sequence over N ranks (MeshSpec seq=N)
+  --seq-parallel M   the attention under --seq > 1: ulysses | ring
+                     (default ulysses)
 """
 
 import argparse
@@ -43,12 +49,17 @@ def main():
     from dlrover_tpu_torch.common.constants import NodeEnv
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch import runtime
+    from dlrover_tpu_torch.parallel.mesh import MeshSpec
     from dlrover_tpu_torch.trainer.elastic.trainer import ElasticTrainer
 
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--crash-at-step", type=int, default=-1)
     p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--fsdp", type=int, default=1)
+    p.add_argument("--seq", type=int, default=1)
+    p.add_argument("--seq-parallel", default="ulysses",
+                   choices=("ulysses", "ring"))
     args = p.parse_args()
 
     restart_count = int(os.environ.get(NodeEnv.RESTART_COUNT, "0"))
@@ -57,17 +68,25 @@ def main():
     # itself when the world changes
     ctx = dlrover_tpu_torch.init()
     device = runtime.device()
-    cfg = llama.LlamaConfig.tiny()
-    # the global batch of 8 split over the world's ranks (every rank
-    # draws the same params and tokens from the same seeds)
+    cfg = llama.LlamaConfig.tiny(
+        seq_parallel=args.seq_parallel if args.seq > 1 else "none")
+    spec = None
+    if args.fsdp > 1 or args.seq > 1:
+        world = max(ctx.node_num, 1)
+        spec = MeshSpec(data=world // (args.fsdp * args.seq),
+                        fsdp=args.fsdp, seq=args.seq)
+    # the global batch of 8 split over the world's batch shards (every
+    # rank draws the same params and tokens from the same seeds)
     et = ElasticTrainer(
         lambda g: llama.init_params(cfg, g, device=device),
         lambda pm, b: llama.loss_fn(cfg, pm, b),
         lambda ps: torch.optim.Adam(ps, lr=1e-2),
         global_batch_size=8, max_per_replica_batch=8, device=device,
+        mesh_spec=spec, rules=llama.partition_rules(cfg),
     )
     print(f"world {et.acc.world_size} rank {et.acc.rank} backend "
-          f"{ctx.backend or 'none'} grad_accum {et.grad_accum}", flush=True)
+          f"{ctx.backend or 'none'} grad_accum {et.grad_accum} "
+          f"mesh {et.acc.mesh}", flush=True)
     state = et.init_state(torch.Generator(device=device).manual_seed(0))
     tokens = torch.randint(
         0, cfg.vocab_size, (8, 33), device=device,

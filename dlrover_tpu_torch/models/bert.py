@@ -150,6 +150,32 @@ def params_from_numpy(
     return out
 
 
+def partition_rules(cfg: BertConfig):
+    """JAX's `partition_rules` (bert.py:109): tensor-axis rules only, so
+    under fsdp every BERT leaf stays whole on each rank."""
+    from dlrover_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    return [
+        (r"tok_emb$", P("tensor", None)),
+        (r"(pos|seg)_emb$", P(None, None)),
+        (r"layers/wqkv$", P(None, None, "tensor")),
+        (r"layers/b_qkv$", P(None, "tensor")),
+        (r"layers/b_o$", P(None, None)),
+        (r"layers/wo$", P(None, "tensor", None)),
+        (r"layers/w_up$", P(None, None, "tensor")),
+        (r"layers/b_up$", P(None, "tensor")),
+        (r"layers/w_down$", P(None, "tensor", None)),
+        (r"layers/(ln1|ln2)_", P(None, None)),
+        (r"layers/b_down$", P(None, None)),
+        (r"(emb|mlm)_ln_", P(None)),
+        (r"mlm_dense$", P(None, None)),
+        (r"mlm_dense_b$", P(None)),
+        (r"mlm_bias$", P("tensor")),
+        (r"pool_w$", P(None, None)),
+        (r"pool_b$", P(None)),
+    ]
+
+
 def _block(cfg: BertConfig, x, lp, pad_mask):
     """Post-LN encoder block. `pad_mask` [B, S] (1 real, 0 pad) rides
     the dispatcher's segment_ids: real tokens never attend to pads."""

@@ -82,6 +82,22 @@ def params_from_numpy(cfg: CnnConfig, tree: Dict,
         device=dev, dtype=cfg.param_dtype) for k, v in tree.items()}
 
 
+def partition_rules(cfg: CnnConfig):
+    """JAX's `partition_rules` (cnn.py:79): the convolutions replicated,
+    the head products on the tensor axis (column then row parallel); no
+    rule names fsdp."""
+    from dlrover_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    return [
+        (r"conv\d+_w$", P(None, None, None, None)),
+        (r"conv\d+_b$", P(None)),
+        (r"dense_w$", P(None, "tensor")),
+        (r"dense_b$", P("tensor")),
+        (r"head_w$", P("tensor", None)),
+        (r"head_b$", P(None)),
+    ]
+
+
 def _same_pad(n: int, k: int, stride: int) -> Tuple[int, int]:
     """XLA's SAME padding of one axis: (before, after), the odd unit
     after."""

@@ -179,6 +179,28 @@ def params_from_numpy(
     }
 
 
+def partition_rules(cfg: GptConfig):
+    """JAX's `partition_rules` (gpt.py:115): the tensor axis on the
+    fused qkv, up and the embedding's vocab; no rule names fsdp, so
+    under fsdp every GPT leaf stays whole on each rank."""
+    from dlrover_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    return [
+        (r"wte$", P("tensor", None)),
+        (r"wpe$", P(None, None)),
+        (r"layers/wqkv$", P(None, None, "tensor")),
+        (r"layers/b_qkv$", P(None, "tensor")),
+        (r"layers/wo$", P(None, "tensor", None)),
+        (r"layers/b_o$", P(None, None)),
+        (r"layers/w_up$", P(None, None, "tensor")),
+        (r"layers/b_up$", P(None, "tensor")),
+        (r"layers/w_down$", P(None, "tensor", None)),
+        (r"layers/(ln1|ln2)_", P(None, None)),
+        (r"layers/b_down$", P(None, None)),
+        (r"ln[f]_", P(None)),
+    ]
+
+
 def _wcast(w, dtype):
     """Compute-dtype cast of a dense weight; a QuantizedWeight passes
     through (its dequant fuses into `matmul_any`)."""

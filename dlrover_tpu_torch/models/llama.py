@@ -17,7 +17,12 @@ dequant kernel. The layer's products and its attention output carry the
 JAX model's `checkpoint_name` tags (`qkv_proj`, `attn_out`,
 `attn_proj`, `mlp_gate`, `mlp_up`, `mlp_down`) where autograd records,
 so every policy of parallel/remat.py (`cfg.remat_policy`) acts on the
-tensors JAX's does.
+tensors JAX's does. `partition_rules` are JAX's; in a train step of
+sharded state (parallel/accelerate.py) each layer gathers its fsdp
+pieces inside its body and the embedding exchanges rows
+(parallel/sharding.py), and where the mesh cuts the sequence the
+attention runs sequence-parallel (`cfg.seq_parallel`,
+parallel/sequence.py) on the chunk's global positions.
 """
 
 import dataclasses
@@ -34,10 +39,17 @@ from dlrover_tpu_torch.models import moe as _moe
 from dlrover_tpu_torch.ops.attention import dot_product_attention
 from dlrover_tpu_torch.ops.fused_ce import fused_cross_entropy
 from dlrover_tpu_torch.ops.quantization import QuantizedWeight, matmul_any
+from dlrover_tpu_torch.parallel.mesh import PartitionSpec as P
 from dlrover_tpu_torch.parallel.remat import (
     apply_remat,
     checkpoint_name,
     tagged_matmul,
+)
+from dlrover_tpu_torch.parallel.sharding import (
+    active_scope,
+    embed_rows,
+    gathered,
+    gathered_layer,
 )
 
 Params = Dict[str, Any]
@@ -70,8 +82,12 @@ class LlamaConfig:
     # "none" under remat checkpoints as "full", as JAX's model does)
     remat_policy: str = "full"
     attn_impl: str = "auto"               # auto | flash | reference
+    # sequence-parallel attention where the train step's mesh has seq > 1
+    # (parallel/sequence.py): "ulysses" | "ring"; "none" refuses a cut
+    # sequence
+    seq_parallel: str = "none"
     # chunked fused cross-entropy (ops/fused_ce.py): the [B, S, vocab]
-    # logits are never formed
+    # logits are never formed; off under sequence parallelism, as JAX's
     fused_ce: bool = False
     tie_embeddings: bool = False
     # MoE (0 experts = the dense SwiGLU MLP; models/moe.py)
@@ -232,6 +248,33 @@ def layer_slices(params: Params, n_layers: int) -> List[Dict[str, Any]]:
                 else [v[i] for i in range(n_layers)])
             for k, v in params["layers"].items()}
     return [{k: c[i] for k, c in cols.items()} for i in range(n_layers)]
+
+
+def partition_rules(cfg: LlamaConfig):
+    """(path regex, PartitionSpec) of every leaf, JAX's
+    `partition_rules` (llama.py:197): the stacked layer weights carry
+    the leading L axis on "pipe", column-parallel wq/wk/wv/w_gate/w_up
+    shard their input dim on fsdp and output dim on tensor, row-parallel
+    wo/w_down the other way round; the embedding shards D only (the
+    token gather stays local), lm_head D on fsdp and vocab on tensor.
+    The MoE and LoRA rules come first, as there: `layers/wq_lora_a`
+    would otherwise match `layers/wq`."""
+    from dlrover_tpu_torch.models.lora import lora_partition_rules
+
+    first = _moe.moe_partition_rules() if cfg.n_experts > 0 else []
+    return first + lora_partition_rules() + [
+        (r"embed/weight", P(None, ("fsdp", "tensor"))),
+        (r"layers/wq", P("pipe", "fsdp", "tensor")),
+        (r"layers/wk", P("pipe", "fsdp", "tensor")),
+        (r"layers/wv", P("pipe", "fsdp", "tensor")),
+        (r"layers/wo", P("pipe", "tensor", "fsdp")),
+        (r"layers/w_gate", P("pipe", "fsdp", "tensor")),
+        (r"layers/w_up", P("pipe", "fsdp", "tensor")),
+        (r"layers/w_down", P("pipe", "tensor", "fsdp")),
+        (r"layers/(attn|mlp)_norm", P("pipe", None)),
+        (r"final_norm/scale", P(None)),
+        (r"lm_head/weight", P("fsdp", "tensor")),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -401,13 +444,16 @@ def _mlp_residual(cfg: LlamaConfig, x, layer_params, lp, tp: int = 1):
 def _head_matrix(cfg: LlamaConfig, params: Params):
     """The unembedding operand of `matmul_any(x, head)`. A tied head is
     never quantized (the token gather needs the dense table); an untied
-    one may arrive as a QuantizedWeight and is returned as it is."""
+    one may arrive as a QuantizedWeight and is returned as it is. In a
+    train step of sharded state the fsdp piece is gathered first
+    (`gathered`)."""
     if cfg.tie_embeddings:
-        return params["embed"]["weight"].to(cfg.dtype).T
+        return gathered(params["embed"]["weight"], "embed/weight",
+                        dtype=cfg.dtype).to(cfg.dtype).T
     w = params["lm_head"]["weight"]
     if isinstance(w, QuantizedWeight):
         return w
-    return w.to(cfg.dtype)
+    return gathered(w, "lm_head/weight", dtype=cfg.dtype).to(cfg.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -415,13 +461,40 @@ def _head_matrix(cfg: LlamaConfig, params: Params):
 # ---------------------------------------------------------------------------
 
 
+def _seq_parallel_live(cfg: LlamaConfig) -> bool:
+    """True inside a train step whose mesh cuts the sequence (seq > 1):
+    the SP branch then runs (JAX's `sp_live`); a config without a
+    `seq_parallel` mode raises, since its attention would see only this
+    rank's chunk."""
+    scope = active_scope()
+    if scope is None or not scope.seq:
+        return False
+    if cfg.seq_parallel not in ("ulysses", "ring"):
+        raise ValueError(
+            f"the mesh cuts the sequence over seq={scope.mesh.size('seq')} "
+            f"ranks: LlamaConfig.seq_parallel must be 'ulysses' or 'ring', "
+            f"not {cfg.seq_parallel!r}")
+    return True
+
+
 def _layer_aux(cfg: LlamaConfig, x, layer_params, positions, rope=None):
     """One decoder block on [B, S, D] activations -> (x, its MoE aux
-    loss, or None for a dense model)."""
+    loss, or None for a dense model). In a train step of sharded state
+    the layer's pieces are gathered here, inside the (checkpointed)
+    body; where the mesh cuts the sequence the attention is
+    sequence-parallel (JAX `_layer` :401-421), Ulysses reaching the
+    flash kernels on its head shard."""
+    layer_params = gathered_layer(layer_params, dtype=cfg.dtype)
     lp = _compute_weights(cfg, layer_params)
     h = _rms_norm(x, layer_params["attn_norm"], cfg.norm_eps)
     q, k, v = _attn_qkv(cfg, h, lp, positions, rope)
-    attn = dot_product_attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    if _seq_parallel_live(cfg):
+        from dlrover_tpu_torch.parallel.sequence import sp_attention
+
+        attn = sp_attention(q, k, v, mode=cfg.seq_parallel, causal=True)
+    else:
+        attn = dot_product_attention(q, k, v, causal=True,
+                                     impl=cfg.attn_impl)
     x = _attn_residual(cfg, x, attn, lp)
     return _mlp_residual(cfg, x, layer_params, lp)
 
@@ -442,14 +515,26 @@ def apply(
     """Forward pass: tokens [B, S] int -> logits [B, S, vocab] f32, or
     with return_hidden the post-final-norm hidden states [B, S, D]; with
     return_aux also the per-layer MoE aux losses summed (zero for a
-    dense model), under every remat policy too. One device: no pipeline
-    (JAX `apply` :428)."""
+    dense model), under every remat policy too. No pipeline (JAX
+    `apply` :448; `pipe` > 1 waits for ROADMAP queue 1 item 13). In a
+    train step that cuts the sequence, `tokens` is this rank's chunk and
+    `positions` default to its global ones."""
     b, s = tokens.shape
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        if _seq_parallel_live(cfg):
+            # this rank's chunk of the sequence: its GLOBAL positions
+            from dlrover_tpu_torch.parallel.sequence import (
+                seq_chunk_positions,
+            )
+
+            positions = seq_chunk_positions(
+                s, active_scope().mesh, tokens.device).expand(b, s)
+        else:
+            positions = torch.arange(s, device=tokens.device).expand(b, s)
     # gather, then cast: the same values as JAX's cast-then-gather, and
     # the embedding's gradient is summed in f32 instead of in cfg.dtype
-    x = F.embedding(tokens, params["embed"]["weight"]).to(cfg.dtype)
+    x = embed_rows(params["embed"]["weight"], tokens,
+                   "embed/weight").to(cfg.dtype)
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     body = partial(_layer_aux, cfg)
     if cfg.remat:
@@ -478,15 +563,17 @@ def loss_fn(
 
     With `cfg.fused_ce` the loss is the chunked `fused_cross_entropy`
     over the final hidden states and the head matrix (a tied head,
-    `embed.T`, gets its gradient through the embedding). JAX takes that
-    branch only without sequence parallelism; the port has none, so
-    `fused_ce` alone decides."""
+    `embed.T`, gets its gradient through the embedding). As JAX's, that
+    branch is off under sequence parallelism (`seq_parallel` not
+    "none"). In a train step whose mesh cuts the sequence, `tokens` is
+    this rank's chunk plus the next token (`Accelerated.place_batch`),
+    and the loss and its weight are the chunk's."""
     tokens = batch["tokens"]
     targets = tokens[:, 1:]
     mask = batch.get("loss_mask")
     moe = cfg.n_experts > 0
     aux = None
-    if cfg.fused_ce:
+    if cfg.fused_ce and cfg.seq_parallel == "none":
         hidden = apply(cfg, params, tokens[:, :-1], return_hidden=True,
                        return_aux=moe)
         if moe:

@@ -18,9 +18,8 @@ dlrover_tpu/models/lora.py (the parts serving and the merge use).
 PEFT semantics kept: A ~ N(0, 1/r), B = 0 (the delta starts at exactly
 zero), the delta scaled by alpha / rank. lora_dropout is not
 implemented (the weight-level merge has no activation hook): pass 0.
-
-Not ported yet: `lora_partition_rules` (sharded adapter state waits for
-the port's sharded training, ROADMAP queue 1 item 13).
+`lora_partition_rules` are JAX's: under fsdp the adapter leaves are
+stored as pieces like their base weights.
 """
 
 import dataclasses
@@ -227,10 +226,17 @@ def merge(cfg, params: Params) -> Params:
 
 
 def lora_partition_rules():
-    """Sharding rules for the adapter leaves: they wait for the port's
-    sharded training state (ROADMAP queue 1 item 13); the port's
-    training state is whole on every rank."""
-    raise NotImplementedError(
-        "lora_partition_rules: sharded training state is not ported yet "
-        "(ROADMAP queue 1 item 13); the port's state is whole on every "
-        "rank")
+    """PartitionSpecs of the adapter leaves (JAX's
+    `lora_partition_rules`), each mirroring its base weight's layout:
+    column-parallel targets (wq/wk/wv/w_gate/w_up) shard A's input dim
+    on fsdp and B's output dim on tensor; row-parallel ones (wo/w_down)
+    A's input dim on tensor and B's output dim on fsdp. The rank dim is
+    never split."""
+    from dlrover_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    return [
+        (r"layers/(wq|wk|wv|w_gate|w_up)_lora_a", P("pipe", "fsdp", None)),
+        (r"layers/(wq|wk|wv|w_gate|w_up)_lora_b", P("pipe", None, "tensor")),
+        (r"layers/(wo|w_down)_lora_a", P("pipe", "tensor", None)),
+        (r"layers/(wo|w_down)_lora_b", P("pipe", None, "fsdp")),
+    ]

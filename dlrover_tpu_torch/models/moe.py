@@ -11,8 +11,11 @@ dropped; the Switch load-balance loss plus the router z-loss; the
 dispatch and the expert products in the compute dtype, the combine in
 f32. The one-hot product is exact: each (expert, slot) holds at most
 one token. JAX runs these einsums in XLA, not in a Pallas kernel, so
-`torch.einsum` is their counterpart here. Expert parallelism (the
-"expert" mesh axis) is not ported: `MeshSpec.check_world` refuses it.
+`torch.einsum` is their counterpart here. `moe_partition_rules` are
+JAX's; under fsdp the expert weights are stored as pieces and gathered
+in the layer (parallel/sharding.py). Expert parallelism (the "expert"
+mesh axis) is not ported: `MeshSpec.check_world` refuses it (ROADMAP
+queue 1 item 13).
 
 Capacity is a function of the S of each call (`capacity`), so a
 forward routes exactly as JAX's only when it is called with JAX's
@@ -122,6 +125,20 @@ def init_moe_mlp(
         "we_up": dense(lead + (dim, mlp_dim), dim),
         "we_down": dense(lead + (mlp_dim, dim), mlp_dim),
     }
+
+
+def moe_partition_rules():
+    """Rules for the expert weights (JAX's `moe_partition_rules`): the
+    experts on the "expert" axis, fsdp and tensor on the matmul dims,
+    the leading L axis on "pipe"."""
+    from dlrover_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    return [
+        (r"router$", P("pipe")),
+        (r"we_gate", P("pipe", "expert", "fsdp", "tensor")),
+        (r"we_up", P("pipe", "expert", "fsdp", "tensor")),
+        (r"we_down", P("pipe", "expert", "tensor", "fsdp")),
+    ]
 
 
 def moe_mlp(

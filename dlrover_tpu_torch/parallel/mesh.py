@@ -1,17 +1,21 @@
 """The parallel layouts — counterpart of dlrover_tpu/parallel/mesh.py:
-a training job's (`MeshSpec` :36, `local_mesh_spec` :235) and a serving
-replica's tensor slice (`serving_mesh_spec` :252 and the helpers after
-it).
+a training job's (`MeshSpec` :36, `build` :81, `local_mesh_spec` :235)
+and a serving replica's tensor slice (`serving_mesh_spec` :252 and the
+helpers after it).
 
 In JAX a `MeshSpec` builds one `jax.sharding.Mesh` over every process's
 devices, and GSPMD places the state and inserts the collectives. The
 port runs one process a card (or a CPU under DLROVER_TPU_FORCE_CPU=1)
-in a `torch.distributed` world, with the train state whole on every
-rank: the `data` axis is the world, and `check_world` holds a spec to
-it. The other axes shard state or compute, which the port's replicated
-state does not do yet: `fsdp` (sharded state, ROADMAP queue 1 item 13)
-and `tensor`, `seq`, `expert` and `pipe` (item 13) above 1 raise
-NotImplementedError in a training world.
+in a `torch.distributed` world. `MeshSpec.build` is the counterpart of
+JAX's: rank r takes the coordinates JAX's device r has in a mesh of
+`AXIS_ORDER` (`rank_coords`), and the `TrainMesh` it returns holds one
+process group per axis. The training axes are `data` (batch shards,
+the state whole on each), `fsdp` (batch shards whose state is cut into
+pieces: parallel/sharding.py, parallel/accelerate.py) and `seq` (the
+sequence cut into chunks: parallel/sequence.py); `check_world` holds
+`data x fsdp x seq` to the world size. `tensor`, `expert` and `pipe`
+above 1 raise NotImplementedError in a training world (ROADMAP queue 1
+item 13).
 
 A serving replica is one controller over a list of devices, as JAX's
 1-D ("tp",) mesh is: `ServingMesh` holds `tp` and the ordered devices,
@@ -25,7 +29,7 @@ split axis, the port's form of JAX's layout records.
 """
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,11 +47,10 @@ AXIS_ORDER: Tuple[str, ...] = (
 # Axes over which the global batch is split.
 BATCH_AXES: Tuple[str, ...] = ("data", "fsdp")
 
-# the item of ROADMAP queue 1 each axis the port does not take waits for
+# the item of ROADMAP queue 1 each training axis the port does not take
+# waits for
 _NOT_PORTED = {
-    "fsdp": "queue 1 item 13 (sharded state: ZeRO / FSDP)",
     "tensor": "queue 1 item 13 (training; serving slices are ServingMesh)",
-    "seq": "queue 1 item 13",
     "expert": "queue 1 item 13",
     "pipe": "queue 1 item 13",
 }
@@ -127,22 +130,108 @@ class MeshSpec:
         )
 
     def check_world(self, world_size: int) -> "MeshSpec":
-        """The counterpart of JAX's `build`: one card (or CPU) a process,
-        the state whole on each, so every axis but `data` must be 1 and
-        `data` must equal the world size. Returns the spec."""
+        """The spec held to a training world of `world_size` processes,
+        one card each: `data x fsdp x seq` must equal it; `tensor`,
+        `expert` and `pipe` above 1 raise NotImplementedError (ROADMAP
+        queue 1 item 13). Returns the spec."""
         for axis, item in _NOT_PORTED.items():
             if self.axis_sizes[axis] > 1:
                 raise NotImplementedError(
-                    f"MeshSpec {axis}={self.axis_sizes[axis]}: the port "
-                    f"keeps the whole train state on every rank; the "
-                    f"{axis} axis waits for ROADMAP {item}"
+                    f"MeshSpec {axis}={self.axis_sizes[axis]}: the port's "
+                    f"training world spans data x fsdp x seq; the {axis} "
+                    f"axis waits for ROADMAP {item}"
                 )
-        if self.data != world_size:
+        if self.num_devices != world_size:
             raise ValueError(
-                f"MeshSpec data={self.data} needs a world of {self.data} "
+                f"MeshSpec data={self.data} x fsdp={self.fsdp} x "
+                f"seq={self.seq} needs a world of {self.num_devices} "
                 f"processes (one card each), this world has {world_size}"
             )
         return self
+
+    def build(self, group=None) -> "TrainMesh":
+        """The counterpart of JAX's `build` :81 over the world of `group`
+        (default: the world `runtime.init()` joined; None without one):
+        the spec held to it (`check_world`), this rank's coordinates
+        and the process groups of its axes (`runtime.axis_groups`)."""
+        from dlrover_tpu_torch import runtime
+
+        if group is None:
+            import torch.distributed as dist
+
+            if not (dist.is_available() and dist.is_initialized()):
+                self.check_world(1)
+                return TrainMesh(self, 0, {})
+            group = dist.group.WORLD
+        import torch.distributed as dist
+
+        self.check_world(dist.get_world_size(group))
+        return TrainMesh(self, dist.get_rank(group),
+                         runtime.axis_groups(self, group))
+
+
+def rank_coords(spec: MeshSpec, rank: int) -> Dict[str, int]:
+    """Rank `rank`'s index on every axis: the rank unravelled over
+    `AXIS_ORDER`'s sizes, row-major, so rank r sits where JAX's
+    `build` puts device r (`np.asarray(devices).reshape(shape)`)."""
+    out = {}
+    for axis in reversed(AXIS_ORDER):
+        n = spec.axis_sizes[axis]
+        out[axis] = rank % n
+        rank //= n
+    return {a: out[a] for a in AXIS_ORDER}
+
+
+def axis_rank_lists(spec: MeshSpec, axes: Sequence[str]) -> List[List[int]]:
+    """The ranks of each group along `axes`: ranks that differ only in
+    those axes' coordinates, every group in the order of its first
+    rank, each group in rank order. `axes` = ("fsdp",) gives the fsdp
+    groups; ("data", "seq") the ranks that hold one fsdp piece."""
+    groups: Dict[Tuple, List[int]] = {}
+    for r in range(spec.num_devices):
+        c = rank_coords(spec, r)
+        key = tuple(c[a] for a in AXIS_ORDER if a not in axes)
+        groups.setdefault(key, []).append(r)
+    return sorted(groups.values())
+
+
+class TrainMesh:
+    """A training world laid out by a `MeshSpec` (JAX's `Mesh` over the
+    world's cards): this rank's coordinates and the process groups the
+    step uses (None where a group would hold this rank alone, or without
+    a world): `groups["fsdp"]` gathers and reduce-scatters the pieces,
+    `groups["seq"]` runs the sequence-parallel attention,
+    `groups["replica"]` (the ranks holding the same fsdp piece: data x
+    seq) sums the pieces' gradients, `groups["world"]` the rest."""
+
+    def __init__(self, spec: MeshSpec, rank: int, groups: Dict[str, Any]):
+        self.spec = spec
+        self.rank = rank
+        self.coords = rank_coords(spec, rank)
+        self.groups = groups
+
+    def size(self, axis: str) -> int:
+        return self.spec.axis_sizes[axis]
+
+    def index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's batch shard (JAX's BATCH_AXES: data outer, fsdp
+        inner); every seq rank of it takes the same rows."""
+        return self.index("data") * self.size("fsdp") + self.index("fsdp")
+
+    @property
+    def batch_shards(self) -> int:
+        return self.spec.batch_shards
+
+    def __repr__(self) -> str:
+        live = {a: n for a, n in self.spec.axis_sizes.items() if n > 1}
+        return f"TrainMesh({live or 'one rank'}, rank={self.rank})"
 
 
 def local_mesh_spec(n_devices: Optional[int] = None) -> MeshSpec:

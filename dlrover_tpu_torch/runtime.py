@@ -148,10 +148,11 @@ def wire_tensor(t, group, p2p: bool = False):
     """The tensor a collective of `group` reads and writes for `t`, by
     the group's backend: NCCL moves card tensors only, so a host tensor
     (torch Adam keeps its step counts there) goes through a copy on the
-    card; gloo's all_reduce, broadcast and all_gather take tensors on
-    either device, but its send / recv (`p2p`) read a tensor's pointer
-    as host memory (torch 2.11's gloo fails on a card tensor with "Bad
-    address"), so a point-to-point payload goes through a host copy
+    card; gloo's all_reduce, broadcast, all_gather,
+    all_gather_into_tensor, reduce_scatter_tensor and all_to_all_single
+    take tensors on either device (torch 2.11 on an H100), but its send /
+    recv (`p2p`) read a tensor's pointer as host memory (torch 2.11's
+    gloo fails on a card tensor with "Bad address"), so a point-to-point payload goes through a host copy
     (none where `t` is on the host already). Anything else is `t`."""
     import torch
     import torch.distributed as dist
@@ -162,6 +163,129 @@ def wire_tensor(t, group, p2p: bool = False):
     if backend == "gloo" and p2p:
         return t.cpu()
     return t
+
+
+_AXIS_GROUPS: dict = {}
+
+
+def axis_groups(spec, world) -> dict:
+    """The process groups a training step over `spec` uses, in the
+    world `world` (`dist.group.WORLD`; every rank must call this with
+    the same spec, as `torch.distributed.new_group` needs): "fsdp" and
+    "seq" (ranks differing only in that axis), "replica" (ranks holding
+    the same fsdp piece: differing in data and seq) and "world". A
+    group spanning the whole world is `world` itself; one that would
+    hold each rank alone is absent. Built once per world and spec."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel.mesh import axis_rank_lists
+
+    key = (tuple(sorted(spec.axis_sizes.items())), id(world))
+    hit = _AXIS_GROUPS.get(key)
+    if hit is not None and hit[0] is world:
+        return hit[1]
+    n = dist.get_world_size(world)
+    me = dist.get_rank(world)
+    groups = {"world": world if n > 1 else None}
+    for name, axes in (("fsdp", ("fsdp",)), ("seq", ("seq",)),
+                       ("replica", ("data", "seq"))):
+        lists = axis_rank_lists(spec, axes)
+        if len(lists[0]) == 1:
+            continue
+        if len(lists[0]) == n:
+            groups[name] = world
+            continue
+        for ranks in lists:
+            g = dist.new_group(ranks)
+            if me in ranks:
+                groups[name] = g
+    for k in [k for k, (w, _) in _AXIS_GROUPS.items() if w is not world]:
+        del _AXIS_GROUPS[k]    # groups of a world that is gone
+    _AXIS_GROUPS[key] = (world, groups)
+    return groups
+
+
+def all_gather_dim(x, dim: int, group):
+    """Every rank's `x` of `group` concatenated along `dim`, in group
+    rank order (`all_gather_into_tensor`; gloo takes it on card tensors
+    too). `x` itself without a group."""
+    import torch
+    import torch.distributed as dist
+
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    # gloo wants the output as the inputs stacked along dim 0
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    # torch 2.13 renamed it all_gather_single (the card's 2.11 has the
+    # old name only)
+    getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
+        out, x, group=group)
+    if dim == 0:
+        return out
+    shape = list(x.shape)
+    shape[dim] *= n
+    return out.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter_dim(x, dim: int, group):
+    """`x` summed over `group` and cut along `dim` into equal parts, this
+    rank keeping part `rank` (`reduce_scatter_tensor`; gloo takes it on
+    card tensors too). `x` itself without a group."""
+    import torch
+    import torch.distributed as dist
+
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    shape = list(x.shape)
+    if shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    shape[dim] //= n
+    parts = x.reshape(shape[:dim] + [n] + shape[dim:]).movedim(dim, 0)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
+        out, parts.reshape([n * shape[0]] + shape[1:]), group=group)
+    return out
+
+
+def all_to_all_dim0(x, group):
+    """`x` [n, ...] (n the group's size): part j goes to group rank j,
+    and part j of the result came from group rank j
+    (`all_to_all_single`; gloo takes it on card tensors too)."""
+    import torch
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def ring_shift(tensors, group):
+    """Each of `tensors` sent to the next rank of `group` (its group
+    rank + 1, cyclically), the previous rank's received in its place:
+    one `batch_isend_irecv`. Under gloo the payloads go through host
+    copies (`wire_tensor(p2p=True)`: its send / recv read a card
+    tensor's pointer as host memory)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    sends = [wire_tensor(t.contiguous(), group, p2p=True) for t in tensors]
+    recvs = [s.new_empty(s.shape) for s in sends]
+    ops = []
+    for s, r in zip(sends, recvs):
+        ops.append(dist.P2POp(dist.isend, s, nxt, group=group))
+        ops.append(dist.P2POp(dist.irecv, r, prv, group=group))
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
 
 def device():

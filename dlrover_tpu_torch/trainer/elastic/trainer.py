@@ -4,14 +4,17 @@ Counterpart of dlrover_tpu/trainer/elastic/trainer.py (reference
 dlrover/trainer/torch/elastic/trainer.py:48-132). The wrapper owns the
 `accelerate()` build and picks (per_replica_batch, grad_accum) from
 `elastic_batch_plan` over the mesh's batch shards, so the global batch
-stays fixed as ranks come and go. A replica is a rank of the
+stays fixed as ranks come and go. The ranks are those of the
 `torch.distributed` world `runtime.init()` joined (one process a card),
-or the one process where there is no world. After the agent restarts
-the job into a new world, `on_world_change` rebuilds the plan and the
-step for it and broadcasts the live state of the rank furthest along
-(rank 0 where all are at one step; never a fresh replacement) into
-every rank: the counterpart of JAX re-sharding the state onto the new
-mesh.
+laid out by `mesh_spec` over data x fsdp x seq (a replica is a batch
+shard: data x fsdp of them), or the one process where there is no
+world. After the agent restarts the job into a new world,
+`on_world_change` rebuilds the plan and the step for it and makes the
+live state of the rank furthest along (rank 0 where all are at one
+step; never a fresh replacement) every rank's, re-cut for the new
+layout: the counterpart of JAX re-sharding the state onto the new
+mesh. A piece that died with its rank cannot be re-cut: that raises,
+and the state comes back through the flash checkpoint.
 """
 
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -26,10 +29,11 @@ from dlrover_tpu_torch.parallel.accelerate import (
     OptimizerFactory,
     Strategy,
     accelerate,
-    broadcast_state,
     default_group,
+    sync_state,
 )
 from dlrover_tpu_torch.parallel.mesh import MeshSpec
+from dlrover_tpu_torch.parallel.sharding import ShardPlan, flat_leaves
 from dlrover_tpu_torch.trainer.elastic.data import elastic_batch_plan
 
 
@@ -40,7 +44,9 @@ class ElasticTrainer:
 
         et = ElasticTrainer(init_params, loss_fn, optimizer,
                             global_batch_size=64,
-                            max_per_replica_batch=8)
+                            max_per_replica_batch=8,
+                            rules=llama.partition_rules(cfg),
+                            mesh_spec=MeshSpec(fsdp=world))
         state = et.init_state(torch.Generator("cuda").manual_seed(0))
         for batch in loader:          # batch leading dim == 64 always
             state, metrics = et.step(state, batch)
@@ -57,8 +63,10 @@ class ElasticTrainer:
         max_per_replica_batch: int,
         device: DeviceLike = None,
         mesh_spec: Optional[MeshSpec] = None,
+        rules=None,
     ):
         self._init_params = init_params
+        self._rules = tuple(rules or ())
         self._loss_fn = loss_fn
         self._optimizer = optimizer
         self.global_batch_size = global_batch_size
@@ -73,9 +81,10 @@ class ElasticTrainer:
 
     def _current_spec(self) -> MeshSpec:
         """The given spec held to the world (`MeshSpec.check_world`),
-        else every rank of the world a data shard (JAX's default,
-        `local_mesh_spec`, puts them on fsdp, which the port's
-        replicated state does not take: the same batch shards)."""
+        else every rank of the world a data shard. JAX's default,
+        `local_mesh_spec`, puts them on fsdp: the same batch shards, the
+        state cut into pieces; the port keeps data until fsdp has run on
+        NCCL across cards (ROADMAP queue 1 item 13)."""
         group = default_group()
         world = 1
         if group is not None:
@@ -94,10 +103,11 @@ class ElasticTrainer:
         )
         strategy = Strategy(
             device=self._device, grad_accum=self.plan["grad_accum"],
+            mesh=self._mesh_spec,
         )
         self.acc = accelerate(
             self._init_params, self._loss_fn, self._optimizer,
-            strategy=strategy,
+            strategy=strategy, rules=self._rules,
         )
         logger.info(
             "ElasticTrainer: %d replicas, per-replica batch %d, "
@@ -154,16 +164,35 @@ class ElasticTrainer:
     ) -> Any:
         """Rebuild for the world this process is in now (call it after
         `runtime.init()` joined it) and make the live state the same on
-        every rank: the plan and the step are built anew, then the
-        params, optimizer moments, step and loss scale of the rank at
-        the highest step (`broadcast_state`) are broadcast into each
-        rank's own tensors. A replacement process that instead builds
-        its trainer and calls `init_state` meets this broadcast and
-        takes the survivors' state. The optimizer objects stay, so
+        every rank, laid out for the new mesh: the plan and the step are
+        built anew, then the params, optimizer moments, step and loss
+        scale of the rank at the highest step are taken by each rank
+        (`accelerate.sync_state`): broadcast where the state is whole;
+        where it is in pieces, the old pieces gathered from their live
+        holders (the old layout crosses by `all_gather_object`) and the
+        new pieces cut (RuntimeError naming the leaves where a piece has
+        no live holder). A replacement process that instead builds its
+        trainer and calls `init_state` takes part in the same exchange
+        and takes the survivors' state. The optimizer objects stay, so
         nothing is drawn again. Returns the state."""
         if mesh_spec is not None:
             self._mesh_spec = mesh_spec
+        old = state.get("layout")
         self._build()
-        if self.acc.group is not None:
-            broadcast_state(state, self.acc.group)
+        mesh = self.acc.mesh
+        if mesh is None:
+            if old is not None and old.sharded:
+                raise RuntimeError(
+                    "on_world_change into a world of one process without "
+                    "a process group: the other pieces of the sharded "
+                    "state are out of reach; restore from the flash "
+                    "checkpoint")
+            state.pop("layout", None)
+            return state
+        shapes = (old.shapes if old is not None else {
+            p: tuple(x.shape) for p, x in flat_leaves(state["params"])
+            if torch.is_tensor(x)})
+        plan = ShardPlan.from_shapes(mesh, self._rules, shapes)
+        sync_state(state, self.acc.group, plan)
+        self.acc.plan = plan
         return state

@@ -42,11 +42,20 @@ With a `replica_manager` (`replica.CkptReplicaManager`) each staging is
 also shipped to the job master's KV store in the background, as in
 JAX: best-effort, one backup in flight and the newest parked behind it;
 a restore with an empty shm takes the replica before storage when it
-is at least as fresh. Storage restores a JAX checkpoint written by
-several processes (`#shard{proc}_{i}` keys, the shard table in each
-host's aux) by stitching every host's shards into the global array
-where they cover it; the port's own saves have plain keys, each rank's
-state being whole.
+is at least as fresh.
+
+A state in fsdp pieces (its "layout" a `ShardPlan` that splits leaves,
+parallel/accelerate.py) is staged as this rank's pieces, JAX's way: a
+split leaf (and each moment of it) under `<path>#shard{rank}_0`, with
+JAX's `shards` table in the aux ({path: shape, dtype, keys, indices},
+the indices as [start, stop] per dim), so each rank's segment holds its
+own bytes only. A restore takes a piece straight from the key of this
+rank where its slice is the one the target holds (memory, same layout),
+else cuts it from the whole leaf; storage stitches the whole leaf from
+every host's files where the shard tables cover it (`_stitch_shards`;
+also a JAX checkpoint written by several processes), so a state saved
+in one layout loads onto any other. A memory segment that lacks a
+needed piece raises KeyError, and `load` falls back to storage.
 """
 
 import contextlib
@@ -176,14 +185,35 @@ def _opt_prefix(opt: torch.optim.Optimizer) -> str:
     return f"opt_state/inner_states/{label}/inner_state/0"
 
 
-def state_leaves(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The train state as {JAX flatten_state path: tensor}: live tensors
-    of the state where it has them, new ones (the optimizer's zero
-    moments before its first step, the counts) where it does not. In
-    JAX's flatten order. Any other tree of tensors (an adapter-only
-    sub-tree, say) is its leaves by path, as JAX flattens any pytree."""
+def _shard_key(path: str, rank: int) -> str:
+    return f"{path}#shard{rank}_0"
+
+
+def _leaves_and_shards(state: Dict[str, Any]) -> Tuple[
+        Dict[str, torch.Tensor], Dict[str, Dict[str, Any]]]:
+    """`state_leaves` and the shard table of the pieces among them
+    ({path: {"shape", "dtype", "keys", "indices"}}, JAX's aux layout;
+    empty for a state whole on its rank)."""
     if "opt_state" not in state:
-        return {p: t.detach() for p, t in _param_paths(state)}
+        return {p: t.detach() for p, t in _param_paths(state)}, {}
+    plan = state.get("layout")
+    if plan is not None and not plan.sharded:
+        plan = None
+    table: Dict[str, Dict[str, Any]] = {}
+
+    def key(path: str, param: str, t: torch.Tensor) -> str:
+        if plan is None or plan.dim(param) is None:
+            return path
+        k = _shard_key(path, plan.mesh.rank)
+        table[path] = {
+            "shape": tuple(plan.shapes[param]),
+            "dtype": _dtype_name(t.dtype),
+            "keys": [k],
+            "indices": [[[ix.start, ix.stop] for ix in
+                         plan.index_of(param)]],
+        }
+        return k
+
     params = _param_paths(state["params"])
     by_id = {id(t): p for p, t in params}
     out: Dict[str, torch.Tensor] = {}
@@ -197,16 +227,26 @@ def state_leaves(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     opt_params = sorted(
         ((by_id[id(p)], p) for p in _opt_params(opt)), key=lambda x: x[0]
     )
-    for key, field in _opt_layout(opt):
+    for k, field in _opt_layout(opt):
         for path, p in opt_params:
-            t = opt.state.get(p, {}).get(key)
-            out[f"{pre}/{field}/{path}"] = (
-                torch.zeros_like(p) if t is None else t
-            )
+            t = opt.state.get(p, {}).get(k)
+            t = torch.zeros_like(p) if t is None else t
+            out[key(f"{pre}/{field}/{path}", path, t)] = t
     for path, t in params:
-        out["params/" + path] = t.detach()
+        out[key("params/" + path, path, t)] = t.detach()
     out["step"] = torch.tensor(int(state["step"]), dtype=torch.int32)
-    return out
+    return out, table
+
+
+def state_leaves(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The train state as {JAX flatten_state path: tensor}: live tensors
+    of the state where it has them, new ones (the optimizer's zero
+    moments before its first step, the counts) where it does not. In
+    JAX's flatten order. Any other tree of tensors (an adapter-only
+    sub-tree, say) is its leaves by path, as JAX flattens any pytree.
+    A leaf the state holds as an fsdp piece is this rank's piece, under
+    `<path>#shard{rank}_0`."""
+    return _leaves_and_shards(state)[0]
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -228,13 +268,17 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _aux(leaves: Dict[str, torch.Tensor]) -> bytes:
-    return pickle.dumps({
+def _aux(leaves: Dict[str, torch.Tensor],
+         shards: Optional[Dict[str, Dict[str, Any]]] = None) -> bytes:
+    meta = {
         "format": AUX_FORMAT,
         "paths": list(leaves),
         "shapes": {p: tuple(t.shape) for p, t in leaves.items()},
         "dtypes": {p: _dtype_name(t.dtype) for p, t in leaves.items()},
-    })
+    }
+    if shards:
+        meta["shards"] = shards
+    return pickle.dumps(meta)
 
 
 class _PlainUnpickler(pickle.Unpickler):
@@ -273,9 +317,17 @@ class _Opaque:
         return _Opaque()
 
 
+def _norm_index(ix) -> tuple:
+    """A shard index as a tuple of slices: JAX's are slices already, the
+    port's aux holds [start, stop] pairs."""
+    return tuple(s if isinstance(s, slice) else slice(s[0], s[1])
+                 for s in ix)
+
+
 def _jax_shards(raw: Optional[bytes]) -> Dict[str, Dict[str, Any]]:
-    """The shard table of a JAX aux ({path: {"shape", "dtype", "keys",
-    "indices"}}), {} for any other aux."""
+    """The shard table of an aux, JAX's or the port's ({path: {"shape",
+    "dtype", "keys", "indices"}}, indices as tuples of slices), {} where
+    it has none."""
     if not raw:
         return {}
     try:
@@ -284,7 +336,10 @@ def _jax_shards(raw: Optional[bytes]) -> Dict[str, Dict[str, Any]]:
             AttributeError):
         return {}
     shards = meta.get("shards") if isinstance(meta, dict) else None
-    return shards if isinstance(shards, dict) else {}
+    if not isinstance(shards, dict):
+        return {}
+    return {p: dict(e, indices=[_norm_index(ix) for ix in e["indices"]])
+            for p, e in shards.items()}
 
 
 def _index_key(ix) -> tuple:
@@ -299,10 +354,9 @@ def _stitch_shards(flat: Dict[str, np.ndarray],
     """Replace each sharded leaf's `#shard` keys in `flat` by the global
     array, in place (JAX `_reassemble_sharded`'s host stitch): only
     where the distinct shard indices cover the shape, since stitching
-    some hosts' shards into zeros would make up a wrong array. The
-    port's state is whole on every rank, so it has no per-device
-    placement to fall back on: partial coverage raises JAX's
-    KeyError."""
+    some hosts' shards into zeros would make up a wrong array. Partial
+    coverage raises JAX's KeyError (a restore of this rank's own pieces
+    goes by their keys instead, `_restore`)."""
     for path, entry in shards.items():
         present = [(k, ix) for k, ix in zip(entry["keys"], entry["indices"])
                    if k in flat]
@@ -336,8 +390,9 @@ def _read_aux(raw: Optional[bytes]) -> Dict[str, Any]:
 def flatten_state(state: Dict[str, Any]) -> Tuple[Dict[str, np.ndarray],
                                                    bytes]:
     """Train state -> ({JAX flatten_state path: host ndarray}, aux)."""
-    leaves = state_leaves(state)
-    return {p: _to_numpy(t) for p, t in leaves.items()}, _aux(leaves)
+    leaves, shards = _leaves_and_shards(state)
+    return {p: _to_numpy(t) for p, t in leaves.items()}, _aux(leaves,
+                                                             shards)
 
 
 def _from_numpy(arr: np.ndarray, dtype_name: Optional[str]) -> torch.Tensor:
@@ -396,6 +451,13 @@ def _streams_to_card(dst: torch.Tensor) -> bool:
     return dst.is_cuda and dst.is_contiguous()
 
 
+def _piece_indices(aux: Optional[bytes]) -> Dict[str, tuple]:
+    """{shard key: the slices of the global leaf it holds} of an aux's
+    shard table."""
+    return {k: ix for e in _jax_shards(aux).values()
+            for k, ix in zip(e["keys"], e["indices"])}
+
+
 class _Spec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
@@ -409,6 +471,10 @@ class _Leaves:
     def __init__(self, flat: Dict[str, np.ndarray], aux: Optional[bytes]):
         self.flat = flat
         self.dtypes = _read_aux(aux).get("dtypes", {})
+        self.index = _piece_indices(aux)
+
+    def has(self, path: str) -> bool:
+        return path in self.flat
 
     def tensor(self, path: str) -> torch.Tensor:
         if path not in self.flat:
@@ -442,6 +508,10 @@ class _ShmLeaves(_Leaves):
         self.fd = fd
         self.meta = {tm.path: tm for tm in meta.tensors}
         self.dtypes = _read_aux(meta.aux).get("dtypes", {})
+        self.index = _piece_indices(meta.aux)
+
+    def has(self, path: str) -> bool:
+        return path in self.meta
 
     def _tm(self, path):
         if path not in self.meta:
@@ -497,26 +567,68 @@ def train_state_from_numpy(state: Dict[str, Any],
 
 
 def _restore(state: Dict[str, Any], leaves: _Leaves) -> Dict[str, Any]:
-    """`train_state_from_numpy` from any source of leaves."""
-    pairs = []   # (destination tensor, path)
+    """`train_state_from_numpy` from any source of leaves. Where the
+    target holds fsdp pieces (its "layout"), each piece comes from this
+    rank's staged piece where that holds the same slice, else is cut
+    from the whole leaf; KeyError where the source has neither."""
+    plan = state.get("layout")
+    if plan is not None and not plan.sharded:
+        plan = None
+    direct = []   # (destination tensor, key)
+    cuts = []     # (destination tensor, key of the whole leaf, slices)
+
+    def resolve(like: torch.Tensor, path: str, param: str):
+        """Where `path`'s bytes for `like` (a live tensor, or the param
+        a moment is made like) are: ("direct", key) or ("cut", key,
+        slices); shape and dtype checked."""
+        if plan is None or plan.dim(param) is None:
+            _check(leaves.spec(path), like, path)
+            return ("direct", path)
+        want = plan.index_of(param)
+        mine = _shard_key(path, plan.mesh.rank)
+        if leaves.has(mine) and _index_key(
+                leaves.index.get(mine, ())) == _index_key(want):
+            _check(leaves.spec(mine), like, mine)
+            return ("direct", mine)
+        if leaves.has(path):
+            src = leaves.spec(path)
+            if (tuple(src.shape) != tuple(plan.shapes[param])
+                    or src.dtype != like.dtype):
+                raise ValueError(
+                    f"{path}: staged {tuple(src.shape)} {src.dtype}, the "
+                    f"target's whole leaf is {tuple(plan.shapes[param])} "
+                    f"{like.dtype}")
+            return ("cut", path, want)
+        raise KeyError(
+            f"state leaf {path!r}: the staged data holds neither this "
+            f"rank's piece {[(i.start, i.stop) for i in want]} nor the "
+            "whole leaf (a memory segment of another layout: restore "
+            "from storage)")
+
+    def queue(dst: torch.Tensor, how) -> None:
+        if how[0] == "direct":
+            direct.append((dst, how[1]))
+        else:
+            cuts.append((dst, how[1], how[2]))
+
     params = _param_paths(state["params"])
     by_id = {id(t): p for p, t in params}
     for path, t in params:
-        _check(leaves.spec("params/" + path), t, "params/" + path)
-        pairs.append((t.detach(), "params/" + path))
+        queue(t.detach(), resolve(t, "params/" + path, path))
     opt = state["opt_state"]
     pre = _opt_prefix(opt)
     count = int(leaves.tensor(f"{pre}/count"))
-    created = []  # (param, key, path): moments torch has not made yet
+    created = []  # (param, key, how): moments torch has not made yet
     for key, field in _opt_layout(opt):
         for p in _opt_params(opt):
-            path = f"{pre}/{field}/{by_id[id(p)]}"
+            param = by_id[id(p)]
+            path = f"{pre}/{field}/{param}"
             cur = opt.state.get(p, {}).get(key)
-            _check(leaves.spec(path), p if cur is None else cur, path)
+            how = resolve(p if cur is None else cur, path, param)
             if cur is None:   # torch's Adam before its first step
-                created.append((p, key, path))
+                created.append((p, key, how))
             else:
-                pairs.append((cur, path))
+                queue(cur, how)
     step = int(leaves.tensor("step"))
     ls = state.get("loss_scale")
     if ls is not None:
@@ -524,11 +636,14 @@ def _restore(state: Dict[str, Any], leaves: _Leaves) -> Dict[str, Any]:
         good = leaves.tensor("loss_scale/good_steps")
         _check(scale, ls.scale, "loss_scale/scale")
         _check(good, ls.good_steps, "loss_scale/good_steps")
-    for p, key, path in created:
+    for p, key, how in created:
         opt.state[p][key] = torch.empty_like(
             p, memory_format=torch.contiguous_format)
-        pairs.append((opt.state[p][key], path))
-    leaves.copy_into(pairs)
+        queue(opt.state[p][key], how)
+    leaves.copy_into(direct)
+    with torch.no_grad():
+        for dst, key, ix in cuts:
+            dst.copy_(leaves.tensor(key)[ix])
     if isinstance(opt, _ADAM):
         for g in opt.param_groups:
             on_device = g.get("capturable") or g.get("fused")
@@ -588,6 +703,7 @@ class CheckpointEngine:
         local_saver: bool = True,
         replica_manager=None,
         max_to_keep: int = 0,
+        num_nodes: int = 1,
     ):
         self.checkpoint_dir = checkpoint_dir
         # > 0: keep only the newest N committed step dirs
@@ -627,9 +743,12 @@ class CheckpointEngine:
             # in-process so the API still works
             self._ipc = LocalSocketServer(self.job_name)
             self._ipc.start()
+            # num_nodes: the hosts whose files make a step whole (the
+            # saver of node 0 commits the step when all have persisted)
             self._local_saver = AsyncCheckpointSaver(
                 job_name=self.job_name,
                 node_rank=self.node_rank,
+                num_nodes=num_nodes,
                 storage=self.storage,
             )
             self._local_saver.start()
@@ -687,8 +806,8 @@ class CheckpointEngine:
         # one staging in flight: it reads the snapshot this save is
         # about to overwrite; raises if it failed rather than dropping it
         self.wait_for_staging()
-        leaves = state_leaves(state)
-        aux = _aux(leaves)
+        leaves, shards = _leaves_and_shards(state)
+        aux = _aux(leaves, shards)
         snap = self._snapshot_buffers(leaves)
         with torch.no_grad():
             for p, t in leaves.items():
@@ -735,8 +854,9 @@ class CheckpointEngine:
         # an in-flight async staging lands first, or its older snapshot
         # could overwrite this newer state
         self.wait_for_staging()
-        leaves = state_leaves(state)
-        self._stage_to_shm(step, leaves, _aux(leaves), _record_ready(leaves))
+        leaves, shards = _leaves_and_shards(state)
+        self._stage_to_shm(step, leaves, _aux(leaves, shards),
+                           _record_ready(leaves))
         return time.monotonic() - t0
 
     def _stage_to_shm(self, step: int, leaves: Dict[str, torch.Tensor],
@@ -855,12 +975,13 @@ class CheckpointEngine:
         self, step: Optional[int] = None, target: Any = None,
         device: DeviceLike = None,
     ) -> Tuple[int, Optional[Any]]:
-        """This host's files of `step` (default: the tracker's): each
-        rank's state is whole, so its own file holds all of it. A JAX
-        checkpoint written by several processes holds sharded leaves
-        (`#shard{proc}_{i}` keys): then every host's shard file and
-        shard table is read and each such leaf stitched whole (a
-        KeyError where the shards do not cover it)."""
+        """This host's files of `step` (default: the tracker's): a state
+        whole on each rank is all in its own file. A checkpoint of
+        pieces (the port's fsdp state, or a JAX checkpoint written by
+        several processes: `#shard{proc}_{i}` keys and a shard table)
+        has every host's files and shard tables read and each split
+        leaf stitched whole (a KeyError where the pieces do not cover
+        it); the restore cuts the target's pieces from it."""
         if step is None:
             step = read_tracker_step(self.storage, self.checkpoint_dir)
         if step < 0:

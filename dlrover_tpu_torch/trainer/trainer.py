@@ -23,6 +23,7 @@ through the `HangingDetector`. The port's `ElasticTrainer` has no
 one.
 """
 
+import math
 import os
 import threading
 import time
@@ -155,13 +156,20 @@ class Trainer:
                     if isinstance(state, dict)
                     else state
                 )
-                num_params = int(
-                    sum(
-                        x.numel()
-                        for x in tree_leaves(params)
-                        if isinstance(x, torch.Tensor)
+                layout = (state.get("layout")
+                          if isinstance(state, dict) else None)
+                if layout is not None:
+                    # fsdp pieces: the model's size, not this rank's share
+                    num_params = int(sum(
+                        math.prod(s) for s in layout.shapes.values()))
+                else:
+                    num_params = int(
+                        sum(
+                            x.numel()
+                            for x in tree_leaves(params)
+                            if isinstance(x, torch.Tensor)
+                        )
                     )
-                )
                 bsz = 0
                 seq = 0
                 tok = (

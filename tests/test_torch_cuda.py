@@ -2522,3 +2522,132 @@ def test_flash_and_paged_take_the_views_of_a_fused_qkv(gen):
     torch.cuda.synchronize()
     assert torch.equal(got, tpa.paged_attention(q1.contiguous(), pages,
                                                 table, lens, impl="kernel"))
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_seq_shard_kernels_against_plain_and_the_unsharded_slice(gen, sp):
+    """Kernels 1-3 where Ulysses runs them: a head shard (32 / sp q and
+    8 / sp KV heads of 128) at the full sequence, causal, bf16. Each
+    shard's forward and backward within the kernels' tolerances of
+    their plain versions, and its O, LSE, dQ, dK, dV the unsharded
+    call's head slice bit for bit (the grids run one (batch, head) at a
+    time); every launch on its wgmma variant."""
+    b, s, h, kv, d = 1, 1024, 32, 8, 128
+    scale = d ** -0.5
+
+    def rand(heads):
+        return torch.randn((b, s, heads, d), generator=gen,
+                           device="cuda").bfloat16()
+
+    q, k, v, do = rand(h), rand(kv), rand(kv), rand(h)
+    o, lse = tfa._fwd(q, k, v, True, scale)
+    grads = tfa._bwd(q, k, v, o, lse, do, True, scale)
+    hs, kvs = h // sp, kv // sp
+    for i in range(sp):
+        hq, hk = slice(i * hs, (i + 1) * hs), slice(i * kvs, (i + 1) * kvs)
+        qi, doi = q[:, :, hq].contiguous(), do[:, :, hq].contiguous()
+        ki, vi = k[:, :, hk].contiguous(), v[:, :, hk].contiguous()
+        before = _build.launch_counts()
+        oi, lsei = tfa._fwd(qi, ki, vi, True, scale)
+        gi = tfa._bwd(qi, ki, vi, oi, lsei, doi, True, scale)
+        after = _build.launch_counts()
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert after.get(f"{name}_wgmma", 0) - before.get(
+                f"{name}_wgmma", 0) == 1, name
+        o_ref, lse_ref = tfa._fwd_plain(qi, ki, vi, True, scale)
+        assert (oi.float() - o_ref.float()).abs().max().item() <= TOL
+        want = tfa._bwd_plain(qi, ki, vi, o_ref, lse_ref, doi, True, scale)
+        for x, y in zip(gi, want):
+            assert (x.float() - y.float()).abs().max().item() <= (
+                BWD_REL * y.float().abs().max().item())
+        assert torch.equal(oi, o[:, :, hq]) and torch.equal(lsei, lse[:, hq])
+        for x, y in zip(gi, (grads[0][:, :, hq], grads[1][:, :, hk],
+                             grads[2][:, :, hk])):
+            assert torch.equal(x, y)
+
+
+def test_sharded_state_staging_and_restore_on_the_card(gen, tmp_path,
+                                                       monkeypatch):
+    """A tiny Llama's AdamW state on the card cut into the two fsdp
+    pieces of MeshSpec(fsdp=2) (the plan of each rank, no process group
+    needed to stage or restore): each rank's flat checkpoint holds its
+    pieces under `#shard{rank}_0` keys, half of each split leaf's bytes,
+    with the shard table; both stitched restore a whole state on the
+    card bit-equal to the pieces concatenated; rank 0's memory segment
+    restores a fresh rank-0 state bit for bit."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.parallel.mesh import MeshSpec, TrainMesh
+    from dlrover_tpu_torch.parallel.sharding import ShardPlan
+    from dlrover_tpu_torch.trainer.flash_checkpoint import engine as E
+
+    monkeypatch.setenv("DLROVER_TPU_SOCK_DIR", str(tmp_path / "sock"))
+    monkeypatch.setenv("DLROVER_TPU_SHM_DIR", str(tmp_path / "shm"))
+    (tmp_path / "sock").mkdir()
+    (tmp_path / "shm").mkdir()
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    rules = llama.partition_rules(cfg)
+
+    def state_of(params, plan):
+        if plan is not None:
+            params = plan.cut_tree(params)
+        leaves = [t for t in E._param_paths(params)]
+        for _, t in leaves:
+            t.requires_grad_(True)
+        opt = torch.optim.AdamW([t for _, t in leaves], lr=1e-2)
+        for _, t in leaves:
+            t.grad = torch.ones_like(t)
+        opt.step()
+        st = {"params": params, "opt_state": opt, "step": 1}
+        if plan is not None:
+            st["layout"] = plan
+        return st
+
+    whole = llama.init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    ref = state_of({k: ({kk: vv.clone() for kk, vv in v.items()})
+                    for k, v in whole.items()}, None)
+    plans = [ShardPlan.for_tree(TrainMesh(MeshSpec(fsdp=2), r, {}), rules,
+                                whole) for r in (0, 1)]
+    states = [state_of({k: ({kk: vv.clone() for kk, vv in v.items()})
+                        for k, v in whole.items()}, p) for p in plans]
+    flat, shards = {}, {}
+    for r, st in enumerate(states):
+        f, aux = E.flatten_state(st)
+        assert f"params/layers/wq#shard{r}_0" in f
+        assert f[f"params/layers/wq#shard{r}_0"].nbytes * 2 == (
+            ref["params"]["layers"]["wq"].numel() * 4)
+        flat.update(f)
+        for p, e in E._jax_shards(aux).items():
+            shards.setdefault(p, dict(e, keys=[], indices=[]))
+            shards[p]["keys"] += e["keys"]
+            shards[p]["indices"] += e["indices"]
+    E._stitch_shards(flat, shards)
+    target = state_of(llama.init_params(
+        cfg, torch.Generator("cuda").manual_seed(5), device="cuda",
+        dtype=torch.float32), None)
+    E.train_state_from_numpy(target, flat)
+    got = E.state_leaves(target)
+    assert set(got) == set(E.state_leaves(ref))
+    pieces = [E.state_leaves(st) for st in states]
+    for path, t in got.items():
+        if f"{path}#shard0_0" in pieces[0]:
+            param = path.split("/", 1)[1] if path.startswith(
+                "params/") else path.split("/", 3)[3]
+            want = torch.cat([pieces[r][f"{path}#shard{r}_0"]
+                              for r in (0, 1)], plans[0].dim(param))
+        else:
+            want = pieces[0][path]
+        assert torch.equal(t, want.to(t.device)), path
+    eng = E.CheckpointEngine(str(tmp_path / "ckpt"), job_name="sharded-card",
+                             node_rank=0)
+    try:
+        eng.save_to_memory(1, states[0])
+        fresh = state_of(plans[0].cut_tree(llama.init_params(
+            cfg, torch.Generator("cuda").manual_seed(6), device="cuda",
+            dtype=torch.float32)), None)
+        fresh["layout"] = plans[0]
+        step, out = eng.load_from_memory(target=fresh)
+        assert step == 1
+        a, b = E.state_leaves(out), E.state_leaves(states[0])
+        assert all(torch.equal(a[p], b[p]) for p in b)
+    finally:
+        eng.close()

@@ -226,11 +226,19 @@ def test_mesh_spec_fields_equal_jax(kw):
 
 @pytest.mark.parametrize("axis", ["fsdp", "tensor", "seq", "expert", "pipe"])
 def test_mesh_axes_not_taken_raise(axis):
-    """Every axis but data shards state or compute: NotImplementedError
-    naming its ROADMAP item; data must be the world size."""
+    """A training world spans data x fsdp x seq: fsdp and seq pass
+    `check_world` for a world of their product with data and raise
+    ValueError for another; tensor, expert and pipe raise
+    NotImplementedError naming their ROADMAP item."""
     spec = tmesh.MeshSpec(**{axis: 2})
-    with pytest.raises(NotImplementedError, match="item 1[13]"):
-        spec.check_world(2)
+    if axis in ("fsdp", "seq"):
+        assert spec.check_world(2) is spec
+        assert spec.with_updates(data=2).check_world(4).num_devices == 4
+        with pytest.raises(ValueError, match="world has 4"):
+            spec.check_world(4)
+    else:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            spec.check_world(2)
     assert tmesh.MeshSpec(data=4).check_world(4).data == 4
     with pytest.raises(ValueError, match="world has 2"):
         tmesh.MeshSpec(data=4).check_world(2)

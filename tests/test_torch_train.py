@@ -475,12 +475,20 @@ def test_not_ported_options_raise(tmp_path, monkeypatch):
         OrbaxCheckpointer(str(tmp_path))
     from dlrover_tpu_torch.parallel.mesh import MeshSpec
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # fsdp=2 needs a world of two processes; tensor parallel training
+    # waits for ROADMAP item 13
+    with pytest.raises(ValueError, match="world has 1"):
         ElasticTrainer(
             lambda g: tllama.init_params(tcfg, g, device="cpu"),
             lambda p, b: tllama.loss_fn(tcfg, p, b), _optimizer(),
             global_batch_size=2, max_per_replica_batch=2, device="cpu",
             mesh_spec=MeshSpec(fsdp=2))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ElasticTrainer(
+            lambda g: tllama.init_params(tcfg, g, device="cpu"),
+            lambda p, b: tllama.loss_fn(tcfg, p, b), _optimizer(),
+            global_batch_size=2, max_per_replica_batch=2, device="cpu",
+            mesh_spec=MeshSpec(tensor=2))
     for name in ("dots", "dots_no_batch", "proj", "proj_mlp", "save_names",
                  "offload_names"):
         assert callable(remat.resolve_policy(name))
